@@ -1,0 +1,513 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py               # RMAT scale 22 (Graph500 edge factor 16)
+    python3 chip_smoke.py --scale 16    # a quick rehearsal at a smaller scale
+
+Phases, in order; any failure exits nonzero and prints no result line:
+
+1. environment: the card's name and power limit, torch/CUDA versions, the
+   kernels' build time, and the graph and runtime set-up;
+2. every hand-written kernel against its plain PyTorch version on the card,
+   at the shapes of the main path plus edge cases, with its device time
+   (CUDA-graph replay, median of 20), the time of one call from the host,
+   the plain version's and one library call's time, and the least time the
+   card could take (bytes moved / 3.35 TB/s);
+3. the cost model on the card against the CPU, bit for bit, on the
+   frontiers of the first SSSP iterations and on random frontiers;
+4. the main path at full size: ``run_hytm`` SSSP (K=8 and K=1), Δ-PageRank
+   and the three forced-engine baselines through the kernels, held against
+   ``use_kernels=False`` on the card.  The launch counts are set to 0
+   before each leg and read after it: each leg must launch the kernels of
+   its engines (the hybrid SSSP legs all three, Δ-PageRank ``segment_spmm``
+   with its sum combine, each forced leg its own engine's kernel and no
+   other), and the plain legs none;
+5. the oracle leg: SSSP and PageRank on the quickstart graph against the
+   numpy references.
+
+``profile_port.py`` times the same legs in turns and profiles them.
+
+The last line is ``{"ok": true, "device": {...}}``.  The script needs no
+network; the kernels build from the sources under ``src/repro_torch`` into
+``build/repro_torch``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
+REPS = 20
+SEED = 0
+T0 = time.monotonic()
+
+
+def log(msg: str) -> None:
+    print(f"[{time.monotonic() - T0:7.1f}s] {msg}", flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        fail(msg)
+
+
+def call_ms(torch, fn, reps: int = REPS) -> float:
+    """Median over ``reps`` of one call issued to an idle device, between
+    CUDA events: the call's host work (Python, argument checks,
+    allocation) shows as device time when it is longer than the work."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def graph_ms(torch, fn, calls: int = 10, reps: int = REPS) -> float:
+    """Device time of one call: ``calls`` calls captured in a CUDA graph,
+    the graph replayed ``reps`` times between CUDA events; the median
+    replay over ``calls``.  No host work is in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+def bound_ms(n_bytes: float) -> float:
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def phase_kernels(torch, rt, seed: int) -> dict:
+    from repro_torch.kernels.frontier_compact.ops import frontier_compact
+    from repro_torch.kernels.frontier_compact.ref import frontier_compact_ref
+    from repro_torch.kernels.hyb_gather.ops import PAD, hyb_gather
+    from repro_torch.kernels.hyb_gather.ref import hyb_gather_ref
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm
+    from repro_torch.kernels.segment_spmm.ref import segment_spmm_ref
+
+    dev = rt.device
+    n = rt.csr.n_nodes
+    B = rt.parts.block_size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    # the main path's block: partition 0's edges (the hub partition)
+    dst = rt.csr.edge_dst[:B].contiguous()
+    src = rt.csr.edge_src[:B].contiguous()
+    w = rt.csr.edge_weight[:B].contiguous()
+    active = torch.rand(B, device=dev, generator=gen) < 0.3
+    rows = {}
+
+    # -- segment_spmm, min (SSSP's FILTER combine: d=1, n_segments=n)
+    msg = torch.where(active, torch.rand(B, device=dev, generator=gen) * 100.0 + 1.0,
+                      float("inf"))
+    msg[:3] = torch.tensor([float("-inf"), -0.0, -3.5], device=dev)
+    k = segment_spmm(msg, dst, n, combine="min")
+    p = segment_spmm_ref(msg[:, None], dst, n, combine="min")[:, 0]
+    check(torch.equal(k, p) and torch.equal(torch.signbit(k), torch.signbit(p)),
+          "segment_spmm min differs from its plain version")
+    dst64 = dst.long()
+    rows["segment_spmm"] = dict(
+        replaces="src/repro/kernels/segment_spmm/segment_spmm.py:113",
+        source="src/repro_torch/kernels/segment_spmm/csrc/segment_spmm.cu",
+        max_abs_err=0.0, shape=f"min m={B} d=1 n_segments={n}",
+        ms=graph_ms(torch, lambda: segment_spmm(msg, dst, n, combine="min")),
+        call_ms=call_ms(torch, lambda: segment_spmm(msg, dst, n, combine="min")),
+        plain_ms=graph_ms(torch, lambda: segment_spmm_ref(msg[:, None], dst, n, combine="min")),
+        library_ms=graph_ms(torch, lambda: torch.full((n,), float("inf"), device=dev)
+                            .scatter_reduce_(0, dst64, msg, "amin")),
+        bound_ms=bound_ms(B * 4 + B * 4 + n * 4),
+    )
+    # ±0 and ±inf, each in a segment of its own: signs must survive
+    ids = torch.arange(6, dtype=torch.int32, device=dev)
+    vals = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), 1.0, -1.0], device=dev)
+    k = segment_spmm(vals, ids, 8, combine="min")
+    check(torch.equal(torch.signbit(k), torch.signbit(segment_spmm_ref(vals[:, None], ids, 8, combine="min")[:, 0]))
+          and torch.equal(k[6:], torch.full((2,), float("inf"), device=dev)),
+          "segment_spmm min: signed zeros / empty segments")
+
+    # -- segment_spmm, sum (PageRank's FILTER combine: packed [msg, active])
+    pmsg = torch.where(active, torch.rand(B, device=dev, generator=gen) * 1e-3, 0.0)
+    packed = torch.stack([pmsg, active.to(torch.float32)], dim=-1)
+    k = segment_spmm(packed, dst, n)
+    p = segment_spmm_ref(packed, dst, n)
+    check(torch.equal(k[:, 1], p[:, 1]), "segment_spmm sum: count column not exact")
+    # float atomics add in another order than index_add_: rtol 1e-4 covers
+    # the reassociation of up to ~1e5 terms of one sign
+    check(torch.allclose(k[:, 0], p[:, 0], rtol=1e-4, atol=1e-9),
+          "segment_spmm sum outside rtol=1e-4")
+    sum_err = float((k[:, 0] - p[:, 0]).abs().max())
+    rows["segment_spmm_sum"] = dict(
+        ms=graph_ms(torch, lambda: segment_spmm(packed, dst, n)),
+        call_ms=call_ms(torch, lambda: segment_spmm(packed, dst, n)),
+        plain_ms=graph_ms(torch, lambda: segment_spmm_ref(packed, dst, n)),
+        library_ms=graph_ms(torch, lambda: torch.zeros((n, 2), device=dev)
+                            .index_add_(0, dst, packed)),
+        bound_ms=bound_ms(B * 8 + B * 4 + n * 8), max_abs_err=sum_err,
+    )
+    # m == 0 and a valid mask
+    empty = segment_spmm(torch.empty((0, 2), device=dev),
+                         torch.empty(0, dtype=torch.int32, device=dev), 5)
+    check(torch.equal(empty, torch.zeros((5, 2), device=dev)), "segment_spmm m=0")
+    valid = torch.rand(B, device=dev, generator=gen) < 0.5
+    check(torch.equal(segment_spmm(msg, dst, n, valid=valid, combine="min"),
+                      segment_spmm_ref(msg[:, None], dst, n, valid=valid, combine="min")[:, 0]),
+          "segment_spmm min with a valid mask")
+
+    # -- frontier_compact (COMPACT: the block's four columns, mask = active)
+    cols = (src, dst, w, active)
+    for name, mask in (("random", active), ("empty", torch.zeros_like(active)),
+                       ("full", torch.ones_like(active))):
+        out, cnt = frontier_compact(cols, mask)
+        ref_out, ref_cnt = frontier_compact_ref(cols, mask)
+        check(int(cnt) == int(ref_cnt) and all(map(torch.equal, out, ref_out)),
+              f"frontier_compact ({name} mask) differs from its plain version")
+    out, cnt = frontier_compact(tuple(c[:0] for c in cols), active[:0])
+    check(int(cnt) == 0 and all(o.shape == (0,) for o in out), "frontier_compact m=0")
+    kept = int(active.sum())
+    row_bytes = 4 + 4 + 4 + 1
+    # the library yardstick: boolean-mask indexing of the rows packed into
+    # one (B, 4) array (it writes the kept rows only)
+    words = torch.stack([src, dst, w.view(torch.int32), active.to(torch.int32)], dim=-1)
+    rows["frontier_compact"] = dict(
+        replaces="src/repro/kernels/frontier_compact/frontier_compact.py:62",
+        source="src/repro_torch/kernels/frontier_compact/csrc/frontier_compact.cu",
+        max_abs_err=0.0, shape=f"m={B} columns=(i32, i32, f32, bool) kept={kept}",
+        ms=graph_ms(torch, lambda: frontier_compact(cols, active)),
+        call_ms=call_ms(torch, lambda: frontier_compact(cols, active)),
+        plain_ms=graph_ms(torch, lambda: frontier_compact_ref(cols, active)),
+        # boolean-mask indexing reads its output size back to the host, so
+        # it cannot be captured in a graph: timed as one call
+        library_ms=call_ms(torch, lambda: words[active]),
+        bound_ms=bound_ms(2 * B * row_bytes + 4),
+    )
+
+    # -- hyb_gather (ZEROCOPY: the block's four columns as PAD-lane windows)
+    n_win = -(-B // PAD)
+    starts = torch.arange(0, n_win * PAD, PAD, dtype=torch.int32, device=dev)
+    degs = torch.clamp(B - starts, max=PAD)
+    k = hyb_gather(cols, starts, degs)
+    check(all(map(torch.equal, k, hyb_gather_ref(cols, starts, degs))),
+          "hyb_gather differs from its plain version")
+    # random windows: starts past the end, degrees over PAD, degree 0
+    rs = torch.randint(-5, B + 200, (512,), dtype=torch.int32, device=dev, generator=gen)
+    rd = torch.randint(0, 2 * PAD, (512,), dtype=torch.int32, device=dev, generator=gen)
+    check(all(map(torch.equal, hyb_gather(cols, rs, rd), hyb_gather_ref(cols, rs, rd))),
+          "hyb_gather (random windows) differs from its plain version")
+    check(all(o.shape == (0, PAD) for o in hyb_gather(cols, starts[:0], degs[:0])),
+          "hyb_gather a=0")
+    padded = torch.cat([words, words.new_zeros((1, 4))])
+    lane = torch.arange(PAD, device=dev)
+    idx = starts.long()[:, None] + lane
+    idx = torch.where(lane < degs.long()[:, None], idx, B)
+    rows["hyb_gather"] = dict(
+        replaces="src/repro/kernels/hyb_gather/hyb_gather.py:42",
+        source="src/repro_torch/kernels/hyb_gather/csrc/hyb_gather.cu",
+        max_abs_err=0.0, shape=f"a={n_win} columns=(i32, i32, f32, bool) of {B}",
+        ms=graph_ms(torch, lambda: hyb_gather(cols, starts, degs)),
+        call_ms=call_ms(torch, lambda: hyb_gather(cols, starts, degs)),
+        plain_ms=graph_ms(torch, lambda: hyb_gather_ref(cols, starts, degs)),
+        # advanced indexing of the rows packed into one (B + 1, 4) array
+        library_ms=graph_ms(torch, lambda: padded[idx]),
+        bound_ms=bound_ms(int(degs.sum()) * row_bytes + n_win * 8
+                          + n_win * PAD * row_bytes),
+    )
+    for name, r in rows.items():
+        log(f"kernel {name}: {r.get('shape', 'sum m=%d d=2' % B)} ms={r['ms']:.4f} "
+            f"call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} max_abs_err={r['max_abs_err']:.3g}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: cost model, card against CPU
+# ---------------------------------------------------------------------------
+
+def phase_cost_model(torch, cfg, rt, rt_cpu, source: int, seed: int) -> None:
+    from repro_torch.core.cost_model import partition_stats
+    from repro_torch.core.hytm import HyTMState, hytm_iteration
+    from repro_torch.core.scheduler import make_schedule
+    from repro_torch.core.task_generation import generate_tasks
+    from repro_torch.graph.algorithms import SSSP
+
+    frontiers = []
+    vals, delta, front = SSSP.init_state(rt.csr.n_nodes, source, rt.device)
+    state = HyTMState(vals, delta, front)
+    for _ in range(6):
+        frontiers.append(state.frontier)
+        state, _ = hytm_iteration(state, rt, SSSP, cfg)
+    rng = np.random.default_rng(seed)
+    for density in (1e-4, 1e-3, 1e-2, 0.1, 0.5):
+        frontiers.append(torch.from_numpy(rng.random(rt.csr.n_nodes) < density).to(rt.device))
+
+    def plan(r, frontier):
+        stats = partition_stats(frontier, r.csr.out_degree, r.zc_req, r.parts)
+        tp = generate_tasks(stats, cfg.link, combine_k=cfg.combine_k)
+        sched = make_schedule(tp.engines, torch.zeros_like(stats.total_edges),
+                              r.n_hub_partitions, "hub", True)
+        return [*stats, tp.engines, tp.n_tasks, tp.transfer_bytes, tp.transfer_time,
+                *tp.costs, sched.order, sched.second_pass]
+
+    for i, f in enumerate(frontiers):
+        on_card = [t.cpu() for t in plan(rt, f)]
+        on_cpu = plan(rt_cpu, f.cpu())
+        for a, b in zip(on_card, on_cpu):
+            check(a.dtype == b.dtype and torch.equal(a, b),
+                  f"cost model differs between card and CPU on frontier {i}")
+    log(f"cost model: card == CPU bit for bit on {len(frontiers)} frontiers "
+        "(stats, costs, engines, n_tasks, transfer bytes/time, order, second_pass)")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the main path
+# ---------------------------------------------------------------------------
+
+def engine_mix(res, max_rows: int = 12) -> str:
+    eng = res.history["engines"]
+    lines = []
+    for i in range(min(max_rows, eng.shape[0])):
+        row = eng[i]
+        lines.append(f"    iter {i:2d}: none={int((row == -1).sum())} "
+                     f"filter={int((row == 0).sum())} compact={int((row == 1).sum())} "
+                     f"zerocopy={int((row == 2).sum())}")
+    if eng.shape[0] > max_rows:
+        lines.append(f"    ... ({eng.shape[0] - max_rows} more)")
+    return "\n".join(lines)
+
+
+def same_min_run(a, b) -> bool:
+    return (a.iterations == b.iterations and np.array_equal(a.values, b.values)
+            and a.total_transfer_bytes == b.total_transfer_bytes
+            and np.array_equal(a.history["engines"], b.history["engines"]))
+
+
+# the kernels each leg must launch; every leg but Δ-PageRank launches no other
+ALL_KERNELS = ("segment_spmm", "frontier_compact", "hyb_gather")
+LEG_KERNELS = {
+    "sssp_k8": ALL_KERNELS, "sssp_k1": ALL_KERNELS, "pagerank": ("segment_spmm",),
+    "forced_filter": ("segment_spmm",), "forced_compact": ("frontier_compact",),
+    "forced_zerocopy": ("hyb_gather",), "sssp_plain": (), "pagerank_plain": (),
+}
+
+
+def main_path_legs(cfg, source: int) -> dict:
+    """The main path's legs: name -> (program, source, config)."""
+    from repro_torch.core.cost_model import COMPACT, FILTER, ZEROCOPY
+    from repro_torch.graph.algorithms import PAGERANK, SSSP
+
+    pr = dataclasses.replace(PAGERANK, tolerance=1e-5)
+    cfg8 = dataclasses.replace(cfg, sync_every=8)
+    plain = dataclasses.replace(cfg8, use_kernels=False)
+    return {
+        "sssp_k8": (SSSP, source, cfg8),
+        "sssp_k1": (SSSP, source, dataclasses.replace(cfg, sync_every=1)),
+        "pagerank": (pr, None, dataclasses.replace(cfg8, cds_mode="delta")),
+        **{f"forced_{name}": (SSSP, source, dataclasses.replace(cfg8, forced_engine=eng))
+           for name, eng in (("filter", FILTER), ("compact", COMPACT),
+                             ("zerocopy", ZEROCOPY))},
+        "sssp_plain": (SSSP, source, plain),
+        "pagerank_plain": (pr, None, dataclasses.replace(plain, cds_mode="delta")),
+    }
+
+
+def phase_main(torch, cfg, rt, source: int) -> dict:
+    from repro_torch.core.hytm import run_hytm
+    from repro_torch.kernels.frontier_compact.ops import frontier_compact
+    from repro_torch.kernels.hyb_gather.ops import hyb_gather
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm
+
+    wrappers = {"segment_spmm": segment_spmm, "frontier_compact": frontier_compact,
+                "hyb_gather": hyb_gather}
+    runs, launches = {}, {}
+    for leg, (prog, src, c) in main_path_legs(cfg, source).items():
+        for w in wrappers.values():
+            w.launches = 0
+        runs[leg] = r = run_hytm(None, prog, src, c, runtime=rt)
+        launches[leg] = counts = {name: w.launches for name, w in wrappers.items()}
+        log(f"{leg}: {r.iterations} iterations, wall {r.wall_seconds:.3f} s, modeled "
+            f"{r.total_transfer_bytes / 2**20:.1f} MiB / {r.modeled_seconds * 1e3:.2f} ms; "
+            f"launches {counts}")
+        for name in ALL_KERNELS:
+            if name in LEG_KERNELS[leg]:
+                check(counts[name] > 0, f"{leg} did not launch {name}")
+            elif leg != "pagerank":   # Δ-PageRank may pick any engine
+                check(counts[name] == 0, f"{leg} launched {name}")
+
+    s8, s1, sp = runs["sssp_k8"], runs["sssp_k1"], runs["sssp_plain"]
+    check(same_min_run(s8, sp), "SSSP kernels != plain (values/iterations/bytes/engines)")
+    check(same_min_run(s8, s1), "SSSP K=8 != K=1 (values/iterations/bytes/engines)")
+    for name in ("forced_filter", "forced_compact", "forced_zerocopy"):
+        check(np.array_equal(runs[name].values, s8.values),
+              f"{name} SSSP values differ from the hybrid run")
+    log("SSSP: kernels == plain and K=8 == K=1 bit for bit; forced baselines == hybrid")
+    log("SSSP engine mix per iteration (Fig. 7 path):\n" + engine_mix(s8))
+
+    a = runs["pagerank"].values + runs["pagerank"].delta
+    b = runs["pagerank_plain"].values + runs["pagerank_plain"].delta
+    check(bool(np.all(np.isfinite(a))), "PageRank values not finite")
+    # SUM: float atomics reorder the additions and a vertex whose |Δ| sits
+    # at the 1e-5 tolerance may stay active in one run only; the pending
+    # mass it leaves is bounded by tolerance/(1 - damping) ≈ 6.7e-5
+    err = float(np.max(np.abs(a - b)))
+    log(f"PageRank: kernels vs plain max |err| {err:.3e} (tolerance 1e-3 + 1e-4 rel), "
+        f"iterations {runs['pagerank'].iterations} vs {runs['pagerank_plain'].iterations}")
+    check(np.allclose(a, b, rtol=1e-4, atol=1e-3), "PageRank kernels vs plain out of tolerance")
+    return {leg: counts for leg, counts in launches.items() if LEG_KERNELS[leg]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: oracles on the quickstart graph
+# ---------------------------------------------------------------------------
+
+def phase_oracle(torch, dev) -> None:
+    from repro_torch.core.constants import PCIE3
+    from repro_torch.core.hytm import HyTMConfig, run_hytm
+    from repro_torch.graph.algorithms import (PAGERANK, SSSP, reference_pagerank,
+                                              reference_sssp)
+    from repro_torch.graph.generators import rmat_graph
+    from repro_torch.graph.hub_sort import hub_sort
+
+    g = rmat_graph(50_000, 800_000, seed=0)
+    hs = hub_sort(g)
+    cfg = HyTMConfig(link=PCIE3.with_(mr=4.0), n_partitions=64)
+    res = run_hytm(hs.graph, SSSP, int(hs.perm[0]), cfg, n_hubs=hs.n_hubs, device=dev)
+    check(np.allclose(hs.values_to_old(res.values), reference_sssp(g, 0)),
+          "SSSP on the card != reference_sssp")
+    pr = dataclasses.replace(PAGERANK, tolerance=1e-5)
+    res_pr = run_hytm(hs.graph, pr, None, dataclasses.replace(cfg, cds_mode="delta"),
+                      n_hubs=hs.n_hubs, device=dev)
+    err = float(np.max(np.abs(hs.values_to_old(res_pr.values + res_pr.delta)
+                              - reference_pagerank(g))))
+    log(f"oracle leg: SSSP == reference_sssp ({res.iterations} iterations); "
+        f"PageRank max |err| vs reference_pagerank {err:.3e} ({res_pr.iterations} iterations)")
+    # Δ-PageRank stops once every pending |Δ| <= 1e-5; the mass left pending
+    # bounds the error (the CPU run of this leg gives 8.2e-3)
+    check(err < 2e-2, "PageRank on the card too far from reference_pagerank")
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def setup(torch, scale: int):
+    """Build the kernels and the main path's graph and runtime on the card:
+    (config, hub-sorted graph, source vertex, runtime)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.constants import PCIE3
+    from repro_torch.core.hytm import HyTMConfig, build_runtime
+    from repro_torch.graph.generators import rmat_graph
+    from repro_torch.graph.hub_sort import hub_sort
+    from repro_torch.kernels.runtime import build_dir, build_kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = time.monotonic()
+    build_kernels()
+    log(f"kernels built in {time.monotonic() - t:.1f} s into {build_dir().relative_to(ROOT)}")
+    t = time.monotonic()
+    g = rmat_graph(2**scale, 16 * 2**scale, seed=SEED)
+    hs = hub_sort(g)
+    cfg = HyTMConfig(link=PCIE3.with_(mr=4.0), n_partitions=64)
+    rt = build_runtime(hs.graph, cfg, n_hubs=hs.n_hubs)
+    torch.cuda.synchronize()
+    log(f"graph: RMAT scale {scale}: {g.n_nodes:,} vertices, {g.n_edges:,} edges, "
+        f"hub-sorted, 64 partitions, block {rt.parts.block_size:,} edges; set-up "
+        f"{time.monotonic() - t:.1f} s")
+    return cfg, hs, int(hs.perm[0]), rt
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scale", type=int, default=22,
+                    help="RMAT scale: 2**scale vertices, 16 * 2**scale edges")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+
+    # -- phase 1: environment, build, set-up
+    smi = card_line()
+    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.device_count()} device(s)")
+    cfg, hs, source, rt = setup(torch, args.scale)
+    from repro_torch.core.hytm import build_runtime
+
+    rt_cpu = build_runtime(hs.graph, cfg, n_hubs=hs.n_hubs, device="cpu")
+    rows = phase_kernels(torch, rt, SEED)
+    phase_cost_model(torch, cfg, rt, rt_cpu, source, SEED)
+    del rt_cpu
+    launches = phase_main(torch, cfg, rt, source)
+    phase_oracle(torch, rt.device)
+
+    kernels = []
+    for name in ALL_KERNELS:
+        r = rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": r["source"],
+            "replaces": r["replaces"],
+            # each leg's count, read after that leg alone
+            "launches": sum(counts[name] for counts in launches.values()),
+            "launches_by_leg": {leg: counts[name] for leg, counts in launches.items()},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "bytes",
+            "library_ms": r["library_ms"], "shape": r["shape"], "call_ms": r["call_ms"],
+        })
+    s = rows["segment_spmm_sum"]
+    kernels[0]["sum_d2"] = {k: s[k] for k in ("ms", "call_ms", "plain_ms", "library_ms",
+                                              "bound_ms", "max_abs_err")}
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

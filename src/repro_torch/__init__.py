@@ -1,0 +1,8 @@
+"""PyTorch/CUDA port of the HyTGraph reproduction (``repro``).
+
+The layout mirrors ``repro`` (``graph/``, ``core/``, ``kernels/<name>/``)
+with the same public names.  The package imports torch, numpy and the
+standard library only; the entry points (``to_device_csr``,
+``build_runtime``, ``run_hytm``, ``init_state``) run on ``cuda`` unless the
+caller passes ``device="cpu"``.
+"""

@@ -1,0 +1,87 @@
+"""Carry state across from the reference package.
+
+The reference's arrays come in as numpy (``np.asarray`` of a jax array)
+and leave as numpy, so this module imports neither jax nor ``repro``.  The
+tests use it to feed both packages the same graph and warm state.
+"""
+
+from __future__ import annotations
+
+from dataclasses import asdict, fields
+
+import numpy as np
+import torch
+
+from repro_torch.core.constants import LinkModel
+from repro_torch.core.hytm import HyTMResult, HyTMState
+from repro_torch.core.partition import DevicePartitions
+from repro_torch.graph.csr import CSRGraph, DeviceCSR
+from repro_torch.kernels.runtime import resolve_device
+
+
+def _up(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+
+def csr_graph(indptr, indices, weights=None) -> CSRGraph:
+    """A host ``CSRGraph`` from the reference's CSR arrays."""
+    return CSRGraph(indptr=np.asarray(indptr), indices=np.asarray(indices),
+                    weights=None if weights is None else np.asarray(weights))
+
+
+def device_csr(arrays: dict, device: str | torch.device | None = None) -> DeviceCSR:
+    """A ``DeviceCSR`` from the reference's ``DeviceCSR`` fields (arrays
+    plus the ``n_nodes``/``n_edges`` ints)."""
+    dev = resolve_device(device)
+    i32, f32 = torch.int32, torch.float32
+    return DeviceCSR(
+        edge_src=_up(arrays["edge_src"], i32, dev),
+        edge_dst=_up(arrays["edge_dst"], i32, dev),
+        edge_weight=_up(arrays["edge_weight"], f32, dev),
+        edge_valid=_up(arrays["edge_valid"], torch.bool, dev),
+        out_degree=_up(arrays["out_degree"], i32, dev),
+        seg_start=_up(arrays["seg_start"], i32, dev),
+        n_nodes=int(arrays["n_nodes"]),
+        n_edges=int(arrays["n_edges"]),
+    )
+
+
+def device_partitions(arrays: dict,
+                      device: str | torch.device | None = None) -> DevicePartitions:
+    """A ``DevicePartitions`` from the reference's fields."""
+    dev = resolve_device(device)
+    i32 = torch.int32
+    return DevicePartitions(
+        vertex_start=_up(arrays["vertex_start"], i32, dev),
+        edge_start=_up(arrays["edge_start"], i32, dev),
+        part_edges=_up(arrays["part_edges"], i32, dev),
+        vertex_part_id=_up(arrays["vertex_part_id"], i32, dev),
+        n_partitions=int(arrays["n_partitions"]),
+        block_size=int(arrays["block_size"]),
+    )
+
+
+def hytm_state(values, delta, frontier,
+               device: str | torch.device | None = None) -> HyTMState:
+    """A ``HyTMState`` from a (values, delta, frontier) triple."""
+    dev = resolve_device(device)
+    return HyTMState(values=_up(values, torch.float32, dev),
+                     delta=_up(delta, torch.float32, dev),
+                     frontier=_up(frontier, torch.bool, dev))
+
+
+def link_model(field_values: dict) -> LinkModel:
+    """A ``LinkModel`` from the reference's field dict
+    (``dataclasses.asdict`` of its ``LinkModel``); validated on creation."""
+    names = {f.name for f in fields(LinkModel)}
+    unknown = set(field_values) - names
+    if unknown:
+        raise ValueError(f"unknown LinkModel fields: {sorted(unknown)}")
+    return LinkModel(**field_values)
+
+
+def result_to_numpy(res: HyTMResult) -> dict:
+    """A ``HyTMResult`` as a dict of numpy arrays and Python numbers."""
+    out = asdict(res)
+    out["history"] = {k: np.asarray(v) for k, v in res.history.items()}
+    return out

@@ -1,0 +1,652 @@
+"""HyTM engine orchestration — cost model, task generation and asynchronous
+scheduling tied into the iterate-until-convergence loop (paper Fig. 5).
+
+One *iteration*:
+
+  1. per-partition activity stats      (segment sums, on the device)
+  2. cost model + engine selection     (Eqs. 1-3, Algorithm 1)
+  3. task combination                  (merged task count)
+  4. priority schedule                 (hub / Δ contribution order)
+  5. asynchronous sweep                (partitions in priority order, each
+     relaxed by its engine against the *current* values — later
+     partitions see earlier updates)
+  6. recompute-once second pass        (loaded priority partitions)
+
+Steps 1-4 run on the device.  The sweep dispatches one partition at a time
+from the host, so it needs the (P,) engines, the order and the second-pass
+flags there: each iteration copies them to the host in ONE transfer, and
+the chunked driver folds the previous iteration's frontier population
+(``next_active``, the early-exit test) into that same transfer.  That is
+one host sync per iteration (plus one per chunk for the history drain), as
+the reference's K=1 loop has (``repro/core/hytm.py:966``); the port's K=1
+loop reads ``next_active`` separately, a second sync.  Capturing an
+iteration as a CUDA graph is later work.
+
+The chunked driver (``HyTMConfig.sync_every = K``) keeps the per-iteration
+history in device-side (K, ...) buffers and drains them to the host once
+per chunk.  Its contract is the reference's: the first iteration of a run
+always executes, even on an empty frontier; the loop stops right after the
+iteration whose ``next_active`` is 0; the iteration count equals the K=1
+loop's.  Both drivers run the same iteration code, so K changes when the
+history reaches the host, never what an iteration computes.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import sys
+import time
+from dataclasses import dataclass, field
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.constants import PCIE3, LinkModel
+from repro_torch.core.cost_model import (
+    HISTORY_KEYS,
+    KEY_ACTIVE_EDGES,
+    KEY_ACTIVE_VERTICES,
+    KEY_ENGINES,
+    KEY_MISPREDICTIONS,
+    KEY_N_TASKS,
+    KEY_PER_ENGINE_TIME,
+    KEY_TRANSFER_BYTES,
+    KEY_TRANSFER_TIME,
+    NONE,
+    PartitionStats,
+    history_shapes,
+    init_history_buffers,
+    link_constants,
+    partition_stats,
+    selection_diagnostics,
+    zc_request_counts,
+)
+from repro_torch.core.engines import EdgeBlock, relax_with_engine
+from repro_torch.core.partition import (
+    DevicePartitions,
+    partition_graph,
+    to_device_partitions,
+)
+from repro_torch.core.scheduler import Schedule, make_schedule
+from repro_torch.core.task_generation import TaskPlan, forced_engine_plan, generate_tasks
+from repro_torch.graph.algorithms import MIN, SUM, VertexProgram
+from repro_torch.graph.csr import CSRGraph, DeviceCSR, to_device_csr
+from repro_torch.kernels.runtime import resolve_device, resolve_use_kernels
+
+
+@dataclass(frozen=True)
+class HyTMConfig:
+    link: LinkModel = PCIE3
+    n_partitions: int | None = None
+    partition_bytes: int = 32 * 2**20  # paper default: 32 MB partitions
+    async_sweep: bool = True
+    cds_mode: str = "hub"  # 'hub' | 'delta' | 'none'
+    enable_task_combination: bool = True
+    recompute_once: bool = True
+    combine_k: int = 4
+    max_iters: int = 10_000
+    # iterations per chunk of the convergence driver; K=1 runs the
+    # per-iteration loop
+    sync_every: int = 8
+    # "auto" (kernels iff the tensors are on CUDA) | True | False — see
+    # repro_torch.kernels.runtime.  Selection and transfer accounting never
+    # depend on it.
+    use_kernels: bool | str = "auto"
+    forced_engine: int | None = None  # force a single engine (baselines)
+    hub_fraction: float = 0.08
+    # Fields of features later slices bring (ROADMAP queue 1); run_hytm
+    # raises NotImplementedError when they ask for anything but the
+    # single-device defaults.  The reference's default ICI profile comes
+    # with the multi-GPU slice, so ici_link is None until then.
+    ici_link: LinkModel | None = None
+    autotune: bool = False
+    autotune_decay: float = 0.25
+    mesh_axis: str | None = None
+    vertex_sharding: str = "replicated"
+
+
+@dataclass
+class HyTMState:
+    values: torch.Tensor    # (n,) f32
+    delta: torch.Tensor     # (n,) f32 (accumulative programs)
+    frontier: torch.Tensor  # (n,) bool
+
+
+@dataclass
+class Runtime:
+    """Device-resident inputs shared by every iteration."""
+
+    csr: DeviceCSR
+    parts: DevicePartitions
+    zc_req: torch.Tensor   # (n,) float32
+    inv_deg: torch.Tensor  # (n,) float32 — 1/max(deg,1), or 1/sum(w) (PHP)
+    n_hub_partitions: int
+    lane_index: torch.Tensor = field(init=False, repr=False)  # arange(B)
+
+    def __post_init__(self):
+        # A block slice must never run past the edge arrays: torch slicing
+        # would silently return a short block.
+        B = self.parts.block_size
+        _, edge_start, _ = self.parts.host
+        if max(edge_start[:-1], default=0) + B > self.csr.capacity:
+            raise ValueError(
+                f"edge capacity {self.csr.capacity} too small for blocks of "
+                f"{B} (need ceil((n_edges + block) / 128) * 128)")
+        self.lane_index = torch.arange(B, dtype=torch.int32, device=self.device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.csr.device
+
+
+def build_runtime(
+    g: CSRGraph,
+    config: HyTMConfig,
+    n_hubs: int = 0,
+    weighted_norm: bool = False,
+    device: str | torch.device | None = None,
+) -> Runtime:
+    """Partition ``g`` and upload it (``cuda`` unless ``device`` says
+    otherwise)."""
+    dev = resolve_device(device)
+    table = partition_graph(
+        g, n_partitions=config.n_partitions,
+        partition_bytes=config.partition_bytes, d1=config.link.d1,
+    )
+    block = int(table.edges_per_partition.max(initial=1))
+    block = max(128, -(-block // 128) * 128)
+    capacity = -(-(g.n_edges + block) // 128) * 128
+    csr = to_device_csr(g, capacity=capacity, device=dev)
+    parts = to_device_partitions(table, g.n_nodes, capacity, device=dev)
+    zc_req = zc_request_counts(csr.out_degree, csr.seg_start, config.link)
+    c = link_constants(config.link, dev)
+    if weighted_norm:
+        # accumulative programs over weighted edges (PHP) push
+        # delta * w_ij / sum_j w_ij
+        wsum = torch.zeros(g.n_nodes, dtype=torch.float32, device=dev).index_add_(
+            0, csr.edge_src, torch.where(csr.edge_valid, csr.edge_weight, c["zero"]))
+        tiny = torch.full((), 1e-30, dtype=torch.float32, device=dev)
+        inv_deg = c["one"] / torch.maximum(wsum, tiny)
+    else:
+        inv_deg = c["one"] / torch.maximum(csr.out_degree.to(torch.float32), c["one"])
+    n_hub_parts = int(np.searchsorted(table.vertex_start, n_hubs, side="left"))
+    n_hub_parts = max(n_hub_parts, 1) if n_hubs > 0 else 0
+    return Runtime(csr=csr, parts=parts, zc_req=zc_req, inv_deg=inv_deg,
+                   n_hub_partitions=n_hub_parts)
+
+
+def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
+    # a 0-dim float32 tensor: the Python double rounds to float32 once, as
+    # the reference's weak-typed scalar does
+    return torch.full((), x, dtype=torch.float32, device=like.device)
+
+
+# --------------------------------------------------------------------------
+# One iteration
+# --------------------------------------------------------------------------
+
+def _sweep(
+    state: HyTMState,
+    rt: Runtime,
+    program: VertexProgram,
+    engines: list[int],       # (P,) host ints — NONE entries are skipped
+    order: list[int],         # (P,) host processing order
+    frontier: torch.Tensor,   # (n,) sources active for this sweep
+    async_sweep: bool,
+    consume: str,             # 'all' (pass 1) | 'processed' (pass 2)
+    use_kernels: bool = False,
+) -> tuple[HyTMState, torch.Tensor]:
+    """Relax the partitions one by one in priority order; returns the new
+    state and the activated set.  A NONE partition needs no relax (its
+    result is the identity) but, for SUM programs in pass 1, still
+    consumes its vertices' pending Δ."""
+    n = rt.csr.n_nodes
+    B = rt.parts.block_size
+    vertex_start, edge_start, part_edges = rt.parts.host
+    values0, delta0 = state.values, state.delta
+    # private copies: the SUM consumption updates partition slices in place
+    values, delta = values0.clone(), delta0.clone()
+    activated = torch.zeros(n, dtype=torch.bool, device=values.device)
+    peel = program.peel_k is not None
+    consume_sum = not peel and program.combine == SUM
+    damping = _scalar(program.damping, values) if consume_sum else None
+
+    for p in order:
+        eng = engines[p]
+        processed = eng != NONE
+        if not processed and not (consume_sum and consume == "all"):
+            continue
+        out = None
+        if processed:
+            start = edge_start[p]
+            src = rt.csr.edge_src[start:start + B]
+            block = EdgeBlock(
+                src=src,
+                dst=rt.csr.edge_dst[start:start + B],
+                weight=rt.csr.edge_weight[start:start + B],
+                active=(rt.lane_index < part_edges[p])
+                & torch.index_select(frontier, 0, src),
+            )
+            if consume_sum:
+                operand = damping * (delta if async_sweep else delta0) * rt.inv_deg
+            else:
+                operand = values if async_sweep else values0
+            out = relax_with_engine(eng, block, operand, n, program, use_kernels)
+
+        if peel:
+            # each destination's remaining degree drops by its count of
+            # newly-removed in-neighbours; removal happens per iteration
+            values = values - out.agg
+            activated |= out.touched
+        elif program.combine == MIN:
+            improved = out.touched & (out.agg < values)
+            values = torch.where(improved, out.agg, values)
+            activated |= improved
+        else:
+            # consumption (rank += Δ) of the partition's active vertices,
+            # a contiguous vertex range
+            lo, hi = vertex_start[p], vertex_start[p + 1]
+            consumed = frontier[lo:hi]
+            seg_d = delta[lo:hi]
+            if async_sweep:
+                values[lo:hi] = values[lo:hi] + torch.where(consumed, seg_d, 0.0)
+                delta[lo:hi] = torch.where(consumed, 0.0, seg_d)
+            else:
+                # synchronous dataflow: consume exactly the iteration-start
+                # delta0, so earlier partitions' contributions survive
+                d0 = delta0[lo:hi]
+                values[lo:hi] = values[lo:hi] + torch.where(consumed, d0, 0.0)
+                delta[lo:hi] = torch.where(consumed, seg_d - d0, seg_d)
+            if out is not None:
+                delta += out.agg
+                activated |= out.touched
+    return HyTMState(values=values, delta=delta, frontier=state.frontier), activated
+
+
+class _Planned(NamedTuple):
+    stats: PartitionStats
+    plan: TaskPlan
+    sched: Schedule
+
+
+def _plan(
+    state: HyTMState,
+    rt: Runtime,
+    program: VertexProgram,
+    config: HyTMConfig,
+    correction: torch.Tensor | None = None,
+) -> _Planned:
+    """Steps 1-4 of an iteration, on the device."""
+    P = rt.parts.n_partitions
+    frontier = state.frontier
+    stats = partition_stats(frontier, rt.csr.out_degree, rt.zc_req, rt.parts)
+    if config.forced_engine is None:
+        plan = generate_tasks(
+            stats, config.link, combine_k=config.combine_k,
+            enable_combination=config.enable_task_combination,
+            correction=correction,
+        )
+    else:
+        plan = forced_engine_plan(
+            stats, config.link, config.forced_engine,
+            enable_combination=config.enable_task_combination,
+            combine_k=config.combine_k,
+        )
+    if program.combine != MIN and config.cds_mode == "delta":
+        # partitions are contiguous vertex ranges: a segmented sum in index
+        # order, as the reference's scatter-add adds on the CPU, instead of
+        # n atomics on P addresses
+        delta_mass = torch.segment_reduce(
+            torch.abs(state.delta) * frontier, "sum",
+            lengths=torch.diff(rt.parts.vertex_start), unsafe=True)
+    else:
+        delta_mass = torch.zeros(P, dtype=torch.float32, device=frontier.device)
+    sched = make_schedule(plan.engines, delta_mass, rt.n_hub_partitions,
+                          config.cds_mode, config.recompute_once)
+    return _Planned(stats=stats, plan=plan, sched=sched)
+
+
+def _fetch(planned: _Planned, prev_active: torch.Tensor | None = None):
+    """The ONE device-to-host transfer of an iteration: engines, order and
+    second-pass flags, plus the previous iteration's ``next_active`` when
+    given.  Returns (engines, order, second_pass, prev_active) as host
+    ints (prev_active None when not given)."""
+    P = planned.plan.engines.shape[0]
+    parts = [planned.plan.engines, planned.sched.order,
+             planned.sched.second_pass.to(torch.int32)]
+    if prev_active is not None:
+        parts.append(prev_active.reshape(1).to(torch.int32))
+    host = torch.cat(parts).tolist()
+    prev = host[3 * P] if prev_active is not None else None
+    return host[:P], host[P:2 * P], host[2 * P:3 * P], prev
+
+
+def _iteration_impl(
+    state: HyTMState,
+    rt: Runtime,
+    program: VertexProgram,
+    config: HyTMConfig,
+    planned: _Planned,
+    host: tuple[list, list, list],
+    correction: torch.Tensor | None = None,
+) -> tuple[HyTMState, dict[str, Any]]:
+    """Steps 5-6 and the next frontier, given the planned iteration and its
+    host copy (engines, order, second_pass)."""
+    frontier = state.frontier
+    use_kernels = resolve_use_kernels(config.use_kernels, frontier.device)
+    engines_h, order_h, second_h = host
+    stats, plan = planned.stats, planned.plan
+
+    # (5) asynchronous sweep in priority order
+    state1, activated = _sweep(
+        state, rt, program, engines_h, order_h, frontier,
+        config.async_sweep, consume="all", use_kernels=use_kernels,
+    )
+
+    # (6) recompute-once: loaded priority partitions, zero extra transfer
+    engines2 = [e if s else NONE for e, s in zip(engines_h, second_h)]
+    if program.peel_k is not None:
+        # a second peeling pass would subtract the same removals twice
+        frontier2 = torch.zeros_like(frontier)
+    elif program.combine == MIN:
+        frontier2 = frontier | activated
+    else:
+        # |Δ|: warm starts may carry signed correction deltas
+        frontier2 = torch.abs(state1.delta) > _scalar(program.tolerance, frontier)
+    state2, activated2 = _sweep(
+        state1, rt, program, engines2, order_h, frontier2,
+        config.async_sweep, consume="processed", use_kernels=use_kernels,
+    )
+    activated |= activated2
+
+    if program.peel_k is not None:
+        # removal: alive vertices whose remaining degree fell below k
+        alive = state2.delta < 0.5
+        next_frontier = alive & (state2.values < program.peel_k)
+        new_state = HyTMState(
+            values=state2.values,
+            delta=state2.delta + next_frontier.to(torch.float32),
+            frontier=next_frontier,
+        )
+    else:
+        if program.combine == MIN:
+            next_frontier = activated
+        else:
+            next_frontier = torch.abs(state2.delta) > _scalar(program.tolerance, frontier)
+        new_state = HyTMState(values=state2.values, delta=state2.delta,
+                              frontier=next_frontier)
+
+    per_engine_time, mispredictions = selection_diagnostics(
+        plan.engines, plan.transfer_time, stats, plan.costs, correction,
+    )
+    overhead = link_constants(config.link, frontier.device)["launch_overhead_s"]
+    info = {
+        KEY_ENGINES: plan.engines,
+        KEY_TRANSFER_BYTES: plan.transfer_bytes,
+        KEY_TRANSFER_TIME: plan.transfer_time.sum()
+        + plan.n_tasks.to(torch.float32) * overhead,
+        KEY_N_TASKS: plan.n_tasks,
+        KEY_ACTIVE_VERTICES: frontier.sum(dtype=torch.int32),
+        KEY_ACTIVE_EDGES: stats.active_edges.sum(),
+        "next_active": next_frontier.sum(dtype=torch.int32),
+        KEY_PER_ENGINE_TIME: per_engine_time,
+        KEY_MISPREDICTIONS: mispredictions,
+    }
+    return new_state, info
+
+
+def hytm_iteration(
+    state: HyTMState,
+    rt: Runtime,
+    program: VertexProgram,
+    config: HyTMConfig,
+    correction: torch.Tensor | None = None,
+) -> tuple[HyTMState, dict[str, Any]]:
+    """One iteration (the K=1 driver's dispatch unit)."""
+    planned = _plan(state, rt, program, config, correction)
+    engines, order, second, _ = _fetch(planned)
+    return _iteration_impl(state, rt, program, config, planned,
+                           (engines, order, second), correction)
+
+
+# --------------------------------------------------------------------------
+# Chunked driver
+# --------------------------------------------------------------------------
+
+def chunked_while(iter_fn, plan_fn, state: HyTMState, history: dict, chunk: int):
+    """Run up to ``chunk`` iterations: ``plan_fn(state) -> planned`` and
+    ``iter_fn(state, planned, host) -> (state, info)``, writing iteration
+    ``i``'s info into ``history[k][i]`` and summing the (3,) per-engine
+    modeled seconds.  The early-exit test reads the *previous* iteration's
+    ``next_active`` from the same transfer that brings the next plan to
+    the host (no previous iteration at the chunk start: the first one
+    always runs).
+
+    Returns ``(state, history, n_done, last_next_active, per_engine_sum)``
+    with ``last_next_active`` a device tensor (None if nothing ran)."""
+    per_engine_sum = None
+    prev_active = None
+    n_done = 0
+    while n_done < chunk:
+        planned = plan_fn(state)
+        engines, order, second, prev = _fetch(planned, prev_active)
+        if prev == 0:
+            break
+        state, info = iter_fn(state, planned, (engines, order, second))
+        for k, buf in history.items():
+            buf[n_done] = info[k]
+        pe = info[KEY_PER_ENGINE_TIME]
+        per_engine_sum = pe if per_engine_sum is None else per_engine_sum + pe
+        prev_active = info["next_active"]
+        n_done += 1
+    return state, history, n_done, prev_active, per_engine_sum
+
+
+def hytm_chunk(
+    state: HyTMState,
+    history: dict[str, torch.Tensor],   # key -> (chunk, ...) preallocated
+    rt: Runtime,
+    program: VertexProgram,
+    config: HyTMConfig,
+    chunk: int,
+    correction: torch.Tensor | None = None,
+):
+    """Up to ``chunk`` iterations with device-side history; see
+    ``chunked_while``.  Rows at index >= ``n_done`` are stale."""
+    return chunked_while(
+        lambda st, planned, host: _iteration_impl(
+            st, rt, program, config, planned, host, correction),
+        lambda st: _plan(st, rt, program, config, correction),
+        state, history, chunk,
+    )
+
+
+def hytm_batched_chunk(*args, **kwargs):
+    """Lane-batched chunk of the serving stack: not ported yet."""
+    raise NotImplementedError(
+        "hytm_batched_chunk comes with the serving slice (ROADMAP queue 1, "
+        "item 7: Serving)")
+
+
+def dead_lane_state(program: VertexProgram, n: int,
+                    device: str | torch.device | None = None) -> tuple:
+    """The (values, delta, frontier) triple of a *dead* padding lane: an
+    empty frontier and zero pending Δ, so every iteration is a no-op."""
+    dev = resolve_device(device)
+    if program.use_delta:
+        values = torch.zeros(n, dtype=torch.float32, device=dev)
+    else:
+        values = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
+    return (values, torch.zeros(n, dtype=torch.float32, device=dev),
+            torch.zeros(n, dtype=torch.bool, device=dev))
+
+
+@contextlib.contextmanager
+def count_driver_dispatches():
+    """Count convergence-driver dispatches by swapping the module-level
+    entry points (``run_hytm`` resolves both at call time).  Yields a live
+    ``{"iteration": n, "chunk": n}`` dict."""
+    mod = sys.modules[__name__]
+    counts = {"iteration": 0, "chunk": 0}
+    orig_iter, orig_chunk = mod.hytm_iteration, mod.hytm_chunk
+
+    def count_iter(*a, **kw):
+        counts["iteration"] += 1
+        return orig_iter(*a, **kw)
+
+    def count_chunk(*a, **kw):
+        counts["chunk"] += 1
+        return orig_chunk(*a, **kw)
+
+    mod.hytm_iteration, mod.hytm_chunk = count_iter, count_chunk
+    try:
+        yield counts
+    finally:
+        mod.hytm_iteration, mod.hytm_chunk = orig_iter, orig_chunk
+
+
+# --------------------------------------------------------------------------
+# Convergence loop
+# --------------------------------------------------------------------------
+
+@dataclass
+class HyTMResult:
+    values: np.ndarray
+    delta: np.ndarray
+    iterations: int
+    wall_seconds: float
+    modeled_seconds: float
+    total_transfer_bytes: float
+    history: dict[str, np.ndarray]  # per-iteration arrays
+    total_ici_bytes: float = 0.0      # sharded sweep only
+    modeled_ici_seconds: float = 0.0  # sharded sweep only
+    total_mispredictions: int = 0
+    engine_corrections: np.ndarray | None = None
+
+
+def _reject_unported(config: HyTMConfig, mesh, calibrator, obs, faults,
+                     retry, on_chunk) -> None:
+    queued = [
+        (config.mesh_axis is not None or mesh is not None,
+         "mesh_axis/mesh", "item 11: Multi-GPU"),
+        (config.autotune or calibrator is not None,
+         "autotune/calibrator", "item 5: autotune/feedback.py"),
+        (obs is not None, "obs", "item 9: Observability"),
+        (faults is not None or retry is not None, "faults/retry",
+         "item 10: Resilience"),
+        (on_chunk is not None, "on_chunk", "item 10: Resilience"),
+    ]
+    for asked, what, item in queued:
+        if asked:
+            raise NotImplementedError(
+                f"run_hytm: {what} is not ported yet (ROADMAP queue 1, {item})")
+
+
+def run_hytm(
+    g: CSRGraph | None,
+    program: VertexProgram,
+    source: int | None = 0,
+    config: HyTMConfig = HyTMConfig(),
+    n_hubs: int = 0,
+    runtime: Runtime | None = None,
+    mesh=None,
+    initial_state: HyTMState | None = None,
+    calibrator=None,
+    obs=None,
+    faults=None,
+    retry=None,
+    on_chunk=None,
+    device: str | torch.device | None = None,
+) -> HyTMResult:
+    """Run the HyTM convergence loop on one device.
+
+    ``runtime`` lets callers amortize preprocessing across runs (then ``g``
+    may be ``None``, and the runtime's device is used).  Otherwise the graph
+    is uploaded to ``device`` — ``cuda`` unless the caller passes
+    ``device="cpu"``; with no card that raises.  WCC-family programs
+    symmetrize ``g`` first; k-core seeds its state from the runtime's
+    degrees.
+
+    ``initial_state`` warm-starts the loop from a (values, Δ, frontier)
+    triple on the runtime's device; it is not modified.
+
+    ``mesh``, ``calibrator``, ``obs``, ``faults``, ``retry``, ``on_chunk``
+    and the config's ``mesh_axis``/``autotune`` belong to later slices and
+    raise ``NotImplementedError``.
+    """
+    _reject_unported(config, mesh, calibrator, obs, faults, retry, on_chunk)
+    if config.sync_every < 1:
+        raise ValueError(f"sync_every must be >= 1, got {config.sync_every}")
+    if runtime is not None:
+        rt = runtime
+        if device is not None and resolve_device(device).type != rt.device.type:
+            raise ValueError(f"runtime lives on {rt.device}, not {device}")
+    elif g is None:
+        raise ValueError("run_hytm needs a graph or a prebuilt runtime")
+    else:
+        if program.symmetrize:
+            g = g.symmetrize()
+        rt = build_runtime(
+            g, config, n_hubs=n_hubs,
+            weighted_norm=program.use_delta and program.weighted, device=device,
+        )
+    if initial_state is None:
+        if program.peel_k is not None:
+            deg = rt.csr.out_degree.to(torch.float32)
+            removed = deg < program.peel_k
+            state = HyTMState(values=deg, delta=removed.to(torch.float32),
+                              frontier=removed)
+        else:
+            values, delta, frontier = program.init_state(
+                rt.csr.n_nodes, source, rt.device)
+            state = HyTMState(values=values, delta=delta, frontier=frontier)
+    else:
+        state = initial_state
+        if state.values.device.type != rt.device.type:
+            raise ValueError(
+                f"initial_state lives on {state.values.device}, the runtime on "
+                f"{rt.device}")
+
+    rows: dict[str, list] = {k: [] for k in HISTORY_KEYS}
+    t0 = time.monotonic()
+    iters = 0
+    if config.sync_every > 1:
+        shapes = history_shapes(rt.parts.n_partitions)
+        history, cur_chunk = None, -1
+        while iters < config.max_iters:
+            chunk = min(config.sync_every, config.max_iters - iters)
+            if chunk != cur_chunk:
+                history = init_history_buffers(shapes, chunk, device=rt.device)
+                cur_chunk = chunk
+            state, history, n_done, last_active, _ = hytm_chunk(
+                state, history, rt, program, config, chunk)
+            iters += n_done
+            for k in rows:
+                # a copy: the buffers are reused by the next chunk
+                rows[k].append(history[k][:n_done].to("cpu", copy=True).numpy())
+            if int(last_active) == 0:
+                break
+        history = {k: np.concatenate(v) for k, v in rows.items()}
+    else:
+        for _ in range(config.max_iters):
+            state, info = hytm_iteration(state, rt, program, config)
+            iters += 1
+            for k in rows:
+                rows[k].append(info[k])
+            if int(info["next_active"]) == 0:
+                break
+        history = {k: torch.stack(v).cpu().numpy() for k, v in rows.items()}
+    values = state.values.cpu().numpy()
+    delta = state.delta.cpu().numpy()
+    wall = time.monotonic() - t0
+    return HyTMResult(
+        values=values,
+        delta=delta,
+        iterations=iters,
+        wall_seconds=wall,
+        modeled_seconds=float(np.sum(history[KEY_TRANSFER_TIME])),
+        total_transfer_bytes=float(np.sum(history[KEY_TRANSFER_BYTES])),
+        history=history,
+        total_mispredictions=int(np.sum(history[KEY_MISPREDICTIONS])),
+    )

@@ -1,0 +1,30 @@
+"""Plain PyTorch version of the segment-SpMM kernel."""
+
+from __future__ import annotations
+
+import torch
+
+
+def segment_spmm_ref(
+    messages: torch.Tensor,   # (m, d) float32
+    seg_ids: torch.Tensor,    # (m,) int32 destination ids
+    n_segments: int,
+    valid: torch.Tensor | None = None,  # (m,) bool
+    combine: str = "sum",
+) -> torch.Tensor:
+    """(n_segments, d): segments that receive nothing hold the identity
+    (+inf for min, 0 for sum); invalid lanes and ids outside
+    ``[0, n_segments)`` are dropped, as ``jax.ops.segment_*`` drops them."""
+    keep = (seg_ids >= 0) & (seg_ids < n_segments)
+    if valid is not None:
+        keep = keep & valid
+    idx = torch.where(keep, seg_ids, 0).long()
+    d = messages.shape[1]
+    if combine == "min":
+        msg = torch.where(keep[:, None], messages, float("inf"))
+        out = torch.full((n_segments, d), float("inf"), dtype=messages.dtype,
+                         device=messages.device)
+        return out.scatter_reduce_(0, idx[:, None].expand(-1, d), msg, "amin")
+    msg = torch.where(keep[:, None], messages, 0.0)
+    out = torch.zeros((n_segments, d), dtype=messages.dtype, device=messages.device)
+    return out.index_add_(0, idx, msg)
