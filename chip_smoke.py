@@ -12,7 +12,12 @@ Phases, in order; any failure exits nonzero and prints no result line:
    at the shapes of the main path plus edge cases, with its device time
    (CUDA-graph replay, median of 20), the time of one call from the host,
    the plain version's and one library call's time, and the least time the
-   card could take (bytes moved / 3.35 TB/s);
+   card could take (bytes moved / 3.35 TB/s, or for ``flash_attention`` the
+   larger of that and its flops at the type's peak).  ``flash_attention``
+   runs at gemma3-12b's prefill shapes (a local and a global layer: q (64,
+   2048, 256) bf16 over 8 kv heads) and at edge cases (S = 257, dh 128 in
+   float32 with one kv head per query head, window 1, non-causal with
+   S != L); its library yardstick is ``scaled_dot_product_attention``;
 3. the cost model on the card against the CPU, bit for bit, on the
    frontiers of the first SSSP iterations and on random frontiers;
 4. the main path at full size: ``run_hytm`` SSSP (K=8 and K=1), Δ-PageRank
@@ -23,7 +28,22 @@ Phases, in order; any failure exits nonzero and prints no result line:
    with its sum combine, each forced leg its own engine's kernel and no
    other), and the plain legs none;
 5. the oracle leg: SSSP and PageRank on the quickstart graph against the
-   numpy references.
+   numpy references;
+6. LM serving: the reduced gemma3-12b config on the card against the CPU
+   (float32, logits within 1e-4, greedy tokens equal), then gemma3-12b at
+   full width (11.8B parameters in bf16, random weights from the seed):
+   4 requests of 2048 prompt tokens, prefill plus 15 greedy decode steps
+   through ``repro_torch.launch.serve.generate``, once with
+   ``use_kernels="auto"`` and once with the plain attention, both on the
+   card.  Every launch count is set to 0 before each leg and read after
+   it (``generate`` also reads ``flash_attention``'s count between its
+   prefill and its decode): the kernel leg must launch ``flash_attention``
+   48 times in its prefill (one per layer) and none in its decode, the
+   plain leg none, and neither leg a graph kernel.  The two legs'
+   last-token logits must agree within a stated bf16 tolerance and their
+   first tokens wherever the top-2 margin exceeds it.  It prints prefill
+   seconds and tokens/s, decode ms/step and peak memory beside the least
+   times the card could take.
 
 ``profile_port.py`` times the same legs in turns and profiles them.
 
@@ -40,12 +60,16 @@ import json
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
+# H100 SXM dense peaks (NVIDIA's data sheet): bf16 tensor cores, float32 CUDA cores
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 REPS = 20
 SEED = 0
 T0 = time.monotonic()
@@ -260,6 +284,110 @@ def phase_kernels(torch, rt, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 2b: flash_attention against its plain version
+# ---------------------------------------------------------------------------
+
+# name: (B*H, S, L, dh, kv_groups, window, causal, dtype).  The first two are
+# gemma3-12b's prefill at 4 x 2048 tokens: 16 query heads over 8 kv heads,
+# dh 256, a local (window 1024) and a global layer; the rest are edge cases.
+FLASH_ROWS = {
+    "gemma3_local": (64, 2048, 2048, 256, 2, 1024, True, "bfloat16"),
+    "gemma3_global": (64, 2048, 2048, 256, 2, 0, True, "bfloat16"),
+    "s257": (8, 257, 257, 256, 2, 0, True, "bfloat16"),
+    "dh128_f32_kv1": (16, 1000, 1000, 128, 1, 64, True, "float32"),
+    "window1": (8, 300, 300, 64, 1, 1, True, "bfloat16"),
+    "noncausal_f32": (8, 200, 333, 64, 2, 0, False, "float32"),
+}
+
+
+def attention_pairs(S: int, L: int, window: int, causal: bool) -> int:
+    """The (query, key) pairs the masks keep."""
+    q = np.arange(S)
+    hi = np.minimum(L, q + 1) if causal else np.full(S, L)
+    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(S, dtype=np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_bound(bh, S, L, dh, g, window, causal, dtype) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, flops): 4*dh flops per kept pair at the
+    type's peak, against one read of q, k, v and one write of o."""
+    flops = 4.0 * dh * attention_pairs(S, L, window, causal) * bh
+    size = 2 if dtype == "bfloat16" else 4
+    n_bytes = size * dh * (2 * bh * S + 2 * (bh // g) * L)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, bound_ms(n_bytes)
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops
+
+
+def phase_flash(torch, dev, seed: int) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rows = {}
+    for name, (bh, S, L, dh, g, window, causal, dtype) in FLASH_ROWS.items():
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                   for shape in ((bh, S, dh), (bh // g, L, dh), (bh // g, L, dh)))
+        scale = 1.0 / dh ** 0.5
+
+        def kernel():
+            return flash_attention(q, k, v, scale, window, causal, g)
+
+        def plain():
+            return flash_attention_ref(q, k, v, scale, window, causal, g)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        # float32: the same sums in another order; bfloat16: one rounding of
+        # the output (2^-8 relative) on values of magnitude up to ~4
+        tol = 2e-5 if dtype == "float32" else 2e-2
+        err = float((got.float() - want.float()).abs().max())
+        check(bool(torch.isfinite(got).all()) and bool(
+            ((got.float() - want.float()).abs() <= tol + tol * want.float().abs()).all()),
+            f"flash_attention {name} differs from its plain version (max |err| {err:.3g})")
+        # the yardstick: SDPA over q, k, v as (B, H, S, dh), with k and v
+        # expanded to the query heads once, outside the timing (its fused
+        # backends take no GQA map with a mask)
+        q4 = q.view(bh // 16 if bh % 16 == 0 else 1, -1, S, dh)
+        k4, v4 = (t[:, None].expand(bh // g, g, L, dh).reshape(q4.shape[0], -1, L, dh)
+                  .contiguous() for t in (k, v))
+        qp, kp = torch.arange(S, device=dev)[:, None], torch.arange(L, device=dev)[None]
+        mask = (qp >= kp) if causal else torch.ones((S, L), dtype=torch.bool, device=dev)
+        if window > 0:
+            mask = mask & (qp - kp < window)
+
+        def library():
+            if causal and window == 0 and S == L:
+                return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True, scale=scale)
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale)
+
+        lib_err = float((library().reshape(bh, S, dh).float() - want.float()).abs().max())
+        big = S * L > 2**20
+        calls, reps = (3, 10) if big else (10, REPS)
+        bound, bound_by, flops = flash_bound(bh, S, L, dh, g, window, causal, dtype)
+        rows[name] = r = dict(
+            shape=f"q ({bh}, {S}, {dh}) {dtype}, L={L}, kv_groups={g}, window={window}, "
+                  f"causal={causal}",
+            max_abs_err=err, library_max_abs_err=lib_err,
+            ms=graph_ms(torch, kernel, calls, reps), call_ms=call_ms(torch, kernel, reps),
+            plain_ms=graph_ms(torch, plain, calls, reps),
+            library_ms=graph_ms(torch, library, calls, reps),
+            bound_ms=bound, bound_by=bound_by, gflop=flops / 1e9)
+        r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
+        log(f"kernel flash_attention {name}: {r['shape']} ms={r['ms']:.4f} "
+            f"call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({bound_by}, "
+            f"{r['gflop']:.1f} GFLOP, {r['tflops']:.2f} TFLOP/s) max_abs_err={err:.3g} "
+            f"(SDPA {lib_err:.3g})")
+        del q, k, v, q4, k4, v4, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: cost model, card against CPU
 # ---------------------------------------------------------------------------
 
@@ -350,20 +478,35 @@ def main_path_legs(cfg, source: int) -> dict:
     }
 
 
-def phase_main(torch, cfg, rt, source: int) -> dict:
-    from repro_torch.core.hytm import run_hytm
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port, by kernel name."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.frontier_compact.ops import frontier_compact
     from repro_torch.kernels.hyb_gather.ops import hyb_gather
     from repro_torch.kernels.segment_spmm.ops import segment_spmm
 
-    wrappers = {"segment_spmm": segment_spmm, "frontier_compact": frontier_compact,
-                "hyb_gather": hyb_gather}
+    return {"segment_spmm": segment_spmm, "frontier_compact": frontier_compact,
+            "hyb_gather": hyb_gather, "flash_attention": flash_attention}
+
+
+def reset_launch_counts() -> None:
+    for w in kernel_wrappers().values():
+        w.launches = 0
+
+
+def read_launch_counts() -> dict:
+    return {name: w.launches for name, w in kernel_wrappers().items()}
+
+
+def phase_main(torch, cfg, rt, source: int) -> dict:
+    from repro_torch.core.hytm import run_hytm
+
     runs, launches = {}, {}
     for leg, (prog, src, c) in main_path_legs(cfg, source).items():
-        for w in wrappers.values():
-            w.launches = 0
+        reset_launch_counts()
         runs[leg] = r = run_hytm(None, prog, src, c, runtime=rt)
-        launches[leg] = counts = {name: w.launches for name, w in wrappers.items()}
+        launches[leg] = counts = read_launch_counts()
+        check(counts["flash_attention"] == 0, f"{leg} launched flash_attention")
         log(f"{leg}: {r.iterations} iterations, wall {r.wall_seconds:.3f} s, modeled "
             f"{r.total_transfer_bytes / 2**20:.1f} MiB / {r.modeled_seconds * 1e3:.2f} ms; "
             f"launches {counts}")
@@ -425,6 +568,169 @@ def phase_oracle(torch, dev) -> None:
     check(err < 2e-2, "PageRank on the card too far from reference_pagerank")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: LM serving, gemma3-12b at full width
+# ---------------------------------------------------------------------------
+
+LM_ARCH, LM_REQUESTS, LM_PROMPT, LM_GEN = "gemma3-12b", 4, 2048, 16
+# bf16 tolerance between the two legs' last-token logits.  They differ in
+# where they round: the plain attention rounds its scores and probabilities
+# to bf16 (about 2^-9 relative each), the kernel keeps them in float32.  With
+# random weights the logits have a spread of about 1.2; a relative error of
+# order 1% through 48 layers moves each by a few hundredths.
+LM_ATOL = 0.25
+LM_REL_L2 = 3e-2
+
+
+def lm_bounds(cfg, n_params: int, cache_bytes: int) -> dict:
+    """The least time the card could take: prefill's flops at the bf16 peak,
+    a decode step's reads of every weight and the filled cache at 3.35 TB/s."""
+    tokens = LM_REQUESTS * LM_PROMPT
+    layer_params = (n_params - cfg.vocab * cfg.d_model) // cfg.n_layers
+    linear = 2.0 * layer_params * cfg.n_layers * tokens
+    attn = sum(4.0 * cfg.d_head * attention_pairs(LM_PROMPT, LM_PROMPT, w, True)
+               * LM_REQUESTS * cfg.n_heads for w in cfg.windows())
+    unembed = 2.0 * cfg.vocab * cfg.d_model * LM_REQUESTS
+    return {"prefill_linear_tflop": linear / 1e12, "prefill_attention_tflop": attn / 1e12,
+            "prefill_s": (linear + attn + unembed) / PEAK_FLOPS["bfloat16"],
+            "decode_ms": bound_ms(2 * n_params + cache_bytes)}
+
+
+def lm_host_syncs(torch, model, prompts) -> dict:
+    """Host syncs that a prefill (through the kernel) and one decode step
+    issue, counted by PyTorch's sync debug mode, by the port's source line
+    that issued them."""
+    from repro_torch.models.transformer import decode_step, init_cache, prefill
+
+    caches = init_cache(model.cfg, prompts.shape[0], prompts.shape[1] + 1, prompts.device)
+    sites = {}
+    for name, call in (("prefill", lambda: prefill(model, prompts, caches)),
+                       ("decode", lambda: decode_step(model, prompts[:, :1], caches,
+                                                      prompts.shape[1]))):
+        found = sites[name] = {}
+
+        def record(message, category, filename, lineno, file=None, line=None):
+            frames = [f for f in traceback.extract_stack() if "repro_torch" in f.filename]
+            where = (f"{frames[-1].filename.split('src/')[-1]}:{frames[-1].lineno}"
+                     if frames else f"{filename}:{lineno}")
+            found[where] = found.get(where, 0) + 1
+
+        torch.cuda.synchronize()
+        # catch_warnings puts warnings.showwarning back on exit
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+def phase_lm_small(torch, dev, seed: int) -> None:
+    """The reduced gemma3-12b config (float32) on the card against the same
+    weights on the CPU, whose path the CPU tests hold against the
+    reference: logits within 1e-4, greedy tokens identical."""
+    from repro_torch.launch.serve import generate, serve_config
+    from repro_torch.models.transformer import init_transformer
+
+    cfg = serve_config(LM_ARCH, reduced=True)
+    model = init_transformer(cfg, torch.Generator().manual_seed(seed), "cpu")
+    prompts = torch.randint(0, cfg.vocab, (LM_REQUESTS, 40),
+                            generator=torch.Generator().manual_seed(seed + 1))
+    cpu = generate(model, prompts, 8)
+    card = generate(model.to(dev), prompts.to(dev), 8)
+    err = float((card["prefill_logits"].cpu() - cpu["prefill_logits"]).abs().max())
+    check(card["launches"] == {"prefill": cfg.n_layers, "decode": 0},
+          f"reduced serving launched flash_attention {card['launches']}")
+    check(err <= 1e-4 and torch.equal(card["tokens"].cpu(), cpu["tokens"]),
+          f"reduced {LM_ARCH} on the card != on the CPU (max |err| {err:.3g})")
+    log(f"LM (reduced {LM_ARCH}, float32): card == CPU within {err:.2e}, 8 greedy tokens equal")
+
+
+def phase_lm(torch, dev, seed: int) -> dict:
+    """gemma3-12b at full width, random weights from ``seed``: 4 requests of
+    2048 prompt tokens, 16 generated, through ``launch.serve.generate``
+    with the kernel (``use_kernels="auto"``) and then with the plain
+    attention, both on the card."""
+    from repro_torch.launch.serve import generate, serve_config
+    from repro_torch.models.transformer import init_transformer
+
+    cfg = serve_config(LM_ARCH, reduced=False)
+    t = time.monotonic()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = init_transformer(cfg, gen, dev)
+    gen.manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab, (LM_REQUESTS, LM_PROMPT), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == 11_765_395_200, f"{LM_ARCH} has {n_params:,} parameters")
+    log(f"LM: {LM_ARCH} full width, {n_params:,} parameters in {cfg.param_dtype} "
+        f"({2 * n_params / 1e9:.1f} GB), {cfg.n_layers} layers (windows {cfg.windows()[:6]}...), "
+        f"initialised in {time.monotonic() - t:.1f} s")
+    generate(model, prompts[:, :64], 2)           # warm-up: cuBLAS, the kernel's library
+
+    legs = {}
+    for leg, use in (("kernel", "auto"), ("plain", False)):
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out = generate(model, prompts, LM_GEN, use_kernels=use)
+        counts = read_launch_counts()
+        out["total_launches"] = counts.pop("flash_attention")
+        check(not any(counts.values()), f"LM {leg} leg launched graph kernels: {counts}")
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        legs[leg] = out
+        log(f"LM {leg}: prefill {out['prefill_s']:.3f} s "
+            f"({LM_REQUESTS * LM_PROMPT / out['prefill_s']:.0f} tok/s), decode "
+            f"{out['decode_s_per_step'] * 1e3:.2f} ms/step, peak memory "
+            f"{out['peak_gb']:.1f} GB, flash_attention launches {out['launches']}")
+    k, p = legs["kernel"], legs["plain"]
+    check(k["launches"] == {"prefill": cfg.n_layers, "decode": 0}
+          and k["total_launches"] == cfg.n_layers,
+          f"kernel leg launched flash_attention {k['launches']}, expected one per layer")
+    check(p["total_launches"] == 0, "the plain leg launched flash_attention")
+
+    kl, pl = k["prefill_logits"].float(), p["prefill_logits"].float()
+    check(kl.shape == (LM_REQUESTS, cfg.vocab) and bool(torch.isfinite(kl).all())
+          and bool(torch.isfinite(pl).all()), "prefill logits not finite or misshapen")
+    for out in (k, p):
+        toks = out["tokens"]
+        check(toks.shape == (LM_REQUESTS, LM_GEN) and int(toks.min()) >= 0
+              and int(toks.max()) < cfg.vocab, "generated tokens out of range")
+    err = float((kl - pl).abs().max())
+    rel = float((kl - pl).norm() / pl.norm())
+    top2 = pl.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > LM_ATOL
+    first_equal = k["tokens"][:, 0] == p["tokens"][:, 0]
+    log(f"LM kernel vs plain: last-token logits max |err| {err:.4f} (tolerance {LM_ATOL}), "
+        f"relative L2 {rel:.2e} (tolerance {LM_REL_L2}), logit spread "
+        f"{float(pl.std()):.3f}; first token equal {first_equal.tolist()}, top-2 margin "
+        f"above tolerance {decided.tolist()}; generated tokens equal "
+        f"{int((k['tokens'] == p['tokens']).sum())}/{LM_REQUESTS * LM_GEN}")
+    check(err <= LM_ATOL and rel <= LM_REL_L2, "LM kernel leg vs plain leg out of tolerance")
+    check(bool(first_equal[decided].all()), "first generated token differs where decided")
+
+    syncs = lm_host_syncs(torch, model, prompts[:, :64])
+    log(f"LM host syncs (PyTorch's sync debug mode), by source line: prefill "
+        f"{syncs['prefill']}, one decode step {syncs['decode']}")
+    cache_bytes = 2 * cfg.n_layers * LM_REQUESTS * (LM_PROMPT + LM_GEN) * cfg.n_kv_heads \
+        * cfg.d_head * 2
+    bounds = lm_bounds(cfg, n_params, cache_bytes)
+    log(f"LM bounds: prefill >= {bounds['prefill_s']:.3f} s ({bounds['prefill_linear_tflop']:.1f} "
+        f"TFLOP linear + {bounds['prefill_attention_tflop']:.2f} TFLOP attention at 989 TF/s); "
+        f"decode >= {bounds['decode_ms']:.2f} ms/step (weights + cache at 3.35 TB/s)")
+    summary = {leg: {"prefill_s": o["prefill_s"],
+                     "prefill_tok_s": LM_REQUESTS * LM_PROMPT / o["prefill_s"],
+                     "decode_ms_per_step": o["decode_s_per_step"] * 1e3, "peak_gb": o["peak_gb"],
+                     "launches": o["launches"]} for leg, o in legs.items()}
+    summary.update(bounds=bounds, max_abs_err=err, rel_l2=rel, host_syncs=syncs)
+    del model, legs
+    torch.cuda.empty_cache()
+    return summary
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -442,6 +748,7 @@ def setup(torch, scale: int):
     from repro_torch.graph.hub_sort import hub_sort
     from repro_torch.kernels.runtime import build_dir, build_kernels
 
+    # float32 products in full float32 (TF32 off), stated for both routes
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t = time.monotonic()
@@ -480,10 +787,16 @@ def main() -> int:
 
     rt_cpu = build_runtime(hs.graph, cfg, n_hubs=hs.n_hubs, device="cpu")
     rows = phase_kernels(torch, rt, SEED)
+    flash_rows = phase_flash(torch, rt.device, SEED)
     phase_cost_model(torch, cfg, rt, rt_cpu, source, SEED)
     del rt_cpu
     launches = phase_main(torch, cfg, rt, source)
     phase_oracle(torch, rt.device)
+    dev = rt.device
+    del rt, hs
+    torch.cuda.empty_cache()
+    phase_lm_small(torch, dev, SEED)
+    lm = phase_lm(torch, dev, SEED)
 
     kernels = []
     for name in ALL_KERNELS:
@@ -501,6 +814,20 @@ def main() -> int:
     s = rows["segment_spmm_sum"]
     kernels[0]["sum_d2"] = {k: s[k] for k in ("ms", "call_ms", "plain_ms", "library_ms",
                                               "bound_ms", "max_abs_err")}
+    # the main row is gemma3-12b's local layer (40 of its 48); every row follows
+    f = flash_rows["gemma3_local"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:76",
+        "launches": sum(lm["kernel"]["launches"].values()),
+        "launches_by_leg": {"lm_prefill": lm["kernel"]["launches"]["prefill"],
+                            "lm_decode": lm["kernel"]["launches"]["decode"],
+                            "lm_plain": sum(lm["plain"]["launches"].values())},
+        **{key: f[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "shape", "call_ms")},
+        "rows": flash_rows, "lm_serving": lm,
+    })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

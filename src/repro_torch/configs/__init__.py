@@ -1,0 +1,39 @@
+"""Architecture registry of the port: ``--arch <id>`` -> the model's
+``TransformerConfig``.
+
+The dense LM configurations are ported; the other families of the
+reference's registry raise ``NotImplementedError`` naming the ROADMAP item
+that brings them.  The reference's ``ArchSpec`` and its mesh cells come
+with the dry-run and multi-device items.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+ARCHS = {
+    "internlm2-1.8b": "repro_torch.configs.internlm2_1p8b",
+    "granite-20b": "repro_torch.configs.granite_20b",
+    "gemma3-12b": "repro_torch.configs.gemma3_12b",
+}
+
+NOT_PORTED = {
+    "kimi-k2-1t-a32b": "item 15: MoE serving",
+    "deepseek-v2-lite-16b": "item 15: MoE serving (with MLA)",
+    "graphsage-reddit": "item 16: GNN side",
+    "pna": "item 16: GNN side",
+    "gatedgcn": "item 16: GNN side",
+    "meshgraphnet": "item 16: GNN side",
+    "dlrm-mlperf": "item 14: DLRM serving",
+    "hytgraph": "item 12: benchmark twins",
+}
+
+
+def get_arch(name: str):
+    """The ``TransformerConfig`` of the LM architecture ``name``."""
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet (ROADMAP queue 1, {NOT_PORTED[name]})")
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS) + sorted(NOT_PORTED)}")
+    return importlib.import_module(ARCHS[name]).CONFIG

@@ -1,0 +1,27 @@
+"""Config helpers shared by the architectures (port of the LM part of
+``repro.configs.common``)."""
+
+from __future__ import annotations
+
+from repro_torch.models.transformer import TransformerConfig
+
+
+def reduce_lm_config(cfg: TransformerConfig) -> TransformerConfig:
+    """Reduced smoke config: shrink dims, keep the family's structure
+    (MQA, windows) — used by the CPU tests and ``launch/serve.py
+    --reduced``.  The reference's MLA and MoE branches come with them."""
+    kw = dict(
+        n_layers=min(cfg.n_layers, 3 if cfg.moe else 4),
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads > 1 else 1,
+        d_head=16,
+        d_ff=128,
+        vocab=211,
+        dtype="float32",
+        param_dtype="float32",
+        d_ff_dense=128 if cfg.d_ff_dense else 0,
+    )
+    if cfg.window_pattern != (0,):
+        kw["window_pattern"] = (4, 4, 0)
+    return cfg.replace(**kw)

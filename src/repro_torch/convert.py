@@ -2,7 +2,8 @@
 
 The reference's arrays come in as numpy (``np.asarray`` of a jax array)
 and leave as numpy, so this module imports neither jax nor ``repro``.  The
-tests use it to feed both packages the same graph and warm state.
+tests use it to feed both packages the same graph and warm state, and the
+same LM weights.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from repro_torch.core.hytm import HyTMResult, HyTMState
 from repro_torch.core.partition import DevicePartitions
 from repro_torch.graph.csr import CSRGraph, DeviceCSR
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.models.transformer import Transformer, TransformerConfig
 
 
 def _up(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -85,3 +87,47 @@ def result_to_numpy(res: HyTMResult) -> dict:
     out = asdict(res)
     out["history"] = {k: np.asarray(v) for k, v in res.history.items()}
     return out
+
+
+@torch.no_grad()
+def transformer_params(np_tree: dict, cfg: TransformerConfig,
+                       device: str | torch.device | None = None,
+                       dtype: torch.dtype | None = None) -> Transformer:
+    """A ``Transformer`` holding the reference's parameter tree (numpy
+    arrays: ``embed``, ``final_norm``, optional ``unembed``, and ``layers``
+    stacked on axis 0 by the reference's scan over layers).  The weights
+    are cast to ``dtype`` (default ``cfg.param_dtype``)."""
+    dev = resolve_device(device)
+    if dtype is not None:
+        cfg = cfg.replace(param_dtype=str(dtype).removeprefix("torch."))
+    if np_tree.get("prefix"):
+        raise NotImplementedError("a dense-layer prefix comes with MoE (ROADMAP queue 1, "
+                                  "item 15: MoE serving)")
+    model = Transformer(cfg, dev)
+
+    def put(param: torch.Tensor, a) -> None:
+        a = np.asarray(a)
+        if a.shape != tuple(param.shape):
+            raise ValueError(f"transformer_params: shape {a.shape}, expected "
+                             f"{tuple(param.shape)}")
+        param.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
+
+    put(model.embed, np_tree["embed"])
+    put(model.final_norm, np_tree["final_norm"])
+    if not cfg.tie_embeddings:
+        put(model.unembed, np_tree["unembed"])
+    stacked = np_tree["layers"]
+    n = np.asarray(stacked["ln1"]).shape[0]
+    if n != cfg.n_layers:
+        raise ValueError(f"transformer_params: {n} stacked layers, config has {cfg.n_layers}")
+    for i, layer in enumerate(model.layers):
+        put(layer.ln1, stacked["ln1"][i])
+        put(layer.ln2, stacked["ln2"][i])
+        for group in ("attn", "ffn"):
+            params = getattr(layer, group)
+            if set(params) != set(stacked[group]):
+                raise ValueError(f"transformer_params: {group} holds {sorted(stacked[group])}, "
+                                 f"expected {sorted(params)}")
+            for name, param in params.items():
+                put(param, stacked[group][name][i])
+    return model

@@ -1,0 +1,60 @@
+"""Shared building blocks of the LM slice: RMS norm, RoPE, SwiGLU and the
+initializers (port of ``repro.models.common``).
+
+The arithmetic follows the reference where the two could part: the norm
+runs in float32 and scales by ``1 + scale``; RoPE rotates interleaved
+(even, odd) pairs by float32 angles of the integer positions.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(dtype)
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(d_in, d_out) normal weights with std 1/sqrt(d_in), drawn in float32
+    on the generator's device, then cast."""
+    w = torch.randn((d_in, d_out), generator=generator, device=generator.device,
+                    dtype=torch.float32)
+    return w.mul_(1.0 / d_in ** 0.5).to(dtype)
+
+
+def embed_init(generator: torch.Generator, vocab: int, d: int,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=generator, device=generator.device,
+                    dtype=torch.float32)
+    return w.mul_(0.02).to(dtype)
+
+
+def rope_frequencies(d_head: int, theta: float = 10_000.0,
+                     device: torch.device | None = None) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32, device=device) / d_head
+    # a Python-scalar base: a tensor made from theta would be a host-to-device
+    # copy, which waits for the card, twice per layer
+    return 1.0 / torch.pow(theta, exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """x: (..., S, H, Dh); positions: (..., S).  Rotates pairs (even, odd)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)              # (Dh/2,)
+    angles = positions[..., :, None, None].float() * freqs             # (..., S, 1, Dh/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    out1 = x1 * cos - x2 * sin
+    out2 = x2 * cos + x1 * sin
+    return torch.stack([out1, out2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate) * up

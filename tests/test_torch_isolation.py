@@ -65,18 +65,27 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.graph.algorithms import SSSP, init_state
     from repro_torch.graph.csr import to_device_csr
     from repro_torch.graph.generators import uniform_graph
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import reduce_lm_config
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_cache, init_transformer
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry points run on it")
     g = uniform_graph(40, 200, seed=0)
+    lm = reduce_lm_config(get_arch("gemma3-12b"))
     for call in (lambda: run_hytm(g, SSSP),
                  lambda: build_runtime(g, HyTMConfig()),
                  lambda: to_device_csr(g),
-                 lambda: init_state(SSSP, 40, 0)):
+                 lambda: init_state(SSSP, 40, 0),
+                 lambda: init_transformer(lm, torch.Generator()),
+                 lambda: init_cache(lm, 1, 8),
+                 lambda: serve.main(["--arch", "gemma3-12b", "--reduced"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # an explicit CPU request runs
     assert run_hytm(g, SSSP, device="cpu").iterations >= 1
+    assert init_transformer(lm, torch.Generator(), device="cpu").embed.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_the_program_or_a_card(tmp_path):

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain versions on the card.  These tests
 import neither jax nor the reference, so they run on the machine with the
 card; without one they skip.  Min, compaction and gather are exact; the sum
-is float32 atomics in another order, ``rtol=atol=1e-4``."""
+is float32 atomics in another order, ``rtol=atol=1e-4``.  Attention sums
+in another order than its dense plain version: float32 within ``2e-5``,
+bfloat16 within ``2e-2`` (one rounding of the output)."""
 
 import importlib
 
@@ -10,6 +12,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import runtime
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.frontier_compact.ops import frontier_compact
 from repro_torch.kernels.frontier_compact.ref import frontier_compact_ref
 from repro_torch.kernels.hyb_gather.ops import hyb_gather
@@ -87,6 +91,35 @@ def test_hyb_gather_kernel_vs_plain_on_card():
 @pytest.mark.cuda
 def test_kernel_libraries_load():
     _cuda()
-    for stem in ("segment_spmm", "frontier_compact", "hyb_gather"):
+    for stem in ("segment_spmm", "frontier_compact", "hyb_gather", "flash_attention"):
         ops = importlib.import_module(f"repro_torch.kernels.{stem}.ops")
         assert runtime.load_kernel(stem, f"{stem}_launch", ops._ARGTYPES) is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,L,dh,window,causal,kv_groups", [
+    (2048, 2048, 256, 1024, True, 2), (257, 257, 256, 0, True, 2), (300, 300, 128, 64, True, 1),
+    (200, 200, 64, 1, True, 1), (90, 333, 32, 0, False, 2), (70, 70, 16, 5, True, 4),
+    (1, 1, 256, 0, True, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_vs_plain_on_card(S, L, dh, window, causal, kv_groups, dtype):
+    dev = _cuda()
+    rng = np.random.default_rng(S + dh)
+    bh = 4 * kv_groups
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+               for shape in ((bh, S, dh), (bh // kv_groups, L, dh), (bh // kv_groups, L, dh)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, window=window, causal=causal, kv_groups=kv_groups)
+    assert flash_attention.launches == before + 1
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, 1.0 / dh**0.5, window, causal, kv_groups)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_rejects_strided_inputs():
+    dev = _cuda()
+    q = torch.zeros(4, 16, 64, device=dev).transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, q, q)
