@@ -43,7 +43,28 @@ Phases, in order; any failure exits nonzero and prints no result line:
    last-token logits must agree within a stated bf16 tolerance and their
    first tokens wherever the top-2 margin exceeds it.  It prints prefill
    seconds and tokens/s, decode ms/step and peak memory beside the least
-   times the card could take.
+   times the card could take;
+7. ``embedding_bag`` against its plain version (right after phase 2's
+   rows): the bulk serving cell's field shape (a 2^22 x 128 float32 table,
+   B = 262,144, L = 1, sum; its library yardstick is
+   ``F.embedding_bag``), multi-hot bags of L = 100 by sum, mean and max, a
+   bfloat16 table, int64 ids, D = 13, B = 0 and ids that wrap or fall out
+   of range (NaN bags);
+8. DLRM serving, after gemma3-12b is freed: the reduced dlrm-mlperf config
+   on the card against the CPU (logits within 1e-4), then dlrm-mlperf at
+   full width with every table capped at 25M rows (129,066,304 rows, 66.1
+   GB of float32 tables, random from the seed; the 64-bit row offsets are
+   checked on a capped table's last rows).  Its serving cells serve_p99
+   (B = 512) and serve_bulk (B = 262,144) run through
+   ``repro_torch.launch.serve.serve_dlrm`` in four legs: the kernel leg
+   (``use_kernels="auto"``, the reference's engine picks: 18
+   ``embedding_bag`` launches a forward in both cells), the plain leg, and
+   both again with every table forced to the gather engine (26 launches a
+   forward).  Kernel logits must equal plain logits bit for bit.
+   retrieval_cand (one query against 1M candidates, top 100) is checked
+   against a plain recomputation.  It prints ms per batch (median of 10
+   after a warm-up), samples/s and peak memory beside the least time the
+   card could take.
 
 ``profile_port.py`` times the same legs in turns and profiles them.
 
@@ -388,6 +409,126 @@ def phase_flash(torch, dev, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: embedding_bag against its plain version
+# ---------------------------------------------------------------------------
+
+EB_ROWS_LOG2, EB_DIM, EB_BULK = 22, 128, 262_144
+
+
+def bag_bytes(B: int, L: int, D: int, esize: int, id_size: int = 4) -> int:
+    """Each looked-up row read once, each bag written once, the ids read once."""
+    return B * L * D * esize + B * D * esize + B * L * id_size
+
+
+def bag_err(torch, name: str, got, want, rtol: float = 0.0, atol: float = 0.0) -> float:
+    """Check the kernel's bags against the plain version's: NaN in the same
+    places, the rest within ``atol + rtol * |want|`` (exact when both are
+    0); returns the largest |difference|."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"embedding_bag {name}: {tuple(got.shape)} {got.dtype} against "
+          f"{tuple(want.shape)} {want.dtype}")
+    nan = torch.isnan(want)
+    check(torch.equal(torch.isnan(got), nan), f"embedding_bag {name}: NaN bags differ")
+    diff = (got.float() - want.float()).abs().nan_to_num(0.0)
+    ok = bool((diff <= atol + rtol * want.float().abs().nan_to_num(0.0)).all())
+    err = float(diff.max()) if diff.numel() else 0.0
+    check(ok, f"embedding_bag {name} differs from its plain version (max |err| {err:.3g})")
+    return err
+
+
+def phase_embedding_bag(torch, dev, seed: int) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    V, D = 2**EB_ROWS_LOG2, EB_DIM
+    table = torch.randn((V, D), generator=gen, device=dev).div_(D ** 0.5)
+    rows = {}
+
+    def timed(name, t, ids, mode, err, shape):
+        B, L = ids.shape
+        r = rows[name] = dict(
+            shape=shape, max_abs_err=err,
+            ms=graph_ms(torch, lambda: embedding_bag(t, ids, mode)),
+            call_ms=call_ms(torch, lambda: embedding_bag(t, ids, mode)),
+            plain_ms=graph_ms(torch, lambda: embedding_bag_ref(t, ids, mode)),
+            # one PyTorch call of the same function on in-range ids
+            library_ms=graph_ms(torch, lambda: F.embedding_bag(ids, t, mode=mode)),
+            bound_ms=bound_ms(bag_bytes(B, L, D, t.element_size(), ids.element_size())),
+            bound_by="bytes")
+        log(f"kernel embedding_bag {name}: {shape} ms={r['ms']:.4f} call_ms={r['call_ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f} (F.embedding_bag) bound_ms={r['bound_ms']:.4f} "
+            f"(bytes) max_abs_err={err:.3g}")
+
+    # -- the bulk cell's field: B = 262,144 one-hot bags of a 2^22-row table,
+    # 2.1 GB, far beyond the 50 MB L2; a bag of one row is copied exactly
+    ids = torch.randint(0, V, (EB_BULK, 1), generator=gen, device=dev, dtype=torch.int32)
+    before = embedding_bag.launches
+    got = embedding_bag(table, ids, "sum")
+    check(embedding_bag.launches == before + 1, "embedding_bag did not launch")
+    torch.cuda.synchronize()
+    err = bag_err(torch, "bulk", got, embedding_bag_ref(table, ids, "sum"))
+    check(torch.equal(got, table[ids[:, 0].long()]), "embedding_bag bulk: not the table's rows")
+    timed("bulk", table, ids, "sum", err,
+          f"sum V=2^{EB_ROWS_LOG2} D={D} float32, B={EB_BULK} L=1 int32")
+    ids64 = ids.long()
+    bag_err(torch, "bulk_int64", embedding_bag(table, ids64, "sum"),
+            embedding_bag_ref(table, ids64, "sum"))
+
+    # -- multi-hot: L = 100 (the largest multi-hot size of MLPerf's
+    # DLRM-DCNv2 Criteo setup).  Sums and means add 100 float32 rows in
+    # another order than the plain version: rtol 1e-5 and 1e-6 per row
+    # added; max is exact
+    multi = torch.randint(0, V, (16_384, 100), generator=gen, device=dev, dtype=torch.int32)
+    for mode in ("sum", "mean", "max"):
+        tol = (0.0, 0.0) if mode == "max" else (1e-5, 1e-4)
+        err = bag_err(torch, f"L100_{mode}", embedding_bag(table, multi, mode),
+                      embedding_bag_ref(table, multi, mode), *tol)
+        timed(f"L100_{mode}", table, multi, mode, err,
+              f"{mode} V=2^{EB_ROWS_LOG2} D={D} float32, B=16384 L=100 int32")
+
+    # -- bfloat16: both accumulate in float32 and round once; one row is
+    # exact, a mean of 100 may sit one bfloat16 step (2^-8 relative) apart
+    half = table.to(torch.bfloat16)
+    err = bag_err(torch, "bf16_bulk", embedding_bag(half, ids, "sum"),
+                  embedding_bag_ref(half, ids, "sum"))
+    timed("bf16_bulk", half, ids, "sum", err,
+          f"sum V=2^{EB_ROWS_LOG2} D={D} bfloat16, B={EB_BULK} L=1 int32")
+    bag_err(torch, "bf16_L100_mean", embedding_bag(half, multi, "mean"),
+            embedding_bag_ref(half, multi, "mean"), 2**-7, 1e-6)
+    del half, multi
+
+    # -- D = 13 (scalar loads), B = 0, wrapped and out-of-range ids
+    small = torch.randn((100_000, 13), generator=gen, device=dev)
+    odd = torch.randint(0, 100_000, (65_536, 4), generator=gen, device=dev, dtype=torch.int32)
+    bag_err(torch, "d13_sum", embedding_bag(small, odd, "sum"),
+            embedding_bag_ref(small, odd, "sum"), 1e-6, 4e-6)
+    bag_err(torch, "d13_max", embedding_bag(small, odd.long(), "max"),
+            embedding_bag_ref(small, odd.long(), "max"))
+    before = embedding_bag.launches
+    empty = embedding_bag(table, ids[:0], "sum")
+    check(empty.shape == (0, D) and embedding_bag.launches == before,
+          "embedding_bag B=0: shape or launch")
+    wild = torch.randint(-2 * 1000, 2 * 1000, (4096, 3), generator=gen, device=dev,
+                         dtype=torch.int32)
+    for mode in ("sum", "max"):
+        tol = (0.0, 0.0) if mode == "max" else (1e-6, 3e-6)
+        got = embedding_bag(table[:1000], wild, mode)
+        bag_err(torch, f"wrap_{mode}", got, embedding_bag_ref(table[:1000], wild, mode), *tol)
+        check(0 < int(torch.isnan(got[:, 0]).sum()) < 4096, f"embedding_bag wrap_{mode}: "
+              "expected some NaN bags and some finite ones")
+    log("kernel embedding_bag edge rows: int64 ids, bfloat16 mean of 100, D=13 sum and max, "
+        "B=0, wrapped and out-of-range ids (NaN bags in the same places): all held")
+    del table, small
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: cost model, card against CPU
 # ---------------------------------------------------------------------------
 
@@ -480,13 +621,15 @@ def main_path_legs(cfg, source: int) -> dict:
 
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port, by kernel name."""
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.frontier_compact.ops import frontier_compact
     from repro_torch.kernels.hyb_gather.ops import hyb_gather
     from repro_torch.kernels.segment_spmm.ops import segment_spmm
 
     return {"segment_spmm": segment_spmm, "frontier_compact": frontier_compact,
-            "hyb_gather": hyb_gather, "flash_attention": flash_attention}
+            "hyb_gather": hyb_gather, "flash_attention": flash_attention,
+            "embedding_bag": embedding_bag}
 
 
 def reset_launch_counts() -> None:
@@ -498,6 +641,10 @@ def read_launch_counts() -> dict:
     return {name: w.launches for name, w in kernel_wrappers().items()}
 
 
+def counts_zero() -> dict:
+    return {name: 0 for name in kernel_wrappers()}
+
+
 def phase_main(torch, cfg, rt, source: int) -> dict:
     from repro_torch.core.hytm import run_hytm
 
@@ -506,7 +653,8 @@ def phase_main(torch, cfg, rt, source: int) -> dict:
         reset_launch_counts()
         runs[leg] = r = run_hytm(None, prog, src, c, runtime=rt)
         launches[leg] = counts = read_launch_counts()
-        check(counts["flash_attention"] == 0, f"{leg} launched flash_attention")
+        check(counts["flash_attention"] == 0 and counts["embedding_bag"] == 0,
+              f"{leg} launched flash_attention or embedding_bag")
         log(f"{leg}: {r.iterations} iterations, wall {r.wall_seconds:.3f} s, modeled "
             f"{r.total_transfer_bytes / 2**20:.1f} MiB / {r.modeled_seconds * 1e3:.2f} ms; "
             f"launches {counts}")
@@ -731,6 +879,197 @@ def phase_lm(torch, dev, seed: int) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: DLRM serving, dlrm-mlperf at full width with the one-card row cap
+# ---------------------------------------------------------------------------
+
+DLRM_BATCHES = 10
+# working memory of a serve_bulk forward beside the tables: the 26 bags and
+# the stacked (B, 27, 128) features (7.2 GB together), the interaction, the
+# 1024-wide top activations and the traffic of 11 batches
+DLRM_WORK_BYTES = 10e9
+# the legs: name -> (use_kernels, table engine, embedding_bag launches a
+# forward by cell); the engine picks of the reference's cost model give 18
+# gather tables at B = 512 and 8 gather + 10 dedup at B = 262,144
+DLRM_LEGS = {
+    "kernel": ("auto", "auto", {"serve_p99": 18, "serve_bulk": 18}),
+    "plain": (False, "auto", {"serve_p99": 0, "serve_bulk": 0}),
+    "all_gather": ("auto", "gather", {"serve_p99": 26, "serve_bulk": 26}),
+    "plain_all_gather": (False, "gather", {"serve_p99": 0, "serve_bulk": 0}),
+}
+
+
+def dlrm_flops(cfg) -> float:
+    """Flops of one sample's forward, as the reference's cell counts them:
+    the two towers, the bag reduce and the interaction."""
+    dims = [cfg.n_dense, *cfg.bot_mlp]
+    f = sum(2 * dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+    f += cfg.n_sparse * cfg.multi_hot * cfg.embed_dim
+    nf = cfg.n_sparse + 1
+    f += 2 * nf * nf * cfg.embed_dim
+    dims = [cfg.embed_dim + cfg.n_interact_features, *cfg.top_mlp]
+    return f + sum(2 * dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+
+
+def dlrm_bound(cfg, batch: int) -> dict:
+    """The least time the card could take for one forward: its flops at the
+    float32 peak (the MLPs run in float32, TF32 off) against one read of
+    the looked-up rows, the ids and the dense features at 3.35 TB/s."""
+    flops = dlrm_flops(cfg) * batch
+    n_bytes = batch * (cfg.n_sparse * cfg.embed_dim * 4 + cfg.n_sparse * 4 + cfg.n_dense * 4)
+    t_ops, t_bytes = flops / PEAK_FLOPS["float32"] * 1e3, bound_ms(n_bytes)
+    return {"tflop": flops / 1e12, "gb": n_bytes / 1e9, "ops_ms": t_ops, "bytes_ms": t_bytes,
+            "ms": max(t_ops, t_bytes), "by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def phase_dlrm_small(torch, dev, seed: int) -> None:
+    """The reduced dlrm-mlperf config (float32) on the card against the same
+    weights and traffic on the CPU, whose path the CPU tests hold against
+    the reference, for the reference's engine picks (all one-hot here) and
+    forced gather and dedup: logits within 1e-4 (float32 products summed in
+    another order)."""
+    from repro_torch.launch.serve import dlrm_serve_config, dlrm_traffic
+    from repro_torch.models.dlrm import dlrm_forward, init_dlrm
+
+    cfg = dlrm_serve_config(reduced=True)
+    model = init_dlrm(cfg, torch.Generator().manual_seed(seed), "cpu")
+    dense, sparse = dlrm_traffic(cfg, 512, torch.Generator().manual_seed(seed + 1))
+    engines = {"auto": 0, "gather": cfg.n_sparse, "dedup": cfg.n_sparse}
+    cpu = {e: dlrm_forward(model, dense, sparse, cfg.replace(table_engine=e)) for e in engines}
+    model.to(dev)
+    errs = {}
+    for engine, want_launches in engines.items():
+        reset_launch_counts()
+        card = dlrm_forward(model, dense.to(dev), sparse.to(dev), cfg.replace(table_engine=engine))
+        counts = read_launch_counts()
+        check(counts == {**counts_zero(), "embedding_bag": want_launches},
+              f"reduced DLRM ({engine}) launched {counts}")
+        errs[engine] = err = float((card.cpu() - cpu[engine]).abs().max())
+        check(card.shape == (512,) and err <= 1e-4,
+              f"reduced DLRM ({engine}) on the card != on the CPU (max |err| {err:.3g})")
+    log(f"DLRM (reduced dlrm-mlperf, float32): card == CPU within {errs} for 512 samples")
+
+
+def phase_dlrm(torch, dev, seed: int, smi: str) -> dict:
+    """dlrm-mlperf at full width, every table capped at 25M rows, random
+    weights from ``seed``: the serving cells through
+    ``launch.serve.serve_dlrm`` in the four legs of ``DLRM_LEGS``, then
+    retrieval_cand."""
+    from repro_torch.configs.dlrm_mlperf import CELLS, ONE_CARD_MAX_ROWS
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.launch.serve import dlrm_serve_config, serve_dlrm
+    from repro_torch.models.common import mlp_apply
+    from repro_torch.models.dlrm import init_dlrm
+
+    phase_dlrm_small(torch, dev, seed)
+    cfg = dlrm_serve_config(reduced=False)
+    n_rows = sum(cfg.vocab_sizes)
+    table_bytes = n_rows * cfg.embed_dim * 4
+    free, total = torch.cuda.mem_get_info()
+    log(f"DLRM: card memory free {free / 1e9:.2f} of {total / 1e9:.2f} GB; the tables need "
+        f"{table_bytes / 1e9:.2f} GB and a serve_bulk forward about {DLRM_WORK_BYTES / 1e9:.0f} "
+        f"GB more")
+    check(free >= table_bytes + DLRM_WORK_BYTES, "not enough free card memory for dlrm-mlperf")
+    t = time.monotonic()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = init_dlrm(cfg, gen, dev)
+    torch.cuda.synchronize()
+    table_params = sum(t_.numel() for t_ in model.tables)
+    mlp_params = sum(p.numel() for p in model.parameters()) - table_params
+    check(n_rows == 129_066_304 and table_params == 16_520_486_912,
+          f"dlrm-mlperf capped: {n_rows:,} rows, {table_params:,} table parameters")
+    check(max(cfg.vocab_sizes) == ONE_CARD_MAX_ROWS, "the row cap is not applied")
+    log(f"DLRM: dlrm-mlperf full width, {n_rows:,} table rows (capped at {ONE_CARD_MAX_ROWS:,} "
+        f"a table), {table_params:,} table + {mlp_params:,} MLP parameters in float32 "
+        f"({4 * (table_params + mlp_params) / 1e9:.2f} GB), initialised in "
+        f"{time.monotonic() - t:.1f} s")
+
+    # 64-bit row offsets: a capped table's last rows (id * 128 > 2^31 from
+    # row 16,777,216), one-hot and in a bag of three with a wrapped id
+    big = model.tables[0]
+    V = big.shape[0]
+    check(V == ONE_CARD_MAX_ROWS, f"table 0 has {V:,} rows")
+    for ids in ([[V - 1], [V - 2], [2**24], [2**24 - 1], [-1], [0]],
+                [[V - 1, V - 3, -2], [2**24, V - 1, 5]]):
+        ids = torch.tensor(ids, dtype=torch.int32, device=dev)
+        got = embedding_bag(big, ids, "sum")
+        bag_err(torch, "rows_past_2^31", got, embedding_bag_ref(big, ids, "sum"), 1e-6, 3e-6)
+    last = embedding_bag(big, torch.tensor([[V - 1]], dtype=torch.int64, device=dev), "sum")
+    check(torch.equal(last[0], big[V - 1]), "embedding_bag: table 0's last row not read exactly")
+    log(f"DLRM: embedding_bag reads rows past 2^31 elements of a {V:,}-row table exactly")
+
+    cells = {}
+    for cell in ("serve_p99", "serve_bulk"):
+        batch = CELLS[cell]["batch"]
+        bound = dlrm_bound(cfg, batch)
+        legs = {}
+        for leg, (use, engine, per_forward) in DLRM_LEGS.items():
+            reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            out = serve_dlrm(model, cell, DLRM_BATCHES, use_kernels=use,
+                             cfg=cfg.replace(table_engine=engine), seed=seed + 1)
+            counts = read_launch_counts()
+            n = per_forward[cell]
+            check(out["launches_first"] == n and out["launches"] == n * (DLRM_BATCHES + 1)
+                  and counts == {**counts_zero(), "embedding_bag": out["launches"]},
+                  f"DLRM {cell} {leg}: launches {counts}, {out['launches_first']} in the first "
+                  f"forward (expected {n} a forward)")
+            logits = out["output"]
+            check(logits.shape == (batch,) and bool(torch.isfinite(logits).all()),
+                  f"DLRM {cell} {leg}: logits not finite or misshapen")
+            legs[leg] = r = {"ms_per_batch": out["ms_per_batch"],
+                             "samples_per_s": out["samples_per_s"],
+                             "batch_ms": out["batch_ms"],
+                             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                             "launches_per_forward": n, "launches": out["launches"],
+                             "logits": logits}
+            log(f"DLRM {cell} (B={batch}) {leg}: {r['ms_per_batch']:.3f} ms/batch (median of "
+                f"{DLRM_BATCHES}), {r['samples_per_s']:.0f} samples/s, peak memory "
+                f"{r['peak_gb']:.2f} GB, embedding_bag launches {n} a forward "
+                f"({out['launches']} in the leg) [{smi}]")
+        for a, b in (("kernel", "plain"), ("all_gather", "plain_all_gather")):
+            check(torch.equal(legs[a]["logits"], legs[b]["logits"]),
+                  f"DLRM {cell}: {a} logits != {b} logits")
+        same = torch.equal(legs["kernel"]["logits"], legs["all_gather"]["logits"])
+        log(f"DLRM {cell}: kernel == plain and all_gather == plain_all_gather bit for bit; "
+            f"engine picks == all gather bit for bit: {same}; logit spread "
+            f"{float(legs['kernel']['logits'].std()):.4f}; bound {bound['ms']:.4f} ms "
+            f"({bound['tflop']:.4f} TFLOP at 67 TF/s: {bound['ops_ms']:.4f} ms; "
+            f"{bound['gb']:.3f} GB of rows, ids and features at 3.35 TB/s: "
+            f"{bound['bytes_ms']:.4f} ms)")
+        for r in legs.values():
+            del r["logits"]
+        cells[cell] = {"batch": batch, "legs": legs, "bound": bound,
+                       "picks_equal_all_gather": same}
+
+    spec = CELLS["retrieval_cand"]
+    reset_launch_counts()
+    out = serve_dlrm(model, "retrieval_cand", DLRM_BATCHES, seed=seed + 2)
+    check(read_launch_counts() == counts_zero(), "retrieval_cand launched a kernel")
+    scores, ids = out["output"]
+    query, cands = out["first_input"], out["candidates"]
+    with torch.inference_mode():
+        full = mlp_apply(model.bot, query, act=torch.relu, final_act=torch.relu) @ cands.T
+    plain = torch.sort(full, dim=-1, descending=True, stable=True)
+    k = spec["top_k"]
+    check(scores.shape == (1, k) and bool((scores[:, :-1] >= scores[:, 1:]).all()),
+          "retrieval_cand: scores not sorted or misshapen")
+    check(torch.equal(ids, plain.indices[:, :k]) and torch.equal(scores, plain.values[:, :k]),
+          "retrieval_cand: top ids differ from a plain recomputation")
+    r_bound = bound_ms(spec["n_candidates"] * cfg.embed_dim * 4)
+    log(f"DLRM retrieval_cand: 1 query x {spec['n_candidates']:,} candidates, top {k}: "
+        f"{out['ms_per_batch']:.3f} ms/query (median of {DLRM_BATCHES}); ids and scores == a "
+        f"full sort; bound {r_bound:.4f} ms (candidates read once at 3.35 TB/s) [{smi}]")
+    cells["retrieval_cand"] = {"ms_per_query": out["ms_per_batch"], "bound_ms": r_bound,
+                               "batch_ms": out["batch_ms"]}
+    del model, big, out, cands, full, plain
+    torch.cuda.empty_cache()
+    return {"rows": n_rows, "table_params": table_params, "mlp_params": mlp_params,
+            "table_gb": table_bytes / 1e9, "cells": cells, "card": smi}
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -788,6 +1127,7 @@ def main() -> int:
     rt_cpu = build_runtime(hs.graph, cfg, n_hubs=hs.n_hubs, device="cpu")
     rows = phase_kernels(torch, rt, SEED)
     flash_rows = phase_flash(torch, rt.device, SEED)
+    bag_rows = phase_embedding_bag(torch, rt.device, SEED)
     phase_cost_model(torch, cfg, rt, rt_cpu, source, SEED)
     del rt_cpu
     launches = phase_main(torch, cfg, rt, source)
@@ -797,6 +1137,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_lm_small(torch, dev, SEED)
     lm = phase_lm(torch, dev, SEED)
+    dlrm = phase_dlrm(torch, dev, SEED, smi)
 
     kernels = []
     for name in ALL_KERNELS:
@@ -827,6 +1168,20 @@ def main() -> int:
         **{key: f[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "shape", "call_ms")},
         "rows": flash_rows, "lm_serving": lm,
+    })
+    # the main row is the bulk cell's field shape; the launches are the
+    # kernel legs' (the engine picks' and the forced-gather legs')
+    b = bag_rows["bulk"]
+    kernel_legs = {f"{cell}_{leg}": r["launches"] for cell, c in dlrm["cells"].items()
+                   for leg, r in c.get("legs", {}).items()}
+    kernels.append({
+        "name": "embedding_bag", "route": "cuda",
+        "source": "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:48",
+        "launches": sum(kernel_legs.values()), "launches_by_leg": kernel_legs,
+        **{key: b[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "shape", "call_ms")},
+        "rows": bag_rows, "dlrm_serving": dlrm,
     })
     print(json.dumps({"kernels": kernels}))
     print(smi)

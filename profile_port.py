@@ -3,6 +3,7 @@
 
     python3 profile_port.py              # RMAT scale 22, the graph of chip_smoke.py
     python3 profile_port.py --scale 16   # a quick rehearsal
+    python3 profile_port.py --dlrm       # dlrm-mlperf serving instead of the graph
 
 For SSSP (K=8) and Δ-PageRank, each through the kernels and through the
 plain engines (``use_kernels=False``):
@@ -20,6 +21,14 @@ plain engines (``use_kernels=False``):
 4. host cost: the host time to issue one relax of each engine on the main
    path's first block (30% of its lanes active, SSSP), through the kernels
    and through the plain engines, and one call of each kernel wrapper.
+
+With ``--dlrm`` it builds dlrm-mlperf as ``chip_smoke.py`` does (full
+width, 25M rows a table) and, for serve_p99 and serve_bulk, takes the legs
+kernel, plain and all_gather of ``chip_smoke.DLRM_LEGS``: turns of
+``serve_dlrm`` (5 timed batches each) in the order plain, kernel,
+all_gather, all_gather, kernel, plain, three rounds; then one forward of
+each leg under the profiler (span, busy share, the largest device and host
+entries) and its host syncs by source line.
 
 A diagnostic: it checks nothing that ``chip_smoke.py`` does not check.
 The last line is one JSON object of the turns and profile numbers.
@@ -66,7 +75,7 @@ def device_busy(prof) -> tuple[float, float]:
     return span / 1e6, busy / 1e6
 
 
-def profile_run(torch, fn) -> dict:
+def profile_run(torch, fn, top: int = 6) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -78,9 +87,9 @@ def profile_run(torch, fn) -> dict:
     span, busy = device_busy(prof)
     events = prof.key_averages()
     device = sorted((e for e in events if e.device_type == DeviceType.CUDA),
-                    key=lambda e: -e.self_device_time_total)[:6]
+                    key=lambda e: -e.self_device_time_total)[:top]
     host = sorted((e for e in events if e.device_type == DeviceType.CPU),
-                  key=lambda e: -e.self_cpu_time_total)[:6]
+                  key=lambda e: -e.self_cpu_time_total)[:top]
     return dict(
         wall_s=wall, span_s=span, busy_s=busy, busy_share=busy / span if span else None,
         top_device=[(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in device],
@@ -158,10 +167,72 @@ def host_costs(torch, rt) -> dict:
     return out
 
 
+def log_profile(name: str, p: dict) -> None:
+    log(f"profile {name}: wall {p['wall_s']:.4f} s under the profiler; device events "
+        f"span {p['span_s']:.4f} s, busy {p['busy_s']:.4f} s = "
+        f"{100 * p['busy_share']:.1f}% of the span")
+    for key, count, ms in p["top_device"]:
+        log(f"    device {ms:9.3f} ms  {count:6d}x  {key}")
+    for key, count, ms in p["top_host"]:
+        log(f"    host   {ms:9.3f} ms  {count:6d}x  {key}")
+
+
+def dlrm_main(torch, smi: str) -> dict:
+    sys.path.insert(0, str(smoke.ROOT / "src"))
+    from repro_torch.configs.dlrm_mlperf import CELLS
+    from repro_torch.kernels.runtime import build_kernels
+    from repro_torch.launch.serve import dlrm_serve_config, dlrm_traffic, serve_dlrm
+    from repro_torch.models.dlrm import dlrm_forward, init_dlrm
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # as chip_smoke.setup states it
+    build_kernels()
+    cfg = dlrm_serve_config(reduced=False)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(smoke.SEED)
+    model = init_dlrm(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    log(f"dlrm-mlperf: {sum(cfg.vocab_sizes):,} table rows on the card")
+    out = {"card": smi}
+    legs = {leg: smoke.DLRM_LEGS[leg] for leg in ("kernel", "plain", "all_gather")}
+    for cell in ("serve_p99", "serve_bulk"):
+        ms = {leg: [] for leg in legs}
+        for r in range(ROUNDS):
+            for leg in ("plain", "kernel", "all_gather", "all_gather", "kernel", "plain"):
+                use, engine, _ = legs[leg]
+                ms[leg].append(serve_dlrm(model, cell, 5, use, cfg.replace(table_engine=engine),
+                                          seed=smoke.SEED + 10 + r)["ms_per_batch"])
+        for leg, w in ms.items():
+            out[f"turns_{cell}_{leg}"] = dict(median_ms=float(np.median(w)), min_ms=min(w),
+                                              max_ms=max(w), runs=len(w))
+            log(f"turns {cell} {leg}: median {np.median(w):.3f} ms/batch (min {min(w):.3f}, "
+                f"max {max(w):.3f}) over {len(w)} runs of 5 batches [{smi}]")
+        traffic = dlrm_traffic(cfg, CELLS[cell]["batch"], gen)
+        for leg, (use, engine, _) in legs.items():
+            c = cfg.replace(table_engine=engine)
+
+            def forward():
+                return dlrm_forward(model, *traffic, c, use)
+
+            forward()
+            torch.cuda.synchronize()
+            p = profile_run(torch, forward, top=10)
+            if not p["busy_s"]:
+                log(f"profile {cell} {leg}: device time not measured (no device events)")
+                continue
+            log_profile(f"{cell} {leg}", p)
+            sites = sync_sites(torch, forward)
+            log(f"syncs {cell} {leg}: {sum(sites.values())} host syncs a forward: {sites}")
+            out[f"profile_{cell}_{leg}"] = {k: p[k] for k in ("wall_s", "span_s", "busy_s",
+                                                              "busy_share", "top_device")}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22,
                     help="RMAT scale: 2**scale vertices, 16 * 2**scale edges")
+    ap.add_argument("--dlrm", action="store_true",
+                    help="profile dlrm-mlperf serving instead of the graph path")
     args = ap.parse_args()
 
     import torch
@@ -171,6 +242,9 @@ def main() -> int:
         return 1
     smi = smoke.card_line()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if args.dlrm:
+        print(json.dumps(dlrm_main(torch, smi)))
+        return 0
     cfg, _, source, rt = smoke.setup(torch, args.scale)
     from repro_torch.core.hytm import run_hytm
 
@@ -197,13 +271,7 @@ def main() -> int:
         if not p["busy_s"]:
             log(f"profile {leg}: device time not measured (no device events recorded)")
             continue
-        log(f"profile {leg}: wall {p['wall_s']:.4f} s under the profiler; device events "
-            f"span {p['span_s']:.4f} s, busy {p['busy_s']:.4f} s = "
-            f"{100 * p['busy_share']:.1f}% of the span")
-        for key, count, ms in p["top_device"]:
-            log(f"    device {ms:9.3f} ms  {count:6d}x  {key}")
-        for key, count, ms in p["top_host"]:
-            log(f"    host   {ms:9.3f} ms  {count:6d}x  {key}")
+        log_profile(leg, p)
         sites = sync_sites(torch, lambda: run_hytm(None, prog, src, c, runtime=rt))
         log(f"syncs {leg}: {sum(sites.values())} host syncs: {sites}")
         out[f"profile_{leg}"] = {k: p[k] for k in ("wall_s", "span_s", "busy_s", "busy_share")}

@@ -1,10 +1,11 @@
 """Architecture registry of the port: ``--arch <id>`` -> the model's
-``TransformerConfig``.
+config (``TransformerConfig`` or ``DLRMConfig``).
 
-The dense LM configurations are ported; the other families of the
-reference's registry raise ``NotImplementedError`` naming the ROADMAP item
-that brings them.  The reference's ``ArchSpec`` and its mesh cells come
-with the dry-run and multi-device items.
+The dense LM configurations and dlrm-mlperf are ported; the other
+families of the reference's registry raise ``NotImplementedError`` naming
+the ROADMAP item that brings them.  The reference's ``ArchSpec`` and its
+mesh cells come with the dry-run and multi-device items; dlrm-mlperf's
+serving cells are ``configs.dlrm_mlperf.CELLS``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ ARCHS = {
     "internlm2-1.8b": "repro_torch.configs.internlm2_1p8b",
     "granite-20b": "repro_torch.configs.granite_20b",
     "gemma3-12b": "repro_torch.configs.gemma3_12b",
+    "dlrm-mlperf": "repro_torch.configs.dlrm_mlperf",
 }
 
 NOT_PORTED = {
@@ -24,13 +26,12 @@ NOT_PORTED = {
     "pna": "item 16: GNN side",
     "gatedgcn": "item 16: GNN side",
     "meshgraphnet": "item 16: GNN side",
-    "dlrm-mlperf": "item 14: DLRM serving",
     "hytgraph": "item 12: benchmark twins",
 }
 
 
 def get_arch(name: str):
-    """The ``TransformerConfig`` of the LM architecture ``name``."""
+    """The model config of the architecture ``name``."""
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} is not ported yet (ROADMAP queue 1, {NOT_PORTED[name]})")

@@ -1,8 +1,9 @@
-"""Config helpers shared by the architectures (port of the LM part of
-``repro.configs.common``)."""
+"""Config helpers shared by the architectures (port of the smoke reductions
+of ``repro.configs.common``)."""
 
 from __future__ import annotations
 
+from repro_torch.models.dlrm import DLRMConfig
 from repro_torch.models.transformer import TransformerConfig
 
 
@@ -25,3 +26,11 @@ def reduce_lm_config(cfg: TransformerConfig) -> TransformerConfig:
     if cfg.window_pattern != (0,):
         kw["window_pattern"] = (4, 4, 0)
     return cfg.replace(**kw)
+
+
+def reduce_dlrm_config(cfg: DLRMConfig) -> DLRMConfig:
+    """Reduced smoke config of a DLRM: five small tables, narrow towers, the
+    family's 13 dense features and dot interaction kept (the reduction of
+    ``tests/test_smoke_archs.py``)."""
+    return cfg.replace(vocab_sizes=(64, 3, 50, 7, 100), embed_dim=16, bot_mlp=(32, 16),
+                       top_mlp=(32, 1))

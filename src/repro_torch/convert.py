@@ -3,7 +3,7 @@
 The reference's arrays come in as numpy (``np.asarray`` of a jax array)
 and leave as numpy, so this module imports neither jax nor ``repro``.  The
 tests use it to feed both packages the same graph and warm state, and the
-same LM weights.
+same LM and DLRM weights.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from repro_torch.core.hytm import HyTMResult, HyTMState
 from repro_torch.core.partition import DevicePartitions
 from repro_torch.graph.csr import CSRGraph, DeviceCSR
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.models.dlrm import DLRM, DLRMConfig
 from repro_torch.models.transformer import Transformer, TransformerConfig
 
 
@@ -89,6 +90,13 @@ def result_to_numpy(res: HyTMResult) -> dict:
     return out
 
 
+def _put(caller: str, param: torch.Tensor, a) -> None:
+    a = np.asarray(a)
+    if a.shape != tuple(param.shape):
+        raise ValueError(f"{caller}: shape {a.shape}, expected {tuple(param.shape)}")
+    param.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
+
+
 @torch.no_grad()
 def transformer_params(np_tree: dict, cfg: TransformerConfig,
                        device: str | torch.device | None = None,
@@ -106,11 +114,7 @@ def transformer_params(np_tree: dict, cfg: TransformerConfig,
     model = Transformer(cfg, dev)
 
     def put(param: torch.Tensor, a) -> None:
-        a = np.asarray(a)
-        if a.shape != tuple(param.shape):
-            raise ValueError(f"transformer_params: shape {a.shape}, expected "
-                             f"{tuple(param.shape)}")
-        param.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
+        _put("transformer_params", param, a)
 
     put(model.embed, np_tree["embed"])
     put(model.final_norm, np_tree["final_norm"])
@@ -130,4 +134,25 @@ def transformer_params(np_tree: dict, cfg: TransformerConfig,
                                  f"expected {sorted(params)}")
             for name, param in params.items():
                 put(param, stacked[group][name][i])
+    return model
+
+
+@torch.no_grad()
+def dlrm_params(np_tree: dict, cfg: DLRMConfig,
+                device: str | torch.device | None = None) -> DLRM:
+    """A ``DLRM`` holding the reference's parameter tree (numpy arrays:
+    ``tables`` a list of (V_i, D), ``bot`` and ``top`` each ``{"w": [...],
+    "b": [...]}``)."""
+    model = DLRM(cfg, resolve_device(device))
+    for name, params in (("tables", model.tables), ("bot.w", model.bot["w"]),
+                         ("bot.b", model.bot["b"]), ("top.w", model.top["w"]),
+                         ("top.b", model.top["b"])):
+        tree = np_tree
+        for key in name.split("."):
+            tree = tree[key]
+        if len(tree) != len(params):
+            raise ValueError(f"dlrm_params: {len(tree)} arrays in {name}, config has "
+                             f"{len(params)}")
+        for param, a in zip(params, tree):
+            _put("dlrm_params", param, a)
     return model

@@ -1,26 +1,38 @@
 """Serving launcher: batched prefill and greedy decode for an LM arch
-(port of ``repro.launch.serve``).
+(port of ``repro.launch.serve``), and DLRM's serving cells.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-mlperf --cell serve_bulk
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-mlperf --reduced --device cpu
 
 On the card (the default device) it serves the arch's full configuration,
-weights in its compute dtype from a seeded generator; ``--reduced`` serves
-the reference launcher's reduced float32 configuration.  It prints the
-prefill's tokens/s and the decode's ms per step.
+weights from a seeded generator: an LM's in its compute dtype, DLRM's at
+full width with the one-card row cap (``configs.dlrm_mlperf``, 66 GB of
+float32 tables).  ``--reduced`` serves the reduced float32 configuration.
+For an LM it prints the prefill's tokens/s and the decode's ms per step.
+The reference launcher takes LM archs only; for dlrm-mlperf the port runs
+the serving cells the reference defines (``--cell``: ``serve_p99``,
+``serve_bulk`` or ``retrieval_cand``) and prints ms per batch and
+samples/s.
 """
 
 from __future__ import annotations
 
 import argparse
+import statistics
 import time
 
 import torch
 
 from repro_torch.configs import get_arch
-from repro_torch.configs.common import reduce_lm_config
+from repro_torch.configs.common import reduce_dlrm_config, reduce_lm_config
+from repro_torch.configs.dlrm_mlperf import CELLS as DLRM_CELLS
+from repro_torch.configs.dlrm_mlperf import one_card_config
+from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.runtime import build_kernels, resolve_device, resolve_use_kernels
+from repro_torch.models.dlrm import DLRM, DLRMConfig, dlrm_forward, init_dlrm, retrieval_score
 from repro_torch.models.transformer import (Transformer, TransformerConfig, decode_step,
                                             init_cache, init_transformer, prefill)
 
@@ -75,6 +87,89 @@ def generate(model: Transformer, prompts: torch.Tensor, gen: int,
     }
 
 
+def dlrm_serve_config(reduced: bool) -> DLRMConfig:
+    """dlrm-mlperf's served configuration: the reduced smoke config, or the
+    full one with the one-card row cap."""
+    cfg = get_arch("dlrm-mlperf")
+    return reduce_dlrm_config(cfg) if reduced else one_card_config(cfg)
+
+
+def dlrm_traffic(cfg: DLRMConfig, batch: int, generator: torch.Generator):
+    """One batch of serving traffic on the generator's device: dense
+    features standard normal (B, n_dense) float32, and per field an id
+    uniform in [0, rows) as (B, n_sparse) int32."""
+    dev = generator.device
+    dense = torch.randn((batch, cfg.n_dense), generator=generator, device=dev)
+    sparse = torch.stack([torch.randint(0, v, (batch,), generator=generator, device=dev,
+                                        dtype=torch.int32) for v in cfg.vocab_sizes], dim=1)
+    return dense, sparse
+
+
+def serve_dlrm(model: DLRM, cell: str, batches: int = 10, use_kernels: bool | str = "auto",
+               cfg: DLRMConfig | None = None, seed: int = 1) -> dict:
+    """Run a serving cell of ``DLRM_CELLS``: a first call (a warm-up, whose
+    ``embedding_bag`` launches are counted), then ``batches`` timed calls,
+    each on its own traffic from ``seed``.  A serving cell calls
+    ``dlrm_forward`` (``cfg`` gives its table engine, default
+    ``model.cfg``); ``retrieval_cand`` calls ``retrieval_score`` on one
+    set of candidate embeddings (standard normal).  Times are the host
+    clock around work that ends in a device synchronise; returns the
+    first call's input and output (and the candidates), the median ms per
+    batch, samples/s and the launches of the first call and of all
+    calls."""
+    if batches < 1:
+        raise ValueError(f"batches must be >= 1, got {batches}")
+    spec = DLRM_CELLS[cell]
+    dev = model.tables[0].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    cands = None
+    if "n_candidates" in spec:
+        cands = torch.randn((spec["n_candidates"], model.cfg.embed_dim), generator=gen,
+                            device=dev)
+        inputs = [torch.randn((spec["batch"], model.cfg.n_dense), generator=gen, device=dev)
+                  for _ in range(batches + 1)]
+
+        def call(query):
+            return retrieval_score(model, query, cands, spec["top_k"])
+    else:
+        inputs = [dlrm_traffic(model.cfg, spec["batch"], gen) for _ in range(batches + 1)]
+
+        def call(traffic):
+            return dlrm_forward(model, *traffic, cfg, use_kernels)
+    n0 = embedding_bag.launches
+    first = call(inputs[0])
+    _sync(dev)
+    n1 = embedding_bag.launches
+    times = []
+    for x in inputs[1:]:
+        t0 = time.monotonic()
+        call(x)
+        _sync(dev)
+        times.append(time.monotonic() - t0)
+    ms = statistics.median(times) * 1e3
+    return {"output": first, "first_input": inputs[0], "candidates": cands,
+            "ms_per_batch": ms, "batch_ms": [t * 1e3 for t in times],
+            "samples_per_s": spec["batch"] / (ms * 1e-3), "batch": spec["batch"],
+            "launches_first": n1 - n0, "launches": embedding_bag.launches - n0}
+
+
+def _main_dlrm(args, dev: torch.device) -> dict:
+    cfg = dlrm_serve_config(args.reduced)
+    if resolve_use_kernels("auto", dev):
+        build_kernels()
+    rng = torch.Generator(device=dev)
+    rng.manual_seed(0)
+    model = init_dlrm(cfg, rng, dev)
+    out = serve_dlrm(model, args.cell)
+    label = "reduced" if args.reduced else "full width, rows capped at 25M a table"
+    print(f"{args.arch} ({label}, {dev.type}): {args.cell}, batch {out['batch']}: "
+          f"{out['ms_per_batch']:.3f} ms/batch (median of {len(out['batch_ms'])}), "
+          f"{out['samples_per_s']:.0f} samples/s; embedding_bag launches in the first call "
+          f"{out['launches_first']}")
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
@@ -84,9 +179,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--reduced", action="store_true",
                     help="the reduced float32 config of the reference launcher")
+    ap.add_argument("--cell", default="serve_p99", choices=sorted(DLRM_CELLS),
+                    help="dlrm-mlperf: the serving cell")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    if args.arch == "dlrm-mlperf":
+        return _main_dlrm(args, dev)
     cfg = serve_config(args.arch, args.reduced)
     if resolve_use_kernels("auto", dev):
         build_kernels()

@@ -1,5 +1,5 @@
-"""Shared building blocks of the LM slice: RMS norm, RoPE, SwiGLU and the
-initializers (port of ``repro.models.common``).
+"""Shared building blocks: RMS norm, RoPE, SwiGLU, the initializers and the
+biased MLP of the DLRM heads (port of ``repro.models.common``).
 
 The arithmetic follows the reference where the two could part: the norm
 runs in float32 and scales by ``1 + scale``; RoPE rotates interleaved
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -18,6 +19,11 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     var = x.square().mean(dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
     return out.to(dtype)
+
+
+def frozen(t: torch.Tensor) -> nn.Parameter:
+    """An inference-only parameter (no gradient)."""
+    return nn.Parameter(t, requires_grad=False)
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
@@ -34,6 +40,30 @@ def embed_init(generator: torch.Generator, vocab: int, d: int,
     w = torch.randn((vocab, d), generator=generator, device=generator.device,
                     dtype=torch.float32)
     return w.mul_(0.02).to(dtype)
+
+
+def mlp_init(generator: torch.Generator, dims: list[int],
+             dtype: torch.dtype = torch.float32) -> dict:
+    """Simple biased MLP used by the DLRM towers: ``{"w": [(d_i, d_i+1)],
+    "b": [(d_i+1,)]}``, weights as ``dense_init``, biases 0."""
+    return {
+        "w": [dense_init(generator, dims[i], dims[i + 1], dtype) for i in range(len(dims) - 1)],
+        "b": [torch.zeros(dims[i + 1], dtype=dtype, device=generator.device)
+              for i in range(len(dims) - 1)],
+    }
+
+
+def mlp_apply(params, x: torch.Tensor, act=F.relu, final_act=None) -> torch.Tensor:
+    """``x @ w + b`` per layer, weights and biases cast to x's dtype, ``act``
+    between layers and ``final_act`` (if any) after the last."""
+    n = len(params["w"])
+    for i, (w, b) in enumerate(zip(params["w"], params["b"])):
+        x = x @ w.to(x.dtype) + b.to(x.dtype)
+        if i < n - 1:
+            x = act(x)
+        elif final_act is not None:
+            x = final_act(x)
+    return x
 
 
 def rope_frequencies(d_head: int, theta: float = 10_000.0,

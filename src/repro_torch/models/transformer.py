@@ -32,7 +32,7 @@ from torch import nn
 
 from repro_torch.kernels.runtime import resolve_device, resolve_use_kernels
 from repro_torch.models.attention import NOT_PORTED_MLA, gqa_attention, init_gqa
-from repro_torch.models.common import dense_init, embed_init, rms_norm, swiglu
+from repro_torch.models.common import dense_init, embed_init, frozen, rms_norm, swiglu
 
 NOT_PORTED_MOE = "MoE is not ported yet (ROADMAP queue 1, item 15: MoE serving)"
 
@@ -89,10 +89,6 @@ def _check_ported(cfg: TransformerConfig) -> None:
         raise ValueError(f"unknown ffn_act {cfg.ffn_act!r}")
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
 class DecoderLayer(nn.Module):
     """Pre-norm block: RMS norm, GQA attention, residual; RMS norm, FFN,
     residual.  Weights are (d_in, d_out), applied as ``x @ w``."""
@@ -103,12 +99,12 @@ class DecoderLayer(nn.Module):
         d, dh = cfg.d_model, cfg.d_head
 
         def empty(*shape):
-            return _frozen(torch.empty(shape, device=device, dtype=dtype))
+            return frozen(torch.empty(shape, device=device, dtype=dtype))
 
         self.cfg = cfg
         self.window = window
-        self.ln1 = _frozen(torch.zeros(d, device=device, dtype=dtype))
-        self.ln2 = _frozen(torch.zeros(d, device=device, dtype=dtype))
+        self.ln1 = frozen(torch.zeros(d, device=device, dtype=dtype))
+        self.ln2 = frozen(torch.zeros(d, device=device, dtype=dtype))
         self.attn = nn.ParameterDict({
             "wq": empty(d, cfg.n_heads * dh), "wk": empty(d, cfg.n_kv_heads * dh),
             "wv": empty(d, cfg.n_kv_heads * dh), "wo": empty(cfg.n_heads * dh, d)})
@@ -153,11 +149,11 @@ class Transformer(nn.Module):
         _check_ported(cfg)
         dtype = getattr(torch, cfg.param_dtype)
         self.cfg = cfg
-        self.embed = _frozen(torch.empty((cfg.vocab, cfg.d_model), device=device, dtype=dtype))
-        self.final_norm = _frozen(torch.zeros(cfg.d_model, device=device, dtype=dtype))
+        self.embed = frozen(torch.empty((cfg.vocab, cfg.d_model), device=device, dtype=dtype))
+        self.final_norm = frozen(torch.zeros(cfg.d_model, device=device, dtype=dtype))
         self.layers = nn.ModuleList(DecoderLayer(cfg, w, device, dtype) for w in cfg.windows())
         if not cfg.tie_embeddings:
-            self.unembed = _frozen(torch.empty_like(self.embed))
+            self.unembed = frozen(torch.empty_like(self.embed))
 
     def unembedding(self) -> torch.Tensor:
         return self.embed if self.cfg.tie_embeddings else self.unembed

@@ -3,7 +3,10 @@ import neither jax nor the reference, so they run on the machine with the
 card; without one they skip.  Min, compaction and gather are exact; the sum
 is float32 atomics in another order, ``rtol=atol=1e-4``.  Attention sums
 in another order than its dense plain version: float32 within ``2e-5``,
-bfloat16 within ``2e-2`` (one rounding of the output)."""
+bfloat16 within ``2e-2`` (one rounding of the output).  An embedding bag
+of one row, and every max, are exact; float32 sums and means of L rows
+within ``rtol=1e-5, atol=1e-6 * L``, bfloat16 within one bfloat16 step
+(``rtol=2^-7``); NaN bags (ids out of range) in the same places."""
 
 import importlib
 
@@ -12,6 +15,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import runtime
+from repro_torch.kernels.embedding_bag.ops import embedding_bag
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.frontier_compact.ops import frontier_compact
@@ -91,7 +96,8 @@ def test_hyb_gather_kernel_vs_plain_on_card():
 @pytest.mark.cuda
 def test_kernel_libraries_load():
     _cuda()
-    for stem in ("segment_spmm", "frontier_compact", "hyb_gather", "flash_attention"):
+    for stem in ("segment_spmm", "frontier_compact", "hyb_gather", "flash_attention",
+                 "embedding_bag"):
         ops = importlib.import_module(f"repro_torch.kernels.{stem}.ops")
         assert runtime.load_kernel(stem, f"{stem}_launch", ops._ARGTYPES) is not None
 
@@ -123,3 +129,70 @@ def test_flash_attention_kernel_rejects_strided_inputs():
     q = torch.zeros(4, 16, 64, device=dev).transpose(0, 1)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,D,B,L", [(4096, 128, 5000, 1), (1000, 128, 300, 100), (77, 13, 999, 3),
+                                     (500, 130, 64, 4), (300, 1000, 17, 2), (10, 8, 0, 2)])
+@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_embedding_bag_kernel_vs_plain_on_card(V, D, B, L, mode, dtype, id_dtype):
+    dev = _cuda()
+    rng = np.random.default_rng(V + D + L)
+    table = torch.from_numpy(rng.standard_normal((V, D)).astype(np.float32)).to(dev, dtype)
+    # a few ids wrap (in [-V, 0)) or fall outside the table (NaN bags)
+    ids = torch.from_numpy(rng.integers(-V // 8, V + V // 16, (B, L))).to(dev, id_dtype)
+    before = embedding_bag.launches
+    got = embedding_bag(table, ids, mode)
+    assert embedding_bag.launches == before + (B > 0)
+    torch.cuda.synchronize()
+    want = embedding_bag_ref(table, ids, mode)
+    assert got.shape == (B, D) and got.dtype == dtype
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    if L == 1 or mode == "max":
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    elif dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=1e-6,
+                                   equal_nan=True)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * L, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_embedding_bag_kernel_empty_bags_on_card():
+    """L = 0: sums are 0 and means NaN (0 / 0), as the reference's."""
+    dev = _cuda()
+    table = torch.ones(10, 8, device=dev)
+    ids = torch.zeros(5, 0, dtype=torch.int32, device=dev)
+    assert torch.equal(embedding_bag(table, ids, "sum"), torch.zeros(5, 8, device=dev))
+    assert bool(embedding_bag(table, ids, "mean").isnan().all())
+
+
+@pytest.mark.cuda
+def test_embedding_bag_kernel_reads_rows_past_2_to_the_31():
+    """Row offsets are 64-bit: with D = 128, id * D passes 2^31 at row
+    16,777,216; a table of 2^24 + 64 rows (8.6 GB) is read at its end."""
+    dev = _cuda()
+    V, D = 2**24 + 64, 128
+    table = torch.empty((V, D), device=dev)
+    table[-128:] = torch.arange(128 * D, device=dev, dtype=torch.float32).view(128, D)
+    ids = torch.tensor([[V - 1], [V - 64], [2**24], [-1], [V - 2]], device=dev)
+    got = embedding_bag(table, ids, "sum")
+    torch.cuda.synchronize()
+    assert torch.equal(got, embedding_bag_ref(table, ids, "sum"))
+    assert torch.equal(got[0], table[-1]) and torch.equal(got[3], table[-1])
+    del table
+
+
+@pytest.mark.cuda
+def test_embedding_bag_kernel_rejects_bad_inputs_on_card():
+    dev = _cuda()
+    table = torch.zeros(16, 8, device=dev)
+    ids = torch.zeros(4, 3, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        embedding_bag(table, ids.t())
+    with pytest.raises(ValueError, match="tensors on"):
+        embedding_bag(table, ids.cpu())
+    with pytest.raises(ValueError, match="empty bag"):
+        embedding_bag(table, ids[:, :0], "max")

@@ -63,8 +63,7 @@ def test_gemma_windows_are_five_local_to_one_global():
     assert w.count(1024) == 40
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "dlrm-mlperf",
-                                  "pna", "hytgraph"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "pna", "hytgraph"])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         get_arch(arch)
