@@ -15,9 +15,17 @@ Phases, in order; any failure exits nonzero and prints no result line:
    card could take (bytes moved / 3.35 TB/s, or for ``flash_attention`` the
    larger of that and its flops at the type's peak).  ``flash_attention``
    runs at gemma3-12b's prefill shapes (a local and a global layer: q (64,
-   2048, 256) bf16 over 8 kv heads) and at edge cases (S = 257, dh 128 in
-   float32 with one kv head per query head, window 1, non-causal with
-   S != L); its library yardstick is ``scaled_dot_product_attention``;
+   2048, 256) bf16 over 8 kv heads), at deepseek-v2-lite's MLA prefill (q
+   and k (64, 2048, 192) bf16, values 128 wide zero-padded to 192) and at
+   edge cases (S = 257, dh 128 in float32 with one kv head per query head,
+   window 1, non-causal with S != L); its library yardstick is
+   ``scaled_dot_product_attention``.  ``grouped_matmul`` runs at
+   deepseek-v2-lite's MoE shapes (a 4 x 2048-token prefill's gate/up and
+   down launches, 49,152 rows over 64 experts capped at C = 960, and a
+   decode step's 24 rows, bf16) and at edge cases (odd D and F, float32,
+   one expert, empty experts, groups cut at the row bound, T = 0); its
+   library yardsticks are ``torch._grouped_mm`` and the reference's own
+   ``torch.bmm`` over the capacity-padded buffer;
 3. the cost model on the card against the CPU, bit for bit, on the
    frontiers of the first SSSP iterations and on random frontiers;
 4. the main path at full size: ``run_hytm`` SSSP (K=8 and K=1), Δ-PageRank
@@ -45,13 +53,30 @@ Phases, in order; any failure exits nonzero and prints no result line:
    seconds and tokens/s, decode ms/step and peak memory beside the least
    times the card could take;
 7. ``embedding_bag`` against its plain version (right after phase 2's
-   rows): the bulk serving cell's field shape (a 2^22 x 128 float32 table,
+   ``grouped_matmul`` rows): the bulk serving cell's field shape (a 2^22 x 128 float32 table,
    B = 262,144, L = 1, sum; its library yardstick is
    ``F.embedding_bag``), multi-hot bags of L = 100 by sum, mean and max, a
    bfloat16 table, int64 ids, D = 13, B = 0 and ids that wrap or fall out
    of range (NaN bags);
-8. DLRM serving, after gemma3-12b is freed: the reduced dlrm-mlperf config
-   on the card against the CPU (logits within 1e-4), then dlrm-mlperf at
+8. MoE serving, after gemma3-12b is freed: the reduced deepseek-v2-lite-16b
+   config on the card against the CPU (float32, logits within 1e-4, greedy
+   tokens equal), one full-width MoE layer fed the same hidden states
+   through the kernel route and the plain route (a prefill's 8192 tokens
+   and a decode step's 4; they route alike and must agree within a stated
+   bf16 tolerance), then deepseek-v2-lite-16b at full width (15.7B
+   parameters in bf16, random weights from the seed): 4 requests of 2048
+   prompt tokens, 16 generated, through ``launch.serve.generate`` with the
+   kernels and with the plain routes.  The kernel leg must launch
+   ``flash_attention`` 27 times in its prefill and none in its decode, and
+   ``grouped_matmul`` 78 times in its prefill and 78 in each decode step;
+   the plain leg neither.  The legs' logits must agree within a stated
+   bf16 tolerance; the share of (token, k) expert picks that differ
+   between the legs in the first and last MoE layers is printed, with
+   prefill seconds and tokens/s, decode ms/step, peak memory and host syncs
+   beside the least times the card could take;
+9. DLRM serving, after deepseek-v2-lite-16b is freed: the reduced
+   dlrm-mlperf config on the card against the CPU (logits within 1e-4),
+   then dlrm-mlperf at
    full width with every table capped at 25M rows (129,066,304 rows, 66.1
    GB of float32 tables, random from the seed; the 64-bit row offsets are
    checked on a capped table's last rows).  Its serving cells serve_p99
@@ -310,15 +335,21 @@ def phase_kernels(torch, rt, seed: int) -> dict:
 
 # name: (B*H, S, L, dh, kv_groups, window, causal, dtype).  The first two are
 # gemma3-12b's prefill at 4 x 2048 tokens: 16 query heads over 8 kv heads,
-# dh 256, a local (window 1024) and a global layer; the rest are edge cases.
+# dh 256, a local (window 1024) and a global layer; the third is
+# deepseek-v2-lite's MLA prefill (16 heads, q and k 192 wide, values 128
+# wide zero-padded to 192, as ``mla_attention`` pads them); the rest are
+# edge cases.
 FLASH_ROWS = {
     "gemma3_local": (64, 2048, 2048, 256, 2, 1024, True, "bfloat16"),
     "gemma3_global": (64, 2048, 2048, 256, 2, 0, True, "bfloat16"),
+    "deepseek_mla": (64, 2048, 2048, 192, 1, 0, True, "bfloat16"),
     "s257": (8, 257, 257, 256, 2, 0, True, "bfloat16"),
     "dh128_f32_kv1": (16, 1000, 1000, 128, 1, 64, True, "float32"),
     "window1": (8, 300, 300, 64, 1, 1, True, "bfloat16"),
     "noncausal_f32": (8, 200, 333, 64, 2, 0, False, "float32"),
 }
+# the value width of a row whose values are zero-padded to dh
+FLASH_DV = {"deepseek_mla": 128}
 
 
 def attention_pairs(S: int, L: int, window: int, causal: bool) -> int:
@@ -329,12 +360,14 @@ def attention_pairs(S: int, L: int, window: int, causal: bool) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def flash_bound(bh, S, L, dh, g, window, causal, dtype) -> tuple[float, str, float]:
-    """(bound ms, what bounds it, flops): 4*dh flops per kept pair at the
-    type's peak, against one read of q, k, v and one write of o."""
-    flops = 4.0 * dh * attention_pairs(S, L, window, causal) * bh
+def flash_bound(bh, S, L, dh, g, window, causal, dtype, dv=None) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, flops): 2 * (dh + dv) flops per kept pair
+    (q.k and p.v) at the type's peak, against one read of q, k, v and one
+    write of o, with values ``dv`` wide (default dh)."""
+    dv = dh if dv is None else dv
+    flops = 2.0 * (dh + dv) * attention_pairs(S, L, window, causal) * bh
     size = 2 if dtype == "bfloat16" else 4
-    n_bytes = size * dh * (2 * bh * S + 2 * (bh // g) * L)
+    n_bytes = size * ((dh + dv) * bh * S + (dh + dv) * (bh // g) * L)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, bound_ms(n_bytes)
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops
 
@@ -352,6 +385,8 @@ def phase_flash(torch, dev, seed: int) -> dict:
         dt = getattr(torch, dtype)
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
                    for shape in ((bh, S, dh), (bh // g, L, dh), (bh // g, L, dh)))
+        dv = FLASH_DV.get(name, dh)
+        v[..., dv:] = 0
         scale = 1.0 / dh ** 0.5
 
         def kernel():
@@ -367,7 +402,8 @@ def phase_flash(torch, dev, seed: int) -> dict:
         tol = 2e-5 if dtype == "float32" else 2e-2
         err = float((got.float() - want.float()).abs().max())
         check(bool(torch.isfinite(got).all()) and bool(
-            ((got.float() - want.float()).abs() <= tol + tol * want.float().abs()).all()),
+            ((got.float() - want.float()).abs() <= tol + tol * want.float().abs()).all())
+            and not bool(got[..., dv:].any()),
             f"flash_attention {name} differs from its plain version (max |err| {err:.3g})")
         # the yardstick: SDPA over q, k, v as (B, H, S, dh), with k and v
         # expanded to the query heads once, outside the timing (its fused
@@ -388,10 +424,10 @@ def phase_flash(torch, dev, seed: int) -> dict:
         lib_err = float((library().reshape(bh, S, dh).float() - want.float()).abs().max())
         big = S * L > 2**20
         calls, reps = (3, 10) if big else (10, REPS)
-        bound, bound_by, flops = flash_bound(bh, S, L, dh, g, window, causal, dtype)
+        bound, bound_by, flops = flash_bound(bh, S, L, dh, g, window, causal, dtype, dv)
         rows[name] = r = dict(
             shape=f"q ({bh}, {S}, {dh}) {dtype}, L={L}, kv_groups={g}, window={window}, "
-                  f"causal={causal}",
+                  f"causal={causal}" + (f", values {dv} wide padded to {dh}" if dv < dh else ""),
             max_abs_err=err, library_max_abs_err=lib_err,
             ms=graph_ms(torch, kernel, calls, reps), call_ms=call_ms(torch, kernel, reps),
             plain_ms=graph_ms(torch, plain, calls, reps),
@@ -404,6 +440,151 @@ def phase_flash(torch, dev, seed: int) -> dict:
             f"{r['gflop']:.1f} GFLOP, {r['tflops']:.2f} TFLOP/s) max_abs_err={err:.3g} "
             f"(SDPA {lib_err:.3g})")
         del q, k, v, q4, k4, v4, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 2c: grouped_matmul against its plain version
+# ---------------------------------------------------------------------------
+
+# name: (assignments T, D, F, capacity C).  deepseek-v2-lite's MoE layer at
+# the main path's shapes: a prefill of 4 x 2048 tokens (T*K = 49,152, C = 960)
+# through the gate or up weights and through the down weights, and a
+# decode step of 4 tokens (24 rows, C = 8).  64 experts, bf16.
+GMM_E = 64
+GMM_ROWS = {
+    "prefill_gate_up": (49_152, 2048, 1408, 960),
+    "prefill_down": (49_152, 1408, 2048, 960),
+    "decode_gate_up": (24, 2048, 1408, 8),
+}
+
+
+def gmm_groups(torch, gen, dev, T: int, E: int, C: int):
+    """(starts, counts) int32 of the MoE layout: T assignments drawn
+    uniformly over E experts, each expert's count capped at C, groups packed
+    from row 0 (the rows of dropped assignments follow the last group)."""
+    drawn = torch.multinomial(torch.full((E,), 1.0 / E, device=dev), T, replacement=True,
+                              generator=gen)
+    counts = torch.zeros(E, dtype=torch.int32, device=dev).index_add_(
+        0, drawn, torch.ones(T, dtype=torch.int32, device=dev)).clamp_(max=C)
+    return (torch.cumsum(counts, 0, dtype=torch.int32) - counts).contiguous(), counts
+
+
+def gmm_bound(counts, T: int, D: int, F: int, dtype: str) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, flops) of one launch on this data: 2 * D *
+    F flops a grouped row at the type's peak, against one read of the
+    grouped rows and of the active experts' weights, and one write of the
+    (T, F) output."""
+    rows, active = int(counts.sum()), int((counts > 0).sum())
+    size = 2 if dtype == "bfloat16" else 4
+    flops = 2.0 * rows * D * F
+    n_bytes = size * (rows * D + active * D * F + T * F) + 8 * counts.numel()
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, bound_ms(n_bytes)
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops
+
+
+def gmm_check(torch, name: str, got, want, starts, counts, max_rows, tol) -> float:
+    """The kernel's output against the plain version's within ``tol`` (rtol,
+    atol), rows outside every group exactly 0; returns the max |err|."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"grouped_matmul {name}: {tuple(got.shape)} {got.dtype} against "
+          f"{tuple(want.shape)} {want.dtype}")
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    inside = torch.zeros(got.shape[0], dtype=torch.bool, device=got.device)
+    rows = counts.clamp(max=max_rows)
+    for st, n in zip(starts.tolist(), rows.tolist()):
+        inside[st:st + n] = True
+    check(bool((diff <= tol[1] + tol[0] * want.float().abs()).all())
+          and not bool(got[~inside].any()),
+          f"grouped_matmul {name} differs from its plain version (max |err| {err:.3g})")
+    return err
+
+
+def phase_grouped_matmul(torch, dev, seed: int) -> dict:
+    from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rows = {}
+    # bf16: both sum float32 products and round once, in another order: one
+    # bf16 step (2^-8 relative) apart at most, on sums of 2048 products
+    bf16_tol = (2**-7, 1e-4)
+    for name, (T, D, F, C) in GMM_ROWS.items():
+        x = torch.randn((T, D), generator=gen, device=dev).bfloat16()
+        w = torch.randn((GMM_E, D, F), generator=gen, device=dev).div_(D ** 0.5).bfloat16()
+        starts, counts = gmm_groups(torch, gen, dev, T, GMM_E, C)
+        before = grouped_matmul.launches
+        got = grouped_matmul(x, w, starts, counts, C)
+        check(grouped_matmul.launches == before + 1, "grouped_matmul did not launch")
+        torch.cuda.synchronize()
+        err = gmm_check(torch, name, got, grouped_matmul_ref(x, w, starts, counts, C),
+                        starts, counts, C, bf16_tol)
+        # the yardsticks: the reference's own formulation (one bmm over the
+        # capacity-padded (E, C, D) buffer), and PyTorch's grouped product
+        # over the packed groups where the installed torch has it
+        buf = torch.randn((GMM_E, C, D), generator=gen, device=dev).bfloat16()
+        offs = torch.cumsum(counts, 0, dtype=torch.int32)
+        library = {"torch.bmm (E, C, D) capacity buffer":
+                   graph_ms(torch, lambda: torch.bmm(buf, w))}
+        try:
+            library["torch._grouped_mm"] = graph_ms(
+                torch, lambda: torch._grouped_mm(x, w, offs=offs))
+        except (AttributeError, RuntimeError) as e:
+            log(f"kernel grouped_matmul {name}: torch._grouped_mm did not run ({e})")
+        lib_name = "torch._grouped_mm" if "torch._grouped_mm" in library else \
+            "torch.bmm (E, C, D) capacity buffer"
+        bound, bound_by, flops = gmm_bound(counts, T, D, F, "bfloat16")
+        rows[name] = r = dict(
+            shape=f"x ({T}, {D}) bf16 x w ({GMM_E}, {D}, {F}), C={C}, "
+                  f"{int(counts.sum())} rows in {int((counts > 0).sum())} groups",
+            max_abs_err=err, ms=graph_ms(torch, lambda: grouped_matmul(x, w, starts, counts, C)),
+            call_ms=call_ms(torch, lambda: grouped_matmul(x, w, starts, counts, C)),
+            # the plain version reads the groups to the host: one call, timed
+            plain_ms=call_ms(torch, lambda: grouped_matmul_ref(x, w, starts, counts, C), 5),
+            library_ms=library[lib_name], library=lib_name, library_all=library,
+            bound_ms=bound, bound_by=bound_by, gflop=flops / 1e9)
+        r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
+        log(f"kernel grouped_matmul {name}: {r['shape']} ms={r['ms']:.4f} "
+            f"call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms="
+            f"{r['library_ms']:.4f} ({lib_name}; {library}) bound_ms={bound:.4f} ({bound_by}, "
+            f"{r['gflop']:.1f} GFLOP, {r['tflops']:.2f} TFLOP/s) max_abs_err={err:.3g}")
+        del x, w, buf, got
+
+    # edge rows: F not a multiple of 64 and odd D (scalar loads), E = 1, empty
+    # experts, rows outside every group and groups past max_rows, float32
+    # (CUDA-core FMAs, no TF32: the same sums in another order), T = 0
+    for name, (T, D, E, F, C, dtype) in {
+            "odd_f32": (3000, 130, 7, 100, 700, "float32"),
+            "odd_bf16": (3000, 33, 7, 65, 300, "bfloat16"),
+            "one_expert": (500, 256, 1, 192, 500, "bfloat16"),
+            "float32_main": (4096, 2048, 64, 1408, 64, "float32")}.items():
+        dt = getattr(torch, dtype)
+        x = torch.randn((T, D), generator=gen, device=dev).to(dt)
+        w = torch.randn((E, D, F), generator=gen, device=dev).div_(D ** 0.5).to(dt)
+        starts, counts = gmm_groups(torch, gen, dev, T * 3 // 4, E, 2 * C)
+        if E > 1:
+            counts[::3] = 0     # empty experts, whose rows fall outside every group
+        tol = (1e-5, 1e-5) if dtype == "float32" else bf16_tol
+        for bound_rows in (C, 2 * C):
+            gmm_check(torch, name, grouped_matmul(x, w, starts, counts, bound_rows),
+                      grouped_matmul_ref(x, w, starts, counts, bound_rows), starts, counts,
+                      bound_rows, tol)
+        if name == "float32_main":
+            rows[name] = dict(shape=f"x ({T}, {D}) float32 x w ({E}, {D}, {F}), C={C}",
+                              ms=graph_ms(torch, lambda: grouped_matmul(x, w, starts, counts, C)),
+                              gflop=2.0 * int(counts.clamp(max=C).sum()) * D * F / 1e9)
+    before = grouped_matmul.launches
+    empty = grouped_matmul(x[:0], w, starts, counts, C)
+    check(empty.shape == (0, F) and grouped_matmul.launches == before,
+          "grouped_matmul T=0: shape or launch")
+    log("kernel grouped_matmul edge rows: odd D and F in float32 and bf16, one expert, empty "
+        "experts, rows outside every group, groups cut at max_rows, float32 at the main "
+        f"widths ({rows['float32_main']['ms']:.4f} ms for {rows['float32_main']['gflop']:.1f} "
+        "GFLOP), T=0: all held")
+    del x, w
     torch.cuda.empty_cache()
     return rows
 
@@ -627,9 +808,11 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.hyb_gather.ops import hyb_gather
     from repro_torch.kernels.segment_spmm.ops import segment_spmm
 
+    from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
+
     return {"segment_spmm": segment_spmm, "frontier_compact": frontier_compact,
             "hyb_gather": hyb_gather, "flash_attention": flash_attention,
-            "embedding_bag": embedding_bag}
+            "embedding_bag": embedding_bag, "grouped_matmul": grouped_matmul}
 
 
 def reset_launch_counts() -> None:
@@ -653,8 +836,9 @@ def phase_main(torch, cfg, rt, source: int) -> dict:
         reset_launch_counts()
         runs[leg] = r = run_hytm(None, prog, src, c, runtime=rt)
         launches[leg] = counts = read_launch_counts()
-        check(counts["flash_attention"] == 0 and counts["embedding_bag"] == 0,
-              f"{leg} launched flash_attention or embedding_bag")
+        check(counts["flash_attention"] == counts["embedding_bag"]
+              == counts["grouped_matmul"] == 0,
+              f"{leg} launched flash_attention, embedding_bag or grouped_matmul")
         log(f"{leg}: {r.iterations} iterations, wall {r.wall_seconds:.3f} s, modeled "
             f"{r.total_transfer_bytes / 2**20:.1f} MiB / {r.modeled_seconds * 1e3:.2f} ms; "
             f"launches {counts}")
@@ -790,8 +974,9 @@ def phase_lm_small(torch, dev, seed: int) -> None:
     cpu = generate(model, prompts, 8)
     card = generate(model.to(dev), prompts.to(dev), 8)
     err = float((card["prefill_logits"].cpu() - cpu["prefill_logits"]).abs().max())
-    check(card["launches"] == {"prefill": cfg.n_layers, "decode": 0},
-          f"reduced serving launched flash_attention {card['launches']}")
+    check(card["launches"] == {"prefill": {"flash_attention": cfg.n_layers, "grouped_matmul": 0},
+                               "decode": {"flash_attention": 0, "grouped_matmul": 0}},
+          f"reduced serving launched {card['launches']}")
     check(err <= 1e-4 and torch.equal(card["tokens"].cpu(), cpu["tokens"]),
           f"reduced {LM_ARCH} on the card != on the CPU (max |err| {err:.3g})")
     log(f"LM (reduced {LM_ARCH}, float32): card == CPU within {err:.2e}, 8 greedy tokens equal")
@@ -827,7 +1012,8 @@ def phase_lm(torch, dev, seed: int) -> dict:
         out = generate(model, prompts, LM_GEN, use_kernels=use)
         counts = read_launch_counts()
         out["total_launches"] = counts.pop("flash_attention")
-        check(not any(counts.values()), f"LM {leg} leg launched graph kernels: {counts}")
+        check(not any(counts.values()), f"LM {leg} leg launched other kernels: {counts}")
+        out["launches"] = {phase: c["flash_attention"] for phase, c in out["launches"].items()}
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         legs[leg] = out
         log(f"LM {leg}: prefill {out['prefill_s']:.3f} s "
@@ -880,7 +1066,250 @@ def phase_lm(torch, dev, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: DLRM serving, dlrm-mlperf at full width with the one-card row cap
+# Phase 8: MoE serving, deepseek-v2-lite-16b at full width
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, MOE_PARAMS = "deepseek-v2-lite-16b", 15_706_484_224
+# One MoE layer fed the same hidden states through both routes: they route
+# alike and compute the same expert products as float32 sums rounded once to
+# bf16 (the kernel's WMMA sums and cuBLAS's, 16 products a step), so they
+# agree to a few bf16 steps (2^-8 relative) at most.
+MOE_LAYER_TOL = 2e-2     # of the largest output magnitude
+MOE_LAYER_REL_L2 = 1e-2
+# The two legs' last-token logits.  The legs round the attention in other
+# places (the plain route's bf16 probabilities, as gemma3-12b's), and a
+# token whose hidden state sits near a routing tie then picks another
+# expert: a discrete change that grows through 26 MoE layers (the first
+# chip run of this phase saw 2.3% of the picks differ in the first MoE layer
+# and 19% in the last, logits max |err| 0.70 and relative L2 0.10 at a
+# spread of 0.91).  The bound below still tells a right path from a wrong
+# one (a wrong expert layout gives logits unrelated to the plain leg's,
+# relative L2 about 1.4); the kernel's own check is the layer above.
+MOE_ATOL = 1.5
+MOE_REL_L2 = 0.2
+
+
+class RouteRecorder:
+    """While entered, records the top-k expert ids (T, K) of every MoE
+    router call of the port, in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.module, self.real, self.ids = moe, moe._route, []
+
+        def route(*args):
+            out = self.real(*args)
+            self.ids.append(out[0])
+            return out
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.module._route = self.real
+
+
+def moe_bounds(cfg, n_params: int, distinct: list[int], cache_bytes: int) -> dict:
+    """The least time the card could take: the prefill's flops at the bf16
+    peak (every token's dense weights and its K experts, the attention's
+    kept pairs at q.k 192 and p.v 128 wide, the last token's unembedding),
+    and a decode step's reads at 3.35 TB/s (every weight but the embedding
+    and the experts no token picked, ``distinct[l]`` experts in MoE layer l,
+    and the filled cache)."""
+    m, d = cfg.moe, cfg.d_model
+    expert = 3 * d * m.d_ff
+    n_moe = cfg.n_scan_layers
+    unembed = cfg.vocab * d
+    dense = n_params - 2 * unembed - n_moe * m.n_experts * expert
+    tokens = LM_REQUESTS * LM_PROMPT
+    linear = 2.0 * (dense + n_moe * m.top_k * expert) * tokens
+    dh, dv = cfg.mla.d_nope + cfg.mla.d_rope, cfg.mla.d_v
+    attn = cfg.n_layers * 2.0 * (dh + dv) * attention_pairs(LM_PROMPT, LM_PROMPT, 0, True) \
+        * LM_REQUESTS * cfg.n_heads
+    flops = linear + attn + 2.0 * unembed * LM_REQUESTS
+    decode_bytes = 2 * (dense + unembed + sum(distinct) * expert) + cache_bytes
+    return {"prefill_tflop": flops / 1e12, "prefill_linear_tflop": linear / 1e12,
+            "prefill_attention_tflop": attn / 1e12,
+            "prefill_s": flops / PEAK_FLOPS["bfloat16"], "decode_gb": decode_bytes / 1e9,
+            "decode_ms": bound_ms(decode_bytes),
+            "decode_all_experts_gb": 2 * n_moe * m.n_experts * expert / 1e9}
+
+
+def phase_moe_small(torch, dev, seed: int) -> None:
+    """The reduced deepseek-v2-lite-16b config (float32) on the card against
+    the same weights on the CPU, whose path the CPU tests hold against the
+    reference: logits within 1e-4, greedy tokens identical; the card's
+    prefill and decode launch both kernels."""
+    from repro_torch.launch.serve import generate, serve_config
+    from repro_torch.models.transformer import init_transformer
+
+    cfg = serve_config(MOE_ARCH, reduced=True)
+    model = init_transformer(cfg, torch.Generator().manual_seed(seed), "cpu")
+    prompts = torch.randint(0, cfg.vocab, (LM_REQUESTS, 40),
+                            generator=torch.Generator().manual_seed(seed + 1))
+    cpu = generate(model, prompts, 8)
+    card = generate(model.to(dev), prompts.to(dev), 8)
+    err = float((card["prefill_logits"].cpu() - cpu["prefill_logits"]).abs().max())
+    gmm = 3 * cfg.n_scan_layers
+    check(card["launches"] == {"prefill": {"flash_attention": cfg.n_layers, "grouped_matmul": gmm},
+                               "decode": {"flash_attention": 0, "grouped_matmul": 7 * gmm}},
+          f"reduced MoE serving launched {card['launches']}")
+    check(err <= 1e-4 and torch.equal(card["tokens"].cpu(), cpu["tokens"]),
+          f"reduced {MOE_ARCH} on the card != on the CPU (max |err| {err:.3g})")
+    log(f"MoE (reduced {MOE_ARCH}, float32): card == CPU within {err:.2e}, 8 greedy tokens "
+        f"equal; launches {card['launches']}")
+
+
+def phase_moe(torch, dev, seed: int, smi: str) -> dict:
+    """deepseek-v2-lite-16b at full width, random weights from ``seed``: one
+    MoE layer through both routes on the same hidden states, then 4
+    requests of 2048 prompt tokens, 16 generated, through
+    ``launch.serve.generate`` with the kernels (``use_kernels="auto"``) and
+    with the plain routes, both on the card."""
+    from repro_torch.launch.serve import generate, serve_config
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.models.transformer import (decode_step, init_cache, init_transformer,
+                                                prefill)
+
+    phase_moe_small(torch, dev, seed)
+    cfg = serve_config(MOE_ARCH, reduced=False)
+    t = time.monotonic()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = init_transformer(cfg, gen, dev)
+    gen.manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab, (LM_REQUESTS, LM_PROMPT), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == MOE_PARAMS, f"{MOE_ARCH} has {n_params:,} parameters")
+    n_moe = cfg.n_scan_layers
+    log(f"MoE: {MOE_ARCH} full width, {n_params:,} parameters in {cfg.param_dtype} "
+        f"({2 * n_params / 1e9:.1f} GB; routers float32), {cfg.n_layers} layers (1 dense, "
+        f"d_ff {cfg.d_ff_dense}; {n_moe} MoE, {cfg.moe.n_experts} experts top-{cfg.moe.top_k} "
+        f"+ {cfg.moe.n_shared} shared; MLA kv_lora {cfg.mla.kv_lora}), initialised in "
+        f"{time.monotonic() - t:.1f} s")
+
+    # -- one MoE layer at full width, the same hidden states through both
+    # routes (unit-RMS rows, as the layer's norm gives them), at the
+    # prefill's 8192 tokens and a decode step's 4
+    moe_params = model.layers[1].moe
+    h = torch.randn((LM_REQUESTS * LM_PROMPT, cfg.d_model), generator=gen, device=dev)
+    layer = {}
+    for name, x in (("prefill", h.bfloat16()), ("decode", h[:LM_REQUESTS].bfloat16())):
+        reset_launch_counts()
+        y_k, _ = moe_ffn(moe_params, x, cfg.moe, use_kernels=True)
+        counts = read_launch_counts()
+        y_p, _ = moe_ffn(moe_params, x, cfg.moe, use_kernels=False)
+        torch.cuda.synchronize()
+        check(counts == {**counts_zero(), "grouped_matmul": 3},
+              f"the kernel route of one MoE layer launched {counts}")
+        yk, yp = y_k.float(), y_p.float()
+        r = layer[name] = {
+            "max_abs_err": float((yk - yp).abs().max()),
+            "rel_l2": float((yk - yp).norm() / yp.norm()),
+            "bit_equal": torch.equal(y_k, y_p), "max_abs": float(yp.abs().max()),
+            "kernel_ms": call_ms(torch, lambda: moe_ffn(moe_params, x, cfg.moe,
+                                                        use_kernels=True), 5),
+            "plain_ms": call_ms(torch, lambda: moe_ffn(moe_params, x, cfg.moe,
+                                                       use_kernels=False), 5)}
+        log(f"MoE layer ({name}, T={x.shape[0]}, full width) kernel route vs plain route: "
+            f"max |err| {r['max_abs_err']:.4g} of max |y| {r['max_abs']:.3f} (tolerance "
+            f"{MOE_LAYER_TOL:.0%}), relative L2 {r['rel_l2']:.2e} (tolerance "
+            f"{MOE_LAYER_REL_L2}), bit for bit: {r['bit_equal']}; one layer "
+            f"{r['kernel_ms']:.3f} ms (kernel route) vs {r['plain_ms']:.3f} ms (plain) [{smi}]")
+        check(bool(torch.isfinite(yk).all()) and r["max_abs_err"] <= MOE_LAYER_TOL * r["max_abs"]
+              and r["rel_l2"] <= MOE_LAYER_REL_L2,
+              f"MoE layer ({name}): kernel route vs plain out of tolerance")
+        del x, y_k, y_p, yk, yp
+    del h
+
+    for use in ("auto", False):      # warm-up: cuBLAS, the kernels' libraries
+        generate(model, prompts[:, :64], 2, use_kernels=use)
+    legs = {}
+    for leg, use in (("kernel", "auto"), ("plain", False)):
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out = generate(model, prompts, LM_GEN, use_kernels=use)
+        out["total_launches"] = read_launch_counts()
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        legs[leg] = out
+        log(f"MoE {leg}: prefill {out['prefill_s']:.3f} s "
+            f"({LM_REQUESTS * LM_PROMPT / out['prefill_s']:.0f} tok/s), decode "
+            f"{out['decode_s_per_step'] * 1e3:.2f} ms/step, peak memory "
+            f"{out['peak_gb']:.1f} GB, launches {out['launches']} [{smi}]")
+    k, p = legs["kernel"], legs["plain"]
+    want = {"prefill": {"flash_attention": cfg.n_layers, "grouped_matmul": 3 * n_moe},
+            "decode": {"flash_attention": 0, "grouped_matmul": 3 * n_moe * (LM_GEN - 1)}}
+    check(k["launches"] == want and k["total_launches"] == {
+        **counts_zero(), "flash_attention": cfg.n_layers,
+        "grouped_matmul": 3 * n_moe * LM_GEN}, f"MoE kernel leg launched {k['launches']}, "
+          f"{k['total_launches']} in all; expected {want}")
+    check(p["total_launches"] == counts_zero(), f"MoE plain leg launched {p['total_launches']}")
+
+    kl, pl = k["prefill_logits"].float(), p["prefill_logits"].float()
+    check(kl.shape == (LM_REQUESTS, cfg.vocab) and bool(torch.isfinite(kl).all())
+          and bool(torch.isfinite(pl).all()), "MoE prefill logits not finite or misshapen")
+    for out in (k, p):
+        toks = out["tokens"]
+        check(toks.shape == (LM_REQUESTS, LM_GEN) and int(toks.min()) >= 0
+              and int(toks.max()) < cfg.vocab, "MoE generated tokens out of range")
+
+    # -- each leg's routes in a prefill and one decode step: the share of
+    # (token, k) picks that differ between the legs in the first and last MoE
+    # layers, and the experts one decode step reads
+    routes = {}
+    for leg, use in (("kernel", "auto"), ("plain", False)):
+        caches = init_cache(cfg, LM_REQUESTS, LM_PROMPT + 1, dev)
+        with RouteRecorder() as rec:
+            logits, caches = prefill(model, prompts, caches, use_kernels=use)
+            decode_step(model, logits.argmax(-1)[:, None], caches, LM_PROMPT, use_kernels=use)
+        check(len(rec.ids) == 2 * n_moe, f"MoE {leg}: {len(rec.ids)} router calls")
+        routes[leg] = [ids.sort(dim=-1).values for ids in rec.ids]
+        del caches
+    flips = {name: float((routes["kernel"][i] != routes["plain"][i]).float().mean())
+             for name, i in (("first_moe_layer", 0), ("last_moe_layer", n_moe - 1))}
+    distinct = [int(ids.unique().numel()) for ids in routes["kernel"][n_moe:]]
+
+    err = float((kl - pl).abs().max())
+    rel = float((kl - pl).norm() / pl.norm())
+    top2 = pl.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > MOE_ATOL
+    first_equal = k["tokens"][:, 0] == p["tokens"][:, 0]
+    log(f"MoE kernel vs plain: last-token logits max |err| {err:.4f} (tolerance {MOE_ATOL}), "
+        f"relative L2 {rel:.2e} (tolerance {MOE_REL_L2}), logit spread {float(pl.std()):.3f}; "
+        f"(token, k) picks that differ in the prefill: {flips}; first token equal "
+        f"{first_equal.tolist()}, top-2 margin above tolerance {decided.tolist()}; generated "
+        f"tokens equal {int((k['tokens'] == p['tokens']).sum())}/{LM_REQUESTS * LM_GEN}")
+    check(err <= MOE_ATOL and rel <= MOE_REL_L2, "MoE kernel leg vs plain leg out of tolerance")
+    check(bool(first_equal[decided].all()), "MoE first generated token differs where decided")
+    syncs = lm_host_syncs(torch, model, prompts[:, :64])
+    log(f"MoE host syncs (PyTorch's sync debug mode), by source line: prefill "
+        f"{syncs['prefill']}, one decode step {syncs['decode']}")
+
+    cache_bytes = cfg.n_layers * LM_REQUESTS * (LM_PROMPT + LM_GEN) \
+        * (cfg.mla.kv_lora + cfg.mla.d_rope) * 2
+    bounds = moe_bounds(cfg, n_params, distinct, cache_bytes)
+    log(f"MoE bounds: prefill >= {bounds['prefill_s'] * 1e3:.1f} ms ({bounds['prefill_tflop']:.1f} "
+        f"TFLOP: {bounds['prefill_linear_tflop']:.1f} linear + "
+        f"{bounds['prefill_attention_tflop']:.2f} attention, at 989 TF/s); decode >= "
+        f"{bounds['decode_ms']:.2f} ms/step ({bounds['decode_gb']:.2f} GB: weights, the "
+        f"{sum(distinct)} experts picked over {n_moe} layers ({min(distinct)}-{max(distinct)} a "
+        f"layer) and the cache, at 3.35 TB/s; all experts would be "
+        f"{bounds['decode_all_experts_gb']:.1f} GB)")
+    summary = {leg: {"prefill_s": o["prefill_s"],
+                     "prefill_tok_s": LM_REQUESTS * LM_PROMPT / o["prefill_s"],
+                     "decode_ms_per_step": o["decode_s_per_step"] * 1e3, "peak_gb": o["peak_gb"],
+                     "launches": o["launches"]} for leg, o in legs.items()}
+    summary.update(bounds=bounds, max_abs_err=err, rel_l2=rel, route_flips=flips,
+                   decode_experts_per_layer=distinct, layer=layer, host_syncs=syncs, card=smi)
+    del model, legs, routes
+    torch.cuda.empty_cache()
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: DLRM serving, dlrm-mlperf at full width with the one-card row cap
 # ---------------------------------------------------------------------------
 
 DLRM_BATCHES = 10
@@ -1127,6 +1556,7 @@ def main() -> int:
     rt_cpu = build_runtime(hs.graph, cfg, n_hubs=hs.n_hubs, device="cpu")
     rows = phase_kernels(torch, rt, SEED)
     flash_rows = phase_flash(torch, rt.device, SEED)
+    gmm_rows = phase_grouped_matmul(torch, rt.device, SEED)
     bag_rows = phase_embedding_bag(torch, rt.device, SEED)
     phase_cost_model(torch, cfg, rt, rt_cpu, source, SEED)
     del rt_cpu
@@ -1137,6 +1567,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_lm_small(torch, dev, SEED)
     lm = phase_lm(torch, dev, SEED)
+    moe = phase_moe(torch, dev, SEED, smi)
     dlrm = phase_dlrm(torch, dev, SEED, smi)
 
     kernels = []
@@ -1157,17 +1588,34 @@ def main() -> int:
                                               "bound_ms", "max_abs_err")}
     # the main row is gemma3-12b's local layer (40 of its 48); every row follows
     f = flash_rows["gemma3_local"]
+    flash_legs = {"lm_prefill": lm["kernel"]["launches"]["prefill"],
+                  "lm_decode": lm["kernel"]["launches"]["decode"],
+                  "lm_plain": sum(lm["plain"]["launches"].values()),
+                  **{f"moe_{phase}": moe["kernel"]["launches"][phase]["flash_attention"]
+                     for phase in ("prefill", "decode")},
+                  "moe_plain": sum(c["flash_attention"] for c in moe["plain"]["launches"].values())}
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:76",
-        "launches": sum(lm["kernel"]["launches"].values()),
-        "launches_by_leg": {"lm_prefill": lm["kernel"]["launches"]["prefill"],
-                            "lm_decode": lm["kernel"]["launches"]["decode"],
-                            "lm_plain": sum(lm["plain"]["launches"].values())},
+        "launches": sum(flash_legs.values()), "launches_by_leg": flash_legs,
         **{key: f[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "shape", "call_ms")},
         "rows": flash_rows, "lm_serving": lm,
+    })
+    # the main row is the prefill's gate/up launch (52 of a prefill's 78)
+    g = gmm_rows["prefill_gate_up"]
+    gmm_legs = {**{f"moe_{phase}": moe["kernel"]["launches"][phase]["grouped_matmul"]
+                   for phase in ("prefill", "decode")},
+                "moe_plain": sum(c["grouped_matmul"] for c in moe["plain"]["launches"].values())}
+    kernels.append({
+        "name": "grouped_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/grouped_matmul/csrc/grouped_matmul.cu",
+        "replaces": "src/repro/kernels/grouped_matmul/grouped_matmul.py:52",
+        "launches": sum(gmm_legs.values()), "launches_by_leg": gmm_legs,
+        **{key: g[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "library", "shape", "call_ms")},
+        "rows": gmm_rows, "moe_serving": moe,
     })
     # the main row is the bulk cell's field shape; the launches are the
     # kernel legs' (the engine picks' and the forced-gather legs')

@@ -1,7 +1,7 @@
 """Architecture registry of the port: ``--arch <id>`` -> the model's
 config (``TransformerConfig`` or ``DLRMConfig``).
 
-The dense LM configurations and dlrm-mlperf are ported; the other
+The LM configurations and dlrm-mlperf are ported; the other
 families of the reference's registry raise ``NotImplementedError`` naming
 the ROADMAP item that brings them.  The reference's ``ArchSpec`` and its
 mesh cells come with the dry-run and multi-device items; dlrm-mlperf's
@@ -16,12 +16,12 @@ ARCHS = {
     "internlm2-1.8b": "repro_torch.configs.internlm2_1p8b",
     "granite-20b": "repro_torch.configs.granite_20b",
     "gemma3-12b": "repro_torch.configs.gemma3_12b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "dlrm-mlperf": "repro_torch.configs.dlrm_mlperf",
 }
 
 NOT_PORTED = {
-    "kimi-k2-1t-a32b": "item 15: MoE serving",
-    "deepseek-v2-lite-16b": "item 15: MoE serving (with MLA)",
     "graphsage-reddit": "item 16: GNN side",
     "pna": "item 16: GNN side",
     "gatedgcn": "item 16: GNN side",

@@ -9,8 +9,8 @@ from repro_torch.models.transformer import TransformerConfig
 
 def reduce_lm_config(cfg: TransformerConfig) -> TransformerConfig:
     """Reduced smoke config: shrink dims, keep the family's structure
-    (MQA, windows) — used by the CPU tests and ``launch/serve.py
-    --reduced``.  The reference's MLA and MoE branches come with them."""
+    (MQA/MLA/MoE, windows) — used by the CPU tests and ``launch/serve.py
+    --reduced``."""
     kw = dict(
         n_layers=min(cfg.n_layers, 3 if cfg.moe else 4),
         d_model=64,
@@ -25,6 +25,14 @@ def reduce_lm_config(cfg: TransformerConfig) -> TransformerConfig:
     )
     if cfg.window_pattern != (0,):
         kw["window_pattern"] = (4, 4, 0)
+    if cfg.mla is not None:
+        kw["mla"] = cfg.mla.replace(kv_lora=32, d_nope=16, d_rope=8, d_v=16)
+    if cfg.moe is not None:
+        kw["moe"] = cfg.moe.replace(
+            n_experts=8, top_k=min(cfg.moe.top_k, 2), d_ff=32,
+            d_ff_shared=0, capacity_factor=4.0, chunk_tokens=0,
+        )
+        kw["first_dense_layers"] = min(cfg.first_dense_layers, 1)
     return cfg.replace(**kw)
 
 

@@ -102,15 +102,15 @@ def transformer_params(np_tree: dict, cfg: TransformerConfig,
                        device: str | torch.device | None = None,
                        dtype: torch.dtype | None = None) -> Transformer:
     """A ``Transformer`` holding the reference's parameter tree (numpy
-    arrays: ``embed``, ``final_norm``, optional ``unembed``, and ``layers``
-    stacked on axis 0 by the reference's scan over layers).  The weights
-    are cast to ``dtype`` (default ``cfg.param_dtype``)."""
+    arrays: ``embed``, ``final_norm``, optional ``unembed``, the
+    ``prefix`` list of dense layers (``first_dense_layers`` when ``moe`` is
+    set), and ``layers`` stacked on axis 0 by the reference's scan over the
+    others, each with ``attn`` (GQA or MLA keys) and ``ffn`` or ``moe``).
+    The weights are cast to ``dtype`` (default ``cfg.param_dtype``); a MoE
+    router stays float32 whatever ``dtype`` is."""
     dev = resolve_device(device)
     if dtype is not None:
         cfg = cfg.replace(param_dtype=str(dtype).removeprefix("torch."))
-    if np_tree.get("prefix"):
-        raise NotImplementedError("a dense-layer prefix comes with MoE (ROADMAP queue 1, "
-                                  "item 15: MoE serving)")
     model = Transformer(cfg, dev)
 
     def put(param: torch.Tensor, a) -> None:
@@ -120,20 +120,27 @@ def transformer_params(np_tree: dict, cfg: TransformerConfig,
     put(model.final_norm, np_tree["final_norm"])
     if not cfg.tie_embeddings:
         put(model.unembed, np_tree["unembed"])
-    stacked = np_tree["layers"]
+    prefix, stacked = np_tree.get("prefix") or [], np_tree["layers"]
     n = np.asarray(stacked["ln1"]).shape[0]
-    if n != cfg.n_layers:
-        raise ValueError(f"transformer_params: {n} stacked layers, config has {cfg.n_layers}")
-    for i, layer in enumerate(model.layers):
-        put(layer.ln1, stacked["ln1"][i])
-        put(layer.ln2, stacked["ln2"][i])
-        for group in ("attn", "ffn"):
+    if len(prefix) != cfg.n_prefix_layers or n != cfg.n_scan_layers:
+        raise ValueError(f"transformer_params: {len(prefix)} prefix and {n} stacked layers, "
+                         f"config has {cfg.n_prefix_layers} and {cfg.n_scan_layers}")
+    trees = [(tree, None) for tree in prefix] + [(stacked, i) for i in range(n)]
+    for layer, (tree, i) in zip(model.layers, trees):
+        def at(a):
+            return a if i is None else a[i]
+
+        put(layer.ln1, at(tree["ln1"]))
+        put(layer.ln2, at(tree["ln2"]))
+        for group in ("attn", "ffn", "moe"):
             params = getattr(layer, group)
-            if set(params) != set(stacked[group]):
-                raise ValueError(f"transformer_params: {group} holds {sorted(stacked[group])}, "
-                                 f"expected {sorted(params)}")
+            if params is None:
+                continue
+            if group not in tree or set(params) != set(tree[group]):
+                raise ValueError(f"transformer_params: {group} holds "
+                                 f"{sorted(tree.get(group, ()))}, expected {sorted(params)}")
             for name, param in params.items():
-                put(param, stacked[group][name][i])
+                put(param, at(tree[group][name]))
     return model
 
 

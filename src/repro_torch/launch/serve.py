@@ -3,14 +3,18 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-mlperf --cell serve_bulk
     PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-mlperf --reduced --device cpu
 
 On the card (the default device) it serves the arch's full configuration,
-weights from a seeded generator: an LM's in its compute dtype, DLRM's at
-full width with the one-card row cap (``configs.dlrm_mlperf``, 66 GB of
-float32 tables).  ``--reduced`` serves the reduced float32 configuration.
-For an LM it prints the prefill's tokens/s and the decode's ms per step.
+weights from a seeded generator: an LM's in its compute dtype (a MoE
+router in float32), DLRM's at full width with the one-card row cap
+(``configs.dlrm_mlperf``, 66 GB of float32 tables).  An LM whose weights
+exceed one card (kimi-k2-1t-a32b, about 2 TB in bf16) raises before
+allocating.  ``--reduced`` serves the reduced float32 configuration.  For
+an LM it prints the prefill's tokens/s and the decode's ms per step.
 The reference launcher takes LM archs only; for dlrm-mlperf the port runs
 the serving cells the reference defines (``--cell``: ``serve_p99``,
 ``serve_bulk`` or ``retrieval_cand``) and prints ms per batch and
@@ -31,19 +35,38 @@ from repro_torch.configs.dlrm_mlperf import CELLS as DLRM_CELLS
 from repro_torch.configs.dlrm_mlperf import one_card_config
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
 from repro_torch.kernels.runtime import build_kernels, resolve_device, resolve_use_kernels
 from repro_torch.models.dlrm import DLRM, DLRMConfig, dlrm_forward, init_dlrm, retrieval_score
 from repro_torch.models.transformer import (Transformer, TransformerConfig, decode_step,
                                             init_cache, init_transformer, prefill)
 
 
+# the most weight bytes served on one card: an 80 GB H100 less room for the
+# caches and a prefill's activations
+ONE_CARD_WEIGHT_BYTES = 60e9
+
+
+def lm_param_count(cfg: TransformerConfig) -> int:
+    """The parameters of ``cfg``'s model, counted from its shapes without
+    allocating it."""
+    return sum(p.numel() for p in Transformer(cfg, torch.device("meta")).parameters())
+
+
 def serve_config(arch: str, reduced: bool) -> TransformerConfig:
     """The served configuration: the reduced smoke config, or the full one
-    with its weights held in the compute dtype."""
+    with its weights held in the compute dtype.  Raises for a full config
+    whose bf16 weights exceed one card."""
     cfg = get_arch(arch)
     if reduced:
         return reduce_lm_config(cfg).replace(remat=False)
-    return cfg.replace(remat=False, param_dtype=cfg.dtype)
+    cfg = cfg.replace(remat=False, param_dtype=cfg.dtype)
+    n_bytes = lm_param_count(cfg) * torch.finfo(cfg.act_dtype).bits // 8
+    if n_bytes > ONE_CARD_WEIGHT_BYTES:
+        raise NotImplementedError(
+            f"{arch}: {n_bytes / 1e9:.0f} GB of {cfg.dtype} weights exceed one card; "
+            "a sharded layout comes with ROADMAP queue 1, item 11 (multi-GPU)")
+    return cfg
 
 
 def _sync(device: torch.device) -> None:
@@ -57,25 +80,25 @@ def generate(model: Transformer, prompts: torch.Tensor, gen: int,
 
     Returns the (B, gen) generated tokens, the prefill's last-token
     logits, the prefill's seconds and the decode's seconds per step (host
-    clock around work that ends in a device synchronise), and the
-    ``flash_attention`` launches of each phase."""
+    clock around work that ends in a device synchronise), and the launches
+    of each LM kernel in each phase: ``launches[phase][kernel]``."""
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
     dev = prompts.device
     B, P = prompts.shape
     caches = init_cache(model.cfg, B, P + gen, dev)
-    n0 = flash_attention.launches
+    n0 = _lm_launches()
     _sync(dev)
     t0 = time.monotonic()
     logits, caches = prefill(model, prompts, caches, use_kernels=use_kernels)
     tok = logits.argmax(-1)[:, None]
     _sync(dev)
     prefill_s = time.monotonic() - t0
-    n1 = flash_attention.launches
+    n1 = _lm_launches()
     tokens = [tok]
     t0 = time.monotonic()
     for s in range(gen - 1):
-        step_logits, caches = decode_step(model, tok, caches, P + s)
+        step_logits, caches = decode_step(model, tok, caches, P + s, use_kernels=use_kernels)
         tok = step_logits.argmax(-1)[:, None]
         tokens.append(tok)
     _sync(dev)
@@ -83,8 +106,14 @@ def generate(model: Transformer, prompts: torch.Tensor, gen: int,
     return {
         "tokens": torch.cat(tokens, dim=1), "prefill_logits": logits,
         "prefill_s": prefill_s, "decode_s_per_step": decode_s / max(gen - 1, 1),
-        "launches": {"prefill": n1 - n0, "decode": flash_attention.launches - n1},
+        "launches": {"prefill": {k: n1[k] - n0[k] for k in n0},
+                     "decode": {k: n2 - n1[k] for k, n2 in _lm_launches().items()}},
     }
+
+
+def _lm_launches() -> dict:
+    return {"flash_attention": flash_attention.launches,
+            "grouped_matmul": grouped_matmul.launches}
 
 
 def dlrm_serve_config(reduced: bool) -> DLRMConfig:
@@ -200,7 +229,7 @@ def main(argv=None) -> dict:
     print(f"{args.arch} ({label}, {dev.type}): {B} requests x {P} prompt tokens: prefill "
           f"{out['prefill_s']:.3f} s, {B * P / out['prefill_s']:.0f} tok/s; "
           f"{args.gen - 1} decode steps, {out['decode_s_per_step'] * 1e3:.2f} ms/step; "
-          f"flash_attention launches {out['launches']}")
+          f"kernel launches {out['launches']}")
     return out
 
 

@@ -1,6 +1,6 @@
-"""Grouped-query attention (GQA/MQA) with causal and sliding-window masks
-and decode-time KV caches (port of the GQA half of
-``repro.models.attention``).
+"""Attention: grouped-query (GQA/MQA) and DeepSeek-V2's multi-head latent
+attention (MLA), with causal and sliding-window masks and decode-time
+caches (port of ``repro.models.attention``).
 
 Routes.  When the keys are the queries' own (no cache, or a prefill into
 an empty cache, ``cache_index == 0``) and ``use_kernels`` is on, attention
@@ -21,19 +21,39 @@ carry zero weight in both, so the function is the same.
 
 Positions are consecutive (``cache_index + arange(S)``, or ``arange(S)``
 without a cache), as ``transformer.forward`` passes them.
+
+MLA follows the same routes.  Its kernel route feeds ``flash_attention``
+one key head a query head (``kv_groups=1``): queries ``cat(q_nope,
+q_rope)``, keys ``cat(k_nope, kr)`` with the shared rotary key broadcast
+over the heads, and values zero-padded from ``d_v`` to the q/k width (as
+the TPU wrapper pads to its ``d_pad``), the padding sliced off the output.
+Its plain route is the reference's two-einsum score.  Its cache holds the
+latent ``ckv`` and the rotary ``kr`` only; the per-head keys and values are
+recomputed from it, as in the reference.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.common import apply_rope, dense_init
+from repro_torch.models.common import apply_rope, dense_init, rms_norm
 
 
-NOT_PORTED_MLA = ("MLA is not ported yet (ROADMAP queue 1, item 15: MoE serving, whose "
-                  "deepseek-v2-lite needs MLA)")
+@dataclass(frozen=True)
+class MLAConfig:
+    kv_lora: int = 512
+    q_lora: int = 0        # 0 = direct q projection (V2-Lite)
+    d_nope: int = 128      # non-rotary head dim
+    d_rope: int = 64       # shared rotary dim
+    d_v: int = 128         # value head dim
+
+    def replace(self, **kw) -> "MLAConfig":
+        return dataclasses.replace(self, **kw)
 
 
 def attention_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor,
@@ -114,5 +134,74 @@ def gqa_attention(p, x: torch.Tensor, positions: torch.Tensor, n_heads: int, n_k
     return out @ p["wo"].to(dt), cache
 
 
-def mla_attention(*args, **kwargs):
-    raise NotImplementedError(NOT_PORTED_MLA)
+def init_mla(generator: torch.Generator, d_model: int, n_heads: int, mla: MLAConfig,
+             dtype: torch.dtype = torch.float32) -> dict:
+    """The reference's ``init_mla`` parameters from ``generator``."""
+    H = n_heads
+    p = {
+        "w_dkv": dense_init(generator, d_model, mla.kv_lora, dtype),
+        "kv_norm": torch.zeros(mla.kv_lora, dtype=dtype, device=generator.device),
+        "w_uk": dense_init(generator, mla.kv_lora, H * mla.d_nope, dtype),
+        "w_uv": dense_init(generator, mla.kv_lora, H * mla.d_v, dtype),
+        "w_kr": dense_init(generator, d_model, mla.d_rope, dtype),
+        "wo": dense_init(generator, H * mla.d_v, d_model, dtype),
+    }
+    if mla.q_lora:
+        p["w_dq"] = dense_init(generator, d_model, mla.q_lora, dtype)
+        p["q_norm"] = torch.zeros(mla.q_lora, dtype=dtype, device=generator.device)
+        p["w_uq"] = dense_init(generator, mla.q_lora, H * (mla.d_nope + mla.d_rope), dtype)
+    else:
+        p["wq"] = dense_init(generator, d_model, H * (mla.d_nope + mla.d_rope), dtype)
+    return p
+
+
+def mla_attention(p, x: torch.Tensor, positions: torch.Tensor, n_heads: int, mla: MLAConfig,
+                  rope_theta: float, window: int = 0, cache: dict | None = None,
+                  cache_index: int | None = None, use_kernels: bool = False):
+    """Multi-head latent attention: x (B, S, D) -> ((B, S, D), cache).
+    ``cache`` is {'ckv': (B, L, kv_lora), 'kr': (B, L, d_rope)}, written in
+    place at ``cache_index``."""
+    B, S, _ = x.shape
+    dt = x.dtype
+    H, dn, dr, dv = n_heads, mla.d_nope, mla.d_rope, mla.d_v
+
+    if mla.q_lora:
+        cq = rms_norm(x @ p["w_dq"].to(dt), p["q_norm"])
+        q = (cq @ p["w_uq"].to(dt)).reshape(B, S, H, dn + dr)
+    else:
+        q = (x @ p["wq"].to(dt)).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], positions, rope_theta)
+    c_kv = rms_norm(x @ p["w_dkv"].to(dt), p["kv_norm"])                  # (B, S, kv_lora)
+    k_rope = apply_rope((x @ p["w_kr"].to(dt))[:, :, None, :], positions, rope_theta)[:, :, 0]
+
+    start = 0
+    if cache is not None:
+        start = int(cache_index)
+        cache["ckv"][:, start:start + S] = c_kv
+        cache["kr"][:, start:start + S] = k_rope
+        ckv_all, kr_all = cache["ckv"][:, :start + S], cache["kr"][:, :start + S]
+        kv_pos = torch.arange(start + S, device=x.device)
+    else:
+        ckv_all, kr_all, kv_pos = c_kv, k_rope, positions
+    L = ckv_all.shape[1]
+    k_nope = (ckv_all @ p["w_uk"].to(dt)).reshape(B, L, H, dn)
+    v = (ckv_all @ p["w_uv"].to(dt)).reshape(B, L, H, dv)
+    scale = attention_scale(dn + dr)
+
+    if use_kernels and start == 0:
+        dh = dn + dr
+        qh = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2).reshape(B * H, S, dh)
+        kh = torch.cat([k_nope, kr_all[:, :, None, :].expand(B, L, H, dr)], dim=-1)
+        kh = kh.transpose(1, 2).reshape(B * H, L, dh)
+        vh = torch.nn.functional.pad(v, (0, dh - dv)).transpose(1, 2).reshape(B * H, L, dh)
+        o = flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous(), scale=scale,
+                            window=window, causal=True)
+        out = o[..., :dv].reshape(B, H, S, dv).transpose(1, 2).reshape(B, S, H * dv)
+    else:
+        mask = attention_mask(positions, kv_pos, None, window)          # (1, 1, S, L)
+        scores = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
+                  + torch.einsum("bshd,btd->bhst", q_rope, kr_all)).float() * scale
+        scores = torch.where(mask, scores, -1e30)
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        out = torch.einsum("bhst,bthd->bshd", probs, v).reshape(B, S, H * dv)
+    return out @ p["wo"].to(dt), cache

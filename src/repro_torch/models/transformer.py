@@ -1,24 +1,30 @@
 """Decoder-only LM stack for inference (port of ``repro.models.transformer``).
 
-The dense GQA/MQA family of the reference: gemma3-12b (5:1 local:global
-sliding windows), internlm2-1.8b (SwiGLU) and granite-20b (MQA with a
-non-gated GELU FFN).  MLA and MoE come with a later slice and raise.
+The reference's five LM families: gemma3-12b (5:1 local:global sliding
+windows), internlm2-1.8b (SwiGLU), granite-20b (MQA with a non-gated GELU
+FFN), deepseek-v2-lite (MLA attention, MoE FFNs after a dense first layer)
+and kimi-k2 (GQA, MoE after a dense first layer).
 
-The reference scans one stacked parameter tree over the layers; the port
+The reference runs its ``first_dense_layers`` prefix (when ``moe`` is set)
+and then scans one stacked parameter tree over the other layers; the port
 holds one ``DecoderLayer`` module per layer, each with its own window
-(``pat[i % len(pat)]``).  Every matmul casts its weight to the activation
-dtype first, as the reference does; ``init_transformer`` builds the weights
-in ``cfg.param_dtype``, so serving with ``param_dtype == dtype`` casts once
-at build time (the same values, since the cast is deterministic).
+(``pat[i % len(pat)]``).  A dense FFN is ``d_ff_dense or d_ff`` wide, as
+the reference's ``_init_layer``.  Every matmul casts its weight to the
+activation dtype first, as the reference does; ``init_transformer`` builds
+the weights in ``cfg.param_dtype`` (a MoE router in float32 whatever it
+is), so serving with ``param_dtype == dtype`` casts once at build time (the
+same values, since the cast is deterministic).
 
 The slice is inference only: ``forward``, ``prefill`` and ``decode_step``
-run under ``torch.inference_mode()``.  ``forward`` and ``prefill`` take
-``use_kernels`` ("auto", True or False), resolved by
-``kernels.runtime.resolve_use_kernels``: on, attention over a prompt's own
-keys goes through the ``flash_attention`` kernel.  Caches are updated in
-place (the reference's are functional).  ``prefill`` computes the logits
-of the last position only, where the reference computes all and keeps the
-last.  The reference's ``lm_loss`` comes with the training slice.
+run under ``torch.inference_mode()`` and take ``use_kernels`` ("auto",
+True or False), resolved by ``kernels.runtime.resolve_use_kernels``: on,
+attention over a prompt's own keys goes through the ``flash_attention``
+kernel (decode attends over the cache with the plain attention) and the
+MoE experts through ``grouped_matmul``.  The MoE aux loss is computed and
+dropped.  Caches are updated in place (the reference's are functional).
+``prefill`` computes the logits of the last position only, where the
+reference computes all and keeps the last.  The reference's ``lm_loss``
+comes with the training slice.
 """
 
 from __future__ import annotations
@@ -31,10 +37,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.runtime import resolve_device, resolve_use_kernels
-from repro_torch.models.attention import NOT_PORTED_MLA, gqa_attention, init_gqa
+from repro_torch.models.attention import (MLAConfig, gqa_attention, init_gqa, init_mla,
+                                          mla_attention)
 from repro_torch.models.common import dense_init, embed_init, frozen, rms_norm, swiglu
-
-NOT_PORTED_MOE = "MoE is not ported yet (ROADMAP queue 1, item 15: MoE serving)"
+from repro_torch.models.moe import MoEConfig, init_moe, moe_ffn
 
 
 @dataclass(frozen=True)
@@ -52,8 +58,8 @@ class TransformerConfig:
     ffn_act: str = "swiglu"            # 'swiglu' | 'gelu' (non-gated)
     window_pattern: tuple = (0,)       # cycled over layers; 0 = global attn
     attention: str = "gqa"             # 'gqa' | 'mla'
-    mla: object | None = None          # the reference's MLAConfig
-    moe: object | None = None          # the reference's MoEConfig
+    mla: MLAConfig | None = None
+    moe: MoEConfig | None = None
     first_dense_layers: int = 0        # dense-FFN prefix when moe is set
     d_ff_dense: int = 0                # hidden dim of that prefix (0 -> d_ff)
     tie_embeddings: bool = True
@@ -67,8 +73,12 @@ class TransformerConfig:
         return getattr(torch, self.dtype)
 
     @property
+    def n_prefix_layers(self) -> int:
+        return self.first_dense_layers if self.moe else 0
+
+    @property
     def n_scan_layers(self) -> int:
-        return self.n_layers - (self.first_dense_layers if self.moe else 0)
+        return self.n_layers - self.n_prefix_layers
 
     def windows(self) -> list[int]:
         pat = self.window_pattern or (0,)
@@ -78,52 +88,98 @@ class TransformerConfig:
         return dataclasses.replace(self, **kw)
 
 
-def _check_ported(cfg: TransformerConfig) -> None:
-    if cfg.attention == "mla" or cfg.mla is not None:
-        raise NotImplementedError(NOT_PORTED_MLA)
-    if cfg.moe is not None:
-        raise NotImplementedError(NOT_PORTED_MOE)
-    if cfg.attention != "gqa":
+def _check_config(cfg: TransformerConfig) -> None:
+    if cfg.attention not in ("gqa", "mla"):
         raise ValueError(f"unknown attention {cfg.attention!r}")
+    if cfg.attention == "mla" and cfg.mla is None:
+        raise ValueError("attention='mla' needs an MLAConfig")
     if cfg.ffn_act not in ("swiglu", "gelu"):
         raise ValueError(f"unknown ffn_act {cfg.ffn_act!r}")
 
 
+def _attention_shapes(cfg: TransformerConfig) -> dict:
+    d, H = cfg.d_model, cfg.n_heads
+    if cfg.attention == "mla":
+        m = cfg.mla
+        shapes = {"w_dkv": (d, m.kv_lora), "kv_norm": (m.kv_lora,),
+                  "w_uk": (m.kv_lora, H * m.d_nope), "w_uv": (m.kv_lora, H * m.d_v),
+                  "w_kr": (d, m.d_rope), "wo": (H * m.d_v, d)}
+        if m.q_lora:
+            shapes.update(w_dq=(d, m.q_lora), q_norm=(m.q_lora,),
+                          w_uq=(m.q_lora, H * (m.d_nope + m.d_rope)))
+        else:
+            shapes["wq"] = (d, H * (m.d_nope + m.d_rope))
+        return shapes
+    dh = cfg.d_head
+    return {"wq": (d, H * dh), "wk": (d, cfg.n_kv_heads * dh), "wv": (d, cfg.n_kv_heads * dh),
+            "wo": (H * dh, d)}
+
+
+def _moe_shapes(cfg: TransformerConfig) -> dict:
+    d, m = cfg.d_model, cfg.moe
+    E, F = m.n_experts, m.d_ff
+    shapes = {"router": (d, E), "w_gate": (E, d, F), "w_up": (E, d, F), "w_down": (E, F, d)}
+    if m.n_shared > 0:
+        Fs = m.shared_hidden
+        shapes.update(shared_gate=(d, Fs), shared_up=(d, Fs), shared_down=(Fs, d))
+    return shapes
+
+
 class DecoderLayer(nn.Module):
-    """Pre-norm block: RMS norm, GQA attention, residual; RMS norm, FFN,
-    residual.  Weights are (d_in, d_out), applied as ``x @ w``."""
+    """Pre-norm block: RMS norm, GQA or MLA attention, residual; RMS norm,
+    dense or MoE FFN, residual.  Weights are (d_in, d_out), applied as
+    ``x @ w``; a MoE layer holds its FFN as ``moe`` (router float32), a
+    dense one as ``ffn``."""
 
-    def __init__(self, cfg: TransformerConfig, window: int, device: torch.device,
-                 dtype: torch.dtype):
+    def __init__(self, cfg: TransformerConfig, window: int, moe_layer: bool,
+                 device: torch.device, dtype: torch.dtype):
         super().__init__()
-        d, dh = cfg.d_model, cfg.d_head
+        d = cfg.d_model
 
-        def empty(*shape):
-            return frozen(torch.empty(shape, device=device, dtype=dtype))
+        def empty(shape, dt=dtype):
+            return frozen(torch.empty(shape, device=device, dtype=dt))
 
         self.cfg = cfg
         self.window = window
         self.ln1 = frozen(torch.zeros(d, device=device, dtype=dtype))
         self.ln2 = frozen(torch.zeros(d, device=device, dtype=dtype))
-        self.attn = nn.ParameterDict({
-            "wq": empty(d, cfg.n_heads * dh), "wk": empty(d, cfg.n_kv_heads * dh),
-            "wv": empty(d, cfg.n_kv_heads * dh), "wo": empty(cfg.n_heads * dh, d)})
-        if cfg.ffn_act == "swiglu":
-            self.ffn = nn.ParameterDict({"w_gate": empty(d, cfg.d_ff),
-                                         "w_up": empty(d, cfg.d_ff),
-                                         "w_down": empty(cfg.d_ff, d)})
+        self.attn = nn.ParameterDict({name: empty(shape)
+                                      for name, shape in _attention_shapes(cfg).items()})
+        if moe_layer:
+            self.moe = nn.ParameterDict({
+                name: empty(shape, torch.float32 if name == "router" else dtype)
+                for name, shape in _moe_shapes(cfg).items()})
+            self.ffn = None
         else:
-            self.ffn = nn.ParameterDict({"w_in": empty(d, cfg.d_ff),
-                                         "w_down": empty(cfg.d_ff, d)})
+            self.moe = None
+            d_ff = cfg.d_ff_dense or cfg.d_ff
+            if cfg.ffn_act == "swiglu":
+                self.ffn = nn.ParameterDict({"w_gate": empty((d, d_ff)),
+                                             "w_up": empty((d, d_ff)),
+                                             "w_down": empty((d_ff, d))})
+            else:
+                self.ffn = nn.ParameterDict({"w_in": empty((d, d_ff)),
+                                             "w_down": empty((d_ff, d))})
 
     def forward(self, x, positions, cache=None, cache_index=None, use_kernels=False):
         cfg = self.cfg
         h = rms_norm(x, self.ln1, cfg.norm_eps)
-        attn_out, cache = gqa_attention(
-            self.attn, h, positions, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.rope_theta,
-            window=self.window, cache=cache, cache_index=cache_index, use_kernels=use_kernels)
+        if cfg.attention == "mla":
+            attn_out, cache = mla_attention(
+                self.attn, h, positions, cfg.n_heads, cfg.mla, cfg.rope_theta,
+                window=self.window, cache=cache, cache_index=cache_index,
+                use_kernels=use_kernels)
+        else:
+            attn_out, cache = gqa_attention(
+                self.attn, h, positions, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                cfg.rope_theta, window=self.window, cache=cache, cache_index=cache_index,
+                use_kernels=use_kernels)
         x = x + attn_out
         h = rms_norm(x, self.ln2, cfg.norm_eps)
+        if self.moe is not None:
+            B, S, D = h.shape
+            y, _ = moe_ffn(self.moe, h.reshape(B * S, D), cfg.moe, use_kernels=use_kernels)
+            return x + y.reshape(B, S, D), cache
         return x + _ffn_apply(self.ffn, h), cache
 
 
@@ -146,12 +202,15 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, device: torch.device):
         super().__init__()
-        _check_ported(cfg)
+        _check_config(cfg)
         dtype = getattr(torch, cfg.param_dtype)
         self.cfg = cfg
         self.embed = frozen(torch.empty((cfg.vocab, cfg.d_model), device=device, dtype=dtype))
         self.final_norm = frozen(torch.zeros(cfg.d_model, device=device, dtype=dtype))
-        self.layers = nn.ModuleList(DecoderLayer(cfg, w, device, dtype) for w in cfg.windows())
+        n_prefix = cfg.n_prefix_layers
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, w, cfg.moe is not None and i >= n_prefix, device, dtype)
+            for i, w in enumerate(cfg.windows()))
         if not cfg.tie_embeddings:
             self.unembed = frozen(torch.empty_like(self.embed))
 
@@ -163,21 +222,29 @@ class Transformer(nn.Module):
 def init_transformer(cfg: TransformerConfig, generator: torch.Generator,
                      device: str | torch.device | None = None) -> Transformer:
     """A ``Transformer`` with random weights from ``generator`` (which must
-    live on ``device``): dense weights normal with std 1/sqrt(d_in),
-    embeddings normal with std 0.02, norm scales 0.  Each tensor is drawn
-    in float32 on the device and cast to ``cfg.param_dtype`` at once, so
-    no float32 copy of the whole model is ever held."""
+    live on ``device``): dense and expert weights normal with std
+    1/sqrt(d_in), embeddings normal with std 0.02, norm scales 0.  Each
+    matrix is drawn in float32 on the device and cast to ``cfg.param_dtype``
+    at once, so no float32 copy of the whole model is ever held."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"init_transformer: generator on {generator.device}, model on {dev}")
     model = Transformer(cfg, dev)
     dtype = getattr(torch, cfg.param_dtype)
     for layer in model.layers:
-        for name, w in init_gqa(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                                cfg.d_head, dtype).items():
+        if cfg.attention == "mla":
+            attn = init_mla(generator, cfg.d_model, cfg.n_heads, cfg.mla, dtype)
+        else:
+            attn = init_gqa(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                            dtype)
+        for name, w in attn.items():
             layer.attn[name].copy_(w)
-        for name, w in layer.ffn.items():
-            w.copy_(dense_init(generator, w.shape[0], w.shape[1], dtype))
+        if layer.moe is not None:
+            for name, w in init_moe(generator, cfg.d_model, cfg.moe, dtype).items():
+                layer.moe[name].copy_(w)
+        else:
+            for name, w in layer.ffn.items():
+                w.copy_(dense_init(generator, w.shape[0], w.shape[1], dtype))
     model.embed.copy_(embed_init(generator, cfg.vocab, cfg.d_model, dtype))
     if not cfg.tie_embeddings:
         model.unembed.copy_(embed_init(generator, cfg.vocab, cfg.d_model, dtype))
@@ -215,15 +282,21 @@ def forward(model: Transformer, tokens: torch.Tensor, caches: dict | None = None
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
                device: str | torch.device | None = None) -> dict:
-    """Decode caches: per layer {'k', 'v'} of (batch, max_len, KV, dh) in
-    ``cfg.dtype``, zero."""
-    _check_ported(cfg)
+    """Decode caches in ``cfg.dtype``, zero: per layer {'k', 'v'} of (batch,
+    max_len, KV, dh), or for MLA the latent {'ckv': (batch, max_len,
+    kv_lora), 'kr': (batch, max_len, d_rope)}."""
+    _check_config(cfg)
     dev = resolve_device(device)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    return {"layers": [
-        {"k": torch.zeros(shape, dtype=cfg.act_dtype, device=dev),
-         "v": torch.zeros(shape, dtype=cfg.act_dtype, device=dev)}
-        for _ in range(cfg.n_layers)]}
+
+    def zeros(*shape):
+        return torch.zeros((batch, max_len, *shape), dtype=cfg.act_dtype, device=dev)
+
+    if cfg.attention == "mla":
+        return {"layers": [{"ckv": zeros(cfg.mla.kv_lora), "kr": zeros(cfg.mla.d_rope)}
+                           for _ in range(cfg.n_layers)]}
+    return {"layers": [{"k": zeros(cfg.n_kv_heads, cfg.d_head),
+                        "v": zeros(cfg.n_kv_heads, cfg.d_head)}
+                       for _ in range(cfg.n_layers)]}
 
 
 @torch.inference_mode()
@@ -237,9 +310,12 @@ def prefill(model: Transformer, tokens: torch.Tensor, caches: dict,
 
 
 @torch.inference_mode()
-def decode_step(model: Transformer, token: torch.Tensor, caches: dict, cache_index: int):
+def decode_step(model: Transformer, token: torch.Tensor, caches: dict, cache_index: int,
+                use_kernels: bool | str = "auto"):
     """One new token (B, 1) at ``cache_index`` against the caches; returns
     (logits (B, vocab), caches).  Decode attends over the cache with the
-    plain attention: the kernel takes a prompt's own keys only."""
-    x = _hidden(model, token, caches, cache_index, False)
+    plain attention (the attention kernel takes a prompt's own keys only);
+    ``use_kernels`` routes the MoE experts."""
+    use = resolve_use_kernels(use_kernels, token.device)
+    x = _hidden(model, token, caches, cache_index, use)
     return _logits(model, x[:, -1]), caches

@@ -104,3 +104,20 @@ def test_flash_attention_rejects_bad_inputs(bad):
         kw["window"] = -1
     with pytest.raises(ValueError):
         flash_attention(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_takes_mla_shapes_with_padded_values(dtype):
+    """MLA's queries and keys are d_nope + d_rope = 192 wide and its values
+    d_v = 128: ``mla_attention`` pads the values with zeros to 192 (as the
+    TPU wrapper pads to its ``d_pad``).  The padded columns come out zero,
+    the rest equal the Pallas kernel's and the oracle's on the same
+    inputs."""
+    (q, k, v), (jq, jk, jv) = _inputs(2, 70, 70, 192, 1, dtype, seed=11)
+    v[..., 128:] = 0
+    jv = jv.at[..., 128:].set(0)
+    scale = 1.0 / 192**0.5
+    got = flash_attention(q, k, v, scale=scale)
+    assert got.shape == (2, 70, 192) and not got[..., 128:].any()
+    _close(got, jax_flash(jq, jk, jv), dtype)
+    _close(got, jax_flash_ref(jq, jk, jv, scale), dtype)

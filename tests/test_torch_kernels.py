@@ -184,8 +184,8 @@ def test_use_kernels_resolution():
 
 def test_kernel_sources_and_build_dir():
     names = sorted(p.stem for p in runtime.kernel_sources())
-    assert names == ["embedding_bag", "flash_attention", "frontier_compact", "hyb_gather",
-                     "segment_spmm"]
+    assert names == ["embedding_bag", "flash_attention", "frontier_compact", "grouped_matmul",
+                     "hyb_gather", "segment_spmm"]
     for src in runtime.kernel_sources():
         text = src.read_text()
         assert "Replaces repro/kernels/" in text and "3.35 TB/s" in text

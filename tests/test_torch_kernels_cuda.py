@@ -6,7 +6,10 @@ in another order than its dense plain version: float32 within ``2e-5``,
 bfloat16 within ``2e-2`` (one rounding of the output).  An embedding bag
 of one row, and every max, are exact; float32 sums and means of L rows
 within ``rtol=1e-5, atol=1e-6 * L``, bfloat16 within one bfloat16 step
-(``rtol=2^-7``); NaN bags (ids out of range) in the same places."""
+(``rtol=2^-7``); NaN bags (ids out of range) in the same places.  The
+grouped matmul sums float32 products in another order than its plain
+version: float32 within ``rtol=1e-5, atol=1e-5`` (no TF32 on either side),
+bfloat16 within one bfloat16 rounding (``rtol=2^-7``)."""
 
 import importlib
 
@@ -21,6 +24,8 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.frontier_compact.ops import frontier_compact
 from repro_torch.kernels.frontier_compact.ref import frontier_compact_ref
+from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
+from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
 from repro_torch.kernels.hyb_gather.ops import hyb_gather
 from repro_torch.kernels.hyb_gather.ref import hyb_gather_ref
 from repro_torch.kernels.segment_spmm.ops import segment_spmm
@@ -97,7 +102,7 @@ def test_hyb_gather_kernel_vs_plain_on_card():
 def test_kernel_libraries_load():
     _cuda()
     for stem in ("segment_spmm", "frontier_compact", "hyb_gather", "flash_attention",
-                 "embedding_bag"):
+                 "embedding_bag", "grouped_matmul"):
         ops = importlib.import_module(f"repro_torch.kernels.{stem}.ops")
         assert runtime.load_kernel(stem, f"{stem}_launch", ops._ARGTYPES) is not None
 
@@ -121,6 +126,21 @@ def test_flash_attention_kernel_vs_plain_on_card(S, L, dh, window, causal, kv_gr
     want = flash_attention_ref(q, k, v, 1.0 / dh**0.5, window, causal, kv_groups)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_at_mla_shape():
+    """deepseek-v2-lite's prefill: 4 x 16 heads, q and k 192 wide, values
+    128 wide zero-padded to 192 (shared memory 165,632 bytes)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((64, 2048, 192), generator=g, device=dev).bfloat16() for _ in range(3))
+    v[..., 128:] = 0
+    got = flash_attention(q, k, v, scale=192**-0.5)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, 192**-0.5)
+    assert not got[..., 128:].any()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.cuda
@@ -196,3 +216,72 @@ def test_embedding_bag_kernel_rejects_bad_inputs_on_card():
         embedding_bag(table, ids.cpu())
     with pytest.raises(ValueError, match="empty bag"):
         embedding_bag(table, ids[:, :0], "max")
+
+
+def _groups(rng, T, E, C):
+    counts = np.minimum(rng.integers(0, 2 * C, E), C).astype(np.int32)
+    counts[rng.random(E) < 0.2] = 0
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    return starts, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,E,F,C", [(1000, 256, 8, 192, 160), (777, 130, 5, 70, 200),
+                                       (24, 2048, 64, 1408, 8), (300, 64, 1, 100, 300),
+                                       (513, 33, 7, 65, 90)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_kernel_vs_plain_on_card(T, D, E, F, C, dtype):
+    """Groups from the MoE layout (packed from row 0, counts capped at C,
+    some empty), rows after the last group outside every group; odd D and
+    F take the scalar loads."""
+    dev = _cuda()
+    rng = np.random.default_rng(T + D)
+    x = torch.from_numpy(rng.standard_normal((T, D)).astype(np.float32)).to(dev, dtype)
+    w = torch.from_numpy((rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(np.float32))
+    w = w.to(dev, dtype)
+    starts, counts = _groups(rng, T, E, C)
+    counts = np.minimum(counts, np.maximum(T - starts, 0)).astype(np.int32)
+    s, c = (torch.from_numpy(a).to(dev) for a in (starts, counts))
+    before = grouped_matmul.launches
+    got = grouped_matmul(x, w, s, c, C)
+    assert grouped_matmul.launches == before + 1
+    torch.cuda.synchronize()
+    want = grouped_matmul_ref(x, w, s, c, C)
+    assert got.dtype == dtype and got.shape == (T, F)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=1e-5)
+    inside = torch.zeros(T, dtype=torch.bool, device=dev)
+    for st, n in zip(starts.tolist(), counts.tolist()):
+        inside[st:st + n] = True
+    assert not got[~inside].any()
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_kernel_writes_only_its_group():
+    """Abutting groups of 1..130 rows: a block never writes past its group's
+    count (the TPU body's whole-tile store would), and counts past max_rows
+    are cut."""
+    dev = _cuda()
+    counts = torch.tensor([1, 63, 64, 65, 130, 0, 2], dtype=torch.int32, device=dev)
+    starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    T = int(counts.sum())
+    x = torch.randn(T, 40, device=dev).bfloat16()
+    w = torch.randn(7, 40, 72, device=dev).bfloat16()
+    for max_rows in (T, 64):
+        got = grouped_matmul(x, w, starts, counts, max_rows)
+        torch.cuda.synchronize()
+        want = grouped_matmul_ref(x, w, starts, counts, max_rows)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_kernel_rejects_bad_inputs_on_card():
+    dev = _cuda()
+    x, w = torch.zeros(8, 4, device=dev), torch.zeros(2, 4, 3, device=dev)
+    s = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        grouped_matmul(x, w.transpose(1, 2).contiguous().transpose(1, 2), s, s)
+    with pytest.raises(ValueError, match="tensors on"):
+        grouped_matmul(x, w, s.cpu(), s.cpu())

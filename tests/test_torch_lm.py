@@ -29,9 +29,13 @@ from repro_torch.configs import get_arch
 from repro_torch.configs.common import reduce_lm_config
 from repro_torch.launch import serve
 from repro_torch.models import attention, common, transformer
+from repro_torch.models.attention import MLAConfig
+from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import TransformerConfig
 
 ARCHS = ["gemma3-12b", "internlm2-1.8b", "granite-20b"]
+MOE_ARCHS = ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b"]   # tests/test_torch_mla.py
+NO_LAUNCHES = {"flash_attention": 0, "grouped_matmul": 0}
 
 
 def _t(a, dtype=torch.float32):
@@ -43,13 +47,17 @@ def _np(x):
 
 
 def _port_config(jax_cfg) -> TransformerConfig:
-    return TransformerConfig(**{f.name: getattr(jax_cfg, f.name)
-                                for f in dataclasses.fields(TransformerConfig)})
+    kw = {f.name: getattr(jax_cfg, f.name) for f in dataclasses.fields(TransformerConfig)}
+    if kw["mla"] is not None:
+        kw["mla"] = MLAConfig(**dataclasses.asdict(kw["mla"]))
+    if kw["moe"] is not None:
+        kw["moe"] = MoEConfig(**dataclasses.asdict(kw["moe"]))
+    return TransformerConfig(**kw)
 
 
 # ------------------------------------------------------------ configs
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_configs_match_the_reference(arch):
     ref = jax_get_arch(arch).model_config
     assert get_arch(arch) == _port_config(ref)
@@ -63,20 +71,10 @@ def test_gemma_windows_are_five_local_to_one_global():
     assert w.count(1024) == 40
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "pna", "hytgraph"])
+@pytest.mark.parametrize("arch", ["pna", "hytgraph"])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         get_arch(arch)
-
-
-def test_mla_and_moe_raise():
-    cfg = reduce_lm_config(get_arch("gemma3-12b"))
-    with pytest.raises(NotImplementedError, match="MLA"):
-        transformer.Transformer(cfg.replace(attention="mla", mla=object()), "cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        transformer.Transformer(cfg.replace(moe=object()), "cpu")
-    with pytest.raises(NotImplementedError, match="MLA"):
-        attention.mla_attention()
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 
@@ -252,7 +250,8 @@ def test_prefill_and_decode_match_reference(name, use_kernels):
     out = serve.generate(model, torch.from_numpy(prompts), 8, use_kernels=use_kernels)
     np.testing.assert_allclose(out["prefill_logits"].numpy(), first, rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(out["tokens"].numpy(), want_toks)
-    assert out["launches"] == {"prefill": 0, "decode": 0}  # CPU calls launch nothing
+    # CPU calls launch nothing
+    assert out["launches"] == {"prefill": NO_LAUNCHES, "decode": NO_LAUNCHES}
 
     # decode_step by hand, step by step, against the reference's logits
     caches = transformer.init_cache(cfg, 3, 21, "cpu")
@@ -320,4 +319,4 @@ def test_serve_launcher_reduced_on_cpu(arch, capsys):
     assert "tok/s" in line and "ms/step" in line
     toks = out["tokens"]
     assert toks.shape == (2, 4) and int(toks.min()) >= 0 and int(toks.max()) < 211
-    assert out["launches"] == {"prefill": 0, "decode": 0}
+    assert out["launches"] == {"prefill": NO_LAUNCHES, "decode": NO_LAUNCHES}
