@@ -9,12 +9,12 @@ import torch
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                         window: int = 0, causal: bool = True,
                         kv_groups: int = 1) -> torch.Tensor:
-    """q (BH, S, dh), k and v (BH / kv_groups, L, dh) -> (BH, S, dh) in q's
-    dtype; query head ``bh`` reads key/value head ``bh // kv_groups``."""
+    """q (BH, S, dh), k (BH / kv_groups, L, dh) and v (BH / kv_groups, L,
+    dv) -> (BH, S, dv) in q's dtype; query head ``bh`` reads key/value head
+    ``bh // kv_groups``."""
     if kv_groups > 1:   # head bh reads bh // kv_groups
-        BK, L, dh = k.shape
-        k = k[:, None].expand(BK, kv_groups, L, dh).reshape(BK * kv_groups, L, dh)
-        v = v[:, None].expand(BK, kv_groups, L, dh).reshape(BK * kv_groups, L, dh)
+        k = k.repeat_interleave(kv_groups, dim=0)
+        v = v.repeat_interleave(kv_groups, dim=0)
     s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
     S, L = s.shape[1], s.shape[2]
     qp = torch.arange(S, device=q.device)[:, None]

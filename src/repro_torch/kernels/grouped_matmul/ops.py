@@ -16,7 +16,7 @@ from repro_torch.kernels.runtime import check_launch, load_kernel, require_cuda,
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                      ctypes.c_void_p]
-_TILE_ROWS = 64  # output rows per block (kTm)
+_TILE_ROWS = 64  # output rows of the smallest block (kTm, the decode tiles)
 
 
 def grouped_matmul(x_sorted: torch.Tensor, weights: torch.Tensor, starts: torch.Tensor,
@@ -48,18 +48,29 @@ def grouped_matmul(x_sorted: torch.Tensor, weights: torch.Tensor, starts: torch.
     dev = require_cuda("grouped_matmul", *tensors)
     if not (x_sorted.is_contiguous() and weights.is_contiguous()):
         raise ValueError("grouped_matmul: x and weights must be contiguous")
-    if E >= 2**16 or -(-max_rows // _TILE_ROWS) >= 2**16 or D >= 2**31 or F >= 2**31:
+    if E >= 2**16 or -(-max_rows // _TILE_ROWS) >= 2**16 or T >= 2**31 or D >= 2**31 \
+            or F >= 2**31:
         raise ValueError(f"grouped_matmul: takes E < 2^16, max_rows < {_TILE_ROWS * 2**16} "
-                         f"and D, F < 2^31; got E={E}, max_rows={max_rows}, D={D}, F={F}")
-    out = torch.zeros((T, F), dtype=x_sorted.dtype, device=dev)
-    if T > 0 and F > 0 and E > 0 and max_rows > 0:
+                         f"and T, D, F < 2^31; got E={E}, max_rows={max_rows}, T={T}, D={D}, "
+                         f"F={F}")
+    bf16 = x_sorted.dtype == torch.bfloat16
+    F_k = F
+    if bf16 and (D % 8 or F % 8 or x_sorted.data_ptr() % 16 or weights.data_ptr() % 16):
+        # off the main path: TMA takes 16-byte aligned rows and bases, so x
+        # and w are zero-padded into copies (zero columns of D add nothing,
+        # zero columns of F are cut off)
+        D8, F_k = -(-D // 8) * 8, -(-F // 8) * 8
+        xp, wp = x_sorted.new_zeros((T, D8)), weights.new_zeros((E, D8, F_k))
+        xp[:, :D], wp[:, :D, :F] = x_sorted, weights
+        x_sorted, weights, D = xp, wp, D8
+    out = torch.zeros((T, F_k), dtype=x_sorted.dtype, device=dev)
+    if T > 0 and D > 0 and F > 0 and E > 0 and max_rows > 0:
         fn = load_kernel("grouped_matmul", "grouped_matmul_launch", _ARGTYPES)
         rc = fn(x_sorted.data_ptr(), weights.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-                out.data_ptr(), int(x_sorted.dtype == torch.bfloat16), T, D, F, E, max_rows,
-                stream_ptr())
+                out.data_ptr(), int(bf16), T, D, F_k, E, max_rows, stream_ptr())
         check_launch("grouped_matmul", rc)
         grouped_matmul.launches += 1
-    return out
+    return out if F_k == F else out[:, :F].contiguous()
 
 
 grouped_matmul.launches = 0

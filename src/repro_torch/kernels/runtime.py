@@ -18,7 +18,9 @@ On a CUDA device a kernel that fails to build or launch raises.
 Kernels.  Every ``kernels/<name>/csrc/*.cu`` exposes a plain C entry point
 and is compiled on first use by ``nvcc`` into its own shared library (one
 ``nvcc`` per source, all started together), loaded with ``ctypes``.  The
-libraries go under ``<repo>/build/repro_torch/<hash of sources+flags>/``,
+bf16 matrix kernels share ``kernels/common/csrc/hopper.cuh`` (TMA,
+mbarrier, wgmma).  The libraries go under
+``<repo>/build/repro_torch/<hash of sources+headers+flags>/``,
 a directory git ignores, so a fresh checkout builds its kernels itself.
 """
 
@@ -73,10 +75,19 @@ def _nvcc() -> str:
     return nvcc
 
 
+def kernel_headers() -> list[Path]:
+    """The headers the sources include (``kernels/common/csrc/hopper.cuh``
+    and any other ``*.cuh`` under ``kernels``)."""
+    return sorted(KERNELS_DIR.glob("**/*.cuh"))
+
+
 def build_dir() -> Path:
+    """``BUILD_ROOT/<hash>``: the hash covers the flags and every source and
+    header, so a change to a shared header rebuilds the kernels that include
+    it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in kernel_sources():
-        h.update(src.name.encode())
+    for src in kernel_sources() + kernel_headers():
+        h.update(str(src.relative_to(KERNELS_DIR)).encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 

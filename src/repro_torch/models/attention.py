@@ -4,13 +4,16 @@ caches (port of ``repro.models.attention``).
 
 Routes.  When the keys are the queries' own (no cache, or a prefill into
 an empty cache, ``cache_index == 0``) and ``use_kernels`` is on, attention
-goes through ``kernels.flash_attention`` (float32 probabilities).  Every
-other call (decode, a prefill after earlier tokens, ``use_kernels=False``)
-runs the plain ``_sdpa``, which casts the probabilities to the value type
-before P.V as the reference's ``_sdpa`` does.  The reference itself takes a
-blocked online softmax with float32 probabilities above 2048 x 2048 score
-elements (its ``_FLASH_THRESHOLD``); in float32 the routes agree to rounding, in bfloat16 to
-bfloat16 rounding of the probabilities.
+goes through ``kernels.flash_attention``: float32 scores and softmax, and
+in bfloat16 the probabilities rounded to bfloat16 before P.V (as
+FlashAttention-2/3 and SDPA do; the kernel's float32 route, and its plain
+version on the CPU, keep them in float32).  Every other call (decode, a
+prefill after earlier tokens, ``use_kernels=False``) runs the plain
+``_sdpa``, which casts the probabilities to the value type before P.V as
+the reference's ``_sdpa`` does.  The reference itself takes a blocked
+online softmax with float32 probabilities above 2048 x 2048 score elements
+(its ``_FLASH_THRESHOLD``); in float32 the routes agree to rounding, in
+bfloat16 to bfloat16 rounding of the probabilities.
 
 Caches.  The reference's caches are functional; the port writes the new
 keys and values into the cache tensors in place and returns the same dict.
@@ -25,8 +28,8 @@ without a cache), as ``transformer.forward`` passes them.
 MLA follows the same routes.  Its kernel route feeds ``flash_attention``
 one key head a query head (``kv_groups=1``): queries ``cat(q_nope,
 q_rope)``, keys ``cat(k_nope, kr)`` with the shared rotary key broadcast
-over the heads, and values zero-padded from ``d_v`` to the q/k width (as
-the TPU wrapper pads to its ``d_pad``), the padding sliced off the output.
+over the heads, and values ``d_v`` wide (the kernel takes values narrower
+than the keys; the TPU wrapper pads them to its ``d_pad``).
 Its plain route is the reference's two-einsum score.  Its cache holds the
 latent ``ckv`` and the rotary ``kr`` only; the per-head keys and values are
 recomputed from it, as in the reference.
@@ -193,10 +196,10 @@ def mla_attention(p, x: torch.Tensor, positions: torch.Tensor, n_heads: int, mla
         qh = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2).reshape(B * H, S, dh)
         kh = torch.cat([k_nope, kr_all[:, :, None, :].expand(B, L, H, dr)], dim=-1)
         kh = kh.transpose(1, 2).reshape(B * H, L, dh)
-        vh = torch.nn.functional.pad(v, (0, dh - dv)).transpose(1, 2).reshape(B * H, L, dh)
+        vh = v.transpose(1, 2).reshape(B * H, L, dv)
         o = flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous(), scale=scale,
                             window=window, causal=True)
-        out = o[..., :dv].reshape(B, H, S, dv).transpose(1, 2).reshape(B, S, H * dv)
+        out = o.reshape(B, H, S, dv).transpose(1, 2).reshape(B, S, H * dv)
     else:
         mask = attention_mask(positions, kv_pos, None, window)          # (1, 1, S, L)
         scores = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)

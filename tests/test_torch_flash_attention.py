@@ -85,7 +85,7 @@ def test_flash_attention_plain_version_is_the_wrapper_on_cpu():
                        flash_attention_ref(q, k, v, 0.25, window=5, kv_groups=2))
 
 
-@pytest.mark.parametrize("bad", ["dtype", "mixed", "rank", "groups", "dh", "window"])
+@pytest.mark.parametrize("bad", ["dtype", "mixed", "rank", "groups", "dh", "window", "dv"])
 def test_flash_attention_rejects_bad_inputs(bad):
     q = torch.zeros(4, 8, 16)
     k = v = torch.zeros(2, 8, 16)
@@ -100,6 +100,8 @@ def test_flash_attention_rejects_bad_inputs(bad):
         kw["kv_groups"] = 3
     elif bad == "dh":
         k = v = torch.zeros(2, 8, 32)
+    elif bad == "dv":
+        v = torch.zeros(2, 8, 32)    # values wider than the keys
     else:
         kw["window"] = -1
     with pytest.raises(ValueError):
@@ -121,3 +123,18 @@ def test_flash_attention_takes_mla_shapes_with_padded_values(dtype):
     assert got.shape == (2, 70, 192) and not got[..., 128:].any()
     _close(got, jax_flash(jq, jk, jv), dtype)
     _close(got, jax_flash_ref(jq, jk, jv, scale), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window,kv_groups", [(True, 0, 1), (True, 9, 2), (False, 0, 1)])
+def test_flash_attention_takes_values_narrower_than_keys(dtype, causal, window, kv_groups):
+    """MLA's widths as ``mla_attention`` now passes them: q and k 192 wide,
+    values 128 wide, unpadded.  The output is 128 wide and equals the
+    reference oracle's, which reads v's own width, on the same inputs."""
+    (q, k, _), (jq, jk, _) = _inputs(2 * kv_groups, 70, 70, 192, kv_groups, dtype, seed=13)
+    (_, _, v), (_, _, jv) = _inputs(2 * kv_groups, 70, 70, 128, kv_groups, dtype, seed=14)
+    scale = 1.0 / 192**0.5
+    got = flash_attention(q, k, v, scale=scale, window=window, causal=causal,
+                          kv_groups=kv_groups)
+    assert got.shape == (2 * kv_groups, 70, 128) and got.dtype == q.dtype
+    _close(got, jax_flash_ref(jq, jk, jv, scale, window=window, causal=causal), dtype)

@@ -3,7 +3,8 @@ import neither jax nor the reference, so they run on the machine with the
 card; without one they skip.  Min, compaction and gather are exact; the sum
 is float32 atomics in another order, ``rtol=atol=1e-4``.  Attention sums
 in another order than its dense plain version: float32 within ``2e-5``,
-bfloat16 within ``2e-2`` (one rounding of the output).  An embedding bag
+bfloat16 within ``2e-2`` (one rounding of the output, and the kernel's
+bf16 probabilities against the plain version's float32).  An embedding bag
 of one row, and every max, are exact; float32 sums and means of L rows
 within ``rtol=1e-5, atol=1e-6 * L``, bfloat16 within one bfloat16 step
 (``rtol=2^-7``); NaN bags (ids out of range) in the same places.  The
@@ -11,6 +12,7 @@ grouped matmul sums float32 products in another order than its plain
 version: float32 within ``rtol=1e-5, atol=1e-5`` (no TF32 on either side),
 bfloat16 within one bfloat16 rounding (``rtol=2^-7``)."""
 
+import ctypes
 import importlib
 
 import numpy as np
@@ -131,7 +133,8 @@ def test_flash_attention_kernel_vs_plain_on_card(S, L, dh, window, causal, kv_gr
 @pytest.mark.cuda
 def test_flash_attention_kernel_at_mla_shape():
     """deepseek-v2-lite's prefill: 4 x 16 heads, q and k 192 wide, values
-    128 wide zero-padded to 192 (shared memory 165,632 bytes)."""
+    128 wide zero-padded to 192, as the TPU wrapper pads them (the (192,
+    192) instantiation, 148,544 bytes of shared memory)."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (torch.randn((64, 2048, 192), generator=g, device=dev).bfloat16() for _ in range(3))
@@ -285,3 +288,117 @@ def test_grouped_matmul_kernel_rejects_bad_inputs_on_card():
         grouped_matmul(x, w.transpose(1, 2).contiguous().transpose(1, 2), s, s)
     with pytest.raises(ValueError, match="tensors on"):
         grouped_matmul(x, w, s.cpu(), s.cpu())
+
+
+# ---- the bf16 bodies: wgmma on a TMA/mbarrier ring (kernels/common/csrc/hopper.cuh)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mn_major", [False, True])
+def test_wgmma_tile_vs_matmul_on_card(mn_major):
+    """One TMA-loaded, 128-byte-swizzled tile through wgmma m64n128k16 (4
+    k16 steps): B K-major ((N, K) rows, as attention's K) and MN-major ((K,
+    N) rows, as V and an expert's weights; two 64-column boxes, so the
+    descriptor's leading byte offset is used).  bf16 products are exact in
+    float32; the sums differ in order only."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(5)
+    a = torch.randn((64, 64), generator=g, device=dev).bfloat16()
+    b = torch.randn((64, 128) if mn_major else (128, 64), generator=g, device=dev).bfloat16()
+    c = torch.empty((64, 128), device=dev)
+    fn = runtime.load_kernel("grouped_matmul", "wgmma_tile_launch",
+                             [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
+    runtime.check_launch("wgmma_tile", fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                          int(mn_major), runtime.stream_ptr()))
+    torch.cuda.synchronize()
+    want = a.float() @ (b.float() if mn_major else b.float().T)
+    torch.testing.assert_close(c, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,L,dh,dv,window,causal,kv_groups", [
+    (257, 257, 64, 64, 0, True, 1), (257, 257, 128, 128, 0, True, 4),
+    (257, 257, 192, 128, 0, True, 1), (257, 257, 192, 192, 1024, True, 2),
+    (257, 257, 256, 256, 0, True, 2), (1100, 1100, 256, 256, 1024, True, 2),
+    (300, 300, 128, 64, 1, True, 1), (130, 400, 64, 64, 0, False, 2),
+    (300, 100, 128, 128, 50, False, 1), (97, 97, 96, 80, 5, True, 4),
+    (64, 64, 256, 128, 0, True, 1)])
+def test_flash_attention_bf16_wgmma_on_card(S, L, dh, dv, window, causal, kv_groups):
+    """The bf16 body at each instantiated width and with values narrower than
+    the keys (padded widths: dh 96 -> 128, dv 80 -> 128 and (256, 128) ->
+    (256, 256)), S = 257 (a partial 128-row tile), window 1 and 1024 across
+    64- and 128-key tiles, kv_groups 1/2/4, non-causal with L != S, and rows
+    with no key (non-causal, window 50, S > L: rows >= 149 are 0).  It
+    rounds P to bf16, the plain version keeps float32: ``2e-2``."""
+    dev = _cuda()
+    rng = np.random.default_rng(S + dh + dv)
+    bh = 2 * kv_groups
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev).bfloat16()
+               for shape in ((bh, S, dh), (bh // kv_groups, L, dh), (bh // kv_groups, L, dv)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, window=window, causal=causal, kv_groups=kv_groups)
+    assert flash_attention.launches == before + 1
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, 1.0 / dh**0.5, window, causal, kv_groups)
+    assert got.shape == (bh, S, dv) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    if not causal and window:
+        assert not got[:, L - 1 + window:].any()
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_takes_values_128_wide_at_mla_shape():
+    """deepseek-v2-lite's prefill as ``mla_attention`` now calls it: q and k
+    192 wide, values 128 wide (the (192, 128) instantiation, no padding)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k = (torch.randn((64, 2048, 192), generator=g, device=dev).bfloat16() for _ in range(2))
+    v = torch.randn((64, 2048, 128), generator=g, device=dev).bfloat16()
+    got = flash_attention(q, k, v, scale=192**-0.5)
+    torch.cuda.synchronize()
+    assert got.shape == (64, 2048, 128)
+    torch.testing.assert_close(got.float(), flash_attention_ref(q, k, v, 192**-0.5).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_rejects_unaligned_inputs():
+    dev = _cuda()
+    base = torch.zeros(4 * 16 * 64 + 1, device=dev).bfloat16()
+    q = base[1:].view(4, 16, 64)      # contiguous, 2 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,E,F,C,shift", [
+    (49_152, 2048, 64, 1408, 960, 0), (49_152, 1408, 64, 2048, 960, 0),
+    (24, 2048, 64, 1408, 8, 0), (5000, 256, 8, 192, 700, 37), (40, 512, 16, 256, 4, 3),
+    (777, 130, 5, 70, 200, 11), (513, 33, 7, 65, 90, 0)])
+def test_grouped_matmul_bf16_wgmma_on_card(T, D, E, F, C, shift):
+    """The bf16 body at deepseek-v2-lite's three launch shapes (prefill
+    gate/up and down, 128 x 128 tiles; decode, 64 x 64 tiles), groups that
+    start mid-tile (``shift`` rows before the first group), empty experts,
+    counts above max_rows (cut), D and F that TMA cannot describe (zero-
+    padded copies), and rows outside every group that stay 0."""
+    dev = _cuda()
+    rng = np.random.default_rng(T + D + shift)
+    x = torch.from_numpy(rng.standard_normal((T, D)).astype(np.float32)).to(dev).bfloat16()
+    w = torch.from_numpy((rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(np.float32))
+    w = w.to(dev).bfloat16()
+    counts = rng.integers(0, 2 * C, E).astype(np.int32)
+    counts[rng.random(E) < 0.2] = 0
+    kept = np.minimum(counts, C)
+    starts = (shift + np.concatenate([[0], np.cumsum(kept)[:-1]])).astype(np.int32)
+    counts = np.minimum(counts, np.maximum(T - starts, 0)).astype(np.int32)
+    s, c = (torch.from_numpy(a).to(dev) for a in (starts, counts))
+    before = grouped_matmul.launches
+    got = grouped_matmul(x, w, s, c, C)
+    assert grouped_matmul.launches == before + 1
+    torch.cuda.synchronize()
+    want = grouped_matmul_ref(x, w, s, c, C)
+    assert got.dtype == torch.bfloat16 and got.shape == (T, F)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=1e-4)
+    inside = torch.zeros(T, dtype=torch.bool, device=dev)
+    for st, n in zip(starts.tolist(), np.minimum(counts, C).tolist()):
+        inside[st:st + n] = True
+    assert not got[~inside].any()
