@@ -15,7 +15,12 @@ Phases, in order; any failure exits nonzero and prints no result line:
    (CUDA-graph replay, median of 20), the time of one call from the host,
    the plain version's and one library call's time, and the least time the
    card could take (bytes moved / 3.35 TB/s, or for ``flash_attention`` the
-   larger of that and its flops at the type's peak).  ``flash_attention``
+   larger of that and its flops at the type's peak).  The three graph
+   kernels are timed warm (one argument set, L2-resident) and on a cold L2
+   (``cold_ms``), with the host time to issue a call (each launch's device
+   time comes in phase 4); ``segment_spmm`` min and sum also on the last
+   partition's block; then the registers and spills ptxas reported for
+   ``segment_spmm`` and ``frontier_compact`` (none may spill).  ``flash_attention``
    runs at gemma3-12b's prefill shapes (a local and a global layer: q (64,
    2048, 256) bf16 over 8 kv heads), at deepseek-v2-lite's MLA prefill (q
    and k (64, 2048, 192) bf16, values 128 wide, unpadded) and at
@@ -36,7 +41,13 @@ Phases, in order; any failure exits nonzero and prints no result line:
    before each leg and read after it: each leg must launch the kernels of
    its engines (the hybrid SSSP legs all three, Δ-PageRank ``segment_spmm``
    with its sum combine, each forced leg its own engine's kernel and no
-   other), and the plain legs none;
+   other), and the plain legs none.  Then SSSP (K=8) and Δ-PageRank run in
+   turns (plain, kernels, kernels, plain, twice): their median wall
+   seconds.  Only then, after every host timing of the graph, does the
+   profiler run (``torch.profiler``): phase 2's graph rows' device time a
+   launch, by kernel, and their host time a call again, to show what the
+   profiler leaves behind; and the device time of the port's kernels in
+   one more kernel run of each pair;
 5. the oracle leg: SSSP and PageRank on the quickstart graph against the
    numpy references;
 6. LM serving: the reduced gemma3-12b config on the card against the CPU
@@ -75,7 +86,10 @@ Phases, in order; any failure exits nonzero and prints no result line:
    bf16 tolerance; the share of (token, k) expert picks that differ
    between the legs in the first and last MoE layers is printed, with
    prefill seconds and tokens/s, decode ms/step, peak memory and host syncs
-   beside the least times the card could take;
+   beside the least times the card could take.  A third leg (the MoE
+   kernels with the plain attention) must pick exactly as the plain leg,
+   and each leg's picks are counted against a float32 run of the first
+   ``MOE_F32_LAYERS`` layers;
 9. DLRM serving, after deepseek-v2-lite-16b is freed: the reduced
    dlrm-mlperf config on the card against the CPU (logits within 1e-4),
    then dlrm-mlperf at
@@ -104,7 +118,12 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
+import math
+import os
+import pickle
+import re
 import subprocess
 import sys
 import time
@@ -116,6 +135,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA's data sheet
+L2_BYTES = 50e6            # H100 L2 cache, NVIDIA's data sheet
 # H100 SXM dense peaks (NVIDIA's data sheet): bf16 tensor cores, float32 CUDA cores
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 REPS = 20
@@ -182,6 +202,62 @@ def graph_ms(torch, fn, calls: int = 10, reps: int = REPS) -> float:
     return float(np.median(times))
 
 
+def host_us(torch, fn, calls: int = 50, reps: int = 5) -> float:
+    """Host time to issue one call of ``fn``, in µs: the median over
+    ``reps`` of ``calls`` calls issued back to back with no sync (the
+    device's queue holds their launches), divided by ``calls``."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t) / calls * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def launch_split(torch, fn, calls: int = REPS) -> dict:
+    """Device µs of each kernel that one call of ``fn`` launches, by kernel
+    name: the mean over ``calls`` eager calls under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {re.sub(r"^void |\(.*$", "", e.key.replace("(anonymous namespace)::", "")):
+            e.self_device_time_total / calls
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def cold_ms(torch, fn, make_args, set_bytes: float, reps: int = REPS) -> float:
+    """Device time of one call on a cold L2: ``graph_ms`` over one call on
+    each of ``n`` copies of the arguments (``make_args()`` each), every
+    call's output kept alive, with ``n`` such that the other copies touch
+    more than three L2s (``set_bytes`` each: the inputs a call reads and
+    the output it writes) between two uses of one copy."""
+    n = max(3, math.ceil(3 * L2_BYTES / set_bytes) + 1)
+    sets = itertools.cycle([make_args() for _ in range(n)])
+    outs = []
+    ms = graph_ms(torch, lambda: outs.append(fn(*next(sets))), calls=n, reps=reps)
+    del outs, sets
+    return ms
+
+
+def offset_copy(torch, t):
+    """A copy of the 1-D ``t`` at the same offset from a 16-byte boundary
+    (the main path's blocks are views at a partition's first edge)."""
+    off = (t.data_ptr() % 16) // t.element_size()
+    big = torch.empty(t.shape[0] + off, dtype=t.dtype, device=t.device)
+    big[off:] = t
+    return big[off:]
+
+
 def bound_ms(n_bytes: float) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
 
@@ -191,6 +267,13 @@ def bound_ms(n_bytes: float) -> float:
 # ---------------------------------------------------------------------------
 
 def phase_kernels(torch, rt, seed: int) -> dict:
+    """The three graph kernels against their plain versions on a main-path
+    block (partition 0's edges, 30% of the lanes active), then their times:
+    warm (one argument set replayed, L2-resident: the min set is about 25 MB
+    and the sum set 46 MB) and cold (``cold_ms``), one call from the host,
+    the plain version's and one library call's.  ``segment_spmm`` min and
+    sum are also timed on the last partition's block, whose ids are a view
+    at an unaligned offset."""
     from repro_torch.kernels.frontier_compact.ops import frontier_compact
     from repro_torch.kernels.frontier_compact.ref import frontier_compact_ref
     from repro_torch.kernels.hyb_gather.ops import PAD, hyb_gather
@@ -210,26 +293,68 @@ def phase_kernels(torch, rt, seed: int) -> dict:
     active = torch.rand(B, device=dev, generator=gen) < 0.3
     rows = {}
 
+    def timed(kernel, plain, library, make_args, set_bytes, library_by_call=False, **row):
+        """The row's times: ``kernel``, ``plain`` and ``library`` take the
+        arguments ``make_args()`` returns."""
+        args = make_args()
+        row.update(
+            ms=graph_ms(torch, lambda: kernel(*args)),
+            call_ms=call_ms(torch, lambda: kernel(*args)),
+            host_us=host_us(torch, lambda: kernel(*args)),
+            cold_ms=cold_ms(torch, kernel, make_args, set_bytes),
+            plain_ms=graph_ms(torch, lambda: plain(*args)),
+            # boolean-mask indexing reads its output size back to the host,
+            # so it cannot be captured in a graph: timed as one call
+            library_ms=(call_ms if library_by_call else graph_ms)(torch, lambda: library(*args)),
+            bound_ms=bound_ms(set_bytes), bound_by="bytes",
+            # for phase_graph_profiles, which runs the profiler after
+            # every host timing of the graph
+            call=lambda: kernel(*args))
+        return row
+
     # -- segment_spmm, min (SSSP's FILTER combine: d=1, n_segments=n)
     msg = torch.where(active, torch.rand(B, device=dev, generator=gen) * 100.0 + 1.0,
                       float("inf"))
     msg[:3] = torch.tensor([float("-inf"), -0.0, -3.5], device=dev)
     k = segment_spmm(msg, dst, n, combine="min")
     p = segment_spmm_ref(msg[:, None], dst, n, combine="min")[:, 0]
-    check(torch.equal(k, p) and torch.equal(torch.signbit(k), torch.signbit(p)),
-          "segment_spmm min differs from its plain version")
-    dst64 = dst.long()
-    rows["segment_spmm"] = dict(
+    check(torch.equal(k.view(torch.int32), p.view(torch.int32)),
+          "segment_spmm min differs from its plain version (bits, signs included)")
+
+    # the arguments: messages, ids and the ids as int64 for the library call
+    def spmm_min(m_, d_, d64):
+        return segment_spmm(m_, d_, n, combine="min")
+
+    def spmm_min_plain(m_, d_, d64):
+        return segment_spmm_ref(m_[:, None], d_, n, combine="min")
+
+    def spmm_min_library(m_, d_, d64):
+        return torch.full((n,), float("inf"), device=dev).scatter_reduce_(0, d64, m_, "amin")
+
+    rows["segment_spmm"] = timed(
+        spmm_min, spmm_min_plain, spmm_min_library,
+        lambda: (msg.clone(), dst.clone(), dst.long()),
+        B * 4 + B * 4 + n * 4, max_abs_err=0.0, shape=f"min m={B} d=1 n_segments={n}",
         replaces="src/repro/kernels/segment_spmm/segment_spmm.py:113",
-        source="src/repro_torch/kernels/segment_spmm/csrc/segment_spmm.cu",
-        max_abs_err=0.0, shape=f"min m={B} d=1 n_segments={n}",
-        ms=graph_ms(torch, lambda: segment_spmm(msg, dst, n, combine="min")),
-        call_ms=call_ms(torch, lambda: segment_spmm(msg, dst, n, combine="min")),
-        plain_ms=graph_ms(torch, lambda: segment_spmm_ref(msg[:, None], dst, n, combine="min")),
-        library_ms=graph_ms(torch, lambda: torch.full((n,), float("inf"), device=dev)
-                            .scatter_reduce_(0, dst64, msg, "amin")),
-        bound_ms=bound_ms(B * 4 + B * 4 + n * 4),
-    )
+        source="src/repro_torch/kernels/segment_spmm/csrc/segment_spmm.cu")
+    # the last (non-hub) partition's block, its ids a view at the
+    # partition's first edge, as the sweep passes them
+    _, edge_start, part_edges = rt.parts.host
+    last = len(part_edges) - 1
+    start = edge_start[last]
+    dst_last = rt.csr.edge_dst[start:start + B]
+    active_last = active & (rt.lane_index < part_edges[last])
+    msg_last = torch.where(active_last, msg, float("inf"))
+    check(torch.equal(spmm_min(msg_last, dst_last, None).view(torch.int32),
+                      spmm_min_plain(msg_last, dst_last, None)[:, 0].view(torch.int32)),
+          "segment_spmm min (last partition) differs from its plain version")
+    rows["segment_spmm_last"] = timed(
+        spmm_min, spmm_min_plain, spmm_min_library,
+        lambda: (msg_last.clone(), offset_copy(torch, dst_last), dst_last.long()),
+        B * 4 + B * 4 + n * 4,
+        max_abs_err=0.0, shape=f"min m={B} d=1 n_segments={n}, partition {last} (ids at "
+        f"edge {start}, {start % 4} words past a 16-byte boundary; "
+        f"{int(active_last.sum())} lanes active)")
     # ±0 and ±inf, each in a segment of its own: signs must survive
     ids = torch.arange(6, dtype=torch.int32, device=dev)
     vals = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), 1.0, -1.0], device=dev)
@@ -248,15 +373,31 @@ def phase_kernels(torch, rt, seed: int) -> dict:
     # the reassociation of up to ~1e5 terms of one sign
     check(torch.allclose(k[:, 0], p[:, 0], rtol=1e-4, atol=1e-9),
           "segment_spmm sum outside rtol=1e-4")
-    sum_err = float((k[:, 0] - p[:, 0]).abs().max())
-    rows["segment_spmm_sum"] = dict(
-        ms=graph_ms(torch, lambda: segment_spmm(packed, dst, n)),
-        call_ms=call_ms(torch, lambda: segment_spmm(packed, dst, n)),
-        plain_ms=graph_ms(torch, lambda: segment_spmm_ref(packed, dst, n)),
-        library_ms=graph_ms(torch, lambda: torch.zeros((n, 2), device=dev)
-                            .index_add_(0, dst, packed)),
-        bound_ms=bound_ms(B * 8 + B * 4 + n * 8), max_abs_err=sum_err,
-    )
+    def spmm_sum(m_, d_):
+        return segment_spmm(m_, d_, n)
+
+    def spmm_sum_plain(m_, d_):
+        return segment_spmm_ref(m_, d_, n)
+
+    def spmm_sum_library(m_, d_):
+        return torch.zeros((n, 2), device=dev).index_add_(0, d_, m_)
+
+    rows["segment_spmm_sum"] = timed(
+        spmm_sum, spmm_sum_plain, spmm_sum_library, lambda: (packed.clone(), dst.clone()),
+        B * 8 + B * 4 + n * 8, max_abs_err=float((k[:, 0] - p[:, 0]).abs().max()),
+        shape=f"sum m={B} d=2 n_segments={n}")
+    # the sum on the last partition's block too
+    packed_last = torch.stack([torch.where(active_last, pmsg, 0.0),
+                               active_last.to(torch.float32)], dim=-1)
+    k = spmm_sum(packed_last, dst_last)
+    p = spmm_sum_plain(packed_last, dst_last)
+    check(torch.equal(k[:, 1], p[:, 1]) and torch.allclose(k[:, 0], p[:, 0], rtol=1e-4, atol=1e-9),
+          "segment_spmm sum (last partition) differs from its plain version")
+    rows["segment_spmm_sum_last"] = timed(
+        spmm_sum, spmm_sum_plain, spmm_sum_library,
+        lambda: (packed_last.clone(), offset_copy(torch, dst_last)), B * 8 + B * 4 + n * 8,
+        max_abs_err=float((k[:, 0] - p[:, 0]).abs().max()),
+        shape=f"sum m={B} d=2 n_segments={n}, partition {last}")
     # m == 0 and a valid mask
     empty = segment_spmm(torch.empty((0, 2), device=dev),
                          torch.empty(0, dtype=torch.int32, device=dev), 5)
@@ -276,23 +417,23 @@ def phase_kernels(torch, rt, seed: int) -> dict:
               f"frontier_compact ({name} mask) differs from its plain version")
     out, cnt = frontier_compact(tuple(c[:0] for c in cols), active[:0])
     check(int(cnt) == 0 and all(o.shape == (0,) for o in out), "frontier_compact m=0")
-    kept = int(active.sum())
     row_bytes = 4 + 4 + 4 + 1
-    # the library yardstick: boolean-mask indexing of the rows packed into
-    # one (B, 4) array (it writes the kept rows only)
-    words = torch.stack([src, dst, w.view(torch.int32), active.to(torch.int32)], dim=-1)
-    rows["frontier_compact"] = dict(
+
+    def words_of(c):
+        """The library yardstick's input: the rows packed into one (B, 4)
+        array (boolean-mask indexing writes the kept rows only)."""
+        return torch.stack([c[0], c[1], c[2].view(torch.int32), c[3].to(torch.int32)], dim=-1)
+
+    def compact_args():
+        c = tuple(t.clone() for t in cols)
+        return c, words_of(c)
+
+    rows["frontier_compact"] = timed(
+        lambda c, words: frontier_compact(c, c[3]), lambda c, words: frontier_compact_ref(c, c[3]),
+        lambda c, words: words[c[3]], compact_args, 2 * B * row_bytes + 4, library_by_call=True, max_abs_err=0.0,
+        shape=f"m={B} columns=(i32, i32, f32, bool) kept={int(active.sum())}",
         replaces="src/repro/kernels/frontier_compact/frontier_compact.py:62",
-        source="src/repro_torch/kernels/frontier_compact/csrc/frontier_compact.cu",
-        max_abs_err=0.0, shape=f"m={B} columns=(i32, i32, f32, bool) kept={kept}",
-        ms=graph_ms(torch, lambda: frontier_compact(cols, active)),
-        call_ms=call_ms(torch, lambda: frontier_compact(cols, active)),
-        plain_ms=graph_ms(torch, lambda: frontier_compact_ref(cols, active)),
-        # boolean-mask indexing reads its output size back to the host, so
-        # it cannot be captured in a graph: timed as one call
-        library_ms=call_ms(torch, lambda: words[active]),
-        bound_ms=bound_ms(2 * B * row_bytes + 4),
-    )
+        source="src/repro_torch/kernels/frontier_compact/csrc/frontier_compact.cu")
 
     # -- hyb_gather (ZEROCOPY: the block's four columns as PAD-lane windows)
     n_win = -(-B // PAD)
@@ -308,27 +449,48 @@ def phase_kernels(torch, rt, seed: int) -> dict:
           "hyb_gather (random windows) differs from its plain version")
     check(all(o.shape == (0, PAD) for o in hyb_gather(cols, starts[:0], degs[:0])),
           "hyb_gather a=0")
-    padded = torch.cat([words, words.new_zeros((1, 4))])
     lane = torch.arange(PAD, device=dev)
     idx = starts.long()[:, None] + lane
     idx = torch.where(lane < degs.long()[:, None], idx, B)
-    rows["hyb_gather"] = dict(
-        replaces="src/repro/kernels/hyb_gather/hyb_gather.py:42",
-        source="src/repro_torch/kernels/hyb_gather/csrc/hyb_gather.cu",
-        max_abs_err=0.0, shape=f"a={n_win} columns=(i32, i32, f32, bool) of {B}",
-        ms=graph_ms(torch, lambda: hyb_gather(cols, starts, degs)),
-        call_ms=call_ms(torch, lambda: hyb_gather(cols, starts, degs)),
-        plain_ms=graph_ms(torch, lambda: hyb_gather_ref(cols, starts, degs)),
+
+    def gather_args():
+        c = tuple(t.clone() for t in cols)
         # advanced indexing of the rows packed into one (B + 1, 4) array
-        library_ms=graph_ms(torch, lambda: padded[idx]),
-        bound_ms=bound_ms(int(degs.sum()) * row_bytes + n_win * 8
-                          + n_win * PAD * row_bytes),
-    )
+        words = words_of(c)
+        return c, torch.cat([words, words.new_zeros((1, 4))])
+
+    rows["hyb_gather"] = timed(
+        lambda c, padded: hyb_gather(c, starts, degs),
+        lambda c, padded: hyb_gather_ref(c, starts, degs), lambda c, padded: padded[idx],
+        gather_args, int(degs.sum()) * row_bytes + n_win * 8 + n_win * PAD * row_bytes,
+        max_abs_err=0.0, shape=f"a={n_win} columns=(i32, i32, f32, bool) of {B}",
+        replaces="src/repro/kernels/hyb_gather/hyb_gather.py:42",
+        source="src/repro_torch/kernels/hyb_gather/csrc/hyb_gather.cu")
     for name, r in rows.items():
-        log(f"kernel {name}: {r.get('shape', 'sum m=%d d=2' % B)} ms={r['ms']:.4f} "
-            f"call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+        log(f"kernel {name}: {r['shape']} ms={r['ms']:.4f} (warm) cold_ms={r['cold_ms']:.4f} "
+            f"call_ms={r['call_ms']:.4f} host_us={r['host_us']:.1f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f} "
             f"bound_ms={r['bound_ms']:.4f} max_abs_err={r['max_abs_err']:.3g}")
     return rows
+
+
+def ptxas_report(stems=("segment_spmm", "frontier_compact")) -> dict:
+    """Registers and spills of every kernel of ``stems``, as ptxas reported
+    them when the kernels were built (``-Xptxas=-v``); no kernel may spill."""
+    from repro_torch.kernels.runtime import ptxas_resources
+
+    report = {}
+    for stem in stems:
+        fns = report[stem] = ptxas_resources(stem)
+        regs = [f["registers"] for f in fns]
+        spills = sum(f["spill_stores"] + f["spill_loads"] for f in fns)
+        # the kernel's name in the mangled one (its template arguments follow)
+        names = [re.search(r"\d+([A-Za-z_]*kernel)", f["name"]).group(1) for f in fns]
+        log(f"ptxas {stem}: {len(fns)} kernels, {min(regs)}-{max(regs)} registers a thread, "
+            f"{spills} bytes of spill stores and loads: "
+            + ", ".join(f"{n} {f['registers']}" for n, f in zip(names, fns)))
+        check(spills == 0, f"{stem}: a kernel spills registers")
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -802,6 +964,7 @@ def same_min_run(a, b) -> bool:
             and np.array_equal(a.history["engines"], b.history["engines"]))
 
 
+TURN_ROUNDS = 2   # rounds of (plain, kernels, kernels, plain) whole runs
 # the kernels each leg must launch; every leg but Δ-PageRank launches no other
 ALL_KERNELS = ("segment_spmm", "frontier_compact", "hyb_gather")
 LEG_KERNELS = {
@@ -857,6 +1020,84 @@ def read_launch_counts() -> dict:
 
 def counts_zero() -> dict:
     return {name: 0 for name in kernel_wrappers()}
+
+
+TURN_PAIRS = {"sssp": ("sssp_k8", "sssp_plain"), "pagerank": ("pagerank", "pagerank_plain")}
+
+
+def leg_turns(rt, legs: dict, rounds: int) -> dict:
+    """Wall seconds of whole runs of each pair of ``TURN_PAIRS`` in turns:
+    plain, kernels, kernels, plain, ``rounds`` times; name_path -> list."""
+    from repro_torch.core.hytm import run_hytm
+
+    walls = {}
+    for name, (kern, plain) in TURN_PAIRS.items():
+        for _ in range(rounds):
+            for which in ("plain", "kernels", "kernels", "plain"):
+                prog, src, c = legs[kern if which == "kernels" else plain]
+                walls.setdefault(f"{name}_{which}", []).append(
+                    run_hytm(None, prog, src, c, runtime=rt).wall_seconds)
+    return walls
+
+
+def traced_device_ms(torch, fn) -> tuple[float, float] | None:
+    """One run of ``fn`` under ``torch.profiler`` (device activity only):
+    (the device ms of the port's own kernels, every one of which is in an
+    anonymous namespace; the device ms of every kernel and copy), or None
+    when the trace holds no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None
+    port = sum(e.self_device_time_total for e in events
+               if e.key.removeprefix("void ").startswith("(anonymous namespace)::"))
+    return port / 1e3, sum(e.self_device_time_total for e in events) / 1e3
+
+
+def phase_turns(rt, legs: dict, launches: dict) -> dict:
+    """SSSP (K=8) and Δ-PageRank through the kernels and plain, in turns:
+    their median wall seconds (``phase_graph_profiles`` adds the kernels'
+    device time in one traced run)."""
+    walls = leg_turns(rt, legs, TURN_ROUNDS)
+    out = {}
+    for name, (kern, _) in TURN_PAIRS.items():
+        med = {which: float(np.median(walls[f"{name}_{which}"])) for which in ("kernels", "plain")}
+        out[name] = {"median_s": med, "runs": {w: walls[f"{name}_{w}"] for w in med},
+                     "launches": {k: launches[kern][k] for k in ALL_KERNELS}}
+        log(f"turns {name}: median wall {med['kernels']:.4f} s (kernels) vs {med['plain']:.4f} s "
+            f"(plain) over {2 * TURN_ROUNDS} runs each ({out[name]['launches']} launches)")
+    return out
+
+
+def phase_graph_profiles(torch, rt, legs: dict, rows: dict, turns: dict) -> None:
+    """The graph's profiler runs, after every host timing of the graph (a
+    process that has run the profiler may issue work more slowly): each
+    graph row's device µs a launch by kernel (``launch_split``) and its
+    host µs a call again, after the profiler; each turn pair's kernel leg
+    once under the profiler, the port's kernels' device ms and all device
+    ms of the run (``traced_device_ms``)."""
+    from repro_torch.core.hytm import run_hytm
+
+    for name, r in rows.items():
+        fn = r.pop("call")
+        r["split_us"] = launch_split(torch, fn)
+        r["host_us_after_profiler"] = host_us(torch, fn)
+        log(f"kernel {name}: host_us={r['host_us']:.1f} before the profiler, "
+            f"{r['host_us_after_profiler']:.1f} after; device µs a launch, by kernel "
+            "(torch.profiler, eager): " + ", ".join(f"{k} {v:.2f}" for k, v in r["split_us"].items()))
+    for name, (kern, _) in TURN_PAIRS.items():
+        prog, src, c = legs[kern]
+        traced = traced_device_ms(torch, lambda: run_hytm(None, prog, src, c, runtime=rt))
+        turns[name]["kernel_device_ms"] = traced and traced[0]
+        turns[name]["device_ms"] = traced and traced[1]
+        log(f"traced {name}: " + (f"the port's kernels {traced[0]:.2f} ms of {traced[1]:.2f} ms "
+                                  "device time in one kernel run" if traced else
+                                  "device time not measured (no device events)"))
 
 
 def phase_main(torch, cfg, rt, source: int) -> dict:
@@ -1141,6 +1382,74 @@ class RouteRecorder:
         self.module._route = self.real
 
 
+MOE_F32_LAYERS = 6   # the float32 run's depth: the dense layer and 5 MoE layers
+
+
+def record_routes(model, prompts, use, dev, decode: bool = True) -> list:
+    """The sorted top-k expert ids (T, K) of every MoE router call of one
+    prefill of ``prompts`` and, with ``decode``, one decode step after it."""
+    from repro_torch.models.transformer import decode_step, init_cache, prefill
+
+    B, S = prompts.shape
+    caches = init_cache(model.cfg, B, S + 1, dev)
+    with RouteRecorder() as rec:
+        logits, caches = prefill(model, prompts, caches, use_kernels=use)
+        if decode:
+            decode_step(model, logits.argmax(-1)[:, None], caches, S, use_kernels=use)
+    return [ids.sort(dim=-1).values for ids in rec.ids]
+
+
+def moe_route_flips(torch, model, prompts, routes: dict, dev) -> dict:
+    """Where the (token, k) picks that differ between the kernel and plain
+    legs come from.  (1) A third leg: the MoE layers through their kernel
+    route, the attention through its plain route (``transformer``'s
+    ``mla_attention`` swapped, for this leg only, for one that takes
+    ``use_kernels=False``).  The two MoE routes agree bit for bit on one
+    layer, so this leg must pick exactly as the plain leg.  (2) Each leg's
+    prefill picks against a float32 copy of the first ``MOE_F32_LAYERS``
+    layers (the same bf16 weights, upcast), layer by layer."""
+    from repro_torch.models import transformer as tf_mod
+
+    cfg, n_moe = model.cfg, model.cfg.n_scan_layers
+    real = tf_mod.mla_attention
+
+    def plain_attention(*args, **kw):
+        return real(*args, **{**kw, "use_kernels": False})
+
+    reset_launch_counts()
+    tf_mod.mla_attention = plain_attention
+    try:
+        routes["moe_kernels_plain_attention"] = record_routes(model, prompts, "auto", dev)
+    finally:
+        tf_mod.mla_attention = real
+    counts = read_launch_counts()
+    check(counts == {**counts_zero(), "grouped_matmul": 2 * 3 * n_moe},
+          f"the third MoE leg launched {counts}")
+    third = [int((a != b).sum()) for a, b in zip(routes["moe_kernels_plain_attention"],
+                                                 routes["plain"])]
+    log(f"MoE third leg (MoE kernels, plain attention) vs the plain leg: (token, k) picks that "
+        f"differ, by router call (prefill then one decode step): {third}")
+    check(not any(third), "MoE kernel route picks differ from the plain route's with the "
+          "attention held equal")
+
+    # float32 at reduced depth: the bf16 weights upcast, the plain routes
+    cfg32 = cfg.replace(n_layers=MOE_F32_LAYERS, dtype="float32", param_dtype="float32")
+    model32 = tf_mod.Transformer(cfg32, torch.device("meta"))
+    keep = set(model32.state_dict())
+    model32.load_state_dict({k: v.float() for k, v in model.state_dict().items() if k in keep},
+                            assign=True)
+    f32 = record_routes(model32, prompts, False, dev, decode=False)
+    n32 = cfg32.n_scan_layers
+    vs_f32 = {leg: [float((routes[leg][i] != f32[i]).float().mean()) for i in range(n32)]
+              for leg in ("kernel", "plain", "moe_kernels_plain_attention")}
+    log(f"MoE picks that differ from a float32 run of the first {MOE_F32_LAYERS} layers, by MoE "
+        f"layer 1-{n32} of the prefill: " + "; ".join(
+            f"{leg} {[f'{x:.4%}' for x in v]}" for leg, v in vs_f32.items()))
+    del model32, f32
+    torch.cuda.empty_cache()
+    return {"third_leg_vs_plain": third, "vs_float32": vs_f32, "float32_layers": MOE_F32_LAYERS}
+
+
 def moe_bounds(cfg, n_params: int, distinct: list[int], cache_bytes: int) -> dict:
     """The least time the card could take: the prefill's flops at the bf16
     peak (every token's dense weights and its K experts, the attention's
@@ -1200,8 +1509,7 @@ def phase_moe(torch, dev, seed: int, smi: str) -> dict:
     with the plain routes, both on the card."""
     from repro_torch.launch.serve import generate, serve_config
     from repro_torch.models.moe import moe_ffn
-    from repro_torch.models.transformer import (decode_step, init_cache, init_transformer,
-                                                prefill)
+    from repro_torch.models.transformer import init_transformer
 
     phase_moe_small(torch, dev, seed)
     cfg = serve_config(MOE_ARCH, reduced=False)
@@ -1291,16 +1599,12 @@ def phase_moe(torch, dev, seed: int, smi: str) -> dict:
     # layers, and the experts one decode step reads
     routes = {}
     for leg, use in (("kernel", "auto"), ("plain", False)):
-        caches = init_cache(cfg, LM_REQUESTS, LM_PROMPT + 1, dev)
-        with RouteRecorder() as rec:
-            logits, caches = prefill(model, prompts, caches, use_kernels=use)
-            decode_step(model, logits.argmax(-1)[:, None], caches, LM_PROMPT, use_kernels=use)
-        check(len(rec.ids) == 2 * n_moe, f"MoE {leg}: {len(rec.ids)} router calls")
-        routes[leg] = [ids.sort(dim=-1).values for ids in rec.ids]
-        del caches
+        routes[leg] = record_routes(model, prompts, use, dev)
+        check(len(routes[leg]) == 2 * n_moe, f"MoE {leg}: {len(routes[leg])} router calls")
     flips = {name: float((routes["kernel"][i] != routes["plain"][i]).float().mean())
              for name, i in (("first_moe_layer", 0), ("last_moe_layer", n_moe - 1))}
     distinct = [int(ids.unique().numel()) for ids in routes["kernel"][n_moe:]]
+    settle = moe_route_flips(torch, model, prompts, routes, dev)
 
     err = float((kl - pl).abs().max())
     rel = float((kl - pl).norm() / pl.norm())
@@ -1333,7 +1637,8 @@ def phase_moe(torch, dev, seed: int, smi: str) -> dict:
                      "decode_ms_per_step": o["decode_s_per_step"] * 1e3, "peak_gb": o["peak_gb"],
                      "launches": o["launches"]} for leg, o in legs.items()}
     summary.update(bounds=bounds, max_abs_err=err, rel_l2=rel, route_flips=flips,
-                   decode_experts_per_layer=distinct, layer=layer, host_syncs=syncs, card=smi)
+                   route_flips_settled=settle, decode_experts_per_layer=distinct, layer=layer,
+                   host_syncs=syncs, card=smi)
     del model, legs, routes
     torch.cuda.empty_cache()
     return summary
@@ -1537,10 +1842,12 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def setup(torch, scale: int):
+def setup(torch, scale: int, src: Path = ROOT / "src", graph_file: Path | None = None):
     """Build the kernels and the main path's graph and runtime on the card:
-    (config, hub-sorted graph, source vertex, runtime)."""
-    sys.path.insert(0, str(ROOT / "src"))
+    (config, hub-sorted graph, source vertex, runtime).  ``src`` holds the
+    ``repro_torch`` that runs; with ``graph_file``, the hub-sorted graph is
+    read from it if it exists and written to it otherwise."""
+    sys.path.insert(0, str(src))
     from repro_torch.core.constants import PCIE3
     from repro_torch.core.hytm import HyTMConfig, build_runtime
     from repro_torch.graph.generators import rmat_graph
@@ -1552,14 +1859,21 @@ def setup(torch, scale: int):
     torch.backends.cudnn.allow_tf32 = False
     t = time.monotonic()
     build_kernels()
-    log(f"kernels built in {time.monotonic() - t:.1f} s into {build_dir().relative_to(ROOT)}")
+    log(f"kernels built in {time.monotonic() - t:.1f} s into {os.path.relpath(build_dir(), ROOT)}")
     t = time.monotonic()
-    g = rmat_graph(2**scale, 16 * 2**scale, seed=SEED)
-    hs = hub_sort(g)
+    if graph_file is not None and graph_file.exists():
+        with open(graph_file, "rb") as f:
+            hs = pickle.load(f)
+    else:
+        hs = hub_sort(rmat_graph(2**scale, 16 * 2**scale, seed=SEED))
+        if graph_file is not None:
+            graph_file.parent.mkdir(parents=True, exist_ok=True)
+            with open(graph_file, "wb") as f:
+                pickle.dump(hs, f, protocol=pickle.HIGHEST_PROTOCOL)
     cfg = HyTMConfig(link=PCIE3.with_(mr=4.0), n_partitions=64)
     rt = build_runtime(hs.graph, cfg, n_hubs=hs.n_hubs)
     torch.cuda.synchronize()
-    log(f"graph: RMAT scale {scale}: {g.n_nodes:,} vertices, {g.n_edges:,} edges, "
+    log(f"graph: RMAT scale {scale}: {hs.graph.n_nodes:,} vertices, {hs.graph.n_edges:,} edges, "
         f"hub-sorted, 64 partitions, block {rt.parts.block_size:,} edges; set-up "
         f"{time.monotonic() - t:.1f} s")
     return cfg, hs, int(hs.perm[0]), rt
@@ -1586,6 +1900,7 @@ def main() -> int:
 
     rt_cpu = build_runtime(hs.graph, cfg, n_hubs=hs.n_hubs, device="cpu")
     rows = phase_kernels(torch, rt, SEED)
+    ptxas = ptxas_report()
     resources = kernel_resources()
     flash_rows = phase_flash(torch, rt.device, SEED)
     gmm_rows = phase_grouped_matmul(torch, rt.device, SEED)
@@ -1593,6 +1908,8 @@ def main() -> int:
     phase_cost_model(torch, cfg, rt, rt_cpu, source, SEED)
     del rt_cpu
     launches = phase_main(torch, cfg, rt, source)
+    turns = phase_turns(rt, main_path_legs(cfg, source), launches)
+    phase_graph_profiles(torch, rt, main_path_legs(cfg, source), rows, turns)
     phase_oracle(torch, rt.device)
     dev = rt.device
     del rt, hs
@@ -1611,13 +1928,19 @@ def main() -> int:
             # each leg's count, read after that leg alone
             "launches": sum(counts[name] for counts in launches.values()),
             "launches_by_leg": {leg: counts[name] for leg, counts in launches.items()},
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": "bytes",
-            "library_ms": r["library_ms"], "shape": r["shape"], "call_ms": r["call_ms"],
+            **{key: r[key] for key in ("max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms", "shape", "call_ms", "host_us",
+                                       "host_us_after_profiler", "split_us")},
         })
-    s = rows["segment_spmm_sum"]
-    kernels[0]["sum_d2"] = {k: s[k] for k in ("ms", "call_ms", "plain_ms", "library_ms",
-                                              "bound_ms", "max_abs_err")}
+    kernels[0]["graph_legs"] = turns
+    for key, row in (("sum_d2", "segment_spmm_sum"), ("last_partition", "segment_spmm_last"),
+                     ("sum_d2_last_partition", "segment_spmm_sum_last")):
+        kernels[0][key] = {k: rows[row][k] for k in ("shape", "ms", "cold_ms", "call_ms",
+                                                     "host_us", "host_us_after_profiler",
+                                                     "split_us", "plain_ms",
+                                                     "library_ms", "bound_ms", "max_abs_err")}
+    kernels[0]["ptxas"] = ptxas["segment_spmm"]
+    kernels[1]["ptxas"] = ptxas["frontier_compact"]
     # the main row is gemma3-12b's local layer (40 of its 48); every row follows
     f = flash_rows["gemma3_local"]
     flash_legs = {"lm_prefill": lm["kernel"]["launches"]["prefill"],

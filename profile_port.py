@@ -4,6 +4,7 @@
     python3 profile_port.py              # RMAT scale 22, the graph of chip_smoke.py
     python3 profile_port.py --scale 16   # a quick rehearsal
     python3 profile_port.py --dlrm       # dlrm-mlperf serving instead of the graph
+    python3 profile_port.py --against parent=DIR   # this tree against another, in turns
 
 For SSSP (K=8) and Δ-PageRank, each through the kernels and through the
 plain engines (``use_kernels=False``):
@@ -30,6 +31,18 @@ all_gather, all_gather, kernel, plain, three rounds; then one forward of
 each leg under the profiler (span, busy share, the largest device and host
 entries) and its host syncs by source line.
 
+With ``--against NAME=DIR`` (repeatable; DIR is another checkout of the
+repo, for example the parent commit unpacked with ``git archive``) it
+compares trees in turns on one card.  Each tree runs in a worker process of
+its own, with its own ``repro_torch`` and kernels; the first worker (this
+tree) builds the graph and writes it under ``build/``, the others read it.
+In the order of the trees and then back (this tree, A, B, B, A, this tree),
+``AB_ROUNDS`` times, each worker: times ``segment_spmm`` min and sum and
+``frontier_compact`` on partition 0's and the last partition's blocks
+(warm and cold device ms, host µs a call, as ``chip_smoke.py`` times them),
+issues one call of each kernel wrapper (host µs), and runs Δ-PageRank and
+SSSP (K=8), each through the kernels and plain (wall seconds).
+
 A diagnostic: it checks nothing that ``chip_smoke.py`` does not check.
 The last line is one JSON object of the turns and profile numbers.
 """
@@ -40,10 +53,12 @@ import argparse
 import collections
 import dataclasses
 import json
+import subprocess
 import sys
 import time
 import traceback
 import warnings
+from pathlib import Path
 
 import numpy as np
 
@@ -51,6 +66,8 @@ import chip_smoke as smoke
 from chip_smoke import log
 
 ROUNDS = 3  # rounds of (plain, kernels, kernels, plain) runs
+AB_ROUNDS = 2  # rounds of the trees in turns (--against)
+AB_LEGS = ("pagerank", "pagerank_plain", "sssp_k8", "sssp_plain")
 
 
 def device_busy(prof) -> tuple[float, float]:
@@ -119,22 +136,6 @@ def sync_sites(torch, fn) -> dict:
     return dict(sites.most_common())
 
 
-def host_us(torch, fn, calls: int = 50, reps: int = 5) -> float:
-    """Host time to issue one call of ``fn``, in µs: the median over
-    ``reps`` of ``calls`` calls issued back to back with no sync (the
-    device's queue holds their launches), divided by ``calls``."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        times.append((time.perf_counter() - t) / calls * 1e6)
-        torch.cuda.synchronize()
-    return float(np.median(times))
-
-
 def host_costs(torch, rt) -> dict:
     from repro_torch.core.engines import EdgeBlock, relax_with_engine
     from repro_torch.graph.algorithms import SSSP
@@ -153,17 +154,17 @@ def host_costs(torch, rt) -> dict:
     for eng, name in enumerate(("filter", "compact", "zerocopy")):
         for kern in (True, False):
             key = f"{name}_{'kernels' if kern else 'plain'}"
-            out[key] = host_us(torch, lambda: relax_with_engine(
+            out[key] = smoke.host_us(torch, lambda: relax_with_engine(
                 eng, block, operand, n, SSSP, kern))
     msg = torch.where(block.active, operand[src.long()], float("inf"))
     starts = torch.arange(0, -(-B // PAD) * PAD, PAD, dtype=torch.int32, device=dev)
     degs = torch.clamp(B - starts, max=PAD)
-    out["wrapper_segment_spmm"] = host_us(
+    out["wrapper_segment_spmm"] = smoke.host_us(
         torch, lambda: segment_spmm(msg, block.dst, n, combine="min"))
-    out["wrapper_frontier_compact"] = host_us(
+    out["wrapper_frontier_compact"] = smoke.host_us(
         torch, lambda: frontier_compact(block, block.active))
-    out["wrapper_hyb_gather"] = host_us(torch, lambda: hyb_gather(block, starts, degs))
-    out["torch_add"] = host_us(torch, lambda: msg + 1.0)
+    out["wrapper_hyb_gather"] = smoke.host_us(torch, lambda: hyb_gather(block, starts, degs))
+    out["torch_add"] = smoke.host_us(torch, lambda: msg + 1.0)
     return out
 
 
@@ -227,13 +228,158 @@ def dlrm_main(torch, smi: str) -> dict:
     return out
 
 
+def block_rows(torch, rt) -> dict:
+    """``segment_spmm`` min and sum and ``frontier_compact`` on partition 0's
+    and the last partition's blocks (30% of the lanes active; ids and
+    columns at the partition's offset from a 16-byte boundary, as the sweep
+    passes them; the activity column fresh): warm and cold device ms and
+    host µs a call."""
+    from repro_torch.kernels.frontier_compact.ops import frontier_compact
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm
+
+    dev, n, B = rt.device, rt.csr.n_nodes, rt.parts.block_size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(smoke.SEED)
+    active = torch.rand(B, device=dev, generator=gen) < 0.3
+    vals = torch.rand(B, device=dev, generator=gen) * 100.0 + 1.0
+    _, edge_start, part_edges = rt.parts.host
+
+    def spmm_min(msg, dst):
+        return segment_spmm(msg, dst, n, combine="min")
+
+    def spmm_sum(packed, dst):
+        return segment_spmm(packed, dst, n)
+
+    def compact(*cols):
+        return frontier_compact(cols, cols[3])
+
+    out = {}
+    for part in (0, len(part_edges) - 1):
+        start = edge_start[part]
+        act = active & (rt.lane_index < part_edges[part])
+        csr = rt.csr
+        cols = tuple(c[start:start + B] for c in (csr.edge_src, csr.edge_dst, csr.edge_weight))
+        cols += (act,)
+        msg = torch.where(act, vals, float("inf"))
+        packed = torch.stack([torch.where(act, vals * 1e-5, 0.0), act.to(torch.float32)], -1)
+        cases = {
+            "segment_spmm_min": (spmm_min, lambda: (msg.clone(), smoke.offset_copy(torch, cols[1])),
+                                 B * 8 + n * 4),
+            "segment_spmm_sum": (spmm_sum,
+                                 lambda: (packed.clone(), smoke.offset_copy(torch, cols[1])),
+                                 B * 12 + n * 8),
+            "frontier_compact": (compact,
+                                 lambda: tuple(smoke.offset_copy(torch, c) for c in cols),
+                                 2 * B * 13 + 4),
+        }
+        for name, (fn, make_args, set_bytes) in cases.items():
+            args = make_args()
+            out[f"{name}_part{part}"] = dict(
+                warm_ms=smoke.graph_ms(torch, lambda: fn(*args)),
+                cold_ms=smoke.cold_ms(torch, fn, make_args, set_bytes),
+                host_us=smoke.host_us(torch, lambda: fn(*args)))
+    return out
+
+
+def ab_worker(args) -> int:
+    """One tree of ``--against``: set up, reply ``@@ {}``, then answer one
+    JSON request a line on stdin (``{"op": "rows" | "host" | "leg", ...}``)
+    with one ``@@ <json>`` line, until stdin closes."""
+    import torch
+
+    cfg, _, source, rt = smoke.setup(torch, args.scale, src=Path(args.worker),
+                                     graph_file=Path(args.graph_file))
+    from repro_torch.core.hytm import run_hytm
+
+    legs = smoke.main_path_legs(cfg, source)
+    print("@@ {}", flush=True)
+    for line in sys.stdin:
+        req = json.loads(line)
+        if req["op"] == "rows":
+            reply = block_rows(torch, rt)
+        elif req["op"] == "host":
+            reply = host_costs(torch, rt)
+        else:
+            prog, src, c = legs[req["leg"]]
+            reply = {"wall_s": run_hytm(None, prog, src, c, runtime=rt).wall_seconds}
+        print("@@ " + json.dumps(reply), flush=True)
+    return 0
+
+
+def ab_main(args, smi: str) -> dict:
+    """This tree against the ``--against`` trees in turns (module docstring)."""
+    trees = {"change": smoke.ROOT, **{name: Path(d).resolve() for name, d in
+                                       (a.split("=", 1) for a in args.against)}}
+    graph_file = smoke.ROOT / "build" / "ab_graph" / f"rmat{args.scale}.pkl"
+    graph_file.unlink(missing_ok=True)
+    workers = {}
+
+    def ask(name: str, req: dict | None) -> dict:
+        w = workers[name]
+        if req is not None:
+            w.stdin.write(json.dumps(req) + "\n")
+            w.stdin.flush()
+        for line in w.stdout:
+            if line.startswith("@@ "):
+                return json.loads(line[3:])
+            log(f"{name}: {line.rstrip()}")
+        raise RuntimeError(f"worker {name} ended (rc {w.wait()})")
+
+    try:
+        for name, tree in trees.items():   # one at a time: the first writes the graph
+            workers[name] = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--worker", str(tree / "src"),
+                 "--scale", str(args.scale), "--graph-file", str(graph_file)],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+            ask(name, None)
+        order = list(trees) + list(trees)[::-1]
+        rows = {name: [] for name in trees}
+        host = {name: [] for name in trees}
+        walls = {leg: {name: [] for name in trees} for leg in AB_LEGS}
+        for _ in range(AB_ROUNDS):
+            for name in order:
+                rows[name].append(ask(name, {"op": "rows"}))
+            for name in order:
+                host[name].append(ask(name, {"op": "host"}))
+            for leg in AB_LEGS:
+                for name in order:
+                    walls[leg][name].append(ask(name, {"op": "leg", "leg": leg})["wall_s"])
+    finally:
+        for w in workers.values():
+            w.stdin.close()
+            w.wait(timeout=120)
+    out = {"card": smi, "scale": args.scale, "trees": {k: str(v) for k, v in trees.items()}}
+    for name in trees:
+        med = {key: {k: float(np.median([r[key][k] for r in rows[name]])) for k in rows[name][0][key]}
+               for key in rows[name][0]}
+        med_host = {k: float(np.median([h[k] for h in host[name]])) for k in host[name][0]}
+        out[name] = {"rows": med, "host_us": med_host,
+                     "legs": {leg: {"median_s": float(np.median(walls[leg][name])),
+                                    "runs": walls[leg][name]} for leg in AB_LEGS}}
+        for key, r in med.items():
+            log(f"ab {name} {key}: warm {r['warm_ms']:.4f} ms, cold {r['cold_ms']:.4f} ms, "
+                f"host {r['host_us']:.1f} µs (medians of {len(rows[name])} turns)")
+        log(f"ab {name} host µs: " + ", ".join(f"{k} {v:.1f}" for k, v in med_host.items()))
+        for leg in AB_LEGS:
+            w = walls[leg][name]
+            log(f"ab {name} {leg}: median {np.median(w):.4f} s (min {min(w):.4f}, max "
+                f"{max(w):.4f}) over {len(w)} runs [{smi}]")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22,
                     help="RMAT scale: 2**scale vertices, 16 * 2**scale edges")
     ap.add_argument("--dlrm", action="store_true",
                     help="profile dlrm-mlperf serving instead of the graph path")
+    ap.add_argument("--against", action="append", default=[], metavar="NAME=DIR",
+                    help="compare this tree with the checkout DIR in turns")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)       # a tree's src, for --against
+    ap.add_argument("--graph-file", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.worker:
+        return ab_worker(args)
 
     import torch
 
@@ -245,23 +391,19 @@ def main() -> int:
     if args.dlrm:
         print(json.dumps(dlrm_main(torch, smi)))
         return 0
+    if args.against:
+        print(json.dumps(ab_main(args, smi)))
+        return 0
     cfg, _, source, rt = smoke.setup(torch, args.scale)
     from repro_torch.core.hytm import run_hytm
 
     legs = smoke.main_path_legs(cfg, source)
-    pairs = {"sssp": ("sssp_k8", "sssp_plain"), "pagerank": ("pagerank", "pagerank_plain")}
     out = {"card": smi, "scale": args.scale}
-    for name, (kern, plain) in pairs.items():
-        walls = {"kernels": [], "plain": []}
-        for _ in range(ROUNDS):
-            for which in ("plain", "kernels", "kernels", "plain"):
-                prog, src, c = legs[kern if which == "kernels" else plain]
-                walls[which].append(run_hytm(None, prog, src, c, runtime=rt).wall_seconds)
-        for which, w in walls.items():
-            out[f"turns_{name}_{which}"] = dict(median_s=float(np.median(w)), min_s=min(w),
-                                                max_s=max(w), runs=len(w))
-            log(f"turns {name} {which}: median {np.median(w):.4f} s (min {min(w):.4f}, "
-                f"max {max(w):.4f}) over {len(w)} runs")
+    for key, w in smoke.leg_turns(rt, legs, ROUNDS).items():
+        out[f"turns_{key}"] = dict(median_s=float(np.median(w)), min_s=min(w), max_s=max(w),
+                                   runs=len(w))
+        log(f"turns {key.replace('_', ' ', 1)}: median {np.median(w):.4f} s (min {min(w):.4f}, "
+            f"max {max(w):.4f}) over {len(w)} runs")
 
     for leg in ("sssp_k8", "sssp_plain", "pagerank", "pagerank_plain"):
         prog, src, c = legs[leg]

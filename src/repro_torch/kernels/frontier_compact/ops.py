@@ -22,7 +22,7 @@ from repro_torch.kernels.runtime import (
     stream_ptr,
 )
 
-TILE = 1024  # rows per block of the count and scatter kernels
+TILE = 2048  # rows per block of the count and scatter kernels (kTile)
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3 \
     + [ctypes.c_longlong, ctypes.c_void_p]
 
@@ -44,14 +44,15 @@ def frontier_compact(columns: Sequence[torch.Tensor], mask: torch.Tensor):
     outs = tuple(torch.empty_like(col) for col in columns)
     if m == 0:
         return outs, torch.zeros((), dtype=torch.int32, device=dev)
-    cnt = torch.empty((), dtype=torch.int32, device=dev)   # the scan writes it
-    scratch = torch.empty(-(-m // TILE), dtype=torch.int32, device=dev)
+    # one allocation: the tile counts, then the count the scatter writes
+    n_tiles = -(-m // TILE)
+    scratch = torch.empty(n_tiles + 1, dtype=torch.int32, device=dev)
     fn = load_kernel("frontier_compact", "frontier_compact_launch", _ARGTYPES)
     rc = fn(ins, pointer_array(outs), sizes, len(columns), mask.data_ptr(),
-            cnt.data_ptr(), scratch.data_ptr(), m, stream_ptr())
+            scratch.data_ptr() + 4 * n_tiles, scratch.data_ptr(), m, stream_ptr())
     check_launch("frontier_compact", rc)
     frontier_compact.launches += 1
-    return outs, cnt
+    return outs, scratch[n_tiles]
 
 
 frontier_compact.launches = 0

@@ -29,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -37,8 +38,10 @@ import torch
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_ROOT = KERNELS_DIR.parents[2] / "build" / "repro_torch"
+# -Xptxas=-v: ptxas reports each kernel's registers and spills, kept in
+# lib<stem>.log beside the library (``ptxas_resources``)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _ENTRIES: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -114,10 +117,27 @@ def build_kernels() -> dict[str, Path]:
         if proc.returncode != 0:
             errors.append(f"{src.name}:\n{log}")
         else:
+            libs[src.stem].with_suffix(".log").write_text(log)
             os.replace(tmp, libs[src.stem])
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
     return libs
+
+
+def ptxas_resources(stem: str) -> list[dict]:
+    """Each kernel of ``csrc/<stem>.cu`` as ptxas reported it when it was
+    built: mangled name, registers a thread, spill stores and loads (bytes)."""
+    log = (build_dir() / f"lib{stem}.log").read_text()
+    out = []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            out.append({"name": line.split("'")[1]})
+        elif out and (spills := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                          line)):
+            out[-1]["spill_stores"], out[-1]["spill_loads"] = map(int, spills.groups())
+        elif out and (used := re.search(r"Used (\d+) registers", line)):
+            out[-1]["registers"] = int(used.group(1))
+    return out
 
 
 def load_kernel(stem: str, entry: str, argtypes: list) -> ctypes._CFuncPtr:
@@ -152,7 +172,9 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
 
 
 def stream_ptr() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current CUDA stream of the current device, as an address (the
+    raw accessor builds no ``torch.cuda.Stream`` object)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 MAX_COLUMNS = 4  # kMaxCols of the column kernels

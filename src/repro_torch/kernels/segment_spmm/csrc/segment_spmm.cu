@@ -7,26 +7,54 @@
 // the identity (0 / +inf).
 //
 // Bound on an H100: bytes.  The work is one read of the messages and ids
-// (m*d*4 + m*4 bytes) and one write of the output (n_segments*d*4 bytes)
-// at 3.35 TB/s; on the FILTER path n_segments = n is larger than m, so
-// the identity fill dominates.  The TPU kernel routed each tile through a
-// one-hot MXU matmul (sum) or a masked select (min) because a TPU has no
-// atomics and runs its grid in order.  Here a fill kernel writes the
-// identity, then one thread per (edge, column) combines with one atomic:
+// (m*d*4 + m*4 bytes, plus m flags) and one write of the output
+// (n_segments*d*4 bytes) at 3.35 TB/s; on the FILTER path n_segments = n
+// is larger than m, so the identity fill dominates.  The TPU kernel routed
+// each tile through a one-hot MXU matmul (sum) or a masked select (min)
+// because a TPU has no atomics and runs its grid in order.  Here one launch
+// writes the identity with 16-byte stores (grid-stride, 8 blocks an SM: as
+// fast as a thread a float4 on the hub partition's block, faster on the
+// others), and a second combines with one
+// atomic per lane and column.  (One cooperative launch, the fill and the
+// combine split by a grid sync, captured in a CUDA graph as well, but was
+// no faster on the main path's blocks; nor was a programmatic dependent
+// launch of the combine, slower for sum.)  The output (16.8 MB at min, 33.5 MB
+// at sum d=2 on the main path) fits in the 50 MB L2 beside the messages, so
+// the atomics resolve in L2:
 //
+// * No division.  d is a template parameter (1 or 2; any other d takes a
+//   kernel with one lane a thread and a loop over its columns), and a thread
+//   of the d = 1, 2 kernels takes kVec consecutive lanes: one or two float4
+//   of messages, one uchar4 of valid flags and one int4 of ids.  Indices
+//   are 64-bit throughout.
+// * Streaming reads.  Messages, ids and flags are loaded with ld.global.cs
+//   (evict-first), so they do not push the output out of L2.
+// * Views.  Lanes are grouped from the messages' first 16-byte boundary;
+//   the up to kVec-1 lanes before it and those after the last whole group
+//   run one lane a thread.  The ids are often a view at another offset (on
+//   the main path a slice of the edge array at the partition's first edge):
+//   a thread then reads the two aligned int4 chunks around its ids and
+//   shifts them into place.  Flags off their 4-byte boundary, or messages
+//   off theirs, take scalar loads.
 // * min: the float order as an integer order.  A value with the sign bit
 //   clear is combined with a signed atomicMin on its bits; one with the
 //   sign bit set with an unsigned atomicMax on its bits.  Over the +inf
 //   initial value this is the order of the "flip the negatives" int32
 //   encoding (-inf < ... < -0 < +0 < ... < +inf), applied in place, so no
 //   decode pass is needed.  min is order-free: the result is bit-exact.
-// * sum: float32 atomicAdd.  The order of the additions varies, so values
-//   are tolerance-bounded; 0/1 activity columns sum exactly.
+// * sum: float32 atomicAdd; at d = 2 one vector atomicAdd(float2*) a lane
+//   (sm_90, global memory; the output from torch.empty is 8-byte
+//   aligned).  In a warp whose lanes are all on the vector path, the lanes
+//   bound for one segment add their values first (__match_any_sync), so the
+//   segment takes one atomic: faster on the hub partition's block, as fast
+//   elsewhere (for min it was slower, and min keeps one atomic a lane).  The
+//   order of the additions varies, so values are tolerance-bounded; 0/1
+//   activity columns sum exactly.
 //
-// Lanes that carry the identity (+inf for min, +0 for sum) are skipped:
-// combining them cannot change an output that starts at the identity and
-// never becomes -0 under sum.  On FILTER most lanes of a block are
-// inactive, so this removes most atomics.
+// Lanes that carry the identity (+inf for min; ±0 in every column for sum)
+// are skipped: combining them cannot change an output that starts at the
+// identity (a sum that starts at +0 never becomes -0).  On FILTER most lanes
+// of a block are inactive, so this removes most atomics.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,19 +64,46 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 132LL * 64;
+constexpr int kVec = 4;  // lanes a thread of the d = 1, 2 kernels: one int4 of ids
+constexpr unsigned kFillBlocksPerSm = 8;
+using Idx = long long;  // lane, segment and element indices
 
-inline int grid_for(long long total) {
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  return static_cast<int>(blocks < 1 ? 1 : blocks);
+inline unsigned blocks_for(Idx items) {
+  return static_cast<unsigned>((items + kThreads - 1) / kThreads);
 }
 
-__global__ void fill_kernel(float* __restrict__ out, long long total, float value) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    out[i] = value;
+// The identity, grid-stride: 4 float4 a thread an iteration; block 0's
+// first thread writes the (at most 3) floats past the last float4.
+__global__ void __launch_bounds__(kThreads) fill_kernel(float* __restrict__ out, Idx total,
+                                                        float value) {
+  const Idx n4 = total / 4;
+  const Idx stride = static_cast<Idx>(gridDim.x) * kThreads;
+  const float4 f = make_float4(value, value, value, value);
+  float4* o = reinterpret_cast<float4*>(out);
+  Idx i = static_cast<Idx>(blockIdx.x) * kThreads + threadIdx.x;
+  for (; i + 3 * stride < n4; i += 4 * stride) {
+    o[i] = f;
+    o[i + stride] = f;
+    o[i + 2 * stride] = f;
+    o[i + 3 * stride] = f;
   }
+  for (; i < n4; i += stride) o[i] = f;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    for (Idx k = 4 * n4; k < total; ++k) out[k] = value;
+  }
+}
+
+// kFillBlocksPerSm blocks on every SM (or fewer, for a small output).
+unsigned fill_blocks(Idx total) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const unsigned need = blocks_for(total / 4 + 1);
+  const unsigned cap = static_cast<unsigned>(sms > 0 ? sms : 1) * kFillBlocksPerSm;
+  return need < cap ? need : cap;
 }
 
 __device__ __forceinline__ void atomic_min_f32(float* addr, float v) {
@@ -61,27 +116,220 @@ __device__ __forceinline__ void atomic_min_f32(float* addr, float v) {
 }
 
 template <bool kMin>
-__global__ void combine_kernel(const float* __restrict__ msg, const int* __restrict__ seg,
-                               const uint8_t* __restrict__ valid, float* __restrict__ out,
-                               long long m, int d, long long n_segments) {
-  const long long total = m * d;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long e = i / d;
-    const int j = static_cast<int>(i - e * d);
-    if (valid != nullptr && !valid[e]) continue;
-    const int s = seg[e];
-    if (s < 0 || s >= n_segments) continue;
-    const float v = msg[i];
-    float* dst = out + (long long)s * d + j;
-    if (kMin) {
-      if (__float_as_uint(v) == 0x7f800000u) continue;  // +inf
-      atomic_min_f32(dst, v);
-    } else {
-      if (__float_as_uint(v) == 0u) continue;  // +0
-      atomicAdd(dst, v);
+__device__ __forceinline__ void combine_value(float* dst, float v) {
+  if (kMin) {
+    if (__float_as_uint(v) == 0x7f800000u) return;  // +inf
+    atomic_min_f32(dst, v);
+  } else {
+    if ((__float_as_uint(v) << 1) == 0u) return;  // ±0
+    atomicAdd(dst, v);
+  }
+}
+
+// One lane's D values into its segment's row `dst`.
+template <int D, bool kMin>
+__device__ __forceinline__ void combine_lane(float* dst, const float* v) {
+  if (D == 2 && !kMin) {
+    if (((__float_as_uint(v[0]) | __float_as_uint(v[1])) << 1) == 0u) return;  // ±0, ±0
+    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < D; ++j) combine_value<kMin>(dst + j, v[j]);
+  }
+}
+
+// Whether the messages and the flags are on their own vector boundary at
+// every group's first lane (bits of `vec`); the ids always take vector loads.
+constexpr int kVecMsg = 1, kVecValid = 2;
+
+// The kVec ids at p, `shift` words past a 16-byte boundary: from the one or
+// two aligned int4 chunks that hold them.  Every chunk read holds one of the
+// kVec ids, so no load touches a chunk outside the array.
+__device__ __forceinline__ void load_ids(const int* p, int shift, int (&s)[kVec]) {
+  const int4* a = reinterpret_cast<const int4*>(p - shift);
+  const int4 lo = __ldcs(a);
+  if (shift == 0) {
+    s[0] = lo.x;
+    s[1] = lo.y;
+    s[2] = lo.z;
+    s[3] = lo.w;
+    return;
+  }
+  const int4 hi = __ldcs(a + 1);
+  // a switch, so every index is a constant (no local memory)
+  switch (shift) {
+    case 1: s[0] = lo.y; s[1] = lo.z; s[2] = lo.w; s[3] = hi.x; break;
+    case 2: s[0] = lo.z; s[1] = lo.w; s[2] = hi.x; s[3] = hi.y; break;
+    default: s[0] = lo.w; s[1] = hi.x; s[2] = hi.y; s[3] = hi.z; break;
+  }
+}
+
+// Sum: the lanes of a warp that add into one segment add their values
+// first (__match_any_sync groups them; the group's lowest lane gathers the
+// others' values by shuffles and issues the one atomic).  Every lane of the
+// warp must call it.
+template <int D>
+__device__ __forceinline__ void add_lane_warp(float* __restrict__ out, bool live, int s,
+                                              const float* v) {
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(0xffffffffu, live ? s : -1 - lane);
+  if (!live) return;
+  const int leader = __ffs(peers) - 1;
+  float acc[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) acc[j] = v[j];
+  for (unsigned rest = peers & (peers - 1); rest; rest &= rest - 1) {
+    const int src = __ffs(rest) - 1;
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      const float o = __shfl_sync(peers, v[j], src);
+      if (lane == leader) acc[j] += o;
     }
   }
+  if (lane == leader) combine_lane<D, false>(out + static_cast<Idx>(s) * D, acc);
+}
+
+// d = 1 or 2.  Thread t < n_groups takes lanes head + kVec*t .. +kVec-1:
+// one (or two) vector loads of its ids, and of its messages and flags where
+// `vec` says so, kVec scalar loads otherwise; thread n_groups + r takes lane
+// r of the head (r < head) or of the tail.
+template <int D, bool kMin>
+__global__ void __launch_bounds__(kThreads) combine_kernel(
+    const float* __restrict__ msg, const int* __restrict__ seg, const uint8_t* __restrict__ valid,
+    float* __restrict__ out, Idx m, Idx n_segments, Idx head, Idx n_groups, int vec,
+    int seg_shift) {
+  const Idx t = static_cast<Idx>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t < n_groups) {
+    const Idx e0 = head + t * kVec;
+    int s[kVec];
+    load_ids(seg + e0, seg_shift, s);
+    bool ok[kVec] = {true, true, true, true};
+    if (valid != nullptr) {
+      if (vec & kVecValid) {
+        const uchar4 v4 = __ldcs(reinterpret_cast<const uchar4*>(valid + e0));
+        ok[0] = v4.x != 0;
+        ok[1] = v4.y != 0;
+        ok[2] = v4.z != 0;
+        ok[3] = v4.w != 0;
+      } else {
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) ok[k] = __ldcs(valid + e0 + k) != 0;
+      }
+    }
+    float v[kVec * D];
+    if (vec & kVecMsg) {
+#pragma unroll
+      for (int q = 0; q < D; ++q) {
+        const float4 f = __ldcs(reinterpret_cast<const float4*>(msg + e0 * D) + q);
+        v[4 * q] = f.x;
+        v[4 * q + 1] = f.y;
+        v[4 * q + 2] = f.z;
+        v[4 * q + 3] = f.w;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kVec * D; ++k) v[k] = __ldcs(msg + e0 * D + k);
+    }
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      ok[k] = ok[k] && s[k] >= 0 && static_cast<Idx>(s[k]) < n_segments;
+    }
+    if (!kMin && (t | 31) < n_groups) {  // the whole warp is on the vector path
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        bool zero = true;  // ±0 in every column: nothing to add
+#pragma unroll
+        for (int j = 0; j < D; ++j) zero = zero && (__float_as_uint(v[k * D + j]) << 1) == 0u;
+        add_lane_warp<D>(out, ok[k] && !zero, s[k], v + k * D);
+      }
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      if (ok[k]) combine_lane<D, kMin>(out + static_cast<Idx>(s[k]) * D, v + k * D);
+    }
+    return;
+  }
+  const Idx r = t - n_groups;
+  const Idx e = r < head ? r : r + n_groups * kVec;
+  if (e >= m) return;
+  if (valid != nullptr && !__ldcs(valid + e)) return;
+  const int s = __ldcs(seg + e);
+  if (s < 0 || static_cast<Idx>(s) >= n_segments) return;
+  float v[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) v[j] = __ldcs(msg + e * D + j);
+  combine_lane<D, kMin>(out + static_cast<Idx>(s) * D, v);
+}
+
+// Any other d: one lane a thread, its d columns in a loop.
+template <bool kMin>
+__global__ void __launch_bounds__(kThreads) combine_any_d_kernel(
+    const float* __restrict__ msg, const int* __restrict__ seg, const uint8_t* __restrict__ valid,
+    float* __restrict__ out, Idx m, int d, Idx n_segments) {
+  const Idx e = static_cast<Idx>(blockIdx.x) * kThreads + threadIdx.x;
+  if (e >= m) return;
+  if (valid != nullptr && !__ldcs(valid + e)) return;
+  const int s = __ldcs(seg + e);
+  if (s < 0 || static_cast<Idx>(s) >= n_segments) return;
+  const float* src = msg + e * d;
+  float* dst = out + static_cast<Idx>(s) * d;
+  for (int j = 0; j < d; ++j) combine_value<kMin>(dst + j, __ldcs(src + j));
+}
+
+// The lanes grouped from the messages' first vector boundary (on the main
+// path the messages are a fresh tensor and the ids a view into the edge
+// array at the partition's offset); the ids and flags take vector loads
+// when they are on their own boundary there.
+struct Groups {
+  long long head, n_groups;
+  int vec, seg_shift;
+};
+
+template <int D>
+Groups group_lanes(const float* msg, const int* seg, const uint8_t* valid, long long m) {
+  const uintptr_t mp = reinterpret_cast<uintptr_t>(msg);
+  Groups g{0, 0, 0, 0};
+  if (mp % (4 * D) == 0) {
+    g.head = static_cast<long long>(((16 - (mp & 15)) & 15) / (4 * D));
+    if (g.head > m) g.head = m;
+    g.vec |= kVecMsg;
+  }
+  g.n_groups = (m - g.head) / kVec;
+  g.seg_shift = static_cast<int>((reinterpret_cast<uintptr_t>(seg + g.head) >> 2) & 3);
+  if (valid != nullptr && (reinterpret_cast<uintptr_t>(valid + g.head) & 3) == 0) {
+    g.vec |= kVecValid;
+  }
+  return g;
+}
+
+template <int D, bool kMin>
+void launch_combine(const float* msg, const int* seg, const uint8_t* valid, float* out, Idx m,
+                    Idx n_segments, cudaStream_t s) {
+  const Groups g = group_lanes<D>(msg, seg, valid, m);
+  const Idx head = static_cast<Idx>(g.head), n_groups = static_cast<Idx>(g.n_groups);
+  const Idx items = m - n_groups * (kVec - 1);
+  combine_kernel<D, kMin><<<blocks_for(items), kThreads, 0, s>>>(
+      msg, seg, valid, out, m, n_segments, head, n_groups, g.vec, g.seg_shift);
+}
+
+template <bool kMin>
+int launch(const float* msg, const int* seg, const uint8_t* valid, float* out, Idx m, int d,
+           Idx n_segments, cudaStream_t s) {
+  const Idx out_total = n_segments * d;
+  const float identity = kMin ? std::numeric_limits<float>::infinity() : 0.0f;
+  fill_kernel<<<fill_blocks(out_total), kThreads, 0, s>>>(out, out_total, identity);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || m == 0) return static_cast<int>(err);
+  if (d == 1) {
+    launch_combine<1, kMin>(msg, seg, valid, out, m, n_segments, s);
+  } else if (d == 2) {
+    launch_combine<2, kMin>(msg, seg, valid, out, m, n_segments, s);
+  } else {
+    combine_any_d_kernel<kMin><<<blocks_for(m), kThreads, 0, s>>>(msg, seg, valid, out, m, d,
+                                                                 n_segments);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -89,22 +337,14 @@ __global__ void combine_kernel(const float* __restrict__ msg, const int* __restr
 extern "C" int segment_spmm_launch(const void* msg, const void* seg_ids, const void* valid,
                                    void* out, long long m, int d, long long n_segments,
                                    int combine_min, void* stream) {
+  if (d < 1 || (reinterpret_cast<uintptr_t>(out) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* o = static_cast<float*>(out);
-  const long long out_total = n_segments * d;
-  const float identity = combine_min ? std::numeric_limits<float>::infinity() : 0.0f;
-  fill_kernel<<<grid_for(out_total), kThreads, 0, s>>>(o, out_total, identity);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || m == 0) return static_cast<int>(err);
   const float* msg_p = static_cast<const float*>(msg);
   const int* seg_p = static_cast<const int*>(seg_ids);
   const uint8_t* valid_p = static_cast<const uint8_t*>(valid);
-  if (combine_min) {
-    combine_kernel<true><<<grid_for(m * d), kThreads, 0, s>>>(msg_p, seg_p, valid_p, o, m, d,
-                                                             n_segments);
-  } else {
-    combine_kernel<false><<<grid_for(m * d), kThreads, 0, s>>>(msg_p, seg_p, valid_p, o, m, d,
-                                                              n_segments);
-  }
-  return static_cast<int>(cudaGetLastError());
+  float* out_p = static_cast<float*>(out);
+  return combine_min ? launch<true>(msg_p, seg_p, valid_p, out_p, m, d, n_segments, s)
+                     : launch<false>(msg_p, seg_p, valid_p, out_p, m, d, n_segments, s);
 }

@@ -37,29 +37,34 @@ def segment_spmm(
     if combine not in ("sum", "min"):
         raise ValueError(f"combine must be 'sum' or 'min', got {combine!r}")
     squeeze = messages.dim() == 1
-    if squeeze:
-        messages = messages[:, None]
     if messages.device.type == "cpu":
-        out = segment_spmm_ref(messages, seg_ids, n_segments, valid, combine)
-        return out[:, 0] if squeeze else out
-    tensors = (messages, seg_ids) + ((valid,) if valid is not None else ())
-    dev = require_cuda("segment_spmm", *tensors)
-    m, d = messages.shape
+        if squeeze:
+            return segment_spmm_ref(messages[:, None], seg_ids, n_segments, valid, combine)[:, 0]
+        return segment_spmm_ref(messages, seg_ids, n_segments, valid, combine)
+    if valid is None:
+        dev = require_cuda("segment_spmm", messages, seg_ids)
+    else:
+        dev = require_cuda("segment_spmm", messages, seg_ids, valid)
+        if valid.shape != seg_ids.shape or valid.dtype != torch.bool \
+                or not valid.is_contiguous():
+            raise ValueError("segment_spmm: valid must be (m,) contiguous bool")
+    m, d = (messages.shape[0], 1) if squeeze else messages.shape
     if messages.dtype != torch.float32 or seg_ids.dtype != torch.int32:
         raise ValueError("segment_spmm: messages must be float32, seg_ids int32")
-    if seg_ids.shape != (m,) or (valid is not None and (
-            valid.shape != (m,) or valid.dtype != torch.bool)):
-        raise ValueError("segment_spmm: seg_ids and valid must be (m,); valid bool")
-    if not all(t.is_contiguous() for t in tensors):
+    if seg_ids.shape != (m,):
+        raise ValueError("segment_spmm: seg_ids must be (m,)")
+    if not (messages.is_contiguous() and seg_ids.is_contiguous()):
         raise ValueError("segment_spmm: tensors must be contiguous")
-    out = torch.empty((n_segments, d), dtype=torch.float32, device=dev)
+    # 1-D messages give a 1-D result: the same (n_segments, 1) layout
+    out = torch.empty((n_segments,) if squeeze else (n_segments, d), dtype=torch.float32,
+                      device=dev)
     fn = load_kernel("segment_spmm", "segment_spmm_launch", _ARGTYPES)
     rc = fn(messages.data_ptr(), seg_ids.data_ptr(),
-            valid.data_ptr() if valid is not None else None, out.data_ptr(),
-            m, d, n_segments, int(combine == "min"), stream_ptr())
+            None if valid is None else valid.data_ptr(), out.data_ptr(),
+            m, d, n_segments, combine == "min", stream_ptr())
     check_launch("segment_spmm", rc)
     segment_spmm.launches += 1
-    return out[:, 0] if squeeze else out
+    return out
 
 
 segment_spmm.launches = 0

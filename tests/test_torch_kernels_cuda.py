@@ -85,6 +85,153 @@ def test_frontier_compact_kernel_vs_plain_on_card(density):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+def _offset_view(t, offset):
+    """``t`` as a contiguous view ``offset`` rows into a larger tensor (a
+    storage offset that moves its start off a 16-byte boundary)."""
+    big = torch.empty((t.shape[0] + offset, *t.shape[1:]), dtype=t.dtype, device=t.device)
+    big[offset:] = t
+    return big[offset:]
+
+
+def _assert_spmm_matches(got, want, combine, count_column=None):
+    """min bit for bit (signs included); sum within ``rtol=atol=1e-4`` (float32
+    atomics in another order), with a 0/1 count column exact."""
+    assert got.shape == want.shape and got.dtype == torch.float32
+    if combine == "min":
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        return
+    if count_column is not None:
+        assert torch.equal(got[:, count_column], want[:, count_column])
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combine", ["min", "sum"])
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("m,offset,mixed,with_valid", [
+    (50_001, 0, False, True), (50_003, 1, False, False), (4_099, 3, False, True),
+    (4_099, 1, True, True), (7, 2, False, True), (1, 1, False, False), (0, 0, False, True)])
+def test_segment_spmm_vector_and_scalar_lanes_on_card(combine, d, m, offset, mixed, with_valid):
+    """The redesigned combine: d = 1 (1-D messages, as SSSP passes them), 2
+    (float2 atomics for sum) and 3 (the any-d kernel); m not a multiple of
+    the 4-lane vector; views ``offset`` rows into their storage, all three
+    arrays alike (scalar head lanes before the messages' first vector
+    boundary) or only the ids (``mixed``, as on the main path, where the
+    ids are a slice of the edge array: shifted 16-byte id loads beside
+    vector message loads); ids outside [0, n_segments); valid present and
+    absent; m = 0.
+    Sum: column 1 of d >= 2 is a 0/1 count."""
+    dev = _cuda()
+    n = 3_000
+    rng = np.random.default_rng(m + d + offset)
+    msg = rng.standard_normal((m, d)).astype(np.float32)
+    if combine == "min":
+        msg[rng.random((m, d)) < 0.2] = np.inf
+        msg[rng.random((m, d)) < 0.05] = -np.inf
+    elif d >= 2:
+        msg[:, 1] = rng.random(m) < 0.5
+    msg[rng.random((m, d)) < 0.05] = -0.0
+    seg = rng.integers(-5, n + 5, m).astype(np.int32)
+    valid = torch.from_numpy(rng.random(m) < 0.8).to(dev) if with_valid else None
+    msg_t = torch.from_numpy(msg[:, 0] if d == 1 else msg).to(dev)
+    seg_t = torch.from_numpy(seg).to(dev)
+    if offset:
+        seg_t = _offset_view(seg_t, offset)
+        if not mixed:
+            msg_t = _offset_view(msg_t, offset)
+            valid = None if valid is None else _offset_view(valid, offset)
+    before = segment_spmm.launches
+    got = segment_spmm(msg_t, seg_t, n, valid, combine)
+    assert segment_spmm.launches == before + 1
+    torch.cuda.synchronize()
+    want = segment_spmm_ref(msg_t.reshape(m, d), seg_t, n, valid, combine)
+    _assert_spmm_matches(got.reshape(n, d), want, combine, 1 if d >= 2 else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combine", ["min", "sum"])
+@pytest.mark.parametrize("d", [1, 2])
+def test_segment_spmm_every_lane_into_one_segment_on_card(combine, d):
+    """The worst contention: 200,003 lanes, all into segment 5 (the sum's
+    count column reaches 200,003, exact in float32)."""
+    dev = _cuda()
+    m, n = 200_003, 9
+    g = torch.Generator(device=dev).manual_seed(4)
+    msg = torch.rand((m, d), generator=g, device=dev) * 1e-3
+    if d == 2:
+        msg[:, 1] = 1.0
+    seg = torch.full((m,), 5, dtype=torch.int32, device=dev)
+    got = segment_spmm(msg, seg, n, combine=combine)
+    torch.cuda.synchronize()
+    want = segment_spmm_ref(msg, seg, n, combine=combine)
+    _assert_spmm_matches(got, want, combine, 1 if d == 2 else None)
+    if d == 2 and combine == "sum":
+        assert float(got[5, 1]) == m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2])
+def test_segment_spmm_min_signed_zeros_and_infinities_on_card(d):
+    """±0, ±inf, -3 and 2.5, each in a segment of its own: signs survive bit
+    for bit; segments past every id stay +inf.  (Between +0 and -0 in one
+    segment the plain version's ``amin`` keeps whichever comes first, so
+    that case has no single answer to hold the kernel to.)"""
+    dev = _cuda()
+    vals = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), -3.0, 2.5], device=dev)
+    ids = torch.arange(6, dtype=torch.int32, device=dev)
+    msg = vals if d == 1 else torch.stack([vals, -vals], dim=-1)
+    got = segment_spmm(msg, ids, 9, combine="min")
+    torch.cuda.synchronize()
+    want = segment_spmm_ref(msg.reshape(6, d), ids, 9, combine="min")
+    _assert_spmm_matches(got.reshape(9, d), want, "min")
+    assert bool(torch.signbit(got.reshape(9, d)[1, 0]))
+    assert bool(torch.isinf(got.reshape(9, d)[6:]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2047, 2048, 2049, 4095, 1_073_152])
+@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
+def test_frontier_compact_tiles_on_card(m, density):
+    """The two-launch compaction at the 2048-row tile size and one row
+    either side, two tiles less one, one row, and the main path's block
+    (1,073,152 rows, 524 tiles): random, empty and full masks over the
+    main path's four columns (i32, i32, f32, bool).  Bit for bit, with the
+    count equal and on the device."""
+    dev = _cuda()
+    rng = np.random.default_rng(m)
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (3, m)).astype(np.int32)).to(dev)
+    mask = torch.from_numpy(rng.random(m) < density).to(dev)
+    cols = (words[0], words[1], words[2].view(torch.float32), ~mask)
+    before = frontier_compact.launches
+    got, cnt = frontier_compact(cols, mask)
+    assert frontier_compact.launches == before + 1
+    torch.cuda.synchronize()
+    want, wcnt = frontier_compact_ref(cols, mask)
+    assert cnt.device == mask.device and cnt.dtype == torch.int32 and cnt.shape == ()
+    assert int(cnt) == int(wcnt)
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == w_.dtype and torch.equal(g_.view(torch.uint8), w_.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3])
+def test_frontier_compact_column_views_with_offsets_on_card(offset):
+    """Columns and mask that start ``offset`` elements into their storage
+    (off a 16-byte boundary: scalar loads), beside an aligned column."""
+    dev = _cuda()
+    m = 3 * 2048 + 77
+    rng = np.random.default_rng(offset)
+    a = torch.from_numpy(rng.integers(0, 1000, m).astype(np.int32)).to(dev)
+    b = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(rng.random(m) < 0.4).to(dev)
+    cols = (_offset_view(a, offset), b, _offset_view(mask, offset))
+    got, cnt = frontier_compact(cols, _offset_view(mask, offset))
+    torch.cuda.synchronize()
+    want, wcnt = frontier_compact_ref(cols, mask)
+    assert int(cnt) == int(wcnt)
+    assert all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
+
+
 @pytest.mark.cuda
 def test_hyb_gather_kernel_vs_plain_on_card():
     dev = _cuda()

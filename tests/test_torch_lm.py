@@ -178,6 +178,61 @@ def test_gqa_attention_above_flash_threshold_matches(use_kernels):
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-5)
 
 
+def bf16_p_rounding_bound(v_max, wo, y):
+    """Per-element bound on |port - reference| for a bf16 attention layer
+    when one side rounds its probabilities P to bf16 before P.V and the
+    other keeps them float32 (the reference's blocked route above
+    ``_FLASH_THRESHOLD``).  With u = 2^-9, bf16's unit roundoff: rounding P
+    moves o = sum_t P_t v_t by at most u * sum_t P_t |v_t| <= u * max|v|;
+    each side rounds o (|o| <= max|v|) to bf16 once more, u * max|v| each;
+    then y = o @ wo in bf16 moves y_k by at most that times the column sum
+    sum_j |wo_jk|, plus one bf16 rounding of y on each side, 2u|y_k|."""
+    u = 2.0**-9
+    col = np.abs(wo).sum(axis=0)
+    return 3 * u * v_max * col + 2 * u * np.abs(y)
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_gqa_attention_bf16_prefill_into_served_cache_matches(use_kernels):
+    """The served LM cell's shape at reduced width, in bfloat16: a 2048-token
+    prompt fills a 2064-slot cache (2048 prompt + 16 generated tokens, as
+    ``launch.serve`` sizes it).  S x L = 2048 x 2064 lies above
+    ``_FLASH_THRESHOLD``, so the reference runs its blocked online softmax
+    with float32 P; the port's kernel route (its plain version on the CPU)
+    keeps P float32 as well, its plain route rounds P to bf16 (and its
+    scores, as the reference's ``_sdpa`` does below the threshold).  Both
+    stay within ``bf16_p_rounding_bound``; the cache holds the reference's
+    keys and values."""
+    rng = np.random.default_rng(5)
+    d, h, kv, dh, S, L = 64, 4, 2, 16, 2048, 2064
+    assert S * L > jax_attention._FLASH_THRESHOLD
+    p = _gqa_weights(rng, d, h, kv, dh)
+    x = rng.standard_normal((2, S, d)).astype(np.float32)
+    pos = np.arange(S, dtype=np.int32)
+    empty = jnp.zeros((2, L, kv, dh), jnp.bfloat16)
+    want, wcache = jax_attention.gqa_attention(
+        {k: jnp.asarray(a, jnp.bfloat16) for k, a in p.items()}, jnp.asarray(x, jnp.bfloat16),
+        jnp.asarray(pos), h, kv, dh, 10_000.0, cache={"k": empty, "v": empty},
+        cache_index=jnp.int32(0))
+    cache = {name: torch.zeros((2, L, kv, dh), dtype=torch.bfloat16) for name in ("k", "v")}
+    got, _ = attention.gqa_attention(
+        {k: _t(a, torch.bfloat16) for k, a in p.items()}, _t(x, torch.bfloat16),
+        torch.from_numpy(pos), h, kv, dh, 10_000.0, cache=cache, cache_index=0,
+        use_kernels=use_kernels)
+    assert got.dtype == torch.bfloat16
+    for name in ("k", "v"):
+        # the projections round to bf16 in another summation order (and,
+        # for the keys, once more through RoPE): a bf16 step or two of the
+        # largest element
+        want_c = _np(wcache[name])
+        np.testing.assert_allclose(cache[name].float().numpy(), want_c, rtol=0,
+                                   atol=2**-7 * np.abs(want_c).max())
+    want = _np(want)
+    bound = bf16_p_rounding_bound(float(cache["v"].float().abs().max()),
+                                  _t(p["wo"], torch.bfloat16).float().numpy(), want)
+    assert (np.abs(got.float().numpy() - want) <= bound).all()
+
+
 # ------------------------------------------------------------ whole models
 
 TINY = TransformerConfig(

@@ -138,6 +138,51 @@ def test_mla_attention_above_flash_threshold_matches(use_kernels):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_mla_attention_bf16_prefill_into_served_cache_matches(use_kernels):
+    """deepseek-v2-lite's served cell at reduced width, in bfloat16: a
+    2048-token prompt fills a 2064-slot latent cache.  S x L = 2048 x 2064
+    lies above ``_FLASH_THRESHOLD``: the reference folds the rotary key into
+    per-head keys and runs its blocked route with float32 P; the port's
+    kernel route (its plain version on the CPU) keeps P float32, its plain
+    route rounds P to bf16.  Both stay within ``bf16_p_rounding_bound``
+    (tests/test_torch_lm.py) over the values w_uv expands from the latent
+    cache; the cache holds the reference's latent and rotary key."""
+    from test_torch_lm import bf16_p_rounding_bound
+
+    rng = np.random.default_rng(6)
+    d, h, S, L = 32, 2, 2048, 2064
+    assert S * L > jax_attention._FLASH_THRESHOLD
+    mla = MLAConfig(kv_lora=16, d_nope=8, d_rope=8, d_v=8)
+    p = _mla_weights(rng, d, h, mla)
+    x = rng.standard_normal((2, S, d)).astype(np.float32)
+    pos = np.arange(S, dtype=np.int32)
+    jcache = {"ckv": jnp.zeros((2, L, mla.kv_lora), jnp.bfloat16),
+              "kr": jnp.zeros((2, L, mla.d_rope), jnp.bfloat16)}
+    want, wcache = jax_attention.mla_attention(
+        {k: jnp.asarray(a, jnp.bfloat16) for k, a in p.items()}, jnp.asarray(x, jnp.bfloat16),
+        jnp.asarray(pos), h, jax_attention.MLAConfig(**dataclasses.asdict(mla)), 10_000.0,
+        cache=jcache, cache_index=jnp.int32(0))
+    cache = {"ckv": torch.zeros((2, L, mla.kv_lora), dtype=torch.bfloat16),
+             "kr": torch.zeros((2, L, mla.d_rope), dtype=torch.bfloat16)}
+    wb = {k: _t(a, torch.bfloat16) for k, a in p.items()}
+    got, _ = attention.mla_attention(wb, _t(x, torch.bfloat16), torch.from_numpy(pos), h, mla,
+                                     10_000.0, cache=cache, cache_index=0,
+                                     use_kernels=use_kernels)
+    assert got.dtype == torch.bfloat16
+    for name in ("ckv", "kr"):
+        # the projections round to bf16 in another summation order (and,
+        # for the keys, once more through RoPE): a bf16 step or two of the
+        # largest element
+        want_c = _np(wcache[name])
+        np.testing.assert_allclose(cache[name].float().numpy(), want_c, rtol=0,
+                                   atol=2**-7 * np.abs(want_c).max())
+    v = cache["ckv"][:, :S] @ wb["w_uv"]
+    want = _np(want)
+    bound = bf16_p_rounding_bound(float(v.float().abs().max()), wb["wo"].float().numpy(), want)
+    assert (np.abs(got.float().numpy() - want) <= bound).all()
+
+
 # ------------------------------------------------------------ configs
 
 def test_deepseek_first_dense_layer_is_10944_wide():
