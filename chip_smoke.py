@@ -50,6 +50,22 @@ Phases, in order; any failure exits nonzero and prints no result line:
    one more kernel run of each pair;
 5. the oracle leg: SSSP and PageRank on the quickstart graph against the
    numpy references;
+10. (run right after phase 5, on phase 4's graph and configuration) dynamic
+   graphs and the online calibrator: SSSP (K=8) and Δ-PageRank with
+   ``autotune=True`` on the main runtime against phase 4's runs; a
+   ``DeltaCSR`` of the graph on the card (blocks 1.5x the main path's) and
+   cold SSSP and Δ-PageRank over it; three ``random_batch`` updates of 576
+   ops, each patched in device memory and followed by warm
+   ``run_incremental`` legs (SSSP through the kernels, plain and with a
+   calibrator that lives across the batches; Δ-PageRank through the
+   kernels and plain), kernels held to plain; the last warm answers
+   against ``to_host_graph`` + ``build_runtime`` + a cold run (SSSP equal
+   with strictly fewer warm iterations) and the time to fresh answers both
+   ways; then a ``DeltaCSR`` with no slack takes 512 inserts into its
+   largest block and merge-compacts, and its warm SSSP is held to plain and
+   to scratch.  Every leg's launch counts are read after that leg alone:
+   a kernel leg must launch a graph kernel and nothing else, a plain leg
+   nothing;
 6. LM serving: the reduced gemma3-12b config on the card against the CPU
    (float32, logits within 1e-4, greedy tokens equal), then gemma3-12b at
    full width (11.8B parameters in bf16, random weights from the seed):
@@ -283,10 +299,12 @@ def phase_kernels(torch, rt, seed: int) -> dict:
 
     dev = rt.device
     n = rt.csr.n_nodes
-    B = rt.parts.block_size
+    _, edge_start, part_edges = rt.parts.host
+    # the main path's block: partition 0's edges (the hub partition), as
+    # many lanes as it has edges
+    B = part_edges[0]
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    # the main path's block: partition 0's edges (the hub partition)
     dst = rt.csr.edge_dst[:B].contiguous()
     src = rt.csr.edge_src[:B].contiguous()
     w = rt.csr.edge_weight[:B].contiguous()
@@ -339,20 +357,20 @@ def phase_kernels(torch, rt, seed: int) -> dict:
         source="src/repro_torch/kernels/segment_spmm/csrc/segment_spmm.cu")
     # the last (non-hub) partition's block, its ids a view at the
     # partition's first edge, as the sweep passes them
-    _, edge_start, part_edges = rt.parts.host
     last = len(part_edges) - 1
     start = edge_start[last]
-    dst_last = rt.csr.edge_dst[start:start + B]
-    active_last = active & (rt.lane_index < part_edges[last])
-    msg_last = torch.where(active_last, msg, float("inf"))
+    m_last = min(part_edges[last], B)
+    dst_last = rt.csr.edge_dst[start:start + m_last]
+    active_last = active[:m_last]
+    msg_last = torch.where(active_last, msg[:m_last], float("inf"))
     check(torch.equal(spmm_min(msg_last, dst_last, None).view(torch.int32),
                       spmm_min_plain(msg_last, dst_last, None)[:, 0].view(torch.int32)),
           "segment_spmm min (last partition) differs from its plain version")
     rows["segment_spmm_last"] = timed(
         spmm_min, spmm_min_plain, spmm_min_library,
         lambda: (msg_last.clone(), offset_copy(torch, dst_last), dst_last.long()),
-        B * 4 + B * 4 + n * 4,
-        max_abs_err=0.0, shape=f"min m={B} d=1 n_segments={n}, partition {last} (ids at "
+        m_last * 4 + m_last * 4 + n * 4,
+        max_abs_err=0.0, shape=f"min m={m_last} d=1 n_segments={n}, partition {last} (ids at "
         f"edge {start}, {start % 4} words past a 16-byte boundary; "
         f"{int(active_last.sum())} lanes active)")
     # ±0 and ±inf, each in a segment of its own: signs must survive
@@ -387,7 +405,7 @@ def phase_kernels(torch, rt, seed: int) -> dict:
         B * 8 + B * 4 + n * 8, max_abs_err=float((k[:, 0] - p[:, 0]).abs().max()),
         shape=f"sum m={B} d=2 n_segments={n}")
     # the sum on the last partition's block too
-    packed_last = torch.stack([torch.where(active_last, pmsg, 0.0),
+    packed_last = torch.stack([torch.where(active_last, pmsg[:m_last], 0.0),
                                active_last.to(torch.float32)], dim=-1)
     k = spmm_sum(packed_last, dst_last)
     p = spmm_sum_plain(packed_last, dst_last)
@@ -395,9 +413,9 @@ def phase_kernels(torch, rt, seed: int) -> dict:
           "segment_spmm sum (last partition) differs from its plain version")
     rows["segment_spmm_sum_last"] = timed(
         spmm_sum, spmm_sum_plain, spmm_sum_library,
-        lambda: (packed_last.clone(), offset_copy(torch, dst_last)), B * 8 + B * 4 + n * 8,
-        max_abs_err=float((k[:, 0] - p[:, 0]).abs().max()),
-        shape=f"sum m={B} d=2 n_segments={n}, partition {last}")
+        lambda: (packed_last.clone(), offset_copy(torch, dst_last)),
+        m_last * 8 + m_last * 4 + n * 8, max_abs_err=float((k[:, 0] - p[:, 0]).abs().max()),
+        shape=f"sum m={m_last} d=2 n_segments={n}, partition {last}")
     # m == 0 and a valid mask
     empty = segment_spmm(torch.empty((0, 2), device=dev),
                          torch.empty(0, dtype=torch.int32, device=dev), 5)
@@ -1139,7 +1157,7 @@ def phase_main(torch, cfg, rt, source: int) -> dict:
     log(f"PageRank: kernels vs plain max |err| {err:.3e} (tolerance 1e-3 + 1e-4 rel), "
         f"iterations {runs['pagerank'].iterations} vs {runs['pagerank_plain'].iterations}")
     check(np.allclose(a, b, rtol=1e-4, atol=1e-3), "PageRank kernels vs plain out of tolerance")
-    return {leg: counts for leg, counts in launches.items() if LEG_KERNELS[leg]}
+    return {leg: counts for leg, counts in launches.items() if LEG_KERNELS[leg]}, runs
 
 
 # ---------------------------------------------------------------------------
@@ -1170,6 +1188,312 @@ def phase_oracle(torch, dev) -> None:
     # Δ-PageRank stops once every pending |Δ| <= 1e-5; the mass left pending
     # bounds the error (the CPU run of this leg gives 8.2e-3)
     check(err < 2e-2, "PageRank on the card too far from reference_pagerank")
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: dynamic graphs (DeltaCSR, warm-start recompute) and autotune
+# ---------------------------------------------------------------------------
+
+STREAM_BATCHES = 3
+STREAM_OPS = dict(n_insert=256, n_delete=256, n_reweight=64)
+MERGE_INSERTS = 512
+
+
+def pr_close(a, b, prog) -> tuple[bool, float, str]:
+    """Two converged Δ-PageRank runs (values + Δ) held to phase 4's bound
+    (``rtol=1e-4, atol=1e-3``) or, where that fails, to the bound the
+    program's tolerance implies.  Derivation: a run with residual Δ
+    reports r = values + Δ = x* - sum_{k>=1} (dM)^k Δ, where x* is the
+    fixed point and M pushes a vertex's mass to its out-neighbours (each
+    column sums to 1, or 0 for a vertex without edges).  A run ends only
+    when every |Δ_v| <= tol, so |r1 - r2| <= 2 tol sum_{k>=1} (dM)^k 1 =
+    2 tol (x*/(1 - d) - 1), since x* = (1 - d) sum_{k>=0} (dM)^k 1.  So
+    |r1 - r2|_v <= 2 tol / (1 - d) * x*_v: 1.33e-4 relative at tol 1e-5
+    and d 0.85, more than phase 4's rtol.  x*_v is bounded by 1.001
+    max(r1_v, r2_v) (each r lies within 6.7e-5 relative of x*), and
+    phase 4's atol stays for the float32 rounding.  Returns (held, max
+    |r1 - r2|, which bound held)."""
+    x, y = a.values + a.delta, b.values + b.delta
+    err = float(np.max(np.abs(x - y)))
+    if np.allclose(x, y, rtol=1e-4, atol=1e-3):
+        return True, err, "phase 4's"
+    rel = 2.0 * prog.tolerance / (1.0 - prog.damping) * 1.001
+    ok = bool(np.all(np.abs(x - y) <= 1e-3 + rel * np.maximum(np.abs(x), np.abs(y))))
+    return ok, err, f"the tolerance's ({rel:.3e} relative)"
+
+
+def device_bytes(dcsr) -> int:
+    """Bytes of a DeltaCSR's device tensors: the blocked edge columns, the
+    partition vectors and the (n,) vectors."""
+    tensors = [getattr(dcsr.csr, k) for k in ("edge_src", "edge_dst", "edge_weight",
+                                               "edge_valid", "out_degree", "seg_start")]
+    tensors += [getattr(dcsr.parts, k) for k in ("vertex_start", "edge_start", "part_edges",
+                                                  "vertex_part_id")]
+    tensors += [dcsr.zc_req, *dcsr._inv_deg_cache.values()]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_stream(torch, cfg, hs, rt, source: int, main_runs: dict, turns: dict,
+                 smi: str) -> dict:
+    """Phase 10: the online calibrator on the main runtime, then a DeltaCSR
+    of the main graph patched in device memory by three update batches,
+    each followed by warm-start runs through the kernels and plain, then
+    the warm answers against a run from scratch, then a merge-compaction.
+    Returns the phase's numbers and, under ``launches``, every kernel
+    leg's launch counts (each read after that leg alone)."""
+    from repro_torch.autotune import OnlineCalibrator
+    from repro_torch.core.hytm import build_runtime, run_hytm
+    from repro_torch.graph.algorithms import SSSP
+    from repro_torch.stream import DeltaCSR, EdgeBatch, random_batch, run_incremental
+
+    class RecordingCalibrator(OnlineCalibrator):
+        """Records which observations were skipped as cold."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.skips = []
+
+        def observe_iteration(self, sync_ref, modeled, t_start, skip=False):
+            self.skips.append(bool(skip))
+            return super().observe_iteration(sync_ref, modeled, t_start, skip=skip)
+
+    legs = main_path_legs(cfg, source)
+    _, _, cfg8 = legs["sssp_k8"]
+    pr, _, cfg_pr = legs["pagerank"]
+    plain8, plain_pr = legs["sssp_plain"][2], legs["pagerank_plain"][2]
+    sssp_ref, pr_ref = main_runs["sssp_k8"], main_runs["pagerank"]
+    launches, out = {}, {"card": smi}
+
+    def leg(name, fn, kernels: bool = True):
+        """Run ``fn`` with every launch count set to 0 just before and read
+        just after; a kernel leg must launch a graph kernel and nothing
+        else, a plain leg nothing."""
+        reset_launch_counts()
+        t = time.monotonic()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t
+        counts = read_launch_counts()
+        others = {k: v for k, v in counts.items() if k not in ALL_KERNELS and v}
+        check(not others, f"{name} launched {others}")
+        graph = sum(counts[k] for k in ALL_KERNELS)
+        if kernels:
+            check(graph > 0, f"{name} launched no graph kernel")
+            launches[name] = counts
+        else:
+            check(graph == 0, f"{name} (plain) launched {counts}")
+        return res, wall, {k: counts[k] for k in ALL_KERNELS}
+
+    # -- 1. autotune on the main runtime
+    auto = {}
+    for name, prog, src, c in (("sssp", SSSP, source, cfg8), ("pagerank", pr, None, cfg_pr)):
+        cal = RecordingCalibrator(decay=cfg.autotune_decay)
+        res, wall, counts = leg(f"autotune_{name}", lambda: run_hytm(
+            None, prog, src, dataclasses.replace(c, autotune=True), runtime=rt, calibrator=cal))
+        if name == "sssp":
+            check(np.array_equal(res.values, sssp_ref.values),
+                  "autotune SSSP values != phase 4's SSSP")
+            err, held = 0.0, "bit-for-bit"
+        else:
+            ok, err, held = pr_close(res, pr_ref, pr)
+            check(ok, f"autotune Δ-PageRank vs phase 4's out of tolerance ({err:.3e})")
+        auto[name] = {"wall_s": res.wall_seconds, "iterations": res.iterations,
+                      "engine_corrections": res.engine_corrections.tolist(),
+                      "total_mispredictions": res.total_mispredictions,
+                      "n_updates": cal.n_updates, "skipped_cold": cal.skips,
+                      "max_abs_err_vs_phase4": err, "bound": held, "launches": counts}
+        log(f"autotune {name}: {res.iterations} iterations, wall {res.wall_seconds:.4f} s, "
+            f"corrections {np.array2string(res.engine_corrections, precision=4)}, "
+            f"mispredictions {res.total_mispredictions}, calibrator updates {cal.n_updates}, "
+            f"chunks skipped as cold {cal.skips}, |err| vs phase 4 {err:.3e} ({held} bound); "
+            f"launches {counts}")
+    out["autotune"] = auto
+
+    # -- 2. DeltaCSR of the main graph, cold runs over it
+    t = time.monotonic()
+    dcsr = DeltaCSR(hs.graph, cfg, device=rt.device)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t
+    B, cap = dcsr.block_size, dcsr.csr.capacity
+    free = B - dcsr.counts
+    log(f"DeltaCSR: built in {build_s:.2f} s; {dcsr.n_partitions} blocks of B = {B:,} lanes "
+        f"(largest partition {int(dcsr.counts.max()):,} edges; the main path's blocks "
+        f"{rt.parts.block_size:,}), capacity {cap:,}, free lanes {int(free.min()):,}-{int(free.max()):,} a block, "
+        f"{device_bytes(dcsr) / 1e9:.3f} GB on the card")
+    out["delta_csr"] = {"build_s": build_s, "block_size": B, "capacity": cap,
+                        "device_bytes": device_bytes(dcsr),
+                        "free_lanes_min": int(free.min())}
+    cold, wall, counts = leg("stream_cold_sssp", lambda: run_hytm(
+        None, SSSP, source, cfg8, runtime=dcsr.runtime_for(SSSP)))
+    check(np.array_equal(cold.values, sssp_ref.values),
+          "SSSP over the DeltaCSR != phase 4's SSSP")
+    cold_pr, _, counts_pr = leg("stream_cold_pagerank", lambda: run_hytm(
+        None, pr, None, cfg_pr, runtime=dcsr.runtime_for(pr)))
+    ok, err, held = pr_close(cold_pr, pr_ref, pr)
+    check(ok, f"Δ-PageRank over the DeltaCSR vs phase 4's out of tolerance ({err:.3e})")
+    log(f"DeltaCSR cold SSSP == phase 4's SSSP ({cold.iterations} iterations, wall "
+        f"{cold.wall_seconds:.4f} s vs {sssp_ref.wall_seconds:.4f} s); cold Δ-PageRank "
+        f"{cold_pr.iterations} iterations, wall {cold_pr.wall_seconds:.4f} s, |err| vs phase 4 "
+        f"{err:.3e} ({held} bound); launches {counts}, {counts_pr}")
+    # the kernels' device time a launch over the DeltaCSR's blocks, against
+    # phase 4's traced SSSP run over the main graph's
+    reset_launch_counts()
+    traced = traced_device_ms(torch, lambda: run_hytm(
+        None, SSSP, source, cfg8, runtime=dcsr.runtime_for(SSSP)))
+    n_traced = sum(read_launch_counts()[k] for k in ALL_KERNELS)
+    main_n = sum(turns["sssp"]["launches"].values())
+    main_ms = turns["sssp"].get("kernel_device_ms")
+    per_launch = {"delta_csr_us": traced and n_traced and traced[0] * 1e3 / n_traced,
+                  "delta_csr_launches": n_traced,
+                  "main_us": main_ms and main_ms * 1e3 / main_n, "main_launches": main_n}
+    out["traced_sssp"] = {"kernel_device_ms": traced and traced[0],
+                          "device_ms": traced and traced[1], **per_launch}
+    log("traced cold SSSP over the DeltaCSR: " + (
+        f"the port's kernels {traced[0]:.2f} ms of {traced[1]:.2f} ms device time, "
+        f"{per_launch['delta_csr_us'] or float('nan'):.2f} µs a launch over {n_traced} "
+        f"launches; phase 4's "
+        f"SSSP over the main blocks {per_launch['main_us'] or float('nan'):.2f} µs a launch "
+        f"over {main_n}" if traced else "device time not measured (no device events)"))
+    out["cold"] = {"sssp": {"wall_s": cold.wall_seconds, "iterations": cold.iterations},
+                   "pagerank": {"wall_s": cold_pr.wall_seconds, "iterations": cold_pr.iterations,
+                                "max_abs_err_vs_phase4": err, "bound": held}}
+
+    # -- 3. update batches, warm runs
+    warm_sssp, warm_pr = cold, cold_pr
+    cal = RecordingCalibrator(decay=cfg.autotune_decay)   # one for the service's lifetime
+    auto8 = dataclasses.replace(cfg8, autotune=True)
+    batches = []
+    for i in range(STREAM_BATCHES):
+        batch = random_batch(dcsr, np.random.default_rng(SEED + i), **STREAM_OPS)
+        t = time.monotonic()
+        rep = dcsr.apply(batch)
+        torch.cuda.synchronize()
+        apply_s = time.monotonic() - t
+        check(not rep.merged, f"batch {i} merged")
+        row = {"apply_s": apply_s, "ops": len(batch), "dirty_partitions": len(rep.dirty_partitions)}
+
+        def warm(prog, st, src, c, r=rep):
+            return lambda: run_incremental(dcsr, prog, [r], st.values, st.delta, src, config=c)
+
+        ker, wall, counts = leg(f"stream_sssp_b{i}", warm(SSSP, warm_sssp, source, cfg8))
+        pla, _, _ = leg(f"stream_sssp_plain_b{i}", warm(SSSP, warm_sssp, source, plain8),
+                        kernels=False)
+        check(same_min_run(ker, pla), f"batch {i}: warm SSSP kernels != plain "
+              "(values/iterations/bytes/engines)")
+        seen = len(cal.skips)
+        aut, _, counts_a = leg(f"stream_sssp_autotune_b{i}", lambda: run_incremental(
+            dcsr, SSSP, [rep], warm_sssp.values, warm_sssp.delta, source, config=auto8,
+            calibrator=cal))
+        check(np.array_equal(aut.values, ker.values), f"batch {i}: autotune warm SSSP values differ")
+        pk, wall_pr, counts_pr = leg(f"stream_pagerank_b{i}", warm(pr, warm_pr, None, cfg_pr))
+        pp, _, _ = leg(f"stream_pagerank_plain_b{i}", warm(pr, warm_pr, None, plain_pr),
+                       kernels=False)
+        ok, err, held = pr_close(pk, pp, pr)
+        check(ok, f"batch {i}: warm Δ-PageRank kernels vs plain out of tolerance ({err:.3e})")
+        row.update({
+            "sssp": {"wall_s": ker.wall_seconds, "call_s": wall,
+                     "seed_s": wall - ker.wall_seconds, "iterations": ker.iterations,
+                     "plain_wall_s": pla.wall_seconds, "launches": counts},
+            "sssp_autotune": {"wall_s": aut.wall_seconds, "iterations": aut.iterations,
+                              "corrections": aut.engine_corrections.tolist(),
+                              "n_updates": cal.n_updates,
+                              "skipped_cold": cal.skips[seen:],
+                              "launches": counts_a},
+            "pagerank": {"wall_s": pk.wall_seconds, "call_s": wall_pr,
+                         "seed_s": wall_pr - pk.wall_seconds, "iterations": pk.iterations,
+                         "plain_wall_s": pp.wall_seconds, "max_abs_err_vs_plain": err,
+                         "bound": held, "launches": counts_pr}})
+        batches.append(row)
+        log(f"batch {i}: {len(batch)} ops, apply {apply_s:.3f} s (host + patch), "
+            f"{len(rep.dirty_partitions)} dirty blocks; warm SSSP {ker.iterations} iterations "
+            f"(cold {cold.iterations}), seed {wall - ker.wall_seconds:.3f} s + run "
+            f"{ker.wall_seconds:.4f} s (plain {pla.wall_seconds:.4f} s), kernels == plain; "
+            f"autotune leg corrections {np.array2string(aut.engine_corrections, precision=4)}, "
+            f"{cal.n_updates} updates so far; warm Δ-PageRank {pk.iterations} iterations, seed "
+            f"{wall_pr - pk.wall_seconds:.3f} s + run {pk.wall_seconds:.4f} s (plain "
+            f"{pp.wall_seconds:.4f} s), |err| kernels vs plain {err:.3e} ({held} bound); launches {counts}, "
+            f"{counts_a}, {counts_pr}")
+        warm_sssp, warm_pr = ker, pk
+    out["batches"] = batches
+    out["calibrator_skips"] = cal.skips
+
+    # -- 4. the last batch's warm answers against a run from scratch
+    t = time.monotonic()
+    g_new = dcsr.to_host_graph()
+    host_s = time.monotonic() - t
+    t = time.monotonic()
+    rt_new = build_runtime(g_new, cfg, n_hubs=hs.n_hubs, device=rt.device)
+    torch.cuda.synchronize()
+    upload_s = time.monotonic() - t
+    fs, fs_wall, counts = leg("stream_scratch_sssp", lambda: run_hytm(
+        None, SSSP, source, cfg8, runtime=rt_new))
+    fs_pr, fs_pr_wall, counts_pr = leg("stream_scratch_pagerank", lambda: run_hytm(
+        None, pr, None, cfg_pr, runtime=rt_new))
+    del rt_new, g_new
+    check(np.array_equal(warm_sssp.values, fs.values), "warm SSSP != SSSP from scratch")
+    check(warm_sssp.iterations < fs.iterations,
+          f"warm SSSP took {warm_sssp.iterations} iterations, scratch {fs.iterations}")
+    ok, err, held = pr_close(warm_pr, fs_pr, pr)
+    check(ok, f"warm Δ-PageRank vs scratch out of tolerance ({err:.3e})")
+    last = batches[-1]
+    fresh = {"sssp": {"warm_s": last["apply_s"] + last["sssp"]["call_s"],
+                      "scratch_s": host_s + upload_s + fs_wall},
+             "pagerank": {"warm_s": last["apply_s"] + last["pagerank"]["call_s"],
+                          "scratch_s": host_s + upload_s + fs_pr_wall}}
+    out["scratch"] = {"to_host_graph_s": host_s, "build_runtime_s": upload_s,
+                      "sssp": {"wall_s": fs.wall_seconds, "iterations": fs.iterations},
+                      "pagerank": {"wall_s": fs_pr.wall_seconds, "iterations": fs_pr.iterations,
+                                   "max_abs_err_vs_warm": err, "bound": held},
+                      "time_to_fresh_answers_s": fresh}
+    log(f"scratch after batch {STREAM_BATCHES - 1}: to_host_graph {host_s:.2f} s, build_runtime "
+        f"{upload_s:.2f} s; SSSP {fs.iterations} iterations ({fs.wall_seconds:.4f} s) == warm "
+        f"({warm_sssp.iterations} iterations); Δ-PageRank {fs_pr.iterations} iterations "
+        f"({fs_pr.wall_seconds:.4f} s) vs warm {warm_pr.iterations}, |err| {err:.3e} ({held} "
+        f"bound); "
+        f"launches {counts}, {counts_pr}")
+    for name, f in fresh.items():
+        log(f"time to fresh answers, {name}: warm {f['warm_s']:.3f} s (apply + seed + run) vs "
+            f"scratch {f['scratch_s']:.3f} s (to_host_graph + build_runtime + cold run) [{smi}]")
+    del dcsr, warm_pr
+    torch.cuda.empty_cache()
+
+    # -- 5. merge-compaction at full size: no slack, 512 inserts into the
+    # largest partition's block (at most 255 free lanes)
+    dcsr = DeltaCSR(hs.graph, cfg, slack=0.0, device=rt.device)
+    p = int(np.argmax(dcsr.counts))
+    v0, v1 = int(dcsr.vertex_start[p]), int(dcsr.vertex_start[p + 1])
+    rng = np.random.default_rng(SEED + STREAM_BATCHES)
+    batch = EdgeBatch.inserts(rng.integers(v0, v1, MERGE_INSERTS),
+                              rng.integers(0, dcsr.n_nodes, MERGE_INSERTS),
+                              rng.integers(1, 64, MERGE_INSERTS).astype(np.float32))
+    free = dcsr.block_size - int(dcsr.counts[p])
+    t = time.monotonic()
+    rep = dcsr.apply(batch)
+    torch.cuda.synchronize()
+    merge_s = time.monotonic() - t
+    check(rep.merged and dcsr.layout_version == 1,
+          f"{MERGE_INSERTS} inserts into {free} free lanes did not merge")
+    ker, _, counts = leg("stream_merge_sssp", lambda: run_incremental(
+        dcsr, SSSP, [rep], sssp_ref.values, sssp_ref.delta, source, config=cfg8))
+    pla, _, _ = leg("stream_merge_sssp_plain", lambda: run_incremental(
+        dcsr, SSSP, [rep], sssp_ref.values, sssp_ref.delta, source, config=plain8),
+        kernels=False)
+    check(same_min_run(ker, pla), "after the merge: warm SSSP kernels != plain")
+    rt_new = build_runtime(dcsr.to_host_graph(), cfg, n_hubs=hs.n_hubs, device=rt.device)
+    fs, _, counts_fs = leg("stream_merge_scratch_sssp", lambda: run_hytm(
+        None, SSSP, source, cfg8, runtime=rt_new))
+    check(np.array_equal(ker.values, fs.values), "after the merge: warm SSSP != scratch")
+    out["merge"] = {"free_lanes": free, "inserts": MERGE_INSERTS, "merge_s": merge_s,
+                    "block_size": dcsr.block_size, "warm_iterations": ker.iterations,
+                    "scratch_iterations": fs.iterations, "warm_wall_s": ker.wall_seconds}
+    log(f"merge: {MERGE_INSERTS} inserts into partition {p} ({free} free lanes) merged in "
+        f"{merge_s:.2f} s (layout_version 1, B {dcsr.block_size:,}); warm SSSP "
+        f"{ker.iterations} iterations == plain == scratch ({fs.iterations} iterations); "
+        f"launches {counts}, {counts_fs}")
+    del dcsr, rt_new
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1907,10 +2231,13 @@ def main() -> int:
     bag_rows = phase_embedding_bag(torch, rt.device, SEED)
     phase_cost_model(torch, cfg, rt, rt_cpu, source, SEED)
     del rt_cpu
-    launches = phase_main(torch, cfg, rt, source)
+    launches, main_runs = phase_main(torch, cfg, rt, source)
     turns = phase_turns(rt, main_path_legs(cfg, source), launches)
     phase_graph_profiles(torch, rt, main_path_legs(cfg, source), rows, turns)
     phase_oracle(torch, rt.device)
+    stream = phase_stream(torch, cfg, hs, rt, source, main_runs, turns, smi)
+    launches.update(stream.pop("launches"))
+    del main_runs
     dev = rt.device
     del rt, hs
     torch.cuda.empty_cache()
@@ -1933,6 +2260,7 @@ def main() -> int:
                                        "host_us_after_profiler", "split_us")},
         })
     kernels[0]["graph_legs"] = turns
+    kernels[0]["dynamic_graph"] = stream
     for key, row in (("sum_d2", "segment_spmm_sum"), ("last_partition", "segment_spmm_last"),
                      ("sum_d2_last_partition", "segment_spmm_sum_last")):
         kernels[0][key] = {k: rows[row][k] for k in ("shape", "ms", "cold_ms", "call_ms",

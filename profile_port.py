@@ -41,7 +41,12 @@ In the order of the trees and then back (this tree, A, B, B, A, this tree),
 ``frontier_compact`` on partition 0's and the last partition's blocks
 (warm and cold device ms, host µs a call, as ``chip_smoke.py`` times them),
 issues one call of each kernel wrapper (host µs), and runs Δ-PageRank and
-SSSP (K=8), each through the kernels and plain (wall seconds).
+SSSP (K=8), each through the kernels and plain (wall seconds).  When
+every tree has ``repro_torch.stream``, each worker also builds a
+``DeltaCSR`` of the graph (blocks 1.5x the main path's, as
+``chip_smoke.py`` phase 10) and runs cold SSSP (K=8) and Δ-PageRank over it
+through the kernels in the same turns, then one profiled SSSP run over it
+(device busy, the largest device entries).
 
 A diagnostic: it checks nothing that ``chip_smoke.py`` does not check.
 The last line is one JSON object of the turns and profile numbers.
@@ -68,6 +73,7 @@ from chip_smoke import log
 ROUNDS = 3  # rounds of (plain, kernels, kernels, plain) runs
 AB_ROUNDS = 2  # rounds of the trees in turns (--against)
 AB_LEGS = ("pagerank", "pagerank_plain", "sssp_k8", "sssp_plain")
+AB_STREAM_LEGS = ("stream_sssp_k8", "stream_pagerank")  # over a DeltaCSR
 
 
 def device_busy(prof) -> tuple[float, float]:
@@ -143,7 +149,8 @@ def host_costs(torch, rt) -> dict:
     from repro_torch.kernels.hyb_gather.ops import PAD, hyb_gather
     from repro_torch.kernels.segment_spmm.ops import segment_spmm
 
-    n, B, dev = rt.csr.n_nodes, rt.parts.block_size, rt.device
+    # partition 0's block: its own edges, as the sweep slices it
+    n, B, dev = rt.csr.n_nodes, rt.parts.host[2][0], rt.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(smoke.SEED)
     src = rt.csr.edge_src[:B]
@@ -240,8 +247,8 @@ def block_rows(torch, rt) -> dict:
     dev, n, B = rt.device, rt.csr.n_nodes, rt.parts.block_size
     gen = torch.Generator(device=dev)
     gen.manual_seed(smoke.SEED)
-    active = torch.rand(B, device=dev, generator=gen) < 0.3
-    vals = torch.rand(B, device=dev, generator=gen) * 100.0 + 1.0
+    active_all = torch.rand(B, device=dev, generator=gen) < 0.3
+    vals_all = torch.rand(B, device=dev, generator=gen) * 100.0 + 1.0
     _, edge_start, part_edges = rt.parts.host
 
     def spmm_min(msg, dst):
@@ -255,22 +262,23 @@ def block_rows(torch, rt) -> dict:
 
     out = {}
     for part in (0, len(part_edges) - 1):
-        start = edge_start[part]
-        act = active & (rt.lane_index < part_edges[part])
+        # a block is the partition's own edges, as the sweep slices it
+        start, m = edge_start[part], part_edges[part]
+        act, vals = active_all[:m], vals_all[:m]
         csr = rt.csr
-        cols = tuple(c[start:start + B] for c in (csr.edge_src, csr.edge_dst, csr.edge_weight))
+        cols = tuple(c[start:start + m] for c in (csr.edge_src, csr.edge_dst, csr.edge_weight))
         cols += (act,)
         msg = torch.where(act, vals, float("inf"))
         packed = torch.stack([torch.where(act, vals * 1e-5, 0.0), act.to(torch.float32)], -1)
         cases = {
             "segment_spmm_min": (spmm_min, lambda: (msg.clone(), smoke.offset_copy(torch, cols[1])),
-                                 B * 8 + n * 4),
+                                 m * 8 + n * 4),
             "segment_spmm_sum": (spmm_sum,
                                  lambda: (packed.clone(), smoke.offset_copy(torch, cols[1])),
-                                 B * 12 + n * 8),
+                                 m * 12 + n * 8),
             "frontier_compact": (compact,
                                  lambda: tuple(smoke.offset_copy(torch, c) for c in cols),
-                                 2 * B * 13 + 4),
+                                 2 * m * 13 + 4),
         }
         for name, (fn, make_args, set_bytes) in cases.items():
             args = make_args()
@@ -287,11 +295,12 @@ def ab_worker(args) -> int:
     with one ``@@ <json>`` line, until stdin closes."""
     import torch
 
-    cfg, _, source, rt = smoke.setup(torch, args.scale, src=Path(args.worker),
-                                     graph_file=Path(args.graph_file))
+    cfg, hs, source, rt = smoke.setup(torch, args.scale, src=Path(args.worker),
+                                      graph_file=Path(args.graph_file))
     from repro_torch.core.hytm import run_hytm
 
     legs = smoke.main_path_legs(cfg, source)
+    dcsr = None
     print("@@ {}", flush=True)
     for line in sys.stdin:
         req = json.loads(line)
@@ -299,6 +308,19 @@ def ab_worker(args) -> int:
             reply = block_rows(torch, rt)
         elif req["op"] == "host":
             reply = host_costs(torch, rt)
+        elif req["op"] in ("stream", "stream_profile"):
+            if dcsr is None:
+                from repro_torch.stream import DeltaCSR
+
+                dcsr = DeltaCSR(hs.graph, cfg, device=rt.device)
+            prog, src, c = legs[req["leg"]]
+            fn = lambda: run_hytm(None, prog, src, c, runtime=dcsr.runtime_for(prog))
+            if req["op"] == "stream":
+                reply = {"wall_s": fn().wall_seconds}
+            else:
+                p = profile_run(torch, fn, top=8)
+                reply = {k: p[k] for k in ("wall_s", "span_s", "busy_s", "busy_share",
+                                           "top_device", "top_host")}
         else:
             prog, src, c = legs[req["leg"]]
             reply = {"wall_s": run_hytm(None, prog, src, c, runtime=rt).wall_seconds}
@@ -335,15 +357,21 @@ def ab_main(args, smi: str) -> dict:
         order = list(trees) + list(trees)[::-1]
         rows = {name: [] for name in trees}
         host = {name: [] for name in trees}
-        walls = {leg: {name: [] for name in trees} for leg in AB_LEGS}
+        streams = all((t / "src" / "repro_torch" / "stream").is_dir() for t in trees.values())
+        stream_legs = AB_STREAM_LEGS if streams else ()
+        walls = {leg: {name: [] for name in trees} for leg in AB_LEGS + stream_legs}
         for _ in range(AB_ROUNDS):
             for name in order:
                 rows[name].append(ask(name, {"op": "rows"}))
             for name in order:
                 host[name].append(ask(name, {"op": "host"}))
-            for leg in AB_LEGS:
+            for leg in AB_LEGS + stream_legs:
+                op, main_leg = (("stream", leg.removeprefix("stream_"))
+                                if leg in stream_legs else ("leg", leg))
                 for name in order:
-                    walls[leg][name].append(ask(name, {"op": "leg", "leg": leg})["wall_s"])
+                    walls[leg][name].append(ask(name, {"op": op, "leg": main_leg})["wall_s"])
+        profiles = {name: ask(name, {"op": "stream_profile", "leg": "sssp_k8"})
+                    for name in trees} if streams else {}
     finally:
         for w in workers.values():
             w.stdin.close()
@@ -355,15 +383,21 @@ def ab_main(args, smi: str) -> dict:
         med_host = {k: float(np.median([h[k] for h in host[name]])) for k in host[name][0]}
         out[name] = {"rows": med, "host_us": med_host,
                      "legs": {leg: {"median_s": float(np.median(walls[leg][name])),
-                                    "runs": walls[leg][name]} for leg in AB_LEGS}}
+                                    "runs": walls[leg][name]} for leg in walls}}
         for key, r in med.items():
             log(f"ab {name} {key}: warm {r['warm_ms']:.4f} ms, cold {r['cold_ms']:.4f} ms, "
                 f"host {r['host_us']:.1f} µs (medians of {len(rows[name])} turns)")
         log(f"ab {name} host µs: " + ", ".join(f"{k} {v:.1f}" for k, v in med_host.items()))
-        for leg in AB_LEGS:
+        for leg in walls:
             w = walls[leg][name]
             log(f"ab {name} {leg}: median {np.median(w):.4f} s (min {min(w):.4f}, max "
                 f"{max(w):.4f}) over {len(w)} runs [{smi}]")
+        if name in profiles:
+            out[name]["stream_profile_sssp_k8"] = p = profiles[name]
+            if p["busy_s"]:
+                log_profile(f"ab {name} stream_sssp_k8", p)
+            else:
+                log(f"ab {name} stream_sssp_k8: device time not measured (no device events)")
     return out
 
 

@@ -38,7 +38,7 @@ from repro_torch.graph.algorithms import MIN, VertexProgram
 
 
 class EdgeBlock(NamedTuple):
-    """One partition's (padded) edge block."""
+    """One partition's edge block."""
 
     src: torch.Tensor     # (B,) int32
     dst: torch.Tensor     # (B,) int32
@@ -118,7 +118,7 @@ def relax_compact(
     return _combine(compacted, _messages(compacted, operand, program), n, program)
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=256)  # a block per partition, DeltaCSR patches
 def _windows(B: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """The block as PAD-lane requests: (starts, degrees), int32."""
     from repro_torch.kernels.hyb_gather.ops import PAD

@@ -36,7 +36,7 @@ from __future__ import annotations
 import contextlib
 import sys
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -122,18 +122,17 @@ class Runtime:
     zc_req: torch.Tensor   # (n,) float32
     inv_deg: torch.Tensor  # (n,) float32 — 1/max(deg,1), or 1/sum(w) (PHP)
     n_hub_partitions: int
-    lane_index: torch.Tensor = field(init=False, repr=False)  # arange(B)
 
     def __post_init__(self):
-        # A block slice must never run past the edge arrays: torch slicing
-        # would silently return a short block.
+        # The reference's layout contract: every partition's block_size
+        # slice lies inside the edge arrays (torch slicing would silently
+        # return a short block).
         B = self.parts.block_size
         _, edge_start, _ = self.parts.host
         if max(edge_start[:-1], default=0) + B > self.csr.capacity:
             raise ValueError(
                 f"edge capacity {self.csr.capacity} too small for blocks of "
                 f"{B} (need ceil((n_edges + block) / 128) * 128)")
-        self.lane_index = torch.arange(B, dtype=torch.int32, device=self.device)
 
     @property
     def device(self) -> torch.device:
@@ -200,9 +199,15 @@ def _sweep(
     """Relax the partitions one by one in priority order; returns the new
     state and the activated set.  A NONE partition needs no relax (its
     result is the identity) but, for SUM programs in pass 1, still
-    consumes its vertices' pending Δ."""
+    consumes its vertices' pending Δ.
+
+    A partition's block is its own ``part_edges[p]`` edges from
+    ``edge_start[p]``, not the whole ``block_size`` slice: the lanes past
+    them (the next partition's edges, padding, or a ``DeltaCSR`` block's
+    dead tail) are inactive, so leaving them out changes no result, and
+    the plain combines no longer send their identity messages to the
+    padding's vertex 0, one address for every atomic."""
     n = rt.csr.n_nodes
-    B = rt.parts.block_size
     vertex_start, edge_start, part_edges = rt.parts.host
     values0, delta0 = state.values, state.delta
     # private copies: the SUM consumption updates partition slices in place
@@ -219,14 +224,13 @@ def _sweep(
             continue
         out = None
         if processed:
-            start = edge_start[p]
-            src = rt.csr.edge_src[start:start + B]
+            start, stop = edge_start[p], edge_start[p] + part_edges[p]
+            src = rt.csr.edge_src[start:stop]
             block = EdgeBlock(
                 src=src,
-                dst=rt.csr.edge_dst[start:start + B],
-                weight=rt.csr.edge_weight[start:start + B],
-                active=(rt.lane_index < part_edges[p])
-                & torch.index_select(frontier, 0, src),
+                dst=rt.csr.edge_dst[start:stop],
+                weight=rt.csr.edge_weight[start:stop],
+                active=torch.index_select(frontier, 0, src),
             )
             if consume_sum:
                 operand = damping * (delta if async_sweep else delta0) * rt.inv_deg
@@ -506,6 +510,22 @@ def count_driver_dispatches():
         mod.hytm_iteration, mod.hytm_chunk = orig_iter, orig_chunk
 
 
+# Dispatch signatures already run in this process.  The first dispatch of
+# a signature pays for what a later one does not: the kernels' nvcc build
+# on first use, CUDA module loading and allocator growth (the reference's
+# trace and compile), so its wall time must not feed the online calibrator.
+_WARM_SIGNATURES: set = set()
+
+
+def _consume_warm(signature, registry: set | None = None) -> bool:
+    """True if ``signature`` was dispatched before in this process (or in
+    ``registry``, when given); marks it warm either way."""
+    reg = _WARM_SIGNATURES if registry is None else registry
+    warm = signature in reg
+    reg.add(signature)
+    return warm
+
+
 # --------------------------------------------------------------------------
 # Convergence loop
 # --------------------------------------------------------------------------
@@ -525,13 +545,11 @@ class HyTMResult:
     engine_corrections: np.ndarray | None = None
 
 
-def _reject_unported(config: HyTMConfig, mesh, calibrator, obs, faults,
-                     retry, on_chunk) -> None:
+def _reject_unported(config: HyTMConfig, mesh, obs, faults, retry,
+                     on_chunk) -> None:
     queued = [
         (config.mesh_axis is not None or mesh is not None,
          "mesh_axis/mesh", "item 11: Multi-GPU"),
-        (config.autotune or calibrator is not None,
-         "autotune/calibrator", "item 5: autotune/feedback.py"),
         (obs is not None, "obs", "item 9: Observability"),
         (faults is not None or retry is not None, "faults/retry",
          "item 10: Resilience"),
@@ -571,11 +589,20 @@ def run_hytm(
     ``initial_state`` warm-starts the loop from a (values, Δ, frontier)
     triple on the runtime's device; it is not modified.
 
-    ``mesh``, ``calibrator``, ``obs``, ``faults``, ``retry``, ``on_chunk``
-    and the config's ``mesh_axis``/``autotune`` belong to later slices and
-    raise ``NotImplementedError``.
+    With ``config.autotune`` the run learns per-engine cost corrections
+    from its measured chunk (K > 1) or iteration (K = 1) times into
+    ``calibrator`` (a ``repro_torch.autotune.OnlineCalibrator``, or any
+    object with its ``correction``/``observe_chunk``/``observe_iteration``
+    methods), or into a fresh one; it starts from the calibrator's current
+    correction and returns the final one in ``engine_corrections``.
+    ``calibrator`` is read only with ``config.autotune``.  The first
+    dispatch of a chunk signature in the process, and iteration 1 of the
+    K = 1 loop, are not observed.
+
+    ``mesh``, ``obs``, ``faults``, ``retry``, ``on_chunk`` and the config's
+    ``mesh_axis`` belong to later slices and raise ``NotImplementedError``.
     """
-    _reject_unported(config, mesh, calibrator, obs, faults, retry, on_chunk)
+    _reject_unported(config, mesh, obs, faults, retry, on_chunk)
     if config.sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {config.sync_every}")
     if runtime is not None:
@@ -608,6 +635,19 @@ def run_hytm(
                 f"initial_state lives on {state.values.device}, the runtime on "
                 f"{rt.device}")
 
+    calib = None
+    correction = None
+    if config.autotune:
+        if calibrator is None:
+            from repro_torch.autotune.feedback import OnlineCalibrator
+
+            calibrator = OnlineCalibrator(decay=config.autotune_decay)
+        calib = calibrator
+        # float64 -> float32 rounds to nearest, as the reference's
+        # jnp.asarray(c, jnp.float32)
+        correction = torch.from_numpy(
+            np.asarray(calib.correction(), np.float64).astype(np.float32)).to(rt.device)
+
     rows: dict[str, list] = {k: [] for k in HISTORY_KEYS}
     t0 = time.monotonic()
     iters = 0
@@ -619,9 +659,22 @@ def run_hytm(
             if chunk != cur_chunk:
                 history = init_history_buffers(shapes, chunk, device=rt.device)
                 cur_chunk = chunk
-            state, history, n_done, last_active, _ = hytm_chunk(
-                state, history, rt, program, config, chunk)
+            # the reference's jit cache key: statics and every shape
+            warm = _consume_warm((
+                "chunk", program, config, rt.n_hub_partitions, chunk,
+                rt.csr.n_nodes, rt.csr.capacity, rt.parts.n_partitions,
+                rt.parts.block_size, correction is not None,
+            ))
+            t_chunk = time.monotonic()
+            state, history, n_done, last_active, pe_sum = hytm_chunk(
+                state, history, rt, program, config, chunk, correction)
             iters += n_done
+            if calib is not None:
+                # before the history drain, so the window covers dispatch
+                # and execution only
+                correction = calib.observe_chunk(
+                    state.values, pe_sum.cpu().numpy().astype(float), t_chunk,
+                    skip=not warm)
             for k in rows:
                 # a copy: the buffers are reused by the next chunk
                 rows[k].append(history[k][:n_done].to("cpu", copy=True).numpy())
@@ -630,8 +683,13 @@ def run_hytm(
         history = {k: np.concatenate(v) for k, v in rows.items()}
     else:
         for _ in range(config.max_iters):
-            state, info = hytm_iteration(state, rt, program, config)
+            t_iter = time.monotonic()
+            state, info = hytm_iteration(state, rt, program, config, correction)
             iters += 1
+            if calib is not None:
+                correction = calib.observe_iteration(
+                    state.values, info[KEY_PER_ENGINE_TIME], t_iter,
+                    skip=iters == 1)
             for k in rows:
                 rows[k].append(info[k])
             if int(info["next_active"]) == 0:
@@ -649,4 +707,5 @@ def run_hytm(
         total_transfer_bytes=float(np.sum(history[KEY_TRANSFER_BYTES])),
         history=history,
         total_mispredictions=int(np.sum(history[KEY_MISPREDICTIONS])),
+        engine_corrections=calib.correction() if calib is not None else None,
     )

@@ -5,10 +5,10 @@ segments are contiguous in the CSR edge arrays and hold about equal edge
 counts.  Partitions stay small for fine-grained cost analysis; the task
 combiner merges them at schedule time (paper §V-B).
 
-``DevicePartitions`` pads every partition's edge range to one
-``block_size``, so the sweep relaxes fixed-size edge blocks (slices of the
-device edge arrays).  It also keeps the partition bounds as host integers:
-the sweep dispatches one partition at a time from the host.
+``DevicePartitions`` records one ``block_size`` (the largest partition's
+edge count, rounded up: the reference's fixed block shape) and keeps the
+partition bounds as host integers: the sweep dispatches one partition at a
+time from the host, each as a slice of its own edges.
 """
 
 from __future__ import annotations

@@ -191,13 +191,17 @@ def test_chunked_driver_dispatch_counts():
 
 def test_unported_features_raise():
     g = jgen.uniform_graph(50, 300, seed=0)
-    for kw in (dict(mesh=object()), dict(calibrator=object()), dict(obs=object()),
+    for kw in (dict(mesh=object()), dict(obs=object()),
                dict(faults=object()), dict(retry=object()), dict(on_chunk=print)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             th.run_hytm(g, talg.SSSP, device="cpu", **kw)
-    for cfg in (th.HyTMConfig(mesh_axis="graph"), th.HyTMConfig(autotune=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            th.run_hytm(g, talg.SSSP, config=cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        th.run_hytm(g, talg.SSSP, config=th.HyTMConfig(mesh_axis="graph"), device="cpu")
+    # autotune is ported: a calibrator is read only with config.autotune
+    assert th.run_hytm(g, talg.SSSP, config=th.HyTMConfig(autotune=True),
+                       device="cpu").engine_corrections.shape == (3,)
+    assert th.run_hytm(g, talg.SSSP, calibrator=object(),
+                       device="cpu").engine_corrections is None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         th.hytm_batched_chunk()
     with pytest.raises(ValueError):

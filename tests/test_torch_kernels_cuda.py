@@ -549,3 +549,67 @@ def test_grouped_matmul_bf16_wgmma_on_card(T, D, E, F, C, shift):
     for st, n in zip(starts.tolist(), np.minimum(counts, C).tolist()):
         inside[st:st + n] = True
     assert not got[~inside].any()
+
+
+@pytest.mark.cuda
+def test_delta_csr_patches_on_card_as_on_cpu():
+    """A DeltaCSR on the card and one on the CPU take the same three
+    batches (the third merge-compacts): their device tensors are equal bit
+    for bit after each, and the warm SSSP through the kernels equals the
+    CPU's run through the wrappers' plain bodies in values, iterations and
+    engines."""
+    import dataclasses
+
+    from repro_torch.core.hytm import HyTMConfig, run_hytm
+    from repro_torch.graph.algorithms import SSSP
+    from repro_torch.graph.generators import rmat_graph
+    from repro_torch.stream import EdgeBatch, DeltaCSR, random_batch, run_incremental
+
+    _cuda()
+    g = rmat_graph(5000, 60_000, seed=5)
+    cfg = HyTMConfig(n_partitions=8, sync_every=4, use_kernels=True)
+    card = DeltaCSR(g, cfg, slack=0.2)
+    cpu = DeltaCSR(g, cfg, slack=0.2, device="cpu")
+    assert card.csr.device.type == "cuda"
+
+    def same_tensors():
+        for name in ("edge_src", "edge_dst", "edge_weight", "edge_valid", "out_degree",
+                     "seg_start"):
+            assert torch.equal(getattr(card.csr, name).cpu(), getattr(cpu.csr, name)), name
+        for name in ("vertex_start", "edge_start", "part_edges", "vertex_part_id"):
+            assert torch.equal(getattr(card.parts, name).cpu(), getattr(cpu.parts, name)), name
+        assert card.parts.host == cpu.parts.host
+        assert torch.equal(card.zc_req.cpu(), cpu.zc_req)
+        for weighted in (False, True):
+            assert torch.equal(card._inv_deg(weighted).cpu(), cpu._inv_deg(weighted))
+
+    same_tensors()
+    warm_card = run_hytm(None, SSSP, 0, cfg, runtime=card.runtime_for(SSSP))
+    warm_cpu = run_hytm(None, SSSP, 0, cfg, runtime=cpu.runtime_for(SSSP))
+    np.testing.assert_array_equal(warm_card.values, warm_cpu.values)
+    rng_a, rng_b = np.random.default_rng(3), np.random.default_rng(3)
+    for i in range(3):
+        if i < 2:
+            a = random_batch(card, rng_a, n_insert=60, n_delete=60, n_reweight=20)
+            b = random_batch(cpu, rng_b, n_insert=60, n_delete=60, n_reweight=20)
+        else:
+            p = int(np.argmax(card.counts))
+            k = card.block_size - int(card.counts[p]) + 1
+            src = np.full(k, int(card.vertex_start[p]))
+            a = b = EdgeBatch.inserts(src, np.arange(k) % g.n_nodes, np.ones(k, np.float32))
+        ra, rb = card.apply(a), cpu.apply(b)
+        assert ra.merged == rb.merged == (i == 2)
+        same_tensors()
+        before = segment_spmm.launches + frontier_compact.launches + hyb_gather.launches
+        got = run_incremental(card, SSSP, [ra], warm_card.values, warm_card.delta, 0, cfg)
+        assert segment_spmm.launches + frontier_compact.launches + hyb_gather.launches > before
+        want = run_incremental(cpu, SSSP, [rb], warm_cpu.values, warm_cpu.delta, 0, cfg)
+        np.testing.assert_array_equal(got.values, want.values)
+        assert got.iterations == want.iterations
+        np.testing.assert_array_equal(got.history["engines"], want.history["engines"])
+        warm_card, warm_cpu = got, want
+    assert card.layout_version == cpu.layout_version == 1
+    # autotune on the card runs and leaves traversal values alone
+    tuned = run_hytm(None, SSSP, 0, dataclasses.replace(cfg, autotune=True),
+                     runtime=card.runtime_for(SSSP))
+    np.testing.assert_array_equal(tuned.values, warm_card.values)
