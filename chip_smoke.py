@@ -66,6 +66,24 @@ Phases, in order; any failure exits nonzero and prints no result line:
    to scratch.  Every leg's launch counts are read after that leg alone:
    a kernel leg must launch a graph kernel and nothing else, a plain leg
    nothing;
+11. (right after phase 10, same graph and configuration, K=8) graph
+   serving: a ``GraphService`` over a ``DeltaCSR`` of the graph with 8
+   lanes answers 32 SSSP sources (vertices with out-edges, drawn from the
+   seed) with backfill, each bit-equal to its solo ``run_hytm`` over the
+   service's runtime; the same 32 queries batched against a loop of solo
+   runs in turns (batched, solo, solo, batched): queries/s, lane
+   occupancy, peak device memory, host syncs a chunk (PyTorch's sync debug
+   mode) and the kernels' device ms in one traced batched run; a
+   three-tenant ``pump`` of 24 SSSP/BFS requests under quotas with a
+   budget of 4 lanes and 2 cached states (answers equal solo runs, budget
+   and quotas held at every dispatch); 8 Δ-PPR lanes within phase 4's SUM
+   bound; phase 10's three update batches and a re-query of 8 of the
+   pump's sources, each incremental and equal to a solo run over the
+   updated runtime; then each lane entry (``segment_spmm_lanes`` min and
+   sum, ``frontier_compact_lanes``, ``hyb_gather``'s one request list for
+   all lanes) against its plain version at the phase's shapes, warm and
+   cold, against its bytes bound.  A lane leg must launch a lane entry and
+   no solo ``segment_spmm``/``frontier_compact``;
 6. LM serving: the reduced gemma3-12b config on the card against the CPU
    (float32, logits within 1e-4, greedy tokens equal), then gemma3-12b at
    full width (11.8B parameters in bf16, random weights from the seed):
@@ -249,6 +267,29 @@ def launch_split(torch, fn, calls: int = REPS) -> dict:
     return {re.sub(r"^void |\(.*$", "", e.key.replace("(anonymous namespace)::", "")):
             e.self_device_time_total / calls
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def host_syncs(torch, call) -> dict:
+    """Host syncs that ``call`` issues, counted by PyTorch's sync debug mode,
+    by the port's source line that issued them."""
+    found = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        frames = [f for f in traceback.extract_stack() if "repro_torch" in f.filename]
+        where = (f"{frames[-1].filename.split('src/')[-1]}:{frames[-1].lineno}"
+                 if frames else f"{filename}:{lineno}")
+        found[where] = found.get(where, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return found
 
 
 def cold_ms(torch, fn, make_args, set_bytes: float, reps: int = REPS) -> float:
@@ -1021,10 +1062,14 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.segment_spmm.ops import segment_spmm
 
     from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
+    from repro_torch.kernels.frontier_compact.ops import frontier_compact_lanes
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm_lanes
 
     return {"segment_spmm": segment_spmm, "frontier_compact": frontier_compact,
             "hyb_gather": hyb_gather, "flash_attention": flash_attention,
-            "embedding_bag": embedding_bag, "grouped_matmul": grouped_matmul}
+            "embedding_bag": embedding_bag, "grouped_matmul": grouped_matmul,
+            "segment_spmm_lanes": segment_spmm_lanes,
+            "frontier_compact_lanes": frontier_compact_lanes}
 
 
 def reset_launch_counts() -> None:
@@ -1058,11 +1103,12 @@ def leg_turns(rt, legs: dict, rounds: int) -> dict:
     return walls
 
 
-def traced_device_ms(torch, fn) -> tuple[float, float] | None:
+def traced_device_ms(torch, fn, top: int = 0) -> tuple | None:
     """One run of ``fn`` under ``torch.profiler`` (device activity only):
     (the device ms of the port's own kernels, every one of which is in an
     anonymous namespace; the device ms of every kernel and copy), or None
-    when the trace holds no device event."""
+    when the trace holds no device event.  With ``top``, a third element:
+    the ``top`` kernels by device ms, {name: ms}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1074,7 +1120,13 @@ def traced_device_ms(torch, fn) -> tuple[float, float] | None:
         return None
     port = sum(e.self_device_time_total for e in events
                if e.key.removeprefix("void ").startswith("(anonymous namespace)::"))
-    return port / 1e3, sum(e.self_device_time_total for e in events) / 1e3
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    if not top:
+        return port / 1e3, total
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
+    return port / 1e3, total, {
+        re.sub(r"^void |\(.*$", "", e.key.replace("(anonymous namespace)::", ""))[:60]:
+        round(e.self_device_time_total / 1e3, 3) for e in ranked}
 
 
 def phase_turns(rt, legs: dict, launches: dict) -> dict:
@@ -1497,6 +1549,394 @@ def phase_stream(torch, cfg, hs, rt, source: int, main_runs: dict, turns: dict,
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: graph serving (GraphService, lane scheduler, warm cache)
+# ---------------------------------------------------------------------------
+
+SERVE_LANES = 8
+SERVE_QUERIES = 32
+SERVE_PUMP = 24
+SERVE_PPR = 8
+SERVE_REQUERY = 8
+# the lane entries each graph kernel gains (hyb_gather's lane path is its own
+# entry with every lane's windows in one request list)
+LANE_ENTRIES = {"segment_spmm": "segment_spmm_lanes",
+                "frontier_compact": "frontier_compact_lanes", "hyb_gather": "hyb_gather"}
+SERVE_KERNELS = ALL_KERNELS + ("segment_spmm_lanes", "frontier_compact_lanes")
+SOLO_ONLY = ("segment_spmm", "frontier_compact")   # no lane leg may launch these
+
+
+def lane_kernel_rows(torch, dcsr, seed: int) -> dict:
+    """Each lane entry against its plain version (a loop of single-lane
+    plain versions) at the serving phase's shapes: 8 lanes, lane l on
+    partition 8l of the DeltaCSR (its own edges, packed lane after lane),
+    30% of the edges active.  Warm and cold-L2 device ms, the plain
+    version's ms (one call: it reads the lane bounds back to the host) and
+    one library call's where there is one, against the bytes bound."""
+    from repro_torch.core.engines import packed_ranges
+    from repro_torch.kernels.frontier_compact.ops import frontier_compact_lanes
+    from repro_torch.kernels.frontier_compact.ref import frontier_compact_lanes_ref
+    from repro_torch.kernels.hyb_gather.ops import PAD, hyb_gather
+    from repro_torch.kernels.hyb_gather.ref import hyb_gather_ref
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm_lanes
+    from repro_torch.kernels.segment_spmm.ref import segment_spmm_lanes_ref
+
+    dev, n = dcsr.device, dcsr.n_nodes
+    _, edge_start, part_edges = dcsr.parts.host
+    parts = [8 * l for l in range(SERVE_LANES)]
+    L = len(parts)
+    lengths = [part_edges[p] for p in parts]
+    M = sum(lengths)
+    offsets = torch.tensor([0, *np.cumsum(lengths)], dtype=torch.int64, device=dev)
+    starts = torch.tensor([edge_start[p] for p in parts], dtype=torch.int64, device=dev)
+    lane, idx = packed_ranges(starts, offsets, M)
+    src, dst = dcsr.csr.edge_src[idx], dcsr.csr.edge_dst[idx]
+    w = dcsr.csr.edge_weight[idx]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    active = torch.rand(M, device=dev, generator=gen) < 0.3
+    msg = torch.where(active, torch.rand(M, device=dev, generator=gen) * 100.0 + 1.0,
+                      float("inf"))
+    flat = lane * n + dst.long()
+    shape = (f"L={L} lanes (partitions {parts[0]}..{parts[-1]} step 8) M={M} packed edges "
+             f"n={n}")
+    rows = {}
+
+    def timed(kernel, plain, library, make_args, set_bytes, **row):
+        args = make_args()
+        row.update(ms=graph_ms(torch, lambda: kernel(*args)),
+                   cold_ms=cold_ms(torch, kernel, make_args, set_bytes),
+                   plain_ms=call_ms(torch, lambda: plain(*args), reps=5),
+                   library_ms=None if library is None else graph_ms(torch, lambda: library(*args)),
+                   bound_ms=bound_ms(set_bytes), bound_by="bytes")
+        return row
+
+    # -- segment_spmm_lanes: min (SSSP's FILTER) and sum with the activity column
+    k = segment_spmm_lanes(msg, dst, offsets, n, "min")
+    p = segment_spmm_lanes_ref(msg, dst, offsets, n, "min")
+    check(torch.equal(k.view(torch.int32), p.view(torch.int32)),
+          "segment_spmm_lanes min differs from its plain version")
+    rows["segment_spmm"] = timed(
+        lambda m_, d_, f_: segment_spmm_lanes(m_, d_, offsets, n, "min"),
+        lambda m_, d_, f_: segment_spmm_lanes_ref(m_, d_, offsets, n, "min"),
+        lambda m_, d_, f_: torch.full((L * n,), float("inf"), device=dev).scatter_reduce_(
+            0, f_, m_, "amin"),
+        lambda: (msg.clone(), dst.clone(), flat), M * 4 + M * 4 + (L + 1) * 8 + L * n * 4,
+        max_abs_err=0.0, shape="min d=1 " + shape,
+        source="src/repro_torch/kernels/segment_spmm/csrc/segment_spmm.cu "
+               "(segment_spmm_lanes_launch)")
+    pmsg = torch.where(active, torch.rand(M, device=dev, generator=gen) * 1e-3, 0.0)
+    packed = torch.stack([pmsg, active.to(torch.float32)], dim=-1)
+    k = segment_spmm_lanes(packed, dst, offsets, n)
+    p = segment_spmm_lanes_ref(packed, dst, offsets, n)
+    check(torch.equal(k[..., 1], p[..., 1])
+          and torch.allclose(k[..., 0], p[..., 0], rtol=1e-4, atol=1e-9),
+          "segment_spmm_lanes sum differs from its plain version")
+    rows["segment_spmm"]["sum_d2"] = timed(
+        lambda m_, d_, f_: segment_spmm_lanes(m_, d_, offsets, n),
+        lambda m_, d_, f_: segment_spmm_lanes_ref(m_, d_, offsets, n),
+        lambda m_, d_, f_: torch.zeros((L * n, 2), device=dev).index_add_(0, f_, m_),
+        lambda: (packed.clone(), dst.clone(), flat), M * 8 + M * 4 + (L + 1) * 8 + L * n * 8,
+        max_abs_err=float((k[..., 0] - p[..., 0]).abs().max()), shape="sum d=2 " + shape)
+
+    # -- frontier_compact_lanes: COMPACT's four packed columns, each lane by its mask
+    cols = (src, dst, w, active)
+    out, cnt = frontier_compact_lanes(cols, active, offsets)
+    ref_out, ref_cnt = frontier_compact_lanes_ref(cols, active, offsets)
+    check(torch.equal(cnt, ref_cnt.to(dev)) and all(map(torch.equal, out, ref_out)),
+          "frontier_compact_lanes differs from its plain version")
+    rows["frontier_compact"] = timed(
+        lambda c: frontier_compact_lanes(c, c[3], offsets),
+        lambda c: frontier_compact_lanes_ref(c, c[3], offsets), None,
+        lambda: (tuple(t.clone() for t in cols),), 2 * M * 13 + (L + 1) * 8 + L * 4,
+        max_abs_err=0.0, shape=f"{shape} columns=(i32, i32, f32, bool) "
+                               f"kept={int(active.sum())}",
+        source="src/repro_torch/kernels/frontier_compact/csrc/frontier_compact.cu "
+               "(frontier_compact_lanes_launch)")
+
+    # -- hyb_gather, lane path: every lane's windows in one request list over
+    # the shared CSR columns (the existing body; active is computed after it)
+    n_win = [-(-c // PAD) for c in lengths]
+    wstart = torch.tensor([edge_start[p] + PAD * k_ for p, nw in zip(parts, n_win)
+                           for k_ in range(nw)], dtype=torch.int32, device=dev)
+    wdeg = torch.tensor([min(PAD, c - PAD * k_) for c, nw in zip(lengths, n_win)
+                         for k_ in range(nw)], dtype=torch.int32, device=dev)
+    shared = (dcsr.csr.edge_src, dcsr.csr.edge_dst, dcsr.csr.edge_weight)
+    check(all(map(torch.equal, hyb_gather(shared, wstart, wdeg),
+                  hyb_gather_ref(shared, wstart, wdeg))),
+          "hyb_gather (lane windows) differs from its plain version")
+    cap = shared[0].shape[0]
+    k_ = torch.arange(PAD, device=dev)
+    gidx = wstart.long()[:, None] + k_
+    gidx = torch.where(k_ < wdeg.long()[:, None], gidx, cap)
+
+    def gather_args():
+        c = tuple(t.clone() for t in shared)
+        words = torch.stack([c[0], c[1], c[2].view(torch.int32)], dim=-1)
+        return c, torch.cat([words, words.new_zeros((1, 3))])
+
+    a = sum(n_win)
+    rows["hyb_gather"] = timed(
+        lambda c, padded: hyb_gather(c, wstart, wdeg),
+        lambda c, padded: hyb_gather_ref(c, wstart, wdeg), lambda c, padded: padded[gidx],
+        gather_args, M * 12 + a * 8 + a * PAD * 12, max_abs_err=0.0,
+        shape=f"a={a} windows of {L} lanes ({M} edges) over the shared (i32, i32, f32) "
+              "columns",
+        source="src/repro_torch/kernels/hyb_gather/csrc/hyb_gather.cu (the existing body)")
+    for name, r in rows.items():
+        log(f"lane entry of {name}: {r['shape']} ms={r['ms']:.4f} (warm) cold_ms="
+            f"{r['cold_ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms="
+            f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} "
+            f"bound_ms={r['bound_ms']:.4f}")
+    s2 = rows["segment_spmm"]["sum_d2"]
+    log(f"lane entry of segment_spmm, sum: {s2['shape']} ms={s2['ms']:.4f} cold_ms="
+        f"{s2['cold_ms']:.4f} plain_ms={s2['plain_ms']:.4f} library_ms={s2['library_ms']:.4f} "
+        f"bound_ms={s2['bound_ms']:.4f} max_abs_err={s2['max_abs_err']:.3g}")
+    return rows
+
+
+def phase_serve(torch, cfg, hs, rt, smi: str) -> dict:
+    """Phase 11: graph serving over a DeltaCSR of the main graph.  32 SSSP
+    sources through 8 lanes with backfill, each answer held to a solo run;
+    the batched queries against a loop of solo runs over the same sources
+    in turns; a three-tenant pump under quotas and a byte budget; 8 Δ-PPR
+    lanes; three update batches and a warm re-query; the lane entries
+    against their plain versions.  Every leg's launch counts are read after
+    that leg alone; a lane leg must launch a lane entry and no solo
+    ``segment_spmm``/``frontier_compact``."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.hytm import run_hytm
+    from repro_torch.graph.algorithms import BFS, PPR, SSSP
+    from repro_torch.serve import Request, RequestQueue, TierPolicy
+    from repro_torch.stream import GraphService, random_batch
+
+    cfg8 = dataclasses.replace(cfg, sync_every=8)
+    n = hs.graph.n_nodes
+    rng = np.random.default_rng(SEED + 11)
+    # sources a user would ask about: vertices with out-edges
+    live = np.flatnonzero(np.diff(hs.graph.indptr) > 0)
+    sources = [int(v) for v in rng.choice(live, SERVE_QUERIES, replace=False)]
+    launches, out = {}, {"card": smi, "sources": sources}
+
+    def leg(name, fn, lanes: bool = True, solo: bool = False):
+        reset_launch_counts()
+        t = time.monotonic()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t
+        counts = read_launch_counts()
+        others = {k: v for k, v in counts.items() if k not in SERVE_KERNELS and v}
+        check(not others, f"{name} launched {others}")
+        if lanes and not solo:
+            check(all(counts[k] == 0 for k in SOLO_ONLY),
+                  f"{name} (lanes only) launched a solo kernel: {counts}")
+        if not lanes:
+            check(counts["segment_spmm_lanes"] == counts["frontier_compact_lanes"] == 0,
+                  f"{name} (solo) launched a lane entry: {counts}")
+        check(sum(counts[k] for k in SERVE_KERNELS) > 0, f"{name} launched no graph kernel")
+        launches[name] = {k: counts[k] for k in SERVE_KERNELS}
+        return res, wall
+
+    t = time.monotonic()
+    svc = GraphService(hs.graph, cfg8, max_lanes=SERVE_LANES, device=rt.device)
+    torch.cuda.synchronize()
+    out["service_build_s"] = time.monotonic() - t
+    lane_bytes = svc.scheduler.lane_bytes
+    log(f"serving: GraphService over a DeltaCSR of the main graph built in "
+        f"{out['service_build_s']:.2f} s; {SERVE_LANES} lanes, buckets "
+        f"{svc.scheduler.buckets}, {lane_bytes / 1e6:.1f} MB of lane state a lane")
+
+    def solo_runs(prog, srcs):
+        rt_p = svc.dcsr.runtime_for(prog)
+        return [run_hytm(None, prog, s, cfg8, runtime=rt_p) for s in srcs]
+
+    # -- 1. 32 SSSP sources through the lanes, with backfill
+    st0 = dataclasses.replace(svc.scheduler.stats)
+    res, wall = leg("serve_sssp", lambda: svc.query(SSSP, sources))
+    st1 = svc.scheduler.stats
+    check(all(r.mode == "batched" for r in res), "serving: a fresh SSSP query was not batched")
+    check(st1.backfills > st0.backfills, "serving: 32 sources over 8 lanes backfilled nothing")
+    solos = solo_runs(SSSP, sources)
+    for s, r, so in zip(sources, res, solos):
+        check(np.array_equal(r.values, so.values),
+              f"serving: SSSP lane of source {s} != its solo run_hytm")
+    occ = ((st1.lane_iterations - st0.lane_iterations)
+           / max(st1.slot_iterations - st0.slot_iterations, 1))
+    out["sssp"] = {"wall_s": wall, "chunks": st1.chunks - st0.chunks,
+                   "engine_iterations": st1.engine_iterations - st0.engine_iterations,
+                   "backfills": st1.backfills - st0.backfills, "occupancy": occ,
+                   "solo_iterations": [so.iterations for so in solos],
+                   "lane_iterations": [r.iterations for r in res]}
+    log(f"serving SSSP: {SERVE_QUERIES} sources bit-equal to their solo runs; {wall:.3f} s, "
+        f"{out['sssp']['chunks']} chunks, {out['sssp']['engine_iterations']} engine iterations, "
+        f"{out['sssp']['backfills']} backfills, lane occupancy {occ:.3f}; solo iterations "
+        f"{min(so.iterations for so in solos)}-{max(so.iterations for so in solos)}; "
+        f"launches {launches['serve_sssp']}")
+
+    # -- 2. batched against a loop of solo runs over the same sources, in turns
+    def batched():
+        svc.cache.clear()
+        return svc.query(SSSP, sources)
+
+    def solo_loop():
+        return solo_runs(SSSP, sources)
+
+    turns = {"batched": [], "solo": []}
+    for i, kind in enumerate(("batched", "solo", "solo", "batched")):
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        _, wall = leg(f"serve_turn{i}_{kind}", batched if kind == "batched" else solo_loop,
+                      lanes=kind == "batched")
+        if i == 0:
+            out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+            out["peak_over_base_bytes"] = out["peak_device_bytes"] - base
+        turns[kind].append(wall)
+    rate = {k: SERVE_QUERIES / float(np.median(v)) for k, v in turns.items()}
+    out["turns"] = {"wall_s": turns, "queries_per_s": rate}
+    log(f"serving turns (batched, solo, solo, batched): batched {turns['batched']} s, solo "
+        f"{turns['solo']} s; {rate['batched']:.2f} queries/s batched against "
+        f"{rate['solo']:.2f} solo (median of 2 each) [{smi}]; peak device memory "
+        f"{out['peak_device_bytes'] / 1e9:.3f} GB ({out['peak_over_base_bytes'] / 1e9:.3f} GB "
+        f"over the leg's start)")
+
+    # -- 3. host syncs a chunk, and the kernels' device time in one traced run
+    st0 = dataclasses.replace(svc.scheduler.stats)
+    sites = host_syncs(torch, batched)
+    chunks = svc.scheduler.stats.chunks - st0.chunks
+    out["host_syncs"] = {"total": sum(sites.values()), "chunks": chunks,
+                         "per_chunk": sum(sites.values()) / max(chunks, 1), "sites": sites}
+    log(f"serving host syncs: {sum(sites.values())} in {chunks} chunks "
+        f"({out['host_syncs']['per_chunk']:.2f} a chunk), by source line: {sites}")
+    # one bucket's worth (8 queries): the profiler's cost grows with the
+    # launches it records
+    def batched8():
+        svc.cache.clear()
+        return svc.query(SSSP, sources[:SERVE_LANES])
+
+    reset_launch_counts()
+    traced = traced_device_ms(torch, batched8, top=8)
+    out["traced"] = {"queries": SERVE_LANES, "kernel_device_ms": traced and traced[0],
+                     "device_ms": traced and traced[1], "top_device_ms": traced and traced[2],
+                     "launches": {k: v for k, v in read_launch_counts().items()
+                                  if k in SERVE_KERNELS}}
+    log(f"traced batched SSSP ({SERVE_LANES} queries): " + (
+        f"the port's kernels {traced[0]:.2f} ms of {traced[1]:.2f} ms device time; top "
+        f"device kernels (ms): {traced[2]}" if traced
+        else "device time not measured (no device events)"))
+
+    # -- 4. three tenants under quotas and a budget of 4 lanes + 2 cached states
+    budget = 4 * lane_bytes + 2 * 8 * n
+    svc.cache.clear()
+    svc.cache.policy = TierPolicy(device_budget_bytes=budget, max_reports=svc.max_reports)
+    quotas = {"gold": 3, "silver": 2, "bronze": 1}
+    q = RequestQueue(quota=3, tenant_quotas=quotas)
+    tenants = ("gold", "silver", "bronze")
+    pump_sources = [int(v) for v in rng.choice(live, SERVE_PUMP, replace=False)]
+    for i, s in enumerate(pump_sources):
+        q.submit(Request(tenant=tenants[i % 3], program=SSSP if i % 2 == 0 else BFS,
+                         source=s, deadline=float(i % 5)))
+    # the leg's own peaks, read at every dispatch (the scheduler's
+    # max_device_bytes is a lifetime peak: the unbudgeted 8-lane batches
+    # above are in it)
+    peak: dict = {}
+    peak_bytes = [0]
+    dispatch = svc.scheduler._dispatch
+
+    def spying(*a, **k):
+        for tenant, c in svc.scheduler.in_flight.items():
+            peak[tenant] = max(peak.get(tenant, 0), c)
+        peak_bytes[0] = max(peak_bytes[0],
+                            svc.scheduler.pinned_bytes + svc.cache.device_bytes)
+        return dispatch(*a, **k)
+
+    svc.scheduler._dispatch = spying
+    spills0 = svc.cache.stats.spills
+    try:
+        served, wall = leg("serve_pump", lambda: svc.scheduler.pump(q))
+    finally:
+        del svc.scheduler._dispatch
+    check(len(served) == SERVE_PUMP and q.stats.rejected == 0,
+          f"pump served {len(served)} of {SERVE_PUMP}, rejected {q.stats.rejected}")
+    peak_bytes[0] = max(peak_bytes[0], svc.cache.device_bytes)
+    check(peak_bytes[0] <= budget,
+          f"pump: {peak_bytes[0]} device bytes over the budget {budget}")
+    check(all(peak[t] <= quotas[t] for t in peak), f"pump: quota exceeded {peak}")
+    for r in served:
+        so = solo_runs(r.request.program, [r.request.source])[0]
+        check(np.array_equal(r.values, so.values),
+              f"pump: {r.request.program.name} lane of {r.request.source} != its solo run")
+    out["pump"] = {"wall_s": wall, "budget_bytes": budget, "max_device_bytes": peak_bytes[0],
+                   "peak_in_flight": peak, "queue": dataclasses.asdict(q.stats),
+                   "spills": svc.cache.stats.spills - spills0,
+                   "order": [(r.request.tenant, r.request.program.name, r.request.source)
+                             for r in served]}
+    log(f"serving pump: {SERVE_PUMP} SSSP/BFS requests of 3 tenants (quotas {quotas}) in "
+        f"{wall:.3f} s, every answer == its solo run; peak in flight {peak}; device bytes "
+        f"{peak_bytes[0]:,} <= budget {budget:,} (lanes + device tier at each dispatch); "
+        f"{out['pump']['spills']} spills; launches {launches['serve_pump']}")
+    svc.cache.policy = TierPolicy(max_reports=svc.max_reports)
+
+    # -- 5. 8 Δ-PPR lanes within phase 4's SUM bound
+    ppr = dataclasses.replace(PPR, tolerance=1e-5)
+    ppr_sources = sources[:SERVE_PPR]
+    res, wall = leg("serve_ppr", lambda: svc.query(ppr, ppr_sources))
+    errs = []
+    for s, r, so in zip(ppr_sources, res, solo_runs(ppr, ppr_sources)):
+        lane = SimpleNamespace(values=r.values, delta=svc.cache.peek((ppr, s)).host_delta())
+        ok, err, held = pr_close(lane, so, ppr)
+        check(ok, f"serving: Δ-PPR lane of {s} vs its solo run out of tolerance ({err:.3e})")
+        errs.append((err, held))
+    out["ppr"] = {"wall_s": wall, "max_abs_err": max(e for e, _ in errs),
+                  "bounds": sorted({h for _, h in errs}),
+                  "iterations": [r.iterations for r in res]}
+    log(f"serving Δ-PPR: {SERVE_PPR} lanes in {wall:.3f} s, max |err| vs solo "
+        f"{out['ppr']['max_abs_err']:.3e} ({out['ppr']['bounds']} bound); launches "
+        f"{launches['serve_ppr']}")
+
+    # -- 6. three update batches, then a warm re-query
+    # (phase 10's batches: the same seeds and sizes); the re-query takes the
+    # pump's SSSP sources, whose states the budget spilled to the host tier
+    applies = []
+    for i in range(STREAM_BATCHES):
+        batch = random_batch(svc.dcsr, np.random.default_rng(SEED + i), **STREAM_OPS)
+        t = time.monotonic()
+        svc.update(batch)
+        torch.cuda.synchronize()
+        applies.append(time.monotonic() - t)
+    requery = pump_sources[0::2][:SERVE_REQUERY]
+    promotions0 = svc.cache.stats.promotions
+    res, wall = leg("serve_requery", lambda: svc.query(SSSP, requery), solo=True)
+    check(all(r.mode == "incremental" for r in res), "serving: a re-query was not incremental")
+    for s, r, so in zip(requery, res, solo_runs(SSSP, requery)):
+        check(np.array_equal(r.values, so.values),
+              f"serving: warm SSSP of {s} != a solo run over the updated runtime")
+    out["requery"] = {"apply_s": applies, "wall_s": wall,
+                      "promotions": svc.cache.stats.promotions - promotions0,
+                      "iterations": [r.iterations for r in res]}
+    log(f"serving updates: {STREAM_BATCHES} batches of {STREAM_OPS} applied in "
+        f"{[round(a, 3) for a in applies]} s; {SERVE_REQUERY} re-queries all incremental and "
+        f"== solo runs over the updated runtime ({out['requery']['promotions']} promoted from "
+        f"the host tier), {wall:.3f} s; launches {launches['serve_requery']}")
+
+    lane_legs = [k for k in launches if k != "serve_requery" and "solo" not in k]
+    for name in ("segment_spmm_lanes", "frontier_compact_lanes", "hyb_gather"):
+        check(sum(launches[k][name] for k in lane_legs) > 0,
+              f"the serving lanes never launched {name}")
+    out["stats"] = {"service": {k: v for k, v in dataclasses.asdict(svc.stats).items()
+                                if k != "extra"},
+                    "scheduler": dataclasses.asdict(svc.scheduler.stats),
+                    "cache": svc.cache.stats.as_dict()}
+    rows = lane_kernel_rows(torch, svc.dcsr, SEED)
+    del svc
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    # the legs that run the lanes (hyb_gather's lane path is its own entry)
+    out["lane_legs"] = lane_legs
+    return out, rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: LM serving, gemma3-12b at full width
 # ---------------------------------------------------------------------------
 
@@ -1526,34 +1966,13 @@ def lm_bounds(cfg, n_params: int, cache_bytes: int) -> dict:
 
 def lm_host_syncs(torch, model, prompts) -> dict:
     """Host syncs that a prefill (through the kernel) and one decode step
-    issue, counted by PyTorch's sync debug mode, by the port's source line
-    that issued them."""
+    issue, by the port's source line that issued them (``host_syncs``)."""
     from repro_torch.models.transformer import decode_step, init_cache, prefill
 
     caches = init_cache(model.cfg, prompts.shape[0], prompts.shape[1] + 1, prompts.device)
-    sites = {}
-    for name, call in (("prefill", lambda: prefill(model, prompts, caches)),
-                       ("decode", lambda: decode_step(model, prompts[:, :1], caches,
-                                                      prompts.shape[1]))):
-        found = sites[name] = {}
-
-        def record(message, category, filename, lineno, file=None, line=None):
-            frames = [f for f in traceback.extract_stack() if "repro_torch" in f.filename]
-            where = (f"{frames[-1].filename.split('src/')[-1]}:{frames[-1].lineno}"
-                     if frames else f"{filename}:{lineno}")
-            found[where] = found.get(where, 0) + 1
-
-        torch.cuda.synchronize()
-        # catch_warnings puts warnings.showwarning back on exit
-        with warnings.catch_warnings():
-            warnings.simplefilter("always")
-            warnings.showwarning = record
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                call()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-    return sites
+    return {name: host_syncs(torch, call) for name, call in (
+        ("prefill", lambda: prefill(model, prompts, caches)),
+        ("decode", lambda: decode_step(model, prompts[:, :1], caches, prompts.shape[1])))}
 
 
 def phase_lm_small(torch, dev, seed: int) -> None:
@@ -2237,6 +2656,11 @@ def main() -> int:
     phase_oracle(torch, rt.device)
     stream = phase_stream(torch, cfg, hs, rt, source, main_runs, turns, smi)
     launches.update(stream.pop("launches"))
+    t = time.monotonic()
+    serve, lane_rows = phase_serve(torch, cfg, hs, rt, smi)
+    serve["phase_s"] = time.monotonic() - t
+    serve_launches = serve.pop("launches")
+    log(f"phase 11 (graph serving) took {serve['phase_s']:.1f} s")
     del main_runs
     dev = rt.device
     del rt, hs
@@ -2249,18 +2673,27 @@ def main() -> int:
     kernels = []
     for name in ALL_KERNELS:
         r = rows[name]
+        # each leg's count, read after that leg alone; a serving leg counts
+        # the kernel's solo wrapper and its lane entry
+        by_leg = {leg: counts[name] for leg, counts in launches.items()}
+        entry = LANE_ENTRIES[name]
+        by_leg.update({leg: c[name] + (c[entry] if entry != name else 0)
+                       for leg, c in serve_launches.items()})
+        lane_legs = {leg: serve_launches[leg][entry] for leg in serve["lane_legs"]}
         kernels.append({
             "name": name, "route": "cuda", "source": r["source"],
             "replaces": r["replaces"],
-            # each leg's count, read after that leg alone
-            "launches": sum(counts[name] for counts in launches.values()),
-            "launches_by_leg": {leg: counts[name] for leg, counts in launches.items()},
+            "launches": sum(by_leg.values()),
+            "launches_by_leg": by_leg,
             **{key: r[key] for key in ("max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms", "shape", "call_ms", "host_us",
                                        "host_us_after_profiler", "split_us")},
+            "lanes": {"entry": entry, "launches": sum(lane_legs.values()),
+                      "launches_by_leg": lane_legs, **lane_rows[name]},
         })
     kernels[0]["graph_legs"] = turns
     kernels[0]["dynamic_graph"] = stream
+    kernels[0]["graph_serving"] = serve
     for key, row in (("sum_d2", "segment_spmm_sum"), ("last_partition", "segment_spmm_last"),
                      ("sum_d2_last_partition", "segment_spmm_sum_last")):
         kernels[0][key] = {k: rows[row][k] for k in ("shape", "ms", "cold_ms", "call_ms",

@@ -34,6 +34,7 @@ history reaches the host, never what an iteration computes.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import sys
 import time
 from dataclasses import dataclass
@@ -62,7 +63,13 @@ from repro_torch.core.cost_model import (
     selection_diagnostics,
     zc_request_counts,
 )
-from repro_torch.core.engines import EdgeBlock, relax_with_engine
+from repro_torch.core.engines import (
+    EdgeBlock,
+    LaneGroup,
+    packed_ranges,
+    relax_lanes,
+    relax_with_engine,
+)
 from repro_torch.core.partition import (
     DevicePartitions,
     partition_graph,
@@ -466,11 +473,284 @@ def hytm_chunk(
     )
 
 
-def hytm_batched_chunk(*args, **kwargs):
-    """Lane-batched chunk of the serving stack: not ported yet."""
-    raise NotImplementedError(
-        "hytm_batched_chunk comes with the serving slice (ROADMAP queue 1, "
-        "item 7: Serving)")
+# --------------------------------------------------------------------------
+# Lane-batched chunk (graph serving)
+# --------------------------------------------------------------------------
+
+class _LaneUpload:
+    """Host ints of one iteration's lane groups, gathered into ONE int64
+    tensor and copied to the device once (pinned, asynchronous: no sync);
+    ``add`` returns where a run of ints starts."""
+
+    def __init__(self):
+        self.ints: list[int] = []
+
+    def add(self, ints) -> int:
+        pos = len(self.ints)
+        self.ints.extend(ints)
+        return pos
+
+    def upload(self, device: torch.device) -> torch.Tensor:
+        host = torch.tensor(self.ints, dtype=torch.int64)
+        if device.type != "cuda":
+            return host
+        return host.pin_memory().to(device, non_blocking=True)
+
+
+def _lane_group(table: torch.Tensor, pos: int, lengths: tuple) -> LaneGroup:
+    """The ``LaneGroup`` whose (rows, starts, counts, offsets) run of
+    ``4L + 1`` ints starts at ``pos`` of the uploaded table."""
+    L = len(lengths)
+    return LaneGroup(rows=table[pos:pos + L], starts=table[pos + L:pos + 2 * L],
+                     counts=table[pos + 2 * L:pos + 3 * L],
+                     offsets=table[pos + 3 * L:pos + 4 * L + 1],
+                     lengths=lengths, total=sum(lengths))
+
+
+def _lane_steps(upload: _LaneUpload, rt: Runtime, engines: list, order: list,
+                consume: str | None) -> list:
+    """One pass's steps: step j relaxes partition ``order[q][j]`` of every
+    lane q with that lane's engine, grouped by engine, so a step issues at
+    most one call per engine whatever the lane count; NONE partitions relax
+    nothing.  Returns per step ``(groups, consumed)``: ``groups`` is
+    ``[(engine, pos, lengths)]``, ``consumed`` the (pos, lengths) of the
+    lanes whose partition's vertex range consumes its pending Δ at this
+    step, or None.  ``consume`` is ``_sweep``'s: "all" (pass 1 of a SUM
+    program: every lane), "processed" (pass 2: the lanes that relax), or
+    None (no consumption)."""
+    vertex_start, edge_start, part_edges = rt.parts.host
+
+    def add(lanes, starts, lengths):
+        offsets = list(itertools.accumulate(lengths, initial=0))
+        return upload.add([q for q, _ in lanes] + starts + lengths + offsets), tuple(lengths)
+
+    steps = []
+    for j in range(len(order[0]) if order else 0):
+        by_engine: dict[int, list[tuple[int, int]]] = {}
+        cons = []
+        for q, (eq, oq) in enumerate(zip(engines, order)):
+            p = oq[j]
+            if eq[p] != NONE:
+                by_engine.setdefault(eq[p], []).append((q, p))
+            if consume == "all" or (consume == "processed" and eq[p] != NONE):
+                cons.append((q, p))
+        groups = [(e, *add(lanes, [edge_start[p] for _, p in lanes],
+                           [part_edges[p] for _, p in lanes]))
+                  for e, lanes in sorted(by_engine.items())]
+        consumed = (add(cons, [vertex_start[p] for _, p in cons],
+                        [vertex_start[p + 1] - vertex_start[p] for _, p in cons])
+                    if cons else None)
+        if groups or consumed:
+            steps.append((groups, consumed))
+    return steps
+
+
+def _lane_sweep(
+    state: HyTMState,
+    rt: Runtime,
+    program: VertexProgram,
+    steps: list,
+    table: torch.Tensor,
+    frontier: torch.Tensor,   # (Q, n) sources active for this sweep
+    async_sweep: bool,
+    use_kernels: bool,
+) -> tuple[HyTMState, torch.Tensor]:
+    """``_sweep`` for a (Q, n) lane-stacked state: at step j every lane
+    relaxes its own j-th partition (``_lane_steps``), each engine's lanes in
+    one ``relax_lanes`` call, and the (L, n) results update the lanes' rows.
+    Lanes never interact and each keeps its own order, so every row equals
+    its lane's ``_sweep`` (the async sweep stays a scan over a lane's
+    partitions: relaxing them all in one launch would compute the
+    ``async_sweep=False`` dataflow).  For SUM programs a step relaxes, then
+    consumes each lane's partition range, then adds the messages, as
+    ``_sweep`` does a partition."""
+    n = rt.csr.n_nodes
+    values0, delta0 = state.values, state.delta
+    values, delta = values0.clone(), delta0.clone()
+    flat_v, flat_d, flat_f = values.view(-1), delta.view(-1), frontier.view(-1)
+    activated = torch.zeros_like(frontier)
+    peel = program.peel_k is not None
+    consume_sum = not peel and program.combine == SUM
+    if consume_sum:
+        damping = _scalar(program.damping, values)
+        src_delta = (delta if async_sweep else delta0).view(-1)
+
+        def operand_at(flat, src):
+            return damping * torch.index_select(src_delta, 0, flat) \
+                * torch.index_select(rt.inv_deg, 0, src)
+    else:
+        src_values = (values if async_sweep else values0).view(-1)
+
+        def operand_at(flat, src):
+            return torch.index_select(src_values, 0, flat)
+
+    for groups, consumed in steps:
+        outs = []
+        for eng, pos, lengths in groups:
+            group = _lane_group(table, pos, lengths)
+            out = relax_lanes(eng, group, rt.csr, frontier, operand_at, program, use_kernels)
+            rows = group.rows
+            if peel:
+                values.index_copy_(0, rows, torch.index_select(values, 0, rows) - out.agg)
+                touched = out.touched
+            elif program.combine == MIN:
+                v = torch.index_select(values, 0, rows)
+                touched = out.touched & (out.agg < v)
+                values.index_copy_(0, rows, torch.where(touched, out.agg, v))
+            else:
+                outs.append((rows, out))
+                continue
+            activated.index_copy_(0, rows, torch.index_select(activated, 0, rows) | touched)
+        if consumed is not None:
+            cg = _lane_group(table, *consumed)
+            lane, idx = packed_ranges(cg.starts, cg.offsets, cg.total)
+            flat = torch.index_select(cg.rows, 0, lane) * n + idx
+            active = torch.index_select(flat_f, 0, flat)
+            seg_d = torch.index_select(flat_d, 0, flat)
+            seg_v = torch.index_select(flat_v, 0, flat)
+            if async_sweep:
+                flat_v.index_copy_(0, flat, seg_v + torch.where(active, seg_d, 0.0))
+                flat_d.index_copy_(0, flat, torch.where(active, 0.0, seg_d))
+            else:
+                d0 = torch.index_select(delta0.view(-1), 0, flat)
+                flat_v.index_copy_(0, flat, seg_v + torch.where(active, d0, 0.0))
+                flat_d.index_copy_(0, flat, torch.where(active, seg_d - d0, seg_d))
+        for rows, out in outs:
+            delta.index_copy_(0, rows, torch.index_select(delta, 0, rows) + out.agg)
+            activated.index_copy_(0, rows, torch.index_select(activated, 0, rows) | out.touched)
+    return HyTMState(values=values, delta=delta, frontier=state.frontier), activated
+
+
+def _lane_plans(state: HyTMState, rt: Runtime, program: VertexProgram,
+                config: HyTMConfig, correction) -> list[_Planned]:
+    """Each lane's ``_plan`` on its own row: the same function on the same
+    row, so every lane's engines, order, second-pass flags, bytes and times
+    equal its solo iteration's bit for bit."""
+    return [_plan(HyTMState(values=state.values[q], delta=state.delta[q],
+                            frontier=state.frontier[q]), rt, program, config, correction)
+            for q in range(state.values.shape[0])]
+
+
+def _fetch_lanes(plans: list[_Planned], prev_active: torch.Tensor | None):
+    """The ONE device-to-host transfer of a lane-batched iteration: every
+    lane's (P,) engines, order and second-pass flags, as (Q, P) stacks,
+    plus the previous iteration's (Q,) ``next_active`` when given.  Returns
+    host lists (engines, order, second_pass, prev_active) of Q rows."""
+    Q = len(plans)
+    P = plans[0].plan.engines.shape[0]
+    parts = [torch.stack([pl.plan.engines for pl in plans]).reshape(-1),
+             torch.stack([pl.sched.order for pl in plans]).reshape(-1),
+             torch.stack([pl.sched.second_pass for pl in plans]).to(torch.int32).reshape(-1)]
+    if prev_active is not None:
+        parts.append(prev_active.to(torch.int32))
+    host = torch.cat(parts).tolist()
+
+    def rows(k):
+        return [host[k * Q * P + q * P:k * Q * P + (q + 1) * P] for q in range(Q)]
+
+    prev = host[3 * Q * P:] if prev_active is not None else None
+    return rows(0), rows(1), rows(2), prev
+
+
+def _lane_iteration(state: HyTMState, rt: Runtime, program: VertexProgram,
+                    config: HyTMConfig, plans: list[_Planned], host, correction):
+    """Steps 5-6 and the next frontier of a lane-batched iteration, given
+    every lane's plan and their host copy; returns the new state, the (Q,)
+    ``next_active`` and the lanes' (3,) per-engine seconds and
+    mispredictions summed over the lanes."""
+    frontier = state.frontier
+    use_kernels = resolve_use_kernels(config.use_kernels, frontier.device)
+    engines_h, order_h, second_h = host
+    consume_sum = program.peel_k is None and program.combine == SUM
+    upload = _LaneUpload()
+    steps1 = _lane_steps(upload, rt, engines_h, order_h, "all" if consume_sum else None)
+    engines2 = [[e if f else NONE for e, f in zip(eq, sq)] for eq, sq in zip(engines_h, second_h)]
+    steps2 = _lane_steps(upload, rt, engines2, order_h, "processed" if consume_sum else None)
+    table = upload.upload(frontier.device)
+
+    state1, activated = _lane_sweep(state, rt, program, steps1, table, frontier,
+                                    config.async_sweep, use_kernels)
+    if program.peel_k is not None:
+        frontier2 = torch.zeros_like(frontier)
+    elif program.combine == MIN:
+        frontier2 = frontier | activated
+    else:
+        frontier2 = torch.abs(state1.delta) > _scalar(program.tolerance, frontier)
+    state2, activated2 = _lane_sweep(state1, rt, program, steps2, table, frontier2,
+                                     config.async_sweep, use_kernels)
+    activated |= activated2
+
+    if program.peel_k is not None:
+        alive = state2.delta < 0.5
+        next_frontier = alive & (state2.values < program.peel_k)
+        new_state = HyTMState(values=state2.values,
+                              delta=state2.delta + next_frontier.to(torch.float32),
+                              frontier=next_frontier)
+    else:
+        if program.combine == MIN:
+            next_frontier = activated
+        else:
+            next_frontier = torch.abs(state2.delta) > _scalar(program.tolerance, frontier)
+        new_state = HyTMState(values=state2.values, delta=state2.delta, frontier=next_frontier)
+
+    diags = [selection_diagnostics(pl.plan.engines, pl.plan.transfer_time, pl.stats,
+                                   pl.plan.costs, correction) for pl in plans]
+    per_engine = torch.stack([d[0] for d in diags]).sum(dim=0)
+    mispredictions = torch.stack([d[1] for d in diags]).sum(dtype=torch.int32)
+    return new_state, next_frontier.sum(dim=1, dtype=torch.int32), per_engine, mispredictions
+
+
+def hytm_batched_chunk(
+    state: HyTMState,        # (Q, n) lane-stacked
+    rt: Runtime,
+    program: VertexProgram,
+    config: HyTMConfig,
+    chunk: int,
+    correction: torch.Tensor | None = None,
+):
+    """Chunked *lane-batched* sweep, the dispatch unit of graph serving:
+    up to ``chunk`` iterations over a state whose leading dimension stacks
+    Q independent source lanes.  The loop runs while fewer than ``chunk``
+    iterations ran and any lane is active; the first iteration always runs.
+
+    Each iteration plans every lane on its own row (``_plan``: cost model,
+    tasks, schedule), copies every lane's engines, order and second-pass
+    flags to the host in ONE transfer (with the previous iteration's (Q,)
+    ``next_active``, the early-exit test), uploads the lane groups' host
+    ints in one asynchronous copy, and sweeps the lanes in step
+    (``_lane_sweep``): launches per iteration do not grow with Q.  Lanes
+    never interact, so every lane's trajectory equals its solo ``run_hytm``
+    (bit for bit for MIN programs and k-core, within float tolerance for
+    SUM on CUDA), whatever the other lanes do; a dead lane (empty
+    frontier, ``dead_lane_state``) plans NONE everywhere, launches nothing
+    and reports 0.
+
+    Returns ``(state, n_done, lane_active, per_engine_sum, mispred_sum)``:
+    ``n_done`` a host int, ``lane_active`` the (Q,) int32 ``next_active``
+    of the last iteration (on the device), ``per_engine_sum`` the (3,)
+    per-engine modeled seconds summed over lanes (a (Q, 3) sum over the
+    lane axis each iteration, in the reference's order up to float
+    association) and iterations, ``mispred_sum`` an int32 0-dim tensor.
+    The input state is not modified."""
+    Q = state.values.shape[0]
+    dev = state.values.device
+    pe_sum = torch.zeros(3, dtype=torch.float32, device=dev)
+    mp_sum = torch.zeros((), dtype=torch.int32, device=dev)
+    lane_active = None
+    n_done = 0
+    while n_done < chunk:
+        plans = _lane_plans(state, rt, program, config, correction)
+        engines, order, second, prev = _fetch_lanes(plans, lane_active)
+        if prev is not None and not any(prev):
+            break
+        state, lane_active, pe, mp = _lane_iteration(
+            state, rt, program, config, plans, (engines, order, second), correction)
+        pe_sum = pe_sum + pe
+        mp_sum = mp_sum + mp
+        n_done += 1
+    if lane_active is None:
+        lane_active = torch.zeros(Q, dtype=torch.int32, device=dev)
+    return state, n_done, lane_active, pe_sum, mp_sum
 
 
 def dead_lane_state(program: VertexProgram, n: int,

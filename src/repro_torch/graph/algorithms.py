@@ -63,12 +63,16 @@ class VertexProgram:
                 "use run_hytm (it special-cases the init), not init_state")
         dev = resolve_device(device)
         f32 = torch.float32
+        # the source's entries are set with fill_ on a one-element slice: an
+        # item store of a Python scalar copies it from host memory, a host
+        # sync on CUDA (range() indexes as a tensor does, negatives included)
+        at = None if source is None else slice(range(n)[source], range(n)[source] + 1)
         if self.use_delta and self.personalized and source is not None:
             values = torch.zeros(n, dtype=f32, device=dev)
             delta = torch.zeros(n, dtype=f32, device=dev)
-            delta[source] = 1.0 - self.damping
+            delta[at].fill_(1.0 - self.damping)
             frontier = torch.zeros(n, dtype=torch.bool, device=dev)
-            frontier[source] = True
+            frontier[at].fill_(True)
         elif self.use_delta:
             values = torch.zeros(n, dtype=f32, device=dev)
             delta = torch.full((n,), 1.0 - self.damping, dtype=f32, device=dev)
@@ -80,10 +84,10 @@ class VertexProgram:
             frontier = torch.ones(n, dtype=torch.bool, device=dev)
         else:
             values = torch.full((n,), float("inf"), dtype=f32, device=dev)
-            values[source] = 0.0
+            values[at].fill_(0.0)
             delta = torch.zeros(n, dtype=f32, device=dev)
             frontier = torch.zeros(n, dtype=torch.bool, device=dev)
-            frontier[source] = True
+            frontier[at].fill_(True)
         return values, delta, frontier
 
 

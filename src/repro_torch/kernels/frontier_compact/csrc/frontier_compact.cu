@@ -42,6 +42,13 @@
 // the edge arrays at the partition's first edge) are read with aligned
 // 16-byte loads of the chunks around a thread's rows, shifted into place;
 // the last tile's ragged end takes scalar loads.
+//
+// Lanes (graph serving, frontier_compact_lanes_launch): the rows hold L
+// lanes' blocks packed lane after lane, and each lane's segment is
+// partitioned by its own mask, in place of itself, with its own count.  The
+// same two kernels run with tiles that never span two lanes: a block finds
+// its lane and tile from the (L+1,) offsets (a loop over the lanes), and its
+// ragged end is the lane's last row.  One launch pair serves all L lanes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -169,15 +176,46 @@ __device__ __forceinline__ int warp_inclusive_scan(int x, int lane) {
   return x;
 }
 
+// A block's tile: rows [row0, min(row0 + kTile, end)) of the segment
+// [start, end) that it partitions, which is tiles first .. first + count - 1
+// of the grid.  One segment (the whole array) unless there are lanes: then
+// lane l's segment is [offsets[l], offsets[l+1]) and its tiles follow lane
+// l - 1's, so no tile spans two lanes.  lane < 0: a block past the last
+// lane's tiles (the grid is sized for the most tiles the lanes can need).
+struct Tile {
+  long long start, end, row0;
+  int first, count, lane;
+};
+
+template <bool kLanes>
+__device__ __forceinline__ Tile tile_of(long long m, int n_tiles,
+                                        const long long* __restrict__ offsets, int n_lanes) {
+  const int b = static_cast<int>(blockIdx.x);
+  if (!kLanes) return Tile{0, m, (long long)b * kTile, 0, n_tiles, 0};
+  int first = 0;
+  for (int l = 0; l < n_lanes; ++l) {
+    const long long s = __ldg(offsets + l), e = __ldg(offsets + l + 1);
+    const int nt = static_cast<int>((e - s + kTile - 1) / kTile);
+    if (b < first + nt) return Tile{s, e, s + (long long)(b - first) * kTile, first, nt, l};
+    first += nt;
+  }
+  return Tile{0, 0, 0, 0, 0, -1};
+}
+
+template <bool kLanes>
 __global__ void __launch_bounds__(kThreads) count_kernel(const uint8_t* __restrict__ mask,
                                                          int* __restrict__ tile_counts,
-                                                         long long m) {
+                                                         long long m, int n_tiles,
+                                                         const long long* __restrict__ offsets,
+                                                         int n_lanes) {
   __shared__ int scratch[kWarps];
   // let the scatter grid start (programmatic dependent launch): its blocks
   // load their rows while these count
   asm volatile("griddepcontrol.launch_dependents;");
-  const long long row0 = (long long)blockIdx.x * kTile + threadIdx.x * kRows;
-  const int kept = block_sum(__popc(keep_bits(mask, row0, m)), scratch);
+  const Tile t = tile_of<kLanes>(m, n_tiles, offsets, n_lanes);
+  if (t.lane < 0) return;
+  const long long row0 = t.row0 + threadIdx.x * kRows;
+  const int kept = block_sum(__popc(keep_bits(mask, row0, t.end)), scratch);
   if (threadIdx.x == 0) tile_counts[blockIdx.x] = kept;
 }
 
@@ -210,40 +248,55 @@ __device__ __forceinline__ void load_rows(const void* col, int bytes, long long 
   }
 }
 
+template <bool kLanes>
 __global__ void __launch_bounds__(kThreads) scatter_kernel(Columns cols,
                                                            const uint8_t* __restrict__ mask,
                                                            const int* __restrict__ tile_counts,
                                                            int n_tiles, int* __restrict__ count,
-                                                           long long m) {
+                                                           long long m,
+                                                           const long long* __restrict__ offsets,
+                                                           int n_lanes) {
   __shared__ int scratch[kWarps];
   __shared__ int warp_offsets[kWarps];
   __shared__ __align__(16) uint32_t stage[kTile];  // one column of the tile, permuted
-
+  // With lanes, thread 0 finds the tile and the block reads its fields from
+  // shared memory where it uses them (volatile: re-read, not held in
+  // registers beside the 64 words of rows, which would spill); without, the
+  // geometry is a few registers, as before.
+  __shared__ Tile tile_s;
+  const Tile own = tile_of<false>(m, n_tiles, offsets, n_lanes);
+  if (kLanes) {
+    if (threadIdx.x == 0) tile_s = tile_of<true>(m, n_tiles, offsets, n_lanes);
+    __syncthreads();
+  }
+#define TILE(f) (kLanes ? static_cast<volatile Tile&>(tile_s).f : own.f)
+  if (TILE(lane) < 0) return;
   // -- the thread's rows and their keep bits, loaded first so that the
   // loads are in flight while the tile counts are summed
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long tile0 = (long long)blockIdx.x * kTile;
+  const long long tile0 = TILE(row0);
   const long long row0 = tile0 + threadIdx.x * kRows;
-  const unsigned bits = keep_bits(mask, row0, m);
+  const unsigned bits = keep_bits(mask, row0, TILE(end));
   uint32_t v[kMaxCols][kRows];
 #pragma unroll
   for (int j = 0; j < kMaxCols; ++j) {
-    if (j < cols.n) load_rows(cols.in[j], cols.bytes[j], row0, m, v[j]);
+    if (j < cols.n) load_rows(cols.in[j], cols.bytes[j], row0, TILE(end), v[j]);
   }
 
   // -- wait for the count grid to finish and its tile counts to be visible
   asm volatile("griddepcontrol.wait;" ::: "memory");
 
-  // -- the kept rows in the tiles before this one, and in all of them
+  // -- the kept rows in the segment's tiles before this one, and in all of them
   int before = 0, all = 0;
-  for (int i = threadIdx.x; i < n_tiles; i += kThreads) {
-    const int c = tile_counts[i];
+  const int first = TILE(first), n_seg_tiles = TILE(count);
+  for (int i = threadIdx.x; i < n_seg_tiles; i += kThreads) {
+    const int c = tile_counts[first + i];
     all += c;
-    before += i < (int)blockIdx.x ? c : 0;
+    before += first + i < (int)blockIdx.x ? c : 0;
   }
   const long long total = block_sum(all, scratch);
   const long long base = block_sum(before, scratch);
-  if (blockIdx.x == 0 && threadIdx.x == 0) *count = static_cast<int>(total);
+  if ((int)blockIdx.x == first && threadIdx.x == 0) count[TILE(lane)] = static_cast<int>(total);
 
   // -- the thread's kept rows' first rank in the tile
   const int kept = __popc(bits);
@@ -259,9 +312,12 @@ __global__ void __launch_bounds__(kThreads) scatter_kernel(Columns cols,
   }
   const int kept_before = warp_before + incl - kept;   // in this tile, before this thread
   const int rest_before = threadIdx.x * kRows - kept_before;
-  const int tile_rows = static_cast<int>(m - tile0 < kTile ? m - tile0 : kTile);
-  // slot s of the tile goes to base + s (s < kept_tile) or, for the rows
-  // that are not kept, to rest0 + s
+  const long long tile_end = TILE(end);
+  const int tile_rows = static_cast<int>(tile_end - tile0 < kTile ? tile_end - tile0 : kTile);
+  // slot s of the tile goes to start + base + s (s < kept_tile) or, for the
+  // rows that are not kept, to rest0 + s (rows of the segment before the
+  // tile: tile0 - start, of which base kept)
+  const long long kept0 = TILE(start) + base;
   const long long rest0 = total + (tile0 - base) - kept_tile;
 
   // unrolled, so every index into `cols` and `v` is a constant: a runtime
@@ -288,37 +344,24 @@ __global__ void __launch_bounds__(kThreads) scatter_kernel(Columns cols,
     if (words) {
       uint32_t* out = static_cast<uint32_t*>(cols.out[j]);
       for (int s = threadIdx.x; s < tile_rows; s += kThreads) {
-        out[s < kept_tile ? base + s : rest0 + s] = stage[s];
+        out[s < kept_tile ? kept0 + s : rest0 + s] = stage[s];
       }
     } else {
       uint8_t* out = static_cast<uint8_t*>(cols.out[j]);
       for (int s = threadIdx.x; s < tile_rows; s += kThreads) {
-        out[s < kept_tile ? base + s : rest0 + s] = stage8[s];
+        out[s < kept_tile ? kept0 + s : rest0 + s] = stage8[s];
       }
     }
     __syncthreads();
   }
+#undef TILE
 }
 
-}  // namespace
-
-// scratch: n_tiles = ceil(m / kTile) ints for the tile counts.
-extern "C" int frontier_compact_launch(const void* const* ins, void* const* outs,
-                                       const int* bytes, int c, const void* mask, void* count,
-                                       void* scratch, long long m, void* stream) {
-  if (c < 1 || c > kMaxCols || m < 1) return static_cast<int>(cudaErrorInvalidValue);
-  Columns cols;
-  cols.n = c;
-  for (int j = 0; j < c; ++j) {
-    cols.in[j] = ins[j];
-    cols.out[j] = outs[j];
-    cols.bytes[j] = bytes[j];
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_tiles = static_cast<int>((m + kTile - 1) / kTile);
-  const uint8_t* mask_p = static_cast<const uint8_t*>(mask);
-  int* tile_counts = static_cast<int*>(scratch);
-  count_kernel<<<n_tiles, kThreads, 0, s>>>(mask_p, tile_counts, m);
+template <bool kLanes>
+int launch(const Columns& cols, const uint8_t* mask_p, int* count, int* tile_counts, int n_tiles,
+           long long m, const long long* offsets, int n_lanes, cudaStream_t s) {
+  count_kernel<kLanes><<<n_tiles, kThreads, 0, s>>>(mask_p, tile_counts, m, n_tiles, offsets,
+                                                    n_lanes);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // programmatic dependent launch: the scatter may start before the count
@@ -333,9 +376,58 @@ extern "C" int frontier_compact_launch(const void* const* ins, void* const* outs
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, scatter_kernel, cols, mask_p,
-                           static_cast<const int*>(tile_counts), n_tiles,
-                           static_cast<int*>(count), m);
+  err = cudaLaunchKernelEx(&config, scatter_kernel<kLanes>, cols, mask_p,
+                           static_cast<const int*>(tile_counts), n_tiles, count, m, offsets,
+                           n_lanes);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool fill_columns(const void* const* ins, void* const* outs, const int* bytes, int c,
+                  Columns* cols) {
+  if (c < 1 || c > kMaxCols) return false;
+  cols->n = c;
+  for (int j = 0; j < c; ++j) {
+    cols->in[j] = ins[j];
+    cols->out[j] = outs[j];
+    cols->bytes[j] = bytes[j];
+  }
+  return true;
+}
+
+}  // namespace
+
+// scratch: n_tiles = ceil(m / kTile) ints for the tile counts.
+extern "C" int frontier_compact_launch(const void* const* ins, void* const* outs,
+                                       const int* bytes, int c, const void* mask, void* count,
+                                       void* scratch, long long m, void* stream) {
+  Columns cols;
+  if (!fill_columns(ins, outs, bytes, c, &cols) || m < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_tiles = static_cast<int>((m + kTile - 1) / kTile);
+  return launch<false>(cols, static_cast<const uint8_t*>(mask), static_cast<int*>(count),
+                       static_cast<int*>(scratch), n_tiles, m, nullptr, 1,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The lane-batched entry (graph serving): lane l's rows [offsets[l],
+// offsets[l+1]) are partitioned in place of themselves by their own mask
+// bytes, and counts[l] is the lane's kept count.  offsets: (n_lanes + 1,)
+// int64 on the device with offsets[0] = 0 and offsets[n_lanes] = m.
+// scratch: ceil(m / kTile) + n_lanes ints, the most tiles the lanes can need
+// (each lane's last tile may be partial).
+extern "C" int frontier_compact_lanes_launch(const void* const* ins, void* const* outs,
+                                             const int* bytes, int c, const void* mask,
+                                             const void* offsets, int n_lanes, void* counts,
+                                             void* scratch, long long m, void* stream) {
+  Columns cols;
+  if (!fill_columns(ins, outs, bytes, c, &cols) || m < 1 || n_lanes < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_tiles = static_cast<int>((m + kTile - 1) / kTile) + n_lanes;
+  return launch<true>(cols, static_cast<const uint8_t*>(mask), static_cast<int*>(counts),
+                      static_cast<int*>(scratch), n_tiles, m,
+                      static_cast<const long long*>(offsets), n_lanes,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -332,6 +332,57 @@ int launch(const float* msg, const int* seg, const uint8_t* valid, float* out, I
   return static_cast<int>(cudaGetLastError());
 }
 
+// -- The lane-batched entry (graph serving): L lanes' messages packed lane
+// after lane (lane l's rows offsets[l] .. offsets[l+1]), lane l combined into
+// row l of an (L, n_segments, d) output.  The fill is the one above over the
+// L rows.  The combine takes one packed row a thread: its lane is the last l
+// with offsets[l] <= row (a binary search of the (L+1,) offsets, which stay
+// in L1), its output row starts at l * n_segments * d (64-bit: L * n passes
+// 2^31 at 8 lanes of 2^28 vertices).  Identity rows are skipped as above.
+// This first body is simple on purpose (scalar loads, one atomic a lane and
+// column, no warp aggregation); it is timed against its bound in
+// chip_smoke.py's serving phase.
+template <bool kMin>
+__global__ void __launch_bounds__(kThreads) combine_lanes_kernel(
+    const float* __restrict__ msg, const int* __restrict__ seg,
+    const long long* __restrict__ offsets, int n_lanes, float* __restrict__ out, Idx m, int d,
+    Idx n_segments) {
+  const Idx e = static_cast<Idx>(blockIdx.x) * kThreads + threadIdx.x;
+  if (e >= m) return;
+  int lo = 0, hi = n_lanes;  // offsets[lo] <= e < offsets[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(offsets + mid) <= e) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  const int s = __ldcs(seg + e);
+  if (s < 0 || static_cast<Idx>(s) >= n_segments) return;
+  float* dst = out + (static_cast<Idx>(lo) * n_segments + s) * d;
+  const float* src = msg + e * d;
+  if (d == 2 && !kMin) {
+    const float v[2] = {__ldcs(src), __ldcs(src + 1)};
+    combine_lane<2, false>(dst, v);
+    return;
+  }
+  for (int j = 0; j < d; ++j) combine_value<kMin>(dst + j, __ldcs(src + j));
+}
+
+template <bool kMin>
+int launch_lanes(const float* msg, const int* seg, const long long* offsets, int n_lanes,
+                 float* out, Idx m, int d, Idx n_segments, cudaStream_t s) {
+  const Idx out_total = static_cast<Idx>(n_lanes) * n_segments * d;
+  const float identity = kMin ? std::numeric_limits<float>::infinity() : 0.0f;
+  fill_kernel<<<fill_blocks(out_total), kThreads, 0, s>>>(out, out_total, identity);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || m == 0) return static_cast<int>(err);
+  combine_lanes_kernel<kMin><<<blocks_for(m), kThreads, 0, s>>>(msg, seg, offsets, n_lanes, out,
+                                                                m, d, n_segments);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int segment_spmm_launch(const void* msg, const void* seg_ids, const void* valid,
@@ -347,4 +398,23 @@ extern "C" int segment_spmm_launch(const void* msg, const void* seg_ids, const v
   float* out_p = static_cast<float*>(out);
   return combine_min ? launch<true>(msg_p, seg_p, valid_p, out_p, m, d, n_segments, s)
                      : launch<false>(msg_p, seg_p, valid_p, out_p, m, d, n_segments, s);
+}
+
+// offsets: (n_lanes + 1,) int64 on the device, offsets[0] = 0 and
+// offsets[n_lanes] = m; out: (n_lanes, n_segments, d) float32.
+extern "C" int segment_spmm_lanes_launch(const void* msg, const void* seg_ids,
+                                         const void* offsets, int n_lanes, void* out,
+                                         long long m, int d, long long n_segments,
+                                         int combine_min, void* stream) {
+  if (d < 1 || n_lanes < 1 || (reinterpret_cast<uintptr_t>(out) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* msg_p = static_cast<const float*>(msg);
+  const int* seg_p = static_cast<const int*>(seg_ids);
+  const long long* off_p = static_cast<const long long*>(offsets);
+  float* out_p = static_cast<float*>(out);
+  return combine_min
+             ? launch_lanes<true>(msg_p, seg_p, off_p, n_lanes, out_p, m, d, n_segments, s)
+             : launch_lanes<false>(msg_p, seg_p, off_p, n_lanes, out_p, m, d, n_segments, s);
 }

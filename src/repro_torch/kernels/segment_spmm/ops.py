@@ -16,11 +16,14 @@ from repro_torch.kernels.runtime import (
     require_cuda,
     stream_ptr,
 )
-from repro_torch.kernels.segment_spmm.ref import segment_spmm_ref
+from repro_torch.kernels.segment_spmm.ref import segment_spmm_lanes_ref, segment_spmm_ref
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_void_p]
+_LANES_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                                           ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_void_p]
 
 
 def segment_spmm(
@@ -68,3 +71,43 @@ def segment_spmm(
 
 
 segment_spmm.launches = 0
+
+
+def segment_spmm_lanes(
+    messages: torch.Tensor,
+    seg_ids: torch.Tensor,
+    offsets: torch.Tensor,
+    n_segments: int,
+    combine: str = "sum",
+) -> torch.Tensor:
+    """The lane-batched combine of graph serving: L lanes' (m_l, d)
+    messages packed lane after lane (lane l's rows ``offsets[l] :
+    offsets[l+1]``; ``offsets`` is (L+1,) int64 from 0 to M), lane l into
+    row l of an (L, n_segments[, d]) result, each row as ``segment_spmm``
+    gives it for its lane alone.  One launch for all lanes."""
+    if combine not in ("sum", "min"):
+        raise ValueError(f"combine must be 'sum' or 'min', got {combine!r}")
+    if messages.device.type == "cpu":
+        return segment_spmm_lanes_ref(messages, seg_ids, offsets, n_segments, combine)
+    dev = require_cuda("segment_spmm_lanes", messages, seg_ids, offsets)
+    squeeze = messages.dim() == 1
+    m, d = (messages.shape[0], 1) if squeeze else messages.shape
+    n_lanes = offsets.shape[0] - 1
+    if messages.dtype != torch.float32 or seg_ids.dtype != torch.int32 \
+            or offsets.dtype != torch.int64:
+        raise ValueError("segment_spmm_lanes: messages float32, seg_ids int32, offsets int64")
+    if seg_ids.shape != (m,) or offsets.dim() != 1 or n_lanes < 1:
+        raise ValueError("segment_spmm_lanes: seg_ids must be (m,), offsets (L+1,) with L >= 1")
+    if not (messages.is_contiguous() and seg_ids.is_contiguous() and offsets.is_contiguous()):
+        raise ValueError("segment_spmm_lanes: tensors must be contiguous")
+    shape = (n_lanes, n_segments) if squeeze else (n_lanes, n_segments, d)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    fn = load_kernel("segment_spmm", "segment_spmm_lanes_launch", _LANES_ARGTYPES)
+    rc = fn(messages.data_ptr(), seg_ids.data_ptr(), offsets.data_ptr(), n_lanes,
+            out.data_ptr(), m, d, n_segments, combine == "min", stream_ptr())
+    check_launch("segment_spmm_lanes", rc)
+    segment_spmm_lanes.launches += 1
+    return out
+
+
+segment_spmm_lanes.launches = 0

@@ -28,3 +28,21 @@ def segment_spmm_ref(
     msg = torch.where(keep[:, None], messages, 0.0)
     out = torch.zeros((n_segments, d), dtype=messages.dtype, device=messages.device)
     return out.index_add_(0, idx, msg)
+
+
+def segment_spmm_lanes_ref(
+    messages: torch.Tensor,   # (M,) or (M, d) float32, lane after lane
+    seg_ids: torch.Tensor,    # (M,) int32
+    offsets: torch.Tensor,    # (L+1,) int64 packed offsets
+    n_segments: int,
+    combine: str = "sum",
+) -> torch.Tensor:
+    """(L, n_segments[, d]): lane l's rows ``offsets[l]:offsets[l+1]``
+    combined into row l, a loop over lanes of ``segment_spmm_ref``."""
+    bounds = offsets.tolist()
+    squeeze = messages.dim() == 1
+    msg = messages[:, None] if squeeze else messages
+    rows = [segment_spmm_ref(msg[a:b], seg_ids[a:b], n_segments, None, combine)
+            for a, b in zip(bounds[:-1], bounds[1:])]
+    out = torch.stack(rows)
+    return out[..., 0] if squeeze else out

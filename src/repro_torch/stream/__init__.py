@@ -1,14 +1,13 @@
-"""repro_torch.stream — dynamic-graph updates and incremental HyTM
-recomputation, on one device.
+"""repro_torch.stream — dynamic-graph updates, incremental HyTM
+recomputation, and a batched graph-query serving front end, on one device.
 
 Layers:
   delta_csr   — versioned graph container: per-partition edge log,
                 in-place device patching, merge-compaction, dirty tracking
   incremental — warm-start recomputation seeded from the vertices an
                 update affects
-
-The reference's query-serving front end (``GraphService``,
-``QueryResult``) is ROADMAP queue 1, item 7: Serving.
+  service     — source-lane-batched query serving with a
+                (graph_version, program, source)-keyed result cache
 """
 
 from repro_torch.stream.delta_csr import (
@@ -22,20 +21,12 @@ from repro_torch.stream.delta_csr import (
     random_batch,
 )
 from repro_torch.stream.incremental import incremental_state, run_incremental
+from repro_torch.stream.service import GraphService, QueryResult
 
 __all__ = [
     "OP_DELETE", "OP_INSERT", "OP_REWEIGHT",
     "DeltaCSR", "EdgeBatch", "InvalidBatchError", "UpdateReport",
     "random_batch",
     "incremental_state", "run_incremental",
+    "GraphService", "QueryResult",
 ]
-
-_NOT_PORTED = {"GraphService", "QueryResult"}
-
-
-def __getattr__(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"repro_torch.stream.{name} is not ported yet (ROADMAP queue 1, "
-            "item 7: Serving)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

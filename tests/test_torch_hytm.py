@@ -26,6 +26,7 @@ from repro_torch import convert
 from repro_torch.core import hytm as th
 from repro_torch.core.constants import PCIE3
 from repro_torch.graph import algorithms as talg
+from repro_torch import stream as tstream
 
 GRAPHS = {
     "rmat": lambda: jgen.rmat_graph(600, 5000, seed=3),
@@ -202,8 +203,10 @@ def test_unported_features_raise():
                        device="cpu").engine_corrections.shape == (3,)
     assert th.run_hytm(g, talg.SSSP, calibrator=object(),
                        device="cpu").engine_corrections is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        th.hytm_batched_chunk()
+    # the lane-batched chunk is ported (tests/test_torch_serve.py holds it);
+    # a mesh for it is not
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tstream.GraphService(g, th.HyTMConfig(mesh_axis="graph"), device="cpu")
     with pytest.raises(ValueError):
         th.run_hytm(g, talg.SSSP, config=th.HyTMConfig(sync_every=0), device="cpu")
     with pytest.raises(ValueError):

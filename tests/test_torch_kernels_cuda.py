@@ -24,14 +24,14 @@ from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-from repro_torch.kernels.frontier_compact.ops import frontier_compact
-from repro_torch.kernels.frontier_compact.ref import frontier_compact_ref
+from repro_torch.kernels.frontier_compact.ops import frontier_compact, frontier_compact_lanes
+from repro_torch.kernels.frontier_compact.ref import frontier_compact_lanes_ref, frontier_compact_ref
 from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
 from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
 from repro_torch.kernels.hyb_gather.ops import hyb_gather
 from repro_torch.kernels.hyb_gather.ref import hyb_gather_ref
-from repro_torch.kernels.segment_spmm.ops import segment_spmm
-from repro_torch.kernels.segment_spmm.ref import segment_spmm_ref
+from repro_torch.kernels.segment_spmm.ops import segment_spmm, segment_spmm_lanes
+from repro_torch.kernels.segment_spmm.ref import segment_spmm_lanes_ref, segment_spmm_ref
 
 
 def _spmm_inputs(m, d, n, seed, with_inf=False):
@@ -245,6 +245,109 @@ def test_hyb_gather_kernel_vs_plain_on_card():
     got = hyb_gather(cols, starts, degs)
     assert hyb_gather.launches == before + 1
     assert all(torch.equal(g, w) for g, w in zip(got, hyb_gather_ref(cols, starts, degs)))
+
+
+def _lane_offsets(lengths, dev):
+    return torch.tensor(np.concatenate([[0], np.cumsum(lengths)]), dtype=torch.int64, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combine,d", [("min", 1), ("sum", 2), ("min", 2), ("sum", 1)])
+@pytest.mark.parametrize("lengths", [(5000,), (0, 3000, 1, 0, 7777), (2048,) * 8])
+def test_segment_spmm_lanes_vs_plain_on_card(combine, d, lengths):
+    """The lane entry against its plain version (a loop of single-lane
+    plain versions): L lanes packed lane after lane, empty lanes included,
+    each lane into its own row; min bit for bit, sum within
+    ``rtol=atol=1e-4`` with a 0/1 count column exact."""
+    dev = _cuda()
+    m, n = int(sum(lengths)), 9_000
+    msg, seg, valid = _spmm_inputs(m, d, n, seed=len(lengths) + d, with_inf=combine == "min")
+    if combine == "sum" and d == 2:
+        msg[:, 1] = valid
+        msg[:, 0] = np.where(valid, msg[:, 0], 0.0)
+    args = (torch.from_numpy(msg if d > 1 else msg[:, 0].copy()).to(dev),
+            torch.from_numpy(seg).to(dev), _lane_offsets(lengths, dev), n, combine)
+    before = segment_spmm_lanes.launches
+    got = segment_spmm_lanes(*args)
+    assert segment_spmm_lanes.launches == before + 1
+    want = segment_spmm_lanes_ref(*args)
+    assert got.shape == want.shape == ((len(lengths), n) if d == 1 else (len(lengths), n, d))
+    _assert_spmm_matches(got.reshape(-1, d), want.reshape(-1, d), combine,
+                         count_column=1 if combine == "sum" and d == 2 else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("lengths", [(1,), (2047, 0, 2048, 2049, 1), (70_001, 4095, 33)])
+def test_frontier_compact_lanes_vs_plain_on_card(density, lengths):
+    """Each lane's rows partitioned by its own mask in place of themselves,
+    tiles cut at lane bounds: bit for bit against the loop of single-lane
+    plain versions, with each lane's count."""
+    dev = _cuda()
+    m = int(sum(lengths))
+    rng = np.random.default_rng(m)
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (3, m)).astype(np.int32)).to(dev)
+    mask = torch.from_numpy(rng.random(m) < density).to(dev)
+    cols = (words[0], words[1], words[2].view(torch.float32), ~mask)
+    offsets = _lane_offsets(lengths, dev)
+    before = frontier_compact_lanes.launches
+    got, cnt = frontier_compact_lanes(cols, mask, offsets)
+    assert frontier_compact_lanes.launches == before + 1
+    torch.cuda.synchronize()
+    want, wcnt = frontier_compact_lanes_ref(cols, mask, offsets)
+    assert cnt.dtype == torch.int32 and torch.equal(cnt, wcnt.to(dev))
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_.view(torch.uint8), w_.view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_hyb_gather_lane_windows_in_one_request_list_on_card():
+    """ZEROCOPY's lane path: every lane's windows over the shared columns in
+    one request list equal the lanes' requests issued one lane at a time."""
+    dev = _cuda()
+    rng = np.random.default_rng(4)
+    edges = torch.from_numpy(rng.integers(0, 1000, (3, 50_000)).astype(np.int32)).to(dev)
+    cols = (edges[0], edges[1], edges[2].view(torch.float32))
+    lanes = [(0, 1000), (20_000, 129), (45_000, 5000)]
+    per = []
+    for start, count in lanes:
+        st = torch.arange(start, start + count, 128, dtype=torch.int32, device=dev)
+        per.append((st, torch.clamp(start + count - st, max=128).to(torch.int32)))
+    got = hyb_gather(cols, torch.cat([p[0] for p in per]), torch.cat([p[1] for p in per]))
+    want = [torch.cat(c) for c in zip(*(hyb_gather(cols, *p) for p in per))]
+    assert all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_lane_batched_chunk_equals_solo_runs_on_card():
+    """hytm_batched_chunk through the lane kernels on the card: each lane of
+    a Q=4 batch (one dead lane) equals its solo run_hytm bit for bit."""
+    from repro_torch.core import hytm as th
+    from repro_torch.graph.algorithms import SSSP
+    from repro_torch.graph.generators import rmat_graph
+    from repro_torch.kernels.hyb_gather import ops as gather_ops
+
+    dev = _cuda()
+    g = rmat_graph(3000, 40_000, seed=5)
+    cfg = th.HyTMConfig(n_partitions=8, sync_every=4)
+    rt = th.build_runtime(g, cfg, device=dev)
+    sources = [0, 17, 1234]
+    trip = [SSSP.init_state(g.n_nodes, s, dev) for s in sources]
+    trip.append(th.dead_lane_state(SSSP, g.n_nodes, dev))
+    state = th.HyTMState(*(torch.stack([t[i] for t in trip]) for i in range(3)))
+    launches = (segment_spmm_lanes.launches, frontier_compact_lanes.launches,
+                gather_ops.hyb_gather.launches)
+    for _ in range(100):
+        state, n_done, active, _, _ = th.hytm_batched_chunk(state, rt, SSSP, cfg, 4)
+        if not active.any():
+            break
+    assert not active.any()
+    assert sum(launches) < segment_spmm_lanes.launches + frontier_compact_lanes.launches \
+        + gather_ops.hyb_gather.launches
+    for q, s in enumerate(sources):
+        solo = th.run_hytm(None, SSSP, s, cfg, runtime=rt)
+        assert np.array_equal(state.values[q].cpu().numpy(), solo.values)
+    assert torch.isinf(state.values[3]).all()
 
 
 @pytest.mark.cuda

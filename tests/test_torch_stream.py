@@ -261,8 +261,12 @@ def test_unported_parts_raise():
         t.apply(ts.EdgeBatch.inserts([1], [2], [1.0]), faults=object())
     with pytest.raises(NotImplementedError, match="item 11: Multi-GPU"):
         t.sharded_runtime_for(talg.SSSP)
-    with pytest.raises(NotImplementedError, match="item 7: Serving"):
-        ts.GraphService
+    # GraphService is ported (tests/test_torch_stream_service.py); its
+    # mesh, fault and tracing options are not
+    for kw, item in ((dict(mesh=object()), "item 11"), (dict(faults=object()), "item 10"),
+                     (dict(supervisor=object()), "item 10"), (dict(obs=object()), "item 9")):
+        with pytest.raises(NotImplementedError, match=item):
+            ts.GraphService(_graph("grid")[1], device="cpu", **kw)
     with pytest.raises(AttributeError):
         ts.no_such_name
     for kw in (dict(mesh=object()), dict(obs=object()), dict(faults=object()),
