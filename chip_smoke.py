@@ -84,6 +84,29 @@ Phases, in order; any failure exits nonzero and prints no result line:
    all lanes) against its plain version at the phase's shapes, warm and
    cold, against its bytes bound.  A lane leg must launch a lane entry and
    no solo ``segment_spmm``/``frontier_compact``;
+12. (right after phase 11, same graph and configuration) offline
+   calibration and observability.  12a: ``autotune.wall_probe`` over
+   ``default_grid()`` (4 edge levels x 9 activity ratios x 3 degree
+   regimes, 108 points, E capped at 4.3M: a scale-22 partition holds
+   about 1.05M edges) through the kernels, whose launches of each graph
+   kernel are checked, and again plain: per engine the wall seconds a
+   relax and the kernel/plain ratio; on each of the 108 blocks the probe
+   draws, each engine through its kernel against plain (SSSP, aggregates
+   and touched flags bit-equal); ``calibrate`` from ``PCIE3`` with the
+   intercept refit (the fitted fields, static and calibrated regret, the
+   oracle, the grid's picks under both profiles); the
+   ``launch.calibrate`` selfcheck on the card and its CLI in wall mode
+   into a temporary registry; the fitted profile saved under the card's
+   device kind and reloaded equal; SSSP (K=8) and Δ-PageRank under the
+   calibrated profile against ``PCIE3`` in turns (4 rounds; SSSP
+   bit-equal, Δ-PageRank within phase 4's bound).  12b: a traced SSSP on
+   both drivers (``reconcile`` exact, values bit-equal to untraced, every
+   host sync equal traced and untraced, site by site, the traced/untraced wall
+   in turns, 4 rounds), a traced ``GraphService`` answering 8 SSSP
+   queries through 8 lanes (the Chrome trace valid, with the scheduler,
+   cache and tenant tracks; ``serve.requests`` totals the queries; written
+   under ``build/``), and ``launch.serve_graph`` at its defaults with
+   ``--trace`` and ``--calibrated`` against the temporary registry;
 6. LM serving: the reduced gemma3-12b config on the card against the CPU
    (float32, logits within 1e-4, greedy tokens equal), then gemma3-12b at
    full width (11.8B parameters in bf16, random weights from the seed):
@@ -152,6 +175,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -271,13 +295,20 @@ def launch_split(torch, fn, calls: int = REPS) -> dict:
 
 def host_syncs(torch, call) -> dict:
     """Host syncs that ``call`` issues, counted by PyTorch's sync debug mode,
-    by the port's source line that issued them."""
+    by the port's source line that issued them (a sync with no frame of the
+    port: its line, and the innermost caller outside PyTorch)."""
     found = {}
 
     def record(message, category, filename, lineno, file=None, line=None):
-        frames = [f for f in traceback.extract_stack() if "repro_torch" in f.filename]
-        where = (f"{frames[-1].filename.split('src/')[-1]}:{frames[-1].lineno}"
-                 if frames else f"{filename}:{lineno}")
+        stack = traceback.extract_stack()[:-1]
+        frames = [f for f in stack if "repro_torch" in f.filename]
+        if frames:
+            where = f"{frames[-1].filename.split('src/')[-1]}:{frames[-1].lineno}"
+        else:
+            outer = [f for f in stack if f"{os.sep}torch{os.sep}" not in f.filename
+                     and not f.filename.endswith("warnings.py")]
+            where = f"{filename}:{lineno}" + "".join(
+                f" from {Path(f.filename).name}:{f.lineno} ({f.name})" for f in outer[-1:])
         found[where] = found.get(where, 0) + 1
 
     torch.cuda.synchronize()
@@ -1088,19 +1119,28 @@ def counts_zero() -> dict:
 TURN_PAIRS = {"sssp": ("sssp_k8", "sssp_plain"), "pagerank": ("pagerank", "pagerank_plain")}
 
 
-def leg_turns(rt, legs: dict, rounds: int) -> dict:
-    """Wall seconds of whole runs of each pair of ``TURN_PAIRS`` in turns:
-    plain, kernels, kernels, plain, ``rounds`` times; name_path -> list."""
-    from repro_torch.core.hytm import run_hytm
-
-    walls = {}
-    for name, (kern, plain) in TURN_PAIRS.items():
-        for _ in range(rounds):
-            for which in ("plain", "kernels", "kernels", "plain"):
-                prog, src, c = legs[kern if which == "kernels" else plain]
-                walls.setdefault(f"{name}_{which}", []).append(
-                    run_hytm(None, prog, src, c, runtime=rt).wall_seconds)
+def leg_turns(runs: dict, rounds: int) -> dict:
+    """Wall seconds of two legs in turns, a, b, b, a, ``rounds`` times:
+    ``runs`` maps each leg's name, a first, to a call that runs the leg once
+    and returns its wall seconds; name -> list."""
+    (a, run_a), (b, run_b) = runs.items()
+    walls = {a: [], b: []}
+    for _ in range(rounds):
+        for name, run in ((a, run_a), (b, run_b), (b, run_b), (a, run_a)):
+            walls[name].append(run())
     return walls
+
+
+def run_wall(rt, leg: tuple, traced: bool = False):
+    """A call that runs ``leg`` (program, source, config) once through
+    ``run_hytm`` and returns its wall seconds; ``traced``: each run into a
+    fresh ``TraceRecorder``."""
+    from repro_torch.core.hytm import run_hytm
+    from repro_torch.obs import TraceRecorder
+
+    prog, src, c = leg
+    return lambda: run_hytm(None, prog, src, c, runtime=rt,
+                            obs=TraceRecorder() if traced else None).wall_seconds
 
 
 def traced_device_ms(torch, fn, top: int = 0) -> tuple | None:
@@ -1133,11 +1173,12 @@ def phase_turns(rt, legs: dict, launches: dict) -> dict:
     """SSSP (K=8) and Δ-PageRank through the kernels and plain, in turns:
     their median wall seconds (``phase_graph_profiles`` adds the kernels'
     device time in one traced run)."""
-    walls = leg_turns(rt, legs, TURN_ROUNDS)
     out = {}
-    for name, (kern, _) in TURN_PAIRS.items():
-        med = {which: float(np.median(walls[f"{name}_{which}"])) for which in ("kernels", "plain")}
-        out[name] = {"median_s": med, "runs": {w: walls[f"{name}_{w}"] for w in med},
+    for name, (kern, plain) in TURN_PAIRS.items():
+        walls = leg_turns({"plain": run_wall(rt, legs[plain]),
+                           "kernels": run_wall(rt, legs[kern])}, TURN_ROUNDS)
+        med = {which: float(np.median(walls[which])) for which in ("kernels", "plain")}
+        out[name] = {"median_s": med, "runs": {w: walls[w] for w in med},
                      "launches": {k: launches[kern][k] for k in ALL_KERNELS}}
         log(f"turns {name}: median wall {med['kernels']:.4f} s (kernels) vs {med['plain']:.4f} s "
             f"(plain) over {2 * TURN_ROUNDS} runs each ({out[name]['launches']} launches)")
@@ -1937,6 +1978,327 @@ def phase_serve(torch, cfg, hs, rt, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: offline calibration and observability
+# ---------------------------------------------------------------------------
+
+PROBE_MAX_EDGES = 4_300_000   # a scale-22 partition holds about 1.05M edges
+PROBE_REPEATS = 3
+CALIB_ROUNDS = 4              # rounds of (pcie3, calibrated, calibrated, pcie3)
+OBS_ROUNDS = 4                # rounds of (untraced, traced, traced, untraced)
+OBS_LANES = 8
+
+
+def engine_totals(res) -> dict:
+    eng = res.history["engines"]
+    return {name: int((eng == e).sum()) for e, name in ((0, "filter"), (1, "compact"),
+                                                        (2, "zerocopy"))}
+
+
+def spread(a) -> dict:
+    a = np.asarray(a, float)
+    return {"min": float(np.min(a)), "median": float(np.median(a)), "max": float(np.max(a))}
+
+
+PROBE_KERNELS = {"filter": "segment_spmm", "compact": "frontier_compact",
+                 "zerocopy": "hyb_gather"}   # the engines in ENGINE_FNS order
+
+
+def probe_against_plain(torch, grid: list, dev) -> dict:
+    """Each graph kernel against its plain version on every block that the
+    probe times: ``_materialize`` with ``wall_probe``'s seeds (up to
+    ``PROBE_MAX_EDGES`` edges, n = E, every degree regime and activity),
+    each engine once through its kernel and once plain on the same block
+    and operand.  SSSP combines by min, exact in any order, so the
+    aggregates and the touched flags must be bit-equal.  Returns the
+    blocks compared a kernel."""
+    from repro_torch.autotune.probe import _materialize
+    from repro_torch.core.engines import ENGINE_FNS
+    from repro_torch.graph.algorithms import SSSP
+
+    compared = dict.fromkeys(PROBE_KERNELS.values(), 0)
+    for i, p in enumerate(grid):
+        block, operand, n, real = _materialize(p, PROBE_MAX_EDGES, i, dev)
+        for fn, (eng, kern) in zip(ENGINE_FNS, PROBE_KERNELS.items()):
+            before = kernel_wrappers()[kern].launches
+            k = fn(block, operand, n, SSSP, True)
+            check(kernel_wrappers()[kern].launches > before,
+                  f"probe block {i}: {eng} did not launch {kern}")
+            q = fn(block, operand, n, SSSP, False)
+            check(torch.equal(k.agg, q.agg) and torch.equal(k.touched, q.touched),
+                  f"probe block {i} ({real}): {eng} through {kern} != plain")
+            compared[kern] += 1
+        del block, operand
+    return compared
+
+
+def phase_calibrate(torch, cfg, hs, rt, source: int, smi: str) -> tuple[dict, dict, dict]:
+    """Phase 12: offline calibration (12a) and observability (12b) on the
+    card.  Returns (numbers, launch counts of the solo-kernel legs, launch
+    counts of the traced serving leg); each leg's counts are read after
+    that leg alone."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.autotune import (calibrate, default_device_kind, default_grid,
+                                      load_profile, observation_matrix, save_profile,
+                                      selection_on_grid, wall_probe)
+    from repro_torch.core.constants import PCIE3
+    from repro_torch.core.hytm import run_hytm
+    from repro_torch.graph.algorithms import SSSP
+    from repro_torch.launch import calibrate as calibrate_cli
+    from repro_torch.launch import serve_graph
+    from repro_torch.obs import (TraceRecorder, reconcile, summary, to_chrome_trace,
+                                 validate_chrome_trace, write_chrome_trace)
+    from repro_torch.stream import GraphService
+
+    out, launches, serve_launches = {"card": smi}, {}, {}
+    names = ("filter", "compact", "zerocopy")
+
+    def leg(name, fn, want=(), none=False):
+        reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        counts = read_launch_counts()
+        for k in want:
+            check(counts[k] > 0, f"{name} did not launch {k}")
+        if none:
+            check(not any(counts.values()), f"{name} (plain) launched {counts}")
+        others = {k: v for k, v in counts.items() if k not in SERVE_KERNELS and v}
+        check(not others, f"{name} launched {others}")
+        return res, counts
+
+    # -- 12a. wall probes through the kernels and plain, the fit, the registry
+    grid = default_grid()
+    t = time.monotonic()
+    (pts, obs_k), launches["probe_kernels"] = leg(
+        "probe_kernels", lambda: wall_probe(grid, max_edges=PROBE_MAX_EDGES,
+                                            repeats=PROBE_REPEATS, device=rt.device),
+        want=ALL_KERNELS)
+    probe_s = time.monotonic() - t
+    t = time.monotonic()
+    (pts_p, obs_p), _ = leg(
+        "probe_plain", lambda: wall_probe(grid, max_edges=PROBE_MAX_EDGES,
+                                          repeats=PROBE_REPEATS, use_kernels=False,
+                                          device=rt.device), none=True)
+    probe_plain_s = time.monotonic() - t
+    check(pts == pts_p, "the kernel and plain probes realized different points")
+    t = time.monotonic()
+    compared = probe_against_plain(torch, grid, rt.device)
+    against_s = time.monotonic() - t
+    log(f"probe blocks, each kernel against its plain version (SSSP, bit-equal): "
+        f"{compared} of {len(grid)} blocks, E up to {PROBE_MAX_EDGES:,}, in {against_s:.1f} s")
+    mk, mp = observation_matrix(pts, obs_k), observation_matrix(pts_p, obs_p)
+    check(bool(np.isfinite(mk).all() and (mk > 0).all()), "probe: a non-positive time")
+    out["probe"] = {
+        "points": len(pts), "max_edges": PROBE_MAX_EDGES, "repeats": PROBE_REPEATS,
+        "seconds": {"kernels": probe_s, "plain": probe_plain_s, "against_plain": against_s},
+        "bit_equal_to_plain": compared,
+        "launches": {k: launches["probe_kernels"][k] for k in ALL_KERNELS},
+        "observed_s": {n: spread(mk[:, e]) for e, n in enumerate(names)},
+        "plain_s": {n: spread(mp[:, e]) for e, n in enumerate(names)},
+        "kernel_over_plain": {n: spread(mk[:, e] / mp[:, e]) for e, n in enumerate(names)},
+        "kernels_s": mk.tolist(), "plain_rows_s": mp.tolist(),
+        "realized": [[p.total_edges, p.active_edges, p.active_vertices] for p in pts],
+    }
+    log(f"probe: {len(pts)} points (E capped at {PROBE_MAX_EDGES:,}), {PROBE_REPEATS} timed "
+        f"calls each, {probe_s:.1f} s through the kernels, {probe_plain_s:.1f} s plain; "
+        f"launches {out['probe']['launches']} [{smi}]")
+    for e, n in enumerate(names):
+        o, r = out["probe"]["observed_s"][n], out["probe"]["kernel_over_plain"][n]
+        log(f"probe {n}: wall s a relax min {o['min']:.3e} median {o['median']:.3e} max "
+            f"{o['max']:.3e}; kernel/plain min {r['min']:.3f} median {r['median']:.3f} "
+            f"max {r['max']:.3f}")
+
+    rep = calibrate(pts, obs_k, PCIE3, fit_overhead=True)
+    prof = rep.profile
+    sel0, sel1 = selection_on_grid(pts, PCIE3), selection_on_grid(pts, prof)
+    picks = {"pcie3": {n: int((sel0 == e).sum()) for e, n in enumerate(names)},
+             "calibrated": {n: int((sel1 == e).sum()) for e, n in enumerate(names)}}
+    out["fit"] = {"fitted": rep.fitted, "static_regret_s": rep.static_regret,
+                  "calibrated_regret_s": rep.calibrated_regret,
+                  "oracle_s": rep.oracle_seconds, "picks": picks,
+                  "changed": int((sel0 != sel1).sum()),
+                  "bandwidth_over_pcie3": prof.bandwidth / PCIE3.bandwidth}
+    log("calibrated from 'pcie3' (fit_overhead): " + ", ".join(
+        f"{k} {v:.6g}" for k, v in rep.fitted.items()))
+    log(f"regret: static {rep.static_regret:.6e} s -> calibrated {rep.calibrated_regret:.6e} s "
+        f"(oracle {rep.oracle_seconds:.6e} s); grid picks under pcie3 {picks['pcie3']}, "
+        f"calibrated {picks['calibrated']} ({out['fit']['changed']} of {len(pts)} changed)")
+
+    t = time.monotonic()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        calibrate_cli.selfcheck("cuda")
+    check("SELFCHECK OK" in buf.getvalue(), "launch.calibrate selfcheck on the card")
+    log(f"launch.calibrate selfcheck on the card ({time.monotonic() - t:.1f} s):\n"
+        + buf.getvalue().rstrip())
+    kind = default_device_kind(rt.device)
+    with tempfile.TemporaryDirectory() as reg:
+        t = time.monotonic()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, launches["calibrate_cli"] = leg(
+                "calibrate_cli", lambda: calibrate_cli.main(["--registry", reg]),
+                want=ALL_KERNELS)
+        cli = load_profile(kind, reg)
+        out["cli"] = {"seconds": time.monotonic() - t, "profile": dataclasses.asdict(cli)}
+        log(f"launch.calibrate (wall mode, {out['cli']['seconds']:.1f} s):\n"
+            + buf.getvalue().rstrip())
+        path = save_profile(prof, device_kind=kind, base=reg,
+                            meta={"initial": "pcie3", "mode": "wall", "grid": "default_grid",
+                                  "max_edges": PROBE_MAX_EDGES, "card": smi})
+        check(load_profile(kind, reg) == prof, "the saved profile reloaded unequal")
+        log(f"profile saved under device kind {kind!r} ({path.name}), reloaded equal")
+
+        # -- SSSP (K=8) and Δ-PageRank under the calibrated profile against pcie3
+        check(prof.m == cfg.link.m and prof.d1 == cfg.link.d1,
+              "the calibrated profile changes the runtime's request granule")
+        legs = main_path_legs(cfg, source)
+        calib = {}
+        for name, leg_name in (("sssp", "sssp_k8"), ("pagerank", "pagerank")):
+            prog, src, c = legs[leg_name]
+            last = {}
+
+            def under(which, link):
+                def run():
+                    reset_launch_counts()
+                    last[which] = r = run_hytm(None, prog, src, dataclasses.replace(c, link=link),
+                                               runtime=rt)
+                    launches[f"calib_{name}_{which}"] = read_launch_counts()
+                    return r.wall_seconds
+                return run
+
+            runs = leg_turns({"pcie3": under("pcie3", PCIE3),
+                              "calibrated": under("calibrated", prof)}, CALIB_ROUNDS)
+            a, b = last["pcie3"], last["calibrated"]
+            if name == "sssp":
+                check(np.array_equal(a.values, b.values),
+                      "SSSP under the calibrated profile != under pcie3")
+                held = "bit-equal"
+            else:
+                ok, err, held = pr_close(a, b, prog)
+                check(ok, f"Δ-PageRank under the calibrated profile out of bound ({err:.3e})")
+                held = f"max |err| {err:.3e} ({held} bound)"
+            calib[name] = {
+                "median_s": {w: float(np.median(v)) for w, v in runs.items()}, "runs": runs,
+                "iterations": {w: r.iterations for w, r in last.items()},
+                "engines": {w: engine_totals(r) for w, r in last.items()}, "held": held}
+            log(f"calibrated {name}: median wall {calib[name]['median_s']['calibrated']:.4f} s "
+                f"against {calib[name]['median_s']['pcie3']:.4f} s under pcie3 "
+                f"({2 * CALIB_ROUNDS} runs each, in turns); iterations "
+                f"{calib[name]['iterations']}; engine picks {calib[name]['engines']}; {held}")
+        out["calibrated_runs"] = calib
+
+        # -- 12b. traced runs on both drivers: reconcile, values, syncs, walls
+        traced = {}
+        for leg_name in ("sssp_k8", "sssp_k1"):
+            prog, src, c = legs[leg_name]
+            rec = TraceRecorder()
+            reset_launch_counts()
+            tr = run_hytm(None, prog, src, c, runtime=rt, obs=rec)
+            launches[f"obs_{leg_name}"] = read_launch_counts()
+            un = run_hytm(None, prog, src, c, runtime=rt)
+            recon = reconcile(rec, tr)
+            check(recon["ok"], f"traced {leg_name}: reconcile failed {recon['checks']}")
+            check(same_min_run(tr, un), f"traced {leg_name} != untraced")
+            # every host sync of a run, traced against untraced, with the
+            # collector off so that no finalizer of an earlier object runs
+            # inside the window
+            gc.collect()
+            gc.disable()
+            try:
+                sync_u = host_syncs(torch, run_wall(rt, legs[leg_name]))
+                sync_t = host_syncs(torch, run_wall(rt, legs[leg_name], traced=True))
+            finally:
+                gc.enable()
+            check(sync_t == sync_u and sum(sync_t.values()) > 0,
+                  f"traced {leg_name} host syncs {sync_t} != untraced {sync_u}")
+            chunks = -(-tr.iterations // c.sync_every)
+            walls = leg_turns({"untraced": run_wall(rt, legs[leg_name]),
+                               "traced": run_wall(rt, legs[leg_name], traced=True)}, OBS_ROUNDS)
+            med = {w: float(np.median(v)) for w, v in walls.items()}
+            traced[leg_name] = {
+                "iterations": tr.iterations, "events": len(rec), "reconcile": recon["ok"],
+                "host_syncs": sum(sync_t.values()), "chunks": chunks,
+                "syncs_per_chunk": sum(sync_t.values()) / chunks,
+                "sync_sites": {"traced": sync_t, "untraced": sync_u},
+                "median_s": med, "runs": walls, "ratio": med["traced"] / med["untraced"]}
+            log(f"traced {leg_name}: reconcile exact, values bit-equal, {len(rec)} events; host "
+                f"syncs {sum(sync_t.values())} traced == {sum(sync_u.values())} untraced, site "
+                f"by site ({traced[leg_name]['syncs_per_chunk']:.2f} a chunk; {sync_t}); median "
+                f"wall {med['traced']:.4f} s traced vs {med['untraced']:.4f} s (ratio "
+                f"{traced[leg_name]['ratio']:.3f}, {2 * OBS_ROUNDS} runs each, in turns)")
+        out["traced"] = traced
+
+        # -- traced serving: 8 SSSP queries through 8 lanes on the main graph
+        rng = np.random.default_rng(SEED + 11)
+        live = np.flatnonzero(np.diff(hs.graph.indptr) > 0)
+        sources = [int(v) for v in rng.choice(live, SERVE_QUERIES, replace=False)][:OBS_LANES]
+        rec = TraceRecorder()
+        t = time.monotonic()
+        svc = GraphService(hs.graph, legs["sssp_k8"][2], max_lanes=OBS_LANES, obs=rec,
+                           device=rt.device)
+        build_s = time.monotonic() - t
+        reset_launch_counts()
+        t = time.monotonic()
+        res = svc.query(SSSP, sources)
+        torch.cuda.synchronize()
+        query_s = time.monotonic() - t
+        counts = read_launch_counts()
+        serve_launches["obs_serve"] = {k: counts[k] for k in SERVE_KERNELS}
+        check(all(r.mode == "batched" for r in res), "traced serving: a query not batched")
+        doc = to_chrome_trace(rec)
+        n_ev = validate_chrome_trace(doc)
+        tracks = {e.track for e in rec.events}
+        check({"scheduler", "cache"} <= tracks and any(x.startswith("tenant:") for x in tracks),
+              f"traced serving tracks {sorted(tracks)}")
+        total = rec.metrics.counter("serve.requests").total()
+        check(total == len(sources), f"serve.requests {total} != {len(sources)}")
+        trace_path = ROOT / "build" / "phase12_serve_trace.json"
+        trace_path.parent.mkdir(parents=True, exist_ok=True)
+        write_chrome_trace(rec, str(trace_path))
+        summ = summary(rec)
+        out["serve_trace"] = {
+            "queries": len(sources), "service_build_s": build_s, "query_s": query_s,
+            "chrome_events": n_ev, "bytes": trace_path.stat().st_size,
+            "tracks": sorted(tracks), "by_cat": summ["by_cat"],
+            "counters": {k: v for k, v in summ["metrics"].items()
+                         if k.split(".")[0] in ("serve", "admission", "cache")},
+            "launches": serve_launches["obs_serve"]}
+        log(f"traced serving: {len(sources)} SSSP queries through {OBS_LANES} lanes in "
+            f"{query_s:.3f} s (service built in {build_s:.2f} s); Chrome trace valid, "
+            f"{n_ev} events, {trace_path.stat().st_size:,} bytes -> "
+            f"{os.path.relpath(trace_path, ROOT)}; tracks {sorted(tracks)}; by category "
+            f"{summ['by_cat']}; launches {serve_launches['obs_serve']}")
+        del svc, res
+
+        # -- the launcher at its defaults with --trace and --calibrated
+        cli_trace = ROOT / "build" / "phase12_serve_graph_trace.json"
+        old_env = os.environ.get("REPRO_AUTOTUNE_REGISTRY")
+        os.environ["REPRO_AUTOTUNE_REGISTRY"] = reg
+        buf = io.StringIO()
+        t = time.monotonic()
+        try:
+            with contextlib.redirect_stdout(buf):
+                serve_graph.main(["--trace", str(cli_trace), "--calibrated"])
+        finally:
+            if old_env is None:
+                del os.environ["REPRO_AUTOTUNE_REGISTRY"]
+            else:
+                os.environ["REPRO_AUTOTUNE_REGISTRY"] = old_env
+        text = buf.getvalue()
+        check(f"bandwidth {prof.bandwidth:.6g} B/s" in text,
+              "serve_graph --calibrated did not serve under the saved profile")
+        validate_chrome_trace(json.loads(cli_trace.read_text()))
+        out["serve_graph_cli"] = {"seconds": time.monotonic() - t, "output": text.splitlines()}
+        log(f"serve_graph --trace --calibrated ({out['serve_graph_cli']['seconds']:.1f} s):\n"
+            + text.rstrip())
+    torch.cuda.empty_cache()
+    return out, launches, serve_launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: LM serving, gemma3-12b at full width
 # ---------------------------------------------------------------------------
 
@@ -2661,6 +3023,12 @@ def main() -> int:
     serve["phase_s"] = time.monotonic() - t
     serve_launches = serve.pop("launches")
     log(f"phase 11 (graph serving) took {serve['phase_s']:.1f} s")
+    t = time.monotonic()
+    calib, calib_launches, calib_serve = phase_calibrate(torch, cfg, hs, rt, source, smi)
+    calib["phase_s"] = time.monotonic() - t
+    launches.update(calib_launches)
+    serve_launches.update(calib_serve)
+    log(f"phase 12 (calibration and observability) took {calib['phase_s']:.1f} s")
     del main_runs
     dev = rt.device
     del rt, hs
@@ -2694,6 +3062,7 @@ def main() -> int:
     kernels[0]["graph_legs"] = turns
     kernels[0]["dynamic_graph"] = stream
     kernels[0]["graph_serving"] = serve
+    kernels[0]["calibration_observability"] = calib
     for key, row in (("sum_d2", "segment_spmm_sum"), ("last_partition", "segment_spmm_last"),
                      ("sum_d2_last_partition", "segment_spmm_sum_last")):
         kernels[0][key] = {k: rows[row][k] for k in ("shape", "ms", "cold_ms", "call_ms",

@@ -433,11 +433,14 @@ def main() -> int:
 
     legs = smoke.main_path_legs(cfg, source)
     out = {"card": smi, "scale": args.scale}
-    for key, w in smoke.leg_turns(rt, legs, ROUNDS).items():
-        out[f"turns_{key}"] = dict(median_s=float(np.median(w)), min_s=min(w), max_s=max(w),
-                                   runs=len(w))
-        log(f"turns {key.replace('_', ' ', 1)}: median {np.median(w):.4f} s (min {min(w):.4f}, "
-            f"max {max(w):.4f}) over {len(w)} runs")
+    for name, (kern, plain) in smoke.TURN_PAIRS.items():
+        walls = smoke.leg_turns({"plain": smoke.run_wall(rt, legs[plain]),
+                                 "kernels": smoke.run_wall(rt, legs[kern])}, ROUNDS)
+        for which, w in walls.items():
+            out[f"turns_{name}_{which}"] = dict(median_s=float(np.median(w)), min_s=min(w),
+                                                max_s=max(w), runs=len(w))
+            log(f"turns {name} {which}: median {np.median(w):.4f} s (min {min(w):.4f}, "
+                f"max {max(w):.4f}) over {len(w)} runs")
 
     for leg in ("sssp_k8", "sssp_plain", "pagerank", "pagerank_plain"):
         prog, src, c = legs[leg]

@@ -37,10 +37,6 @@ class OnlineCalibrator:
 
     def __init__(self, decay: float = 0.25, ridge: float = 0.05,
                  clip: tuple[float, float] = (0.05, 20.0), obs=None):
-        if obs is not None:
-            raise NotImplementedError(
-                "OnlineCalibrator: obs is not ported yet (ROADMAP queue 1, "
-                "item 9: Observability)")
         if not 0.0 < decay <= 1.0:
             raise ValueError(f"decay must lie in (0, 1], got {decay}")
         self.decay = decay
@@ -49,6 +45,10 @@ class OnlineCalibrator:
         self._A = np.zeros((N_ENGINES, N_ENGINES))
         self._b = np.zeros(N_ENGINES)
         self.n_updates = 0
+        # optional repro_torch.obs.TraceRecorder: each folded observation
+        # emits one correction-update event (host-side; obs=None records
+        # nothing and skips even the correction re-solve)
+        self.obs = obs
 
     def update(self, modeled: np.ndarray, measured_seconds: float) -> None:
         """Fold in one observation: (3,) modeled per-engine seconds and the
@@ -67,6 +67,18 @@ class OnlineCalibrator:
         self._A = f * self._A + np.outer(u, u)
         self._b = f * self._b + u * (measured_seconds / norm)
         self.n_updates += 1
+        if self.obs is not None:
+            c = self.correction()
+            m = self.obs.metrics
+            m.counter("autotune.updates", "calibrator observations").inc(1)
+            for e, name in enumerate(("filter", "compact", "zerocopy")):
+                m.gauge("autotune.correction",
+                        "per-engine cost correction").set(float(c[e]), engine=name)
+            self.obs.instant(
+                "correction_update", cat="autotune", track="autotune",
+                vt=float(self.n_updates), measured_seconds=float(measured_seconds),
+                modeled=[float(x) for x in t], correction=[float(x) for x in c],
+            )
 
     def observed(self) -> np.ndarray:
         """(3,) bool: the engines with accumulated evidence."""

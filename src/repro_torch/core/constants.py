@@ -7,9 +7,17 @@ dumping factor ``gamma`` and the selection thresholds ``alpha``/``beta``.
 
 ``PCIE3`` is the paper's platform (GTX 2080Ti over PCIe 3.0 x16): the
 modeled transfer volume and time it yields are accounting units of the
-paper's link, not measurements of the card the port runs on.  The
-reference's TPU profiles and roofline constants come with the
-calibration and multi-GPU slices that read them.
+paper's link, not measurements of the card the port runs on.
+
+``TPU_V5E_HBM`` and ``TPU_V5E_ICI`` are the reference's other two shipped
+profiles, copied as they are.  They are accounting constants of the
+reference's TPU target, not timings of any card: the port uses them as
+simulated ground truths for calibration (``launch.calibrate --mode model
+--truth tpu_v5e_hbm`` and the selfcheck).  There is no shipped H100
+profile.  On the card, the card's profile is whatever calibration
+(``repro_torch.autotune``: wall probes of the three engines, a least
+squares fit, threshold tuning) writes to the registry under the card's
+device kind; ``autotune.load_profile_or_default`` reads it back.
 """
 
 from __future__ import annotations
@@ -77,3 +85,29 @@ class LinkModel:
 # Subway-like run (paper Fig. 3(c): 34.5% of runtime).
 PCIE3 = LinkModel(name="pcie3", m=128.0, mr=256.0, bandwidth=12.3e9,
                   compaction_bandwidth=6e9)
+
+
+# The reference's TPU v5e HBM->VMEM profile (819 GB/s HBM; m = 512 B, one
+# float32 (1, 128) lane row; mr = 64 descriptors a DMA batch; the on-device
+# compaction pass an extra read + write of the active bytes).  Accounting
+# constants of the reference's target, used here as a simulated ground
+# truth only.
+TPU_V5E_HBM = LinkModel(
+    name="tpu_v5e_hbm",
+    m=512.0,
+    mr=64.0,
+    bandwidth=819e9,
+    compaction_bandwidth=819e9 / 2,  # read + write pass
+    launch_overhead_s=2e-6,
+    selection_uses_full_compaction_cost=True,
+)
+
+# The reference's TPU v5e ICI link (~50 GB/s a link and direction): its
+# distributed level.
+TPU_V5E_ICI = LinkModel(
+    name="tpu_v5e_ici",
+    m=512.0,
+    mr=64.0,
+    bandwidth=50e9,
+    launch_overhead_s=1e-6,
+)

@@ -825,12 +825,10 @@ class HyTMResult:
     engine_corrections: np.ndarray | None = None
 
 
-def _reject_unported(config: HyTMConfig, mesh, obs, faults, retry,
-                     on_chunk) -> None:
+def _reject_unported(config: HyTMConfig, mesh, faults, retry, on_chunk) -> None:
     queued = [
         (config.mesh_axis is not None or mesh is not None,
          "mesh_axis/mesh", "item 11: Multi-GPU"),
-        (obs is not None, "obs", "item 9: Observability"),
         (faults is not None or retry is not None, "faults/retry",
          "item 10: Resilience"),
         (on_chunk is not None, "on_chunk", "item 10: Resilience"),
@@ -879,10 +877,17 @@ def run_hytm(
     dispatch of a chunk signature in the process, and iteration 1 of the
     K = 1 loop, are not observed.
 
-    ``mesh``, ``obs``, ``faults``, ``retry``, ``on_chunk`` and the config's
+    ``obs`` (a ``repro_torch.obs.TraceRecorder``) records one instant per
+    iteration, one span per chunk and the run-summary span on track
+    ``device0``, from the history rows the driver copies to the host
+    anyway: it adds no launch, copy or sync, and the run's results are
+    bit-identical to an untraced one.  ``obs.export.reconcile`` holds its
+    totals to the result exactly.
+
+    ``mesh``, ``faults``, ``retry``, ``on_chunk`` and the config's
     ``mesh_axis`` belong to later slices and raise ``NotImplementedError``.
     """
-    _reject_unported(config, mesh, obs, faults, retry, on_chunk)
+    _reject_unported(config, mesh, faults, retry, on_chunk)
     if config.sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {config.sync_every}")
     if runtime is not None:
@@ -958,6 +963,16 @@ def run_hytm(
             for k in rows:
                 # a copy: the buffers are reused by the next chunk
                 rows[k].append(history[k][:n_done].to("cpu", copy=True).numpy())
+            if obs is not None:
+                from repro_torch.obs.record import record_chunk, record_history_rows
+
+                record_history_rows(obs, {k: v[-1] for k, v in rows.items()},
+                                    n_done, iters - n_done)
+                record_chunk(
+                    obs, track="device0", wall_start=obs.wall_at(t_chunk),
+                    wall_dur=obs.wall() - obs.wall_at(t_chunk),
+                    start_iter=iters - n_done, n_done=n_done, warm=warm,
+                )
             if int(last_active) == 0:
                 break
         history = {k: np.concatenate(v) for k, v in rows.items()}
@@ -975,10 +990,14 @@ def run_hytm(
             if int(info["next_active"]) == 0:
                 break
         history = {k: torch.stack(v).cpu().numpy() for k, v in rows.items()}
+        if obs is not None:
+            from repro_torch.obs.record import record_history_rows
+
+            record_history_rows(obs, history, iters, 0)
     values = state.values.cpu().numpy()
     delta = state.delta.cpu().numpy()
     wall = time.monotonic() - t0
-    return HyTMResult(
+    result = HyTMResult(
         values=values,
         delta=delta,
         iterations=iters,
@@ -989,3 +1008,9 @@ def run_hytm(
         total_mispredictions=int(np.sum(history[KEY_MISPREDICTIONS])),
         engine_corrections=calib.correction() if calib is not None else None,
     )
+    if obs is not None:
+        from repro_torch.obs.record import record_run
+
+        record_run(obs, result, track="device0", wall_start=obs.wall_at(t0),
+                   wall_dur=wall, program=program.name)
+    return result

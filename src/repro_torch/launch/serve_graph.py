@@ -13,8 +13,14 @@ after updates == from-scratch, the multi-tenant scheduler's quotas and
 byte budget) and exits non-zero on any violation.  The reference's
 selfcheck also holds a mesh-sharded sweep against a single-device run;
 that step belongs to multi-GPU serving (ROADMAP queue 1, item 11) and is
-left out.  ``--algorithm wcc`` symmetrizes the graph first.  ``--trace``
-(item 9) and ``--calibrated`` (item 8) are not ported yet and raise.
+left out.  ``--algorithm wcc`` symmetrizes the graph first.
+
+``--trace PATH`` records the run through ``repro_torch.obs`` and writes a
+Chrome trace-event JSON to PATH.  ``--calibrated`` serves under the
+calibrated ``LinkModel`` of the serving device's kind from the autotune
+registry (``python -m repro_torch.launch.calibrate`` writes it); a
+missing profile gives the shipped ``PCIE3``, a corrupt one warns and
+gives ``PCIE3``.
 """
 
 from __future__ import annotations
@@ -120,20 +126,14 @@ def main(argv=None) -> None:
                     help="comma-separated static lane bucket sizes for the serving "
                          "scheduler (default: powers of two up to --lanes)")
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="Chrome trace of the run (not ported yet: ROADMAP queue 1, "
-                         "item 9)")
+                    help="record the run through repro_torch.obs and write a Chrome "
+                         "trace-event JSON to PATH (chrome://tracing / Perfetto)")
     ap.add_argument("--calibrated", action="store_true",
-                    help="the calibrated LinkModel profile (not ported yet: ROADMAP "
-                         "queue 1, item 8)")
+                    help="use the calibrated LinkModel profile of the serving device's "
+                         "kind from the autotune registry if one exists; a corrupt "
+                         "profile warns and falls back to the shipped constants")
     args = ap.parse_args(argv)
 
-    if args.trace is not None:
-        raise NotImplementedError(
-            "serve_graph --trace is not ported yet (ROADMAP queue 1, item 9: Observability)")
-    if args.calibrated:
-        raise NotImplementedError(
-            "serve_graph --calibrated is not ported yet (ROADMAP queue 1, item 8: "
-            "Calibration)")
     if args.selfcheck:
         selfcheck(args.device)
         return
@@ -150,11 +150,21 @@ def main(argv=None) -> None:
         # built straight from this graph, so symmetrize before serving
         g = g.symmetrize()
     cfg = HyTMConfig(n_partitions=args.partitions)
+    if args.calibrated:
+        from repro_torch.autotune.registry import default_device_kind, load_profile_or_default
+
+        cfg = dataclasses.replace(
+            cfg, link=load_profile_or_default(default_device_kind(args.device)))
     buckets = (tuple(int(b) for b in args.lane_buckets.split(","))
                if args.lane_buckets else None)
+    rec = None
+    if args.trace:
+        from repro_torch.obs import TraceRecorder
+
+        rec = TraceRecorder()
     svc = GraphService(g, cfg, max_lanes=args.lanes,
                        device_budget_bytes=args.device_budget_bytes,
-                       lane_buckets=buckets, device=args.device)
+                       lane_buckets=buckets, obs=rec, device=args.device)
     rng = np.random.default_rng(args.seed)
 
     sources = rng.integers(0, args.nodes, size=args.queries).tolist()
@@ -181,6 +191,15 @@ def main(argv=None) -> None:
           f"updated_edges={s.update_edges} version={svc.version}")
     print(f"cache tiers: {svc.cache.stats.as_dict()} "
           f"(device_bytes={svc.cache.device_bytes})")
+    if args.calibrated:
+        print(f"link profile: {cfg.link.name!r} (bandwidth {cfg.link.bandwidth:.6g} B/s, "
+              f"launch overhead {cfg.link.launch_overhead_s:.6g} s, "
+              f"alpha {cfg.link.alpha:.6g}, beta {cfg.link.beta:.6g})")
+    if rec is not None:
+        from repro_torch.obs import write_chrome_trace
+
+        write_chrome_trace(rec, args.trace)
+        print(f"trace: {len(rec)} events -> {args.trace}")
 
 
 if __name__ == "__main__":

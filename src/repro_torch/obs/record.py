@@ -1,0 +1,165 @@
+"""Engine-side recording helpers of the instrumented driver
+(``core.hytm.run_hytm``).
+
+Everything here consumes history rows already on the host (NumPy): the
+driver calls these helpers after the copies it makes anyway (the chunked
+driver's per-key drain, the K = 1 loop's stacked rows), under an ``if obs
+is not None`` guard.  The helpers therefore add no device work, copy or
+sync, and never change what the traced run computes.
+
+The run-summary span (:func:`record_run`) copies its totals directly from
+the finished ``HyTMResult`` — the same host rows reduced by the same
+``np.sum`` calls — which is what lets ``export.reconcile`` demand exact
+equality rather than a tolerance.  :func:`record_ici` belongs to the
+sharded sweep (ROADMAP queue 1, item 11), which is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+
+from repro_torch.core.cost_model import (
+    COMPACT,
+    ENGINE_NAMES,
+    FILTER,
+    KEY_ACTIVE_EDGES,
+    KEY_ACTIVE_VERTICES,
+    KEY_ENGINES,
+    KEY_MISPREDICTIONS,
+    KEY_N_TASKS,
+    KEY_PER_ENGINE_TIME,
+    KEY_TRANSFER_BYTES,
+    KEY_TRANSFER_TIME,
+    ZEROCOPY,
+)
+from repro_torch.obs.export import (
+    CAT_ICI,
+    CAT_ITERATION,
+    CAT_RUN,
+    EV_ICI_MERGE,
+    EV_ITERATION,
+    EV_RUN,
+)
+
+_REAL_ENGINES = (FILTER, COMPACT, ZEROCOPY)
+
+
+def record_history_rows(
+    obs: Any, drained: dict[str, np.ndarray], n_done: int, start_iter: int,
+    track: str = "device0",
+) -> None:
+    """Emit one per-iteration instant (+ metric updates) per host history
+    row ``[0:n_done)``.  ``start_iter`` is the global iteration index of
+    row 0 (the virtual-clock timestamp)."""
+    m = obs.metrics
+    picks = m.counter("engine.picks", "Algorithm-1 engine selections")
+    bytes_c = m.counter("engine.bytes", "modeled host->device transfer bytes")
+    secs_c = m.counter("engine.modeled_seconds", "modeled per-engine seconds")
+    iters_c = m.counter("engine.iterations", "executed sweep iterations")
+    mis_c = m.counter("engine.mispredictions",
+                      "selections diverging from modeled-best")
+    frontier_h = m.histogram("engine.frontier", "active vertices per iteration")
+
+    engines = np.asarray(drained[KEY_ENGINES][:n_done])
+    tbytes = np.asarray(drained[KEY_TRANSFER_BYTES][:n_done], dtype=np.float64)
+    ttime = np.asarray(drained[KEY_TRANSFER_TIME][:n_done], dtype=np.float64)
+    pet = np.asarray(drained[KEY_PER_ENGINE_TIME][:n_done], dtype=np.float64)
+    av = np.asarray(drained[KEY_ACTIVE_VERTICES][:n_done])
+    ae = np.asarray(drained[KEY_ACTIVE_EDGES][:n_done], dtype=np.float64)
+    nt = np.asarray(drained[KEY_N_TASKS][:n_done])
+    mis = np.asarray(drained[KEY_MISPREDICTIONS][:n_done])
+
+    for k in range(int(n_done)):
+        vt = float(start_iter + k)
+        eng_row, byte_row = engines[k], tbytes[k]
+        pick_counts = {}
+        for e in _REAL_ENGINES:
+            sel = eng_row == e
+            n_sel = int(np.sum(sel))
+            if n_sel:
+                name = ENGINE_NAMES[e]
+                pick_counts[name] = n_sel
+                picks.inc(n_sel, engine=name)
+                bytes_c.inc(float(np.sum(byte_row[sel])), engine=name)
+            secs_c.inc(float(pet[k][e]), engine=ENGINE_NAMES[e])
+        iters_c.inc(1)
+        mis_c.inc(int(mis[k]))
+        frontier_h.observe(float(av[k]))
+        obs.instant(
+            EV_ITERATION, cat=CAT_ITERATION, track=track, vt=vt,
+            bytes=float(np.sum(byte_row)),
+            modeled_seconds=float(ttime[k]),
+            active_vertices=int(av[k]),
+            active_edges=float(ae[k]),
+            n_tasks=int(nt[k]),
+            mispredictions=int(mis[k]),
+            picks=pick_counts,
+        )
+        obs.counter("frontier", float(av[k]), track=track, vt=vt)
+
+
+def record_chunk(
+    obs: Any, *, track: str, wall_start: float, wall_dur: float,
+    start_iter: int, n_done: int, warm: bool,
+) -> None:
+    """One span per chunk dispatch: wall window = dispatch + execution +
+    drain, virtual window = the iterations the chunk executed."""
+    obs.span(
+        "chunk", cat=CAT_RUN, track=track, wall=wall_start,
+        wall_dur=wall_dur, vt=float(start_iter), vt_dur=float(n_done),
+        n_done=int(n_done), warm=bool(warm),
+    )
+
+
+def record_ici(
+    obs: Any, *, track: str, it: int, bytes_: float, seconds: float,
+    engine: int, merged_entries: float, wall: float | None = None,
+    halo_entries: float | None = None,
+) -> None:
+    """One instant per sharded-iteration ICI exchange (dense vs compact
+    all-reduce pick), plus the unified ICI metrics.  ``halo_entries`` is
+    set on owner-sharded runs: the boundary entries a compacted exchange
+    would actually ship, surfaced as the ``ici.halo_bytes`` counter (8 B
+    per entry).  Called by the sharded sweep only."""
+    name = ENGINE_NAMES.get(int(engine), str(int(engine)))
+    m = obs.metrics
+    m.counter("ici.bytes", "modeled cross-device merge bytes").inc(
+        float(bytes_), engine=name)
+    m.counter("ici.picks", "ICI exchange-level engine picks").inc(
+        1, engine=name)
+    m.counter("ici.modeled_seconds", "modeled ICI merge seconds").inc(
+        float(seconds), engine=name)
+    extra = {}
+    if halo_entries is not None:
+        m.counter(
+            "ici.halo_bytes",
+            "compacted owner-halo exchange bytes (8 B/boundary entry)",
+        ).inc(float(halo_entries) * 8.0, engine=name)
+        extra["halo_entries"] = float(halo_entries)
+    obs.instant(
+        EV_ICI_MERGE, cat=CAT_ICI, track=track, vt=float(it), wall=wall,
+        bytes=float(bytes_), modeled_seconds=float(seconds), engine=name,
+        merged_entries=float(merged_entries), **extra,
+    )
+
+
+def record_run(
+    obs: Any, result: Any, *, track: str = "device0", wall_start: float,
+    wall_dur: float, program: str = "", label: str = "run",
+) -> None:
+    """The run-summary span: totals copied verbatim from the finished
+    ``HyTMResult`` (exact-reconciliation anchor for ``export.reconcile``)."""
+    obs.span(
+        EV_RUN, cat=CAT_RUN, track=track, wall=wall_start,
+        wall_dur=wall_dur, vt=0.0, vt_dur=float(result.iterations),
+        label=label, program=program,
+        iterations=int(result.iterations),
+        transfer_bytes=float(result.total_transfer_bytes),
+        modeled_seconds=float(result.modeled_seconds),
+        mispredictions=int(result.total_mispredictions),
+        ici_bytes=float(result.total_ici_bytes),
+        ici_modeled_seconds=float(result.modeled_ici_seconds),
+        wall_seconds=float(result.wall_seconds),
+    )

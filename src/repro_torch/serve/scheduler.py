@@ -33,9 +33,16 @@ clock (cumulative engine iterations executed).  Iteration counts are chunk
 granular: a chunk's ``n_done`` is added to every live lane, its no-op
 iterations after its own convergence included, as in the reference.
 
+With the service's ``obs`` (a ``repro_torch.obs.TraceRecorder``) the
+scheduler records one span a served request on its tenant's track
+(``tenant:<name>``) and the ``serve.requests`` counter, the admission
+outcome counters, the device bytes a batch pins (gauge and counter
+sample), the lane occupancy a chunk, and one instant a backfill, all from
+host state it keeps anyway.
+
 Not ported yet: sharded serving and owner placement (ROADMAP queue 1 item
-11), the supervisor, fault sites and guarded dispatch (item 10), tracing
-(item 9); each raises ``NotImplementedError``.
+11) and the supervisor, fault sites and guarded dispatch (item 10); each
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -210,11 +217,28 @@ class LaneScheduler:
 
     def _finish(self, req: Request, values, delta, iters: int,
                 mode: str) -> ServedResult:
-        return ServedResult(
+        done_wall = time.monotonic()
+        res = ServedResult(
             request=req, values=values, delta=delta, iterations=iters,
             mode=mode, submit_vt=req.submit_vt, done_vt=self.vt,
-            submit_wall=req.submit_wall, done_wall=time.monotonic(),
+            submit_wall=req.submit_wall, done_wall=done_wall,
         )
+        obs = self.svc.obs
+        if obs is not None:
+            # one span per served request on its tenant's track: wall
+            # coordinates are the submit -> done monotonic stamps, the
+            # virtual window submit_vt -> the scheduler's clock
+            wall0 = obs.wall_at(req.submit_wall) if req.submit_wall else obs.wall()
+            obs.span(
+                f"request:{mode}", cat="serve", track=f"tenant:{req.tenant}",
+                wall=wall0, wall_dur=max(obs.wall_at(done_wall) - wall0, 0.0),
+                vt=float(req.submit_vt), vt_dur=float(self.vt - req.submit_vt),
+                iterations=iters, program=req.program.name,
+                source=-1 if req.source is None else int(req.source),
+            )
+            obs.metrics.counter("serve.requests", "served requests by mode/tenant").inc(
+                1, mode=mode, tenant=req.tenant)
+        return res
 
     def _admit_jobs(
         self, queue: RequestQueue, program: VertexProgram, n_slots: int,
@@ -225,6 +249,9 @@ class LaneScheduler:
         admitting until the slots are full or nothing admissible is left.
         Rejections and instant cache resolutions land in ``results``."""
         budget = self.svc.cache.policy.device_budget_bytes
+        obs = self.svc.obs
+        qs = queue.stats
+        before = (qs.admitted, qs.deferred, qs.rejected)
         jobs: list[_LaneJob] = []
         while True:
             admitted = queue.admit(
@@ -245,6 +272,12 @@ class LaneScheduler:
                     self.in_flight[req.tenant] = self.in_flight.get(req.tenant, 0) + 1
             if len(jobs) >= n_slots:
                 break
+        if obs is not None:
+            m = obs.metrics
+            for name, prev, cur in zip(("admitted", "deferred", "rejected"), before,
+                                       (qs.admitted, qs.deferred, qs.rejected)):
+                if cur > prev:
+                    m.counter(f"admission.{name}", "queue admission outcomes").inc(cur - prev)
         return jobs
 
     # ------------------------------------------------------------- dispatch
@@ -317,6 +350,7 @@ class LaneScheduler:
         request served this call (including instant cache resolutions and
         rejections), in completion order."""
         svc = self.svc
+        obs = svc.obs
         results: list[ServedResult] = []
         while queue:
             cap = self._budget_bucket_cap()
@@ -339,6 +373,12 @@ class LaneScheduler:
             self.stats.max_device_bytes = max(
                 self.stats.max_device_bytes, self.pinned_bytes + svc.cache.device_bytes)
             self.stats.batches += 1
+            if obs is not None:
+                obs.metrics.gauge(
+                    "serve.device_bytes", "in-flight lanes + device-tier cache bytes").set(
+                    float(self.pinned_bytes + svc.cache.device_bytes))
+                obs.counter("device_bytes", self.pinned_bytes + svc.cache.device_bytes,
+                            cat="serve", track="scheduler", vt=float(self.vt))
             lane_jobs: list[_LaneJob | None] = list(jobs) + [None] * (bucket - len(jobs))
             state = self._stack_state(program, lane_jobs, bucket)
             correction = svc._correction
@@ -353,6 +393,12 @@ class LaneScheduler:
                 self.stats.engine_iterations += n_done
                 self.stats.lane_iterations += live * n_done
                 self.stats.slot_iterations += bucket * n_done
+                if obs is not None:
+                    obs.metrics.gauge(
+                        "serve.occupancy", "live-lane fraction of dispatched slots").set(
+                        self.stats.occupancy)
+                    obs.counter("lane_occupancy", live / bucket, cat="serve",
+                                track="scheduler", vt=float(self.vt))
                 for j in lane_jobs:
                     if j is not None:
                         j.iters += n_done
@@ -399,6 +445,12 @@ class LaneScheduler:
                         state.delta[slot].copy_(d)
                         state.frontier[slot].copy_(f)
                         self.stats.backfills += 1
+                        if obs is not None:
+                            obs.metrics.counter("serve.backfills",
+                                                "mid-flight lane refills").inc(1)
+                            obs.instant("backfill", cat="serve", track="scheduler",
+                                        vt=float(self.vt), slot=slot,
+                                        tenant=job.request.tenant, mode=job.mode)
             self.pinned_bytes = 0
         return results
 

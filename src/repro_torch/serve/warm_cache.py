@@ -22,9 +22,14 @@ The device tier owns its tensors: :meth:`WarmCache.put` copies what it is
 given, so an entry never views a lane row of the scheduler's (Q, n) state,
 which the next backfill overwrites in place.
 
+With ``obs`` (a ``repro_torch.obs.TraceRecorder``) per-tier hits,
+misses and the tier transitions (spill, promote, evict, and a checksum
+mismatch) emit one instant and one ``cache.<event>`` counter each on the
+``cache`` track.
+
 Not ported yet: owner-sharded placement (``OwnerPlacement``, ROADMAP queue
-1 item 11), fault injection (``faults=``, item 10) and tracing (``obs=``,
-item 9); each raises ``NotImplementedError``.
+1 item 11) and fault injection (``faults=``, item 10); each raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -121,8 +126,7 @@ class WarmCache:
     def __init__(self, policy: TierPolicy | None = None, obs=None,
                  faults=None, placement: OwnerPlacement | None = None,
                  device: str | torch.device | None = None):
-        for given, what, item in ((obs, "obs", "item 9: Observability"),
-                                  (faults, "faults", "item 10: Resilience"),
+        for given, what, item in ((faults, "faults", "item 10: Resilience"),
                                   (placement, "placement", "item 11: Multi-GPU")):
             if given is not None:
                 raise NotImplementedError(
@@ -132,6 +136,17 @@ class WarmCache:
         self._entries: dict = {}
         self._clock = 0
         self.stats = CacheStats()
+        self.obs = obs
+
+    def _obs_event(self, name: str, key=None, **args) -> None:
+        if self.obs is None:
+            return
+        self.obs.metrics.counter(f"cache.{name}", "warm-cache tier events").inc(
+            1, **({"tier": args["tier"]} if "tier" in args else {}))
+        if key is not None:
+            args["key"] = repr(key)
+        self.obs.instant(name, cat="cache", track="cache",
+                         vt=float(self._clock), **args)
 
     # ------------------------------------------------------------- dict-like
     def __contains__(self, key) -> bool:
@@ -187,6 +202,7 @@ class WarmCache:
         if (entry.tier == HOST and entry.checksum is not None
                 and state_checksum(entry.values, entry.delta) != entry.checksum):
             self.stats.corrupt += 1
+            self._obs_event("corrupt", key, nbytes=entry.nbytes)
             self.evict(key)
             return None
         return entry
@@ -197,12 +213,14 @@ class WarmCache:
         entry = self._entries.get(key)
         if entry is None:
             self.stats.misses += 1
+            self._obs_event("miss", key)
             return None
         self._touch(entry)
         if entry.tier == DEVICE:
             self.stats.device_hits += 1
         else:
             self.stats.host_hits += 1
+        self._obs_event("hit", key, tier=entry.tier)
         return entry
 
     def put(self, key, version: int, values, delta,
@@ -232,6 +250,7 @@ class WarmCache:
                     entry.values, entry.delta) != entry.checksum:
                 self.stats.corrupt += 1
                 self.stats.promote_failures += 1
+                self._obs_event("corrupt", key, nbytes=entry.nbytes)
                 self.evict(key)
                 return None
             entry.values = self._to_device(entry.values)
@@ -239,6 +258,7 @@ class WarmCache:
             entry.tier = DEVICE
             entry.checksum = None
             self.stats.promotions += 1
+            self._obs_event("promote", key, nbytes=entry.nbytes)
             self._touch(entry)
             self.shrink_to_budget(reserved_bytes, keep=key)
         return entry
@@ -251,6 +271,7 @@ class WarmCache:
         entry.nbytes = _nbytes(entry.values) + _nbytes(entry.delta)
         entry.checksum = state_checksum(entry.values, entry.delta)
         self.stats.spills += 1
+        self._obs_event("spill", key, nbytes=entry.nbytes)
 
     def shrink_to_budget(self, reserved_bytes: int = 0, keep=None) -> None:
         """Spill LRU device entries to host until ``device_bytes <=
@@ -276,6 +297,7 @@ class WarmCache:
     def evict(self, key) -> None:
         del self._entries[key]
         self.stats.evictions += 1
+        self._obs_event("evict", key)
 
     def clear(self) -> None:
         self.stats.evictions += len(self._entries)

@@ -209,14 +209,14 @@ def run_incremental(
     since ``values``/``delta`` were computed, in order.  The run takes
     ``config`` (default ``dcsr.config``) on the DeltaCSR's device, its
     chunked driver included, and learns into ``calibrator`` with
-    ``config.autotune``.  ``mesh``/``config.mesh_axis``, ``obs``,
-    ``faults`` and ``retry`` belong to later slices and raise
-    ``NotImplementedError``."""
+    ``config.autotune``, and records into ``obs`` as ``run_hytm`` does.
+    ``mesh``/``config.mesh_axis``, ``faults`` and ``retry`` belong to later
+    slices and raise ``NotImplementedError``."""
     config = config if config is not None else dcsr.config
-    _reject_unported(config, mesh, obs, faults, retry, None)
+    _reject_unported(config, mesh, faults, retry, None)
     state = incremental_state(program, values, delta, reports, dcsr, source)
     return run_hytm(
         None, program, source=source, config=config,
         runtime=dcsr.runtime_for(program), initial_state=state,
-        calibrator=calibrator,
+        calibrator=calibrator, obs=obs,
     )

@@ -26,11 +26,17 @@ run one ``run_hytm`` on the container's runtime; their cache key is
 With ``HyTMConfig.autotune`` the service carries one ``OnlineCalibrator``
 for its lifetime, fed by every lane chunk and every run.
 
+``obs`` (a ``repro_torch.obs.TraceRecorder``) is threaded into every
+consumer the service owns: the lane scheduler (request spans, admission,
+device bytes, occupancy, backfill), the warm cache's tier events, the
+calibrator's correction updates and the ``run_hytm``/``run_incremental``
+dispatches.  ``obs=None`` records nothing anywhere.
+
 The service runs on ``cuda`` unless given ``device="cpu"``, which it
 passes to its ``DeltaCSR``.  Not ported yet: serving from a mesh (``mesh=``
-or ``HyTMConfig.mesh_axis``, ROADMAP queue 1 item 11), fault injection and
-the supervisor (``faults=``, ``supervisor=``, item 10) and tracing
-(``obs=``, item 9); each raises ``NotImplementedError``.
+or ``HyTMConfig.mesh_axis``, ROADMAP queue 1 item 11) and fault injection
+and the supervisor (``faults=``, ``supervisor=``, item 10); each raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -98,11 +104,11 @@ class GraphService:
                 (mesh is not None or self.config.mesh_axis is not None,
                  "mesh/mesh_axis", "item 11: Multi-GPU"),
                 (faults is not None or supervisor is not None, "faults/supervisor",
-                 "item 10: Resilience"),
-                (obs is not None, "obs", "item 9: Observability")):
+                 "item 10: Resilience")):
             if asked:
                 raise NotImplementedError(
                     f"GraphService: {what} is not ported yet (ROADMAP queue 1, {item})")
+        self.obs = obs
         # read by the scheduler, which raises on either (items 11 and 10)
         self.mesh = None
         self.faults = None
@@ -119,7 +125,7 @@ class GraphService:
         self.cache = WarmCache(TierPolicy(
             device_budget_bytes=device_budget_bytes,
             max_reports=max_reports,
-        ), device=self.device)
+        ), obs=obs, device=self.device)
         self._reports: list[UpdateReport] = []
         self.stats = ServiceStats()
         # one calibrator for the service's lifetime
@@ -128,7 +134,7 @@ class GraphService:
         if self.config.autotune:
             from repro_torch.autotune.feedback import OnlineCalibrator
 
-            self._calibrator = OnlineCalibrator(decay=self.config.autotune_decay)
+            self._calibrator = OnlineCalibrator(decay=self.config.autotune_decay, obs=obs)
         self.scheduler = LaneScheduler(
             self, buckets=tuple(lane_buckets) if lane_buckets else None)
 
@@ -245,7 +251,7 @@ class GraphService:
         res = run_incremental(
             self.dcsr, program, self._reports_since(entry.version),
             entry.host_values(), entry.host_delta(),
-            source=s, config=self.config, calibrator=self._calibrator,
+            source=s, config=self.config, calibrator=self._calibrator, obs=self.obs,
         )
         self._absorb_run(res)
         self._store(program, s, res.values, res.delta)
@@ -264,6 +270,7 @@ class GraphService:
                 res = run_hytm(
                     None, program, source=s, config=self.config,
                     runtime=self.dcsr.runtime_for(program), calibrator=self._calibrator,
+                    obs=self.obs,
                 )
                 self._absorb_run(res)
                 self._store(program, s, res.values, res.delta)

@@ -132,8 +132,14 @@ def test_calibrator_observe_returns_float32_on_the_device_and_skips():
 
 
 def test_calibrator_obs_and_bad_decay_raise():
-    with pytest.raises(NotImplementedError, match="item 9: Observability"):
-        OnlineCalibrator(obs=object())
+    # obs= is ported (tests/test_torch_obs.py): one event a folded update
+    from repro_torch.obs import TraceRecorder
+
+    rec = TraceRecorder()
+    cal = OnlineCalibrator(obs=rec)
+    cal.update(np.array([1.0, 0.0, 2.0]), 0.5)
+    assert [e.name for e in rec.events] == ["correction_update"]
+    assert rec.metrics.counter("autotune.updates").total() == 1
     with pytest.raises(ValueError):
         OnlineCalibrator(decay=0.0)
     with pytest.raises(ValueError, match=r"\(3,\)"):

@@ -192,8 +192,9 @@ def test_chunked_driver_dispatch_counts():
 
 def test_unported_features_raise():
     g = jgen.uniform_graph(50, 300, seed=0)
-    for kw in (dict(mesh=object()), dict(obs=object()),
-               dict(faults=object()), dict(retry=object()), dict(on_chunk=print)):
+    # obs= is ported (tests/test_torch_obs.py); these belong to items 10-11
+    for kw in (dict(mesh=object()), dict(faults=object()), dict(retry=object()),
+               dict(on_chunk=print)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             th.run_hytm(g, talg.SSSP, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -67,7 +67,8 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.graph.generators import uniform_graph
     from repro_torch.configs import get_arch
     from repro_torch.configs.common import reduce_lm_config
-    from repro_torch.launch import serve
+    from repro_torch.autotune import default_device_kind, default_grid, wall_probe
+    from repro_torch.launch import calibrate, serve
     from repro_torch.models.transformer import init_cache, init_transformer
 
     if torch.cuda.is_available():
@@ -80,7 +81,10 @@ def test_entry_points_raise_without_a_card():
                  lambda: init_state(SSSP, 40, 0),
                  lambda: init_transformer(lm, torch.Generator()),
                  lambda: init_cache(lm, 1, 8),
-                 lambda: serve.main(["--arch", "gemma3-12b", "--reduced"])):
+                 lambda: serve.main(["--arch", "gemma3-12b", "--reduced"]),
+                 lambda: wall_probe(default_grid()[:1]),
+                 lambda: default_device_kind(),
+                 lambda: calibrate.main(["--dry-run"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # an explicit CPU request runs

@@ -716,3 +716,48 @@ def test_delta_csr_patches_on_card_as_on_cpu():
     tuned = run_hytm(None, SSSP, 0, dataclasses.replace(cfg, autotune=True),
                      runtime=card.runtime_for(SSSP))
     np.testing.assert_array_equal(tuned.values, warm_card.values)
+
+
+@pytest.mark.cuda
+def test_wall_probe_times_the_kernel_engines_on_card():
+    """Calibration's wall probe on a 6-point grid through the kernels: finite
+    positive seconds for every (point, engine), each graph kernel launched,
+    and the probe's realized points those of a CPU probe."""
+    from repro_torch.autotune import calibrate, default_grid, wall_probe
+
+    dev = _cuda()
+    grid = default_grid(edge_levels=(3.1e4, 4.1e5), n_ratios=3, regimes=("hub", "flat"))[:6]
+    wrappers = (segment_spmm, frontier_compact, hyb_gather)
+    before = [w.launches for w in wrappers]
+    pts, obs = wall_probe(grid, max_edges=100_000, repeats=2, device=dev)
+    assert all(b < w.launches for b, w in zip(before, wrappers))
+    assert len(obs) == 18
+    assert all(np.isfinite(o.seconds) and o.seconds > 0 for o in obs)
+    cpu_pts, _ = wall_probe(grid, max_edges=100_000, repeats=1, use_kernels=False,
+                            device="cpu")
+    assert pts == cpu_pts
+    from repro_torch.core.constants import PCIE3
+
+    rep = calibrate(pts, obs, PCIE3, fit_overhead=True)
+    assert rep.calibrated_regret <= rep.static_regret
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [8, 1])
+def test_traced_sssp_reconciles_on_card(K):
+    """A traced SSSP through the kernels: reconcile exact, values bit-equal to
+    the untraced run."""
+    from repro_torch.core.hytm import HyTMConfig, run_hytm
+    from repro_torch.graph.algorithms import SSSP
+    from repro_torch.graph.generators import rmat_graph
+    from repro_torch.obs import TraceRecorder, reconcile
+
+    dev = _cuda()
+    g = rmat_graph(20_000, 320_000, seed=5)
+    cfg = HyTMConfig(n_partitions=16, sync_every=K)
+    rec = TraceRecorder()
+    traced = run_hytm(g, SSSP, 0, cfg, obs=rec, device=dev)
+    plain = run_hytm(g, SSSP, 0, cfg, device=dev)
+    assert reconcile(rec, traced)["ok"]
+    np.testing.assert_array_equal(traced.values, plain.values)
+    assert traced.iterations == plain.iterations

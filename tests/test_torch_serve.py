@@ -20,6 +20,7 @@ the port runs its oracle engines and, where named, its kernel wrappers
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -612,21 +613,37 @@ def test_lane_relax_rows_equal_solo_relax():
 # launcher and the parts not ported yet
 # --------------------------------------------------------------------------
 
-def test_serve_graph_selfcheck_on_cpu(capsys):
+def test_serve_graph_selfcheck_on_cpu(capsys, tmp_path, monkeypatch):
     serve_graph.main(["--selfcheck", "--device", "cpu"])
     assert "SELFCHECK OK (device cpu)" in capsys.readouterr().out
-    for extra, item in ((["--trace", "x.json"], "item 9"), (["--calibrated"], "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            serve_graph.main(["--selfcheck", "--device", "cpu", *extra])
+    # --trace and --calibrated (a profile saved under the CPU's device kind)
+    from repro_torch.autotune import save_profile
+    from repro_torch.core.constants import PCIE3
+    from repro_torch.obs import validate_chrome_trace
+
+    monkeypatch.setenv("REPRO_AUTOTUNE_REGISTRY", str(tmp_path))
+    save_profile(PCIE3.with_(name="cpu-calibrated", alpha=0.5), device_kind="cpu")
+    trace = tmp_path / "serve.json"
+    serve_graph.main(["--device", "cpu", "--nodes", "300", "--edges", "2400",
+                      "--partitions", "8", "--queries", "4", "--lanes", "2",
+                      "--update-batches", "1", "--update-size", "8",
+                      "--trace", str(trace), "--calibrated"])
+    out = capsys.readouterr().out
+    assert "link profile: 'cpu-calibrated'" in out and f"-> {trace}" in out
+    doc = json.loads(trace.read_text())
+    assert validate_chrome_trace(doc) == len(doc["traceEvents"]) > 0
+    tracks = {e["args"]["name"] for e in doc["traceEvents"] if e["name"] == "thread_name"}
+    assert {"scheduler", "cache", "tenant:_local", "device0"} <= tracks
 
 
 def test_unported_serving_options_raise():
     with pytest.raises(NotImplementedError, match="item 11"):
         tserve.warm_cache.OwnerPlacement(None, "graph", 10)
-    for kw, item in ((dict(obs=object()), "item 9"), (dict(faults=object()), "item 10"),
-                     (dict(placement=object()), "item 11")):
+    for kw, item in ((dict(faults=object()), "item 10"), (dict(placement=object()), "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             tserve.WarmCache(device="cpu", **kw)
+    # tracing is ported (tests/test_torch_obs.py): the cache takes a recorder
+    assert tserve.WarmCache(device="cpu", obs=None).obs is None
     _, tsvc = _services(100, 600, 1, max_lanes=2)
     with pytest.raises(NotImplementedError, match="item 10"):
         tserve.LaneScheduler(tsvc, supervisor=object())

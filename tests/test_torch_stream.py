@@ -261,16 +261,15 @@ def test_unported_parts_raise():
         t.apply(ts.EdgeBatch.inserts([1], [2], [1.0]), faults=object())
     with pytest.raises(NotImplementedError, match="item 11: Multi-GPU"):
         t.sharded_runtime_for(talg.SSSP)
-    # GraphService is ported (tests/test_torch_stream_service.py); its
-    # mesh, fault and tracing options are not
+    # GraphService is ported (tests/test_torch_stream_service.py), and its
+    # tracing (tests/test_torch_obs.py); its mesh and fault options are not
     for kw, item in ((dict(mesh=object()), "item 11"), (dict(faults=object()), "item 10"),
-                     (dict(supervisor=object()), "item 10"), (dict(obs=object()), "item 9")):
+                     (dict(supervisor=object()), "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             ts.GraphService(_graph("grid")[1], device="cpu", **kw)
     with pytest.raises(AttributeError):
         ts.no_such_name
-    for kw in (dict(mesh=object()), dict(obs=object()), dict(faults=object()),
-               dict(retry=object())):
+    for kw in (dict(mesh=object()), dict(faults=object()), dict(retry=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ts.run_incremental(t, talg.SSSP, [], np.zeros(t.n_nodes, np.float32),
                                np.zeros(t.n_nodes, np.float32), **kw)
