@@ -107,6 +107,31 @@ Phases, in order; any failure exits nonzero and prints no result line:
    cache and tenant tracks; ``serve.requests`` totals the queries; written
    under ``build/``), and ``launch.serve_graph`` at its defaults with
    ``--trace`` and ``--calibrated`` against the temporary registry;
+13. (right after phase 12, same graph) resilience.  SSSP (K=2) through the
+   kernels with a ``CheckpointHook`` every chunk, killed by an injected
+   ``chunk_dispatch`` fault at chunks 1, 2 and 3 (no retry) and resumed with
+   ``resume_run``: values, iterations, transfer bytes and every history row
+   bit-equal to the uninterrupted run; each checkpoint read back with numpy
+   alone (schema 2, the crc table) and held to the state copied from the
+   card at that boundary; its bytes and the save, restore and resume
+   times.  Δ-PageRank (K=8) killed at chunk 1 and resumed, within phase 4's
+   bound.  Hooked against unhooked SSSP in turns (5 rounds), and the
+   hook's one host sync a checkpoint.  The
+   degradation ladder: ``run_supervised`` with ``use_kernels="auto"`` and
+   faults at chunk 2 while the kernels run degrades once
+   (``kernels->oracle``), bit-equal to the kernel run, with the graph
+   kernels' launches those of a kernel run capped at 4 iterations.  The
+   chaos trace through a ``GraphService`` at phase 11's lanes and budget
+   (8 SSSP queries from three tenants, an update batch delivered exactly
+   once, the 8 sources again): clean, then under lane dispatch fail and
+   timeout with retries (traced: one ``injected`` a fault and one ``retry``
+   a retry on the ``faults`` track, the Chrome trace valid), lane
+   allocation and promote OOM with tiered shedding, and spill corruption
+   with an update drop and a redelivery on a two-lane budget: every
+   completed request bit-equal to the clean replay, the version equal, the
+   budget held, no top-tier request shed, a corrupt spill detected; then an
+   empty ``FaultPlan`` against none in turns, bit-equal, with the port's
+   host syncs (PyTorch's sync debug mode) equal site by site;
 6. LM serving: the reduced gemma3-12b config on the card against the CPU
    (float32, logits within 1e-4, greedy tokens equal), then gemma3-12b at
    full width (11.8B parameters in bf16, random weights from the seed):
@@ -2299,6 +2324,365 @@ def phase_calibrate(torch, cfg, hs, rt, source: int, smi: str) -> tuple[dict, di
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: resilience (fault plane, checkpoint/resume, supervisor, chaos)
+# ---------------------------------------------------------------------------
+
+CKPT_ROUNDS = 5       # rounds of (unhooked, hooked, hooked, unhooked) SSSP runs
+CHAOS_QUERIES = 8     # a trace's queries before and after its update batch
+CHAOS_TIERS = {"gold": 2, "silver": 1, "bronze": 0}
+CHAOS_OPS = dict(n_insert=12, n_delete=12)   # the chaos trace's update batch
+
+
+def chaos_plans(n: int, lane_bytes: int) -> dict:
+    """The three fault plans of the chaos trace: name -> (fault specs,
+    ``shed_after`` of a supervisor or None for none, device budget bytes).
+    Plan 1's seed gives no run of more than 2 faults in a row, inside its
+    4 attempts.  Plans 2 and 3 run at a budget that holds two lanes and no
+    cached state, so every stored state spills: the promote that a warm
+    start of a spilled state needs is plan 2's ``cache_promote`` target
+    (at phase 11's budget the halved batches leave room for every cached
+    state, nothing spills and that spec never fires), and the spill is
+    plan 3's ``host_spill`` target."""
+    from repro_torch.resilience import FaultSpec
+
+    budget = 4 * lane_bytes + 2 * 8 * n    # phase 11's pump budget
+    return {
+        "dispatch": ([FaultSpec("lane_dispatch", "fail", p=0.3, max_fires=6),
+                      FaultSpec("lane_dispatch", "timeout", p=0.2, max_fires=4)], 3, budget),
+        "alloc": ([FaultSpec("lane_alloc", "oom", p=1.0, max_fires=100),
+                   FaultSpec("cache_promote", "oom", p=0.5, max_fires=10)], 2, 2 * lane_bytes),
+        "corrupt": ([FaultSpec("host_spill", "corrupt", at=(0, 1)),
+                     FaultSpec("update_delivery", "drop", at=(0,)),
+                     FaultSpec("update_redeliver", "duplicate", at=(0,))], None, 2 * lane_bytes),
+    }
+
+
+def phase_resilience(torch, cfg, hs, rt, source: int, main_runs: dict, smi: str) -> dict:
+    """Phase 13: the resilience plane through the graph kernels.  SSSP (K=2)
+    killed by an injected dispatch fault after chunks 1, 2 and 3 and resumed
+    from its checkpoint, bit-equal to the uninterrupted run; Δ-PageRank
+    (K=8) killed after chunk 1 and resumed within phase 4's bound; the
+    checkpoint file read back with numpy alone (schema, crc table) and
+    against the state copied from the card; hooked against unhooked SSSP in
+    turns; the kernels->oracle rung of ``run_supervised``, whose launches
+    must equal a kernel run capped at the degrade; the chaos trace through a
+    ``GraphService`` (8 SSSP queries from three tenants, one update batch
+    delivered exactly once, the 8 sources again) clean, under the three
+    fault plans and with an empty plan against none in turns.  Every leg's
+    launch counts are read after that leg alone."""
+    import zlib
+
+    from repro_torch.core.hytm import run_hytm
+    from repro_torch.graph.algorithms import SSSP
+    from repro_torch.obs import TraceRecorder, to_chrome_trace, validate_chrome_trace
+    from repro_torch.resilience import (CheckpointHook, FaultPlan, FaultSpec, RetriesExhausted,
+                                        RetryPolicy, Supervisor, deliver_update, plan_of,
+                                        restore, resume_run, run_supervised, save)
+    from repro_torch.serve import Request, RequestQueue
+    from repro_torch.serve.scheduler import LANE_STATE_BYTES_PER_NODE
+    from repro_torch.stream import GraphService, random_batch
+
+    work = ROOT / "build" / "phase13"
+    work.mkdir(parents=True, exist_ok=True)
+    cfg2 = dataclasses.replace(cfg, sync_every=2)
+    n = hs.graph.n_nodes
+    out, launches = {"card": smi}, {}
+
+    def counted(name, fn, need=()):
+        """``fn()`` with the launch counts set to 0 before and read after:
+        only graph kernels, each of ``need``, and at least one."""
+        reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        counts = read_launch_counts()
+        others = {k: v for k, v in counts.items() if k not in SERVE_KERNELS and v}
+        check(not others, f"{name} launched {others}")
+        check(all(counts[k] > 0 for k in need) and sum(counts[k] for k in SERVE_KERNELS) > 0,
+              f"{name} did not launch {need or 'a graph kernel'}: {counts}")
+        launches[name] = {k: counts[k] for k in SERVE_KERNELS}
+        return res
+
+    def killed(prog, src, c, k, on_chunk) -> bool:
+        """Whether ``run_hytm`` under ``on_chunk`` is killed by an injected
+        fault at chunk dispatch ``k`` (no retry policy)."""
+        plan = plan_of(FaultSpec("chunk_dispatch", "fail", at=(k,)), seed=SEED + k)
+        try:
+            run_hytm(None, prog, src, c, runtime=rt, faults=plan, on_chunk=on_chunk)
+        except RetriesExhausted:
+            return True
+        return False
+
+    # -- 13.1 kill and resume
+    base = counted("resil_sssp_k2", lambda: run_hytm(None, SSSP, source, cfg2, runtime=rt),
+                   ALL_KERNELS)
+    kills = {}
+    for k in (1, 2, 3):
+        path = work / f"sssp_kill{k}.npz"
+        hook = CheckpointHook(path, program=SSSP.name)
+        snap = {}
+
+        def on_chunk(*, state, **kw):
+            hook(state=state, **kw)
+            snap["state"] = [t.clone() for t in (state.values, state.delta, state.frontier)]
+
+        check(counted(f"resil_kill{k}", lambda: killed(SSSP, source, cfg2, k, on_chunk)),
+              f"the injected kill at chunk {k} did not fire")
+        check(hook.saved == k, f"SSSP killed at chunk {k} after {hook.saved} checkpoints")
+        t = time.monotonic()
+        ck = restore(path, expect_anchor=(0, 0), program=SSSP.name)
+        restore_s = time.monotonic() - t
+        # 13.2 the file read back with numpy alone: the schema both packages
+        # read, the crc table, the arrays the card held at the boundary
+        with np.load(path) as z:
+            arrays = {name: z[name] for name in z.files}
+        meta = json.loads(arrays.pop("__meta__").tobytes().decode())
+        check(meta["schema"] == 2 and meta["program"] == "sssp" and meta["iterations"] == 2 * k
+              and meta["state_layout"] == "replicated" and set(meta["crc"]) == set(arrays),
+              f"checkpoint {k}: metadata {dict(meta, crc=len(meta['crc']))}")
+        check(all(zlib.crc32(np.ascontiguousarray(a).tobytes()) == meta["crc"][name]
+                  for name, a in arrays.items()), f"checkpoint {k}: crc table does not hold")
+        for name, want in zip(("values", "delta", "frontier"), snap["state"]):
+            got = getattr(ck, name)
+            want = want.cpu().numpy()
+            check(got.dtype == want.dtype and np.array_equal(got, want),
+                  f"checkpoint {k}: {name} != the state copied from the card")
+        t = time.monotonic()
+        res = counted(f"resil_resume{k}", lambda: resume_run(
+            path, None, SSSP, config=cfg2, source=source, runtime=rt, expect_anchor=(0, 0)))
+        resume_s = time.monotonic() - t
+        check(same_min_run(res, base) and all(np.array_equal(res.history[h], base.history[h])
+                                              for h in base.history),
+              f"SSSP killed at chunk {k} and resumed != the uninterrupted K=2 run")
+        kills[k] = {"restore_s": restore_s, "resume_s": resume_s, "bytes": path.stat().st_size,
+                    "iterations_saved": ck.iterations}
+    ck = restore(work / "sssp_kill1.npz")
+    save_s = []
+    for i in range(3):
+        t = time.monotonic()
+        save(ck, work / "save.npz")
+        save_s.append(time.monotonic() - t)
+    out["kill_resume"] = {"sssp_iterations": base.iterations, "kills": kills,
+                          "checkpoint_bytes": kills[1]["bytes"], "save_s": save_s}
+    log(f"resilience: SSSP (K=2, {base.iterations} iterations) killed at chunks 1, 2, 3 and "
+        f"resumed: values, iterations, transfer bytes and history bit-equal to the "
+        f"uninterrupted run; checkpoint {kills[1]['bytes']:,} bytes (numpy reads its schema 2, "
+        f"crc table holds, arrays == the card's state); save {[round(s, 4) for s in save_s]} s, "
+        f"restore {[round(v['restore_s'], 4) for v in kills.values()]} s, resume "
+        f"{[round(v['resume_s'], 4) for v in kills.values()]} s [{smi}]")
+
+    prog, _, cpr = main_path_legs(cfg, source)["pagerank"]
+    path = work / "pagerank_kill1.npz"
+    hook = CheckpointHook(path, program=prog.name)
+    check(counted("resil_pagerank_kill1", lambda: killed(prog, None, cpr, 1, hook),
+                  ("segment_spmm",)) and hook.saved == 1,
+          "the injected Δ-PageRank kill did not fire after chunk 1")
+    res = counted("resil_pagerank_resume", lambda: resume_run(
+        path, None, prog, config=cpr, runtime=rt), ("segment_spmm",))
+    full = main_runs["pagerank"]
+    a, b = res.values + res.delta, full.values + full.delta
+    err = float(np.max(np.abs(a - b)))
+    check(np.allclose(a, b, rtol=1e-4, atol=1e-3),
+          f"Δ-PageRank killed and resumed vs phase 4's run out of phase 4's bound ({err:.3e})")
+    out["pagerank"] = {"iterations": res.iterations, "phase4_iterations": full.iterations,
+                       "max_abs_err": err}
+    log(f"resilience: Δ-PageRank (K=8) killed at chunk 1 and resumed: {res.iterations} "
+        f"iterations (phase 4: {full.iterations}), max |err| {err:.3e} within phase 4's bound")
+
+    turn_path = work / "turns.npz"
+    walls = leg_turns({
+        "unhooked": lambda: run_hytm(None, SSSP, source, cfg2, runtime=rt).wall_seconds,
+        "hooked": lambda: run_hytm(None, SSSP, source, cfg2, runtime=rt, on_chunk=CheckpointHook(
+            turn_path, program=SSSP.name)).wall_seconds,
+    }, CKPT_ROUNDS)
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    chunks = -(-base.iterations // 2)
+    # the hook's one host sync a saved boundary: its three arrays in one copy
+    plain_syncs = host_syncs(torch, lambda: run_hytm(None, SSSP, source, cfg2, runtime=rt))
+    hook = CheckpointHook(turn_path, program=SSSP.name)
+    hooked_syncs = host_syncs(torch, lambda: run_hytm(None, SSSP, source, cfg2, runtime=rt,
+                                                      on_chunk=hook))
+    added = sum(hooked_syncs.values()) - sum(plain_syncs.values())
+    check(added == hook.saved == chunks,
+          f"the hook added {added} host syncs over {hook.saved} checkpoints: {hooked_syncs} "
+          f"against {plain_syncs}")
+    out["hook_turns"] = {"wall_s": walls, "median_s": med, "chunks": chunks,
+                         "host_syncs": {"unhooked": sum(plain_syncs.values()),
+                                        "hooked": sum(hooked_syncs.values())},
+                         "ratio": med["hooked"] / med["unhooked"],
+                         "per_chunk_s": (med["hooked"] - med["unhooked"]) / chunks}
+    log(f"resilience: SSSP (K=2) hooked (a checkpoint every chunk) vs unhooked in turns over "
+        f"{CKPT_ROUNDS} rounds: median {med['hooked']:.4f} s vs {med['unhooked']:.4f} s, "
+        f"{out['hook_turns']['ratio']:.2f}x, {out['hook_turns']['per_chunk_s'] * 1e3:.1f} ms a "
+        f"checkpoint over {chunks} chunks; host syncs {sum(hooked_syncs.values())} hooked vs "
+        f"{sum(plain_syncs.values())} unhooked (one a checkpoint) [{smi}]")
+
+    # -- 13.3 the degradation ladder: kernels -> oracle after chunk 2
+    plan = plan_of(FaultSpec("chunk_dispatch", "fail", at=(2, 3), when={"kernels": True}),
+                   seed=SEED)
+    sup = Supervisor(policy=RetryPolicy(max_attempts=2), faults=plan)
+    t = time.monotonic()
+    res = counted("resil_ladder", lambda: run_supervised(
+        None, SSSP, source, dataclasses.replace(cfg2, use_kernels="auto"), runtime=rt,
+        supervisor=sup, ckpt_path=work / "ladder.npz"))
+    ladder_s = time.monotonic() - t
+    counted("resil_capped", lambda: run_hytm(
+        None, SSSP, source, dataclasses.replace(cfg2, max_iters=4), runtime=rt))
+    check([r for r, _ in sup.degradations] == ["kernels->oracle"],
+          f"ladder: degradations {sup.degradations}")
+    check(same_min_run(res, base), "ladder: the supervised answer != the kernel run")
+    check(launches["resil_ladder"] == launches["resil_capped"],
+          f"ladder: launches {launches['resil_ladder']} != a kernel run capped at 4 iterations "
+          f"{launches['resil_capped']}")
+    out["ladder"] = {"degradations": [r for r, _ in sup.degradations], "wall_s": ladder_s,
+                     "counters": sup.counters, "faults": len(plan.events),
+                     "launches": launches["resil_ladder"]}
+    log(f"resilience ladder: one kernels->oracle degrade after {len(plan.events)} injected "
+        f"faults, answer bit-equal to the kernel run, {ladder_s:.3f} s; graph kernel launches "
+        f"{launches['resil_ladder']} == a kernel run capped at 4 iterations")
+
+    # -- 13.4 the chaos trace: clean, under each plan, empty plan against none
+    cfg8 = dataclasses.replace(cfg, sync_every=8)
+    lane_bytes = LANE_STATE_BYTES_PER_NODE * n
+    plans = chaos_plans(n, lane_bytes)
+    budget = plans["dispatch"][2]
+    rng = np.random.default_rng(SEED + 13)
+    live = np.flatnonzero(np.diff(hs.graph.indptr) > 0)
+    srcs = [int(v) for v in rng.choice(live, CHAOS_QUERIES, replace=False)]
+    tenants = tuple(CHAOS_TIERS)
+    trace = ([(tenants[i % 3], s) for i, s in enumerate(srcs)],
+             [(tenants[(i + 2) % 3], s) for i, s in enumerate(reversed(srcs))])
+    policy = RetryPolicy(max_attempts=4)
+    batch = []
+
+    def replay(faults=None, supervisor=None, obs=None, budget=budget):
+        """The trace through a fresh service: completed (phase, tenant,
+        source) -> values, the shed keys, the service, the wall seconds."""
+        svc = GraphService(hs.graph, cfg8, max_lanes=SERVE_LANES, device_budget_bytes=budget,
+                           faults=faults, supervisor=supervisor, obs=obs, device=rt.device)
+        if not batch:
+            batch.append(random_batch(svc.dcsr, np.random.default_rng(SEED + 13), **CHAOS_OPS))
+        completed, shed = {}, []
+        t = time.monotonic()
+        for phase, specs in enumerate(trace):
+            q = RequestQueue(quota=2, tenant_quotas={"bronze": 1})
+            for i, (tenant, s) in enumerate(specs):
+                q.submit(Request(tenant=tenant, program=SSSP, source=s, deadline=float(i)))
+            for r in svc.scheduler.pump(q):
+                key = (phase, r.request.tenant, r.request.source)
+                if r.mode == "shed":
+                    shed.append(key)
+                elif r.mode != "rejected":
+                    completed[key] = r.values
+            check(q.stats.quota_violations == 0, f"chaos: quota violated {q.stats}")
+            if phase == 0:
+                deliver_update(svc, batch[0], batch_id="chaos-trace", faults=faults,
+                               policy=policy, obs=obs)
+        torch.cuda.synchronize()
+        return completed, shed, svc, time.monotonic() - t
+
+    def lanes(name, fn):
+        res = counted(name, fn, ("segment_spmm_lanes", "hyb_gather"))
+        check(all(launches[name][k] == 0 for k in SOLO_ONLY),
+              f"{name} (lanes only) launched a solo kernel: {launches[name]}")
+        return res
+
+    t = time.monotonic()
+    clean, _, svc, wall = lanes("resil_chaos_clean", replay)
+    check(len(clean) == 2 * CHAOS_QUERIES and svc.version == 1,
+          f"chaos: the clean replay completed {len(clean)}, version {svc.version}")
+    chaos = {"clean": {"wall_s": wall, "completed": len(clean),
+                       "scheduler": dataclasses.asdict(svc.scheduler.stats),
+                       "cache": svc.cache.stats.as_dict()}}
+    del svc
+    for i, (name, (specs, shed_after, plan_budget)) in enumerate(plans.items(), start=1):
+        plan = plan_of(*specs, seed=SEED + i)
+        rec = TraceRecorder() if name == "dispatch" else None
+        sup = None if shed_after is None else Supervisor(
+            policy=policy, faults=plan, obs=rec, tenant_tiers=CHAOS_TIERS, shed_after=shed_after)
+        got, shed, svc, wall = lanes(f"resil_chaos_{name}", lambda: replay(
+            plan, sup, rec, plan_budget))
+        check(set(got) <= set(clean) and not set(clean) - set(got) - set(shed),
+              f"chaos {name}: requests lost without a shed record")
+        check(all(np.array_equal(v, clean[k]) for k, v in got.items()),
+              f"chaos {name}: a completed request != the clean replay")
+        check(svc.version == 1, f"chaos {name}: version {svc.version} (update lost or doubled)")
+        peak = svc.scheduler.stats.max_device_bytes
+        check(peak <= plan_budget, f"chaos {name}: {peak} device bytes over {plan_budget}")
+        check(all(CHAOS_TIERS[t] < max(CHAOS_TIERS[u] for u, _ in trace[p]) for p, t, _ in shed),
+              f"chaos {name}: a top-tier request was shed {shed}")
+        fired = plan.counts()
+        check(all(fired.get((f.site, f.kind), 0) > 0 for f in specs),
+              f"chaos {name}: a fault spec never fired {fired}")
+        row = {"wall_s": wall, "completed": len(got), "shed": len(shed),
+               "faults": {f"{s}/{k}": c for (s, k), c in plan.counts().items()},
+               "supervisor": sup and sup.counters, "max_device_bytes": peak,
+               "budget_bytes": plan_budget, "cache": svc.cache.stats.as_dict()}
+        if name == "corrupt":
+            check(svc.cache.stats.corrupt >= 1, f"chaos corrupt: no corrupt spill detected "
+                  f"{svc.cache.stats.as_dict()}")
+        if rec is not None:
+            # 13.6 the faults track: one injected per plan event, one retry per retry
+            track = [e.name for e in rec.events if e.track == "faults"]
+            check(track.count("injected") == len(plan.events)
+                  and track.count("retry") == sup.counters["retries"] > 0,
+                  f"chaos {name}: faults track {track} vs {len(plan.events)} events, "
+                  f"{sup.counters}")
+            doc = to_chrome_trace(rec)
+            row["trace_events"] = validate_chrome_trace(doc)
+            with open(ROOT / "build" / "phase13_chaos_trace.json", "w") as f:
+                json.dump(doc, f)
+        chaos[name] = row
+        del svc
+        log(f"chaos {name}: {len(got)} completed bit-equal to the clean replay, {len(shed)} shed "
+            f"(none top-tier), version 1, {peak:,} <= {plan_budget:,} device bytes; faults "
+            f"{row['faults']}; supervisor {row['supervisor']}; cache {row['cache']}; "
+            f"{wall:.3f} s (clean {chaos['clean']['wall_s']:.3f} s)"
+            + (f"; Chrome trace valid, {row['trace_events']} events" if rec is not None else ""))
+
+    # -- 13.5 zero overhead: an empty plan against none, in turns
+    # (a service and its scheduler hold each other: collect the last
+    # replay's before each turn, on both sides alike)
+    turns = {"none": [], "empty": []}
+    syncs = {"none": [], "empty": []}
+    for i, kind in enumerate(("none", "empty", "empty", "none")):
+        faults = FaultPlan(seed=SEED) if kind == "empty" else None
+        gc.collect()
+        runs = []
+        sites = host_syncs(torch, lambda: runs.append(replay(faults)))
+        got, shed, svc, wall = runs.pop()
+        check(not shed and set(got) == set(clean)
+              and all(np.array_equal(v, clean[k]) for k, v in got.items()),
+              f"zero overhead: the {kind} replay != the clean replay")
+        turns[kind].append(wall)
+        syncs[kind].append({"chunks": svc.scheduler.stats.chunks, "sites": sites})
+        del svc
+    # every turn's host syncs, site by site, wherever they were issued
+    sites = [r["sites"] for r in syncs["none"] + syncs["empty"]]
+    chunks = syncs["none"][0]["chunks"]
+    check(all(p == sites[0] for p in sites)
+          and all(r["chunks"] == chunks for r in syncs["none"] + syncs["empty"]),
+          f"zero overhead: the host syncs differ, site by site: {syncs}")
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    total = sum(sites[0].values())
+    out["zero_overhead"] = {"wall_s": turns, "ratio": med["empty"] / med["none"],
+                            "host_syncs": total, "chunks": chunks,
+                            "syncs_per_chunk": total / max(chunks, 1), "sites": sites[0]}
+    out["chaos"] = chaos
+    out["chaos_s"] = time.monotonic() - t
+    log(f"zero overhead (none, empty, empty, none): empty plan {turns['empty']} s vs none "
+        f"{turns['none']} s, ratio {out['zero_overhead']['ratio']:.4f}; host syncs {total} in "
+        f"{chunks} chunks ({total / max(chunks, 1):.2f} a chunk) in every turn, site by site "
+        f"{sites[0]} [{smi}]")
+    out["lane_legs"] = [k for k in launches if k.startswith("resil_chaos")]
+    for name in ("segment_spmm_lanes", "frontier_compact_lanes", "hyb_gather"):
+        check(sum(launches[k][name] for k in out["lane_legs"]) > 0,
+              f"the chaos replays never launched {name}")
+    out["launches"] = launches
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: LM serving, gemma3-12b at full width
 # ---------------------------------------------------------------------------
 
@@ -3029,6 +3413,11 @@ def main() -> int:
     launches.update(calib_launches)
     serve_launches.update(calib_serve)
     log(f"phase 12 (calibration and observability) took {calib['phase_s']:.1f} s")
+    t = time.monotonic()
+    resil = phase_resilience(torch, cfg, hs, rt, source, main_runs, smi)
+    resil["phase_s"] = time.monotonic() - t
+    serve_launches.update(resil.pop("launches"))
+    log(f"phase 13 (resilience) took {resil['phase_s']:.1f} s")
     del main_runs
     dev = rt.device
     del rt, hs
@@ -3047,7 +3436,8 @@ def main() -> int:
         entry = LANE_ENTRIES[name]
         by_leg.update({leg: c[name] + (c[entry] if entry != name else 0)
                        for leg, c in serve_launches.items()})
-        lane_legs = {leg: serve_launches[leg][entry] for leg in serve["lane_legs"]}
+        lane_legs = {leg: serve_launches[leg][entry]
+                     for leg in serve["lane_legs"] + resil["lane_legs"]}
         kernels.append({
             "name": name, "route": "cuda", "source": r["source"],
             "replaces": r["replaces"],
@@ -3063,6 +3453,7 @@ def main() -> int:
     kernels[0]["dynamic_graph"] = stream
     kernels[0]["graph_serving"] = serve
     kernels[0]["calibration_observability"] = calib
+    kernels[0]["resilience"] = resil
     for key, row in (("sum_d2", "segment_spmm_sum"), ("last_partition", "segment_spmm_last"),
                      ("sum_d2_last_partition", "segment_spmm_sum_last")):
         kernels[0][key] = {k: rows[row][k] for k in ("shape", "ms", "cold_ms", "call_ms",

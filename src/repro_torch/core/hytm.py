@@ -34,6 +34,7 @@ history reaches the host, never what an iteration computes.
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import sys
 import time
@@ -80,6 +81,7 @@ from repro_torch.core.task_generation import TaskPlan, forced_engine_plan, gener
 from repro_torch.graph.algorithms import MIN, SUM, VertexProgram
 from repro_torch.graph.csr import CSRGraph, DeviceCSR, to_device_csr
 from repro_torch.kernels.runtime import resolve_device, resolve_use_kernels
+from repro_torch.resilience.supervisor import guarded_dispatch
 
 
 @dataclass(frozen=True)
@@ -825,18 +827,11 @@ class HyTMResult:
     engine_corrections: np.ndarray | None = None
 
 
-def _reject_unported(config: HyTMConfig, mesh, faults, retry, on_chunk) -> None:
-    queued = [
-        (config.mesh_axis is not None or mesh is not None,
-         "mesh_axis/mesh", "item 11: Multi-GPU"),
-        (faults is not None or retry is not None, "faults/retry",
-         "item 10: Resilience"),
-        (on_chunk is not None, "on_chunk", "item 10: Resilience"),
-    ]
-    for asked, what, item in queued:
-        if asked:
-            raise NotImplementedError(
-                f"run_hytm: {what} is not ported yet (ROADMAP queue 1, {item})")
+def _reject_unported(config: HyTMConfig, mesh) -> None:
+    if config.mesh_axis is not None or mesh is not None:
+        raise NotImplementedError(
+            "run_hytm: mesh_axis/mesh is not ported yet (ROADMAP queue 1, "
+            "item 11: Multi-GPU)")
 
 
 def run_hytm(
@@ -884,12 +879,29 @@ def run_hytm(
     bit-identical to an untraced one.  ``obs.export.reconcile`` holds its
     totals to the result exactly.
 
-    ``mesh``, ``faults``, ``retry``, ``on_chunk`` and the config's
-    ``mesh_axis`` belong to later slices and raise ``NotImplementedError``.
+    ``faults``/``retry`` (a ``repro_torch.resilience.FaultPlan`` and
+    ``RetryPolicy``) guard every chunk dispatch (K > 1) or iteration
+    (K = 1) at site ``"chunk_dispatch"``: an injected fault fires before
+    the dispatch, and a chunk never modifies its input state, so a retried
+    dispatch is bit-identical.  ``faults=None`` takes the unguarded path:
+    no extra launch, copy or sync.
+
+    ``on_chunk`` (the attachment point of
+    ``repro_torch.resilience.CheckpointHook``; chunked driver only) is
+    called at every chunk boundary, after the history drain and the obs
+    records and before the convergence test, with ``state`` (the live
+    device state), ``iterations``, ``rows`` (the drained host history so
+    far), ``calibrator`` and ``last_active``.
+
+    ``mesh`` and the config's ``mesh_axis`` belong to a later slice and
+    raise ``NotImplementedError``.
     """
-    _reject_unported(config, mesh, faults, retry, on_chunk)
+    _reject_unported(config, mesh)
     if config.sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {config.sync_every}")
+    if on_chunk is not None and config.sync_every == 1:
+        raise ValueError(
+            "on_chunk (checkpointing) requires the chunked driver: set sync_every >= 2")
     if runtime is not None:
         rt = runtime
         if device is not None and resolve_device(device).type != rt.device.type:
@@ -934,6 +946,8 @@ def run_hytm(
             np.asarray(calib.correction(), np.float64).astype(np.float32)).to(rt.device)
 
     rows: dict[str, list] = {k: [] for k in HISTORY_KEYS}
+    # the fault plane's ``when={"kernels": ...}`` context
+    use_kernels = resolve_use_kernels(config.use_kernels, rt.device)
     t0 = time.monotonic()
     iters = 0
     if config.sync_every > 1:
@@ -951,8 +965,11 @@ def run_hytm(
                 rt.parts.block_size, correction is not None,
             ))
             t_chunk = time.monotonic()
-            state, history, n_done, last_active, pe_sum = hytm_chunk(
-                state, history, rt, program, config, chunk, correction)
+            state, history, n_done, last_active, pe_sum = guarded_dispatch(
+                functools.partial(hytm_chunk, state, history, rt, program,
+                                  config, chunk, correction),
+                site="chunk_dispatch", faults=faults, policy=retry, obs=obs,
+                mesh=False, kernels=use_kernels)
             iters += n_done
             if calib is not None:
                 # before the history drain, so the window covers dispatch
@@ -973,13 +990,21 @@ def run_hytm(
                     wall_dur=obs.wall() - obs.wall_at(t_chunk),
                     start_iter=iters - n_done, n_done=n_done, warm=warm,
                 )
-            if int(last_active) == 0:
+            active = int(last_active)
+            if on_chunk is not None:
+                on_chunk(state=state, iterations=iters, rows=rows,
+                         calibrator=calib, last_active=active)
+            if active == 0:
                 break
         history = {k: np.concatenate(v) for k, v in rows.items()}
     else:
         for _ in range(config.max_iters):
             t_iter = time.monotonic()
-            state, info = hytm_iteration(state, rt, program, config, correction)
+            state, info = guarded_dispatch(
+                functools.partial(hytm_iteration, state, rt, program, config,
+                                  correction),
+                site="chunk_dispatch", faults=faults, policy=retry, obs=obs,
+                mesh=False, kernels=use_kernels)
             iters += 1
             if calib is not None:
                 correction = calib.observe_iteration(

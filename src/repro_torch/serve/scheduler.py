@@ -40,13 +40,21 @@ outcome counters, the device bytes a batch pins (gauge and counter
 sample), the lane occupancy a chunk, and one instant a backfill, all from
 host state it keeps anyway.
 
+With the service's ``faults`` (a ``repro_torch.resilience.FaultPlan``)
+two sites fire: ``lane_dispatch`` guards every chunk dispatch
+(``guarded_dispatch``, retried under the supervisor's policy), and
+``lane_alloc`` fires at every batch and backfill formation: an OOM halves
+the slots, and a streak the ``supervisor`` deems sustained sheds the
+pending requests of the lower tiers (mode ``"shed"``).  Without a plan
+neither site costs anything.
+
 Not ported yet: sharded serving and owner placement (ROADMAP queue 1 item
-11) and the supervisor, fault sites and guarded dispatch (item 10); each
-raises ``NotImplementedError``.
+11), which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass
 from typing import TYPE_CHECKING
@@ -61,6 +69,7 @@ from repro_torch.core.hytm import (
     hytm_batched_chunk,
 )
 from repro_torch.graph.algorithms import VertexProgram
+from repro_torch.resilience.supervisor import guarded_dispatch, record_fault_event
 from repro_torch.serve.queue import Request, RequestQueue
 
 if TYPE_CHECKING:  # pragma: no cover - type hints only
@@ -92,7 +101,7 @@ class ServedResult:
     values: np.ndarray | None
     delta: np.ndarray | None
     iterations: int            # engine iterations this request's lane ran
-    mode: str   # 'cache' | 'incremental' | 'batched' | 'rejected'
+    mode: str   # 'cache' | 'incremental' | 'batched' | 'rejected' | 'shed'
     submit_vt: float = 0.0
     done_vt: float = 0.0
     submit_wall: float = 0.0
@@ -143,11 +152,10 @@ class LaneScheduler:
     def __init__(self, service: "GraphService",
                  buckets: tuple[int, ...] | None = None,
                  backfill: bool = True, supervisor=None):
-        if supervisor is not None:
-            raise NotImplementedError(
-                "LaneScheduler: supervisor is not ported yet (ROADMAP queue 1, "
-                "item 10: Resilience)")
         self.svc = service
+        # optional repro_torch.resilience.Supervisor: the retry policy of
+        # lane dispatches, OOM-streak tracking and tiered load shedding
+        self.supervisor = supervisor
         # backfill=False degrades to the fixed-batch baseline: a batch runs
         # to full convergence before the queue is consulted again
         self.backfill = backfill
@@ -314,8 +322,15 @@ class LaneScheduler:
             chunk, correction is not None,
         ))
         t_chunk = time.monotonic()
-        state, n_done, lane_active, pe_sum, mp_sum = hytm_batched_chunk(
-            state, rt, program, cfg, chunk, correction)
+        # faults fire before the dispatch, and the chunk never modifies its
+        # input state, so a retry is bit-identical
+        sup = self.supervisor
+        state, n_done, lane_active, pe_sum, mp_sum = guarded_dispatch(
+            functools.partial(hytm_batched_chunk, state, rt, program, cfg, chunk,
+                              correction),
+            site="lane_dispatch", faults=svc.faults,
+            policy=sup.policy if sup is not None else None, obs=svc.obs,
+            stats=sup.counters if sup is not None else None, bucket=bucket)
         correction = self._observe(pe_sum, mp_sum, t_chunk, warm, correction)
         return state, n_done, lane_active.tolist(), correction
 
@@ -335,11 +350,26 @@ class LaneScheduler:
 
     def _alloc_pressure(self, queue: RequestQueue, slots: int,
                         results: list, floor: int) -> int:
-        """The ``lane_alloc`` fault site: a no-op without a fault plan."""
-        if self.svc.faults is not None:
-            raise NotImplementedError(
-                "LaneScheduler: fault injection is not ported yet (ROADMAP queue 1, "
-                "item 10: Resilience)")
+        """Fire the ``lane_alloc`` fault site for one batch (or backfill)
+        formation.  An injected OOM halves the slot count for this round
+        (not below ``floor``): lanes are independent, so a narrower batch
+        defers work without changing any lane's answer.  A sustained OOM
+        streak trips the supervisor's load-shed rung: pending requests of
+        tenants below the top waiting tier are withdrawn and finished as
+        mode ``"shed"``.  No-op (returns ``slots``) without a fault plan."""
+        svc = self.svc
+        if svc.faults is None:
+            return slots
+        oom = svc.faults.fire("lane_alloc") == "oom"
+        if oom:
+            slots = max(slots // 2, floor)
+            record_fault_event(svc.obs, "injected", site="lane_alloc", kind="oom")
+        sup = self.supervisor
+        if sup is not None and sup.note_alloc_pressure(oom):
+            for req in sup.shed_candidates(queue.pending()):
+                if queue.withdraw(req):
+                    sup.record_shed(req)
+                    results.append(self._finish(req, None, None, 0, "shed"))
         return slots
 
     # ------------------------------------------------------------ main loop
@@ -356,6 +386,8 @@ class LaneScheduler:
             cap = self._budget_bucket_cap()
             max_slots = self.buckets[-1] if cap is None else cap
             max_slots = self._alloc_pressure(queue, max_slots, results, floor=1)
+            if not queue:
+                break  # everything pending was shed
             program = queue.peek_program()
             pending_before = len(queue)
             jobs = self._admit_jobs(queue, program, max(max_slots, 0), results)
@@ -434,6 +466,9 @@ class LaneScheduler:
                 # backfill freed slots mid-flight: the bucket never changes;
                 # new jobs drop into the freed rows at the chunk boundary
                 if self.backfill and queue:
+                    # a backfill is a batch formation too: floor 0, since the
+                    # outer loop re-forms batches, admitting nothing here
+                    # cannot deadlock
                     freed = self._alloc_pressure(queue, freed, results, floor=0)
                 if self.backfill and queue:
                     refill = self._admit_jobs(queue, program, freed, results)

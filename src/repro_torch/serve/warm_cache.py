@@ -23,13 +23,18 @@ given, so an entry never views a lane row of the scheduler's (Q, n) state,
 which the next backfill overwrites in place.
 
 With ``obs`` (a ``repro_torch.obs.TraceRecorder``) per-tier hits,
-misses and the tier transitions (spill, promote, evict, and a checksum
-mismatch) emit one instant and one ``cache.<event>`` counter each on the
-``cache`` track.
+misses and the tier transitions (spill, promote, evict, a checksum
+mismatch and an injected promote OOM) emit one instant and one
+``cache.<event>`` counter each on the ``cache`` track.
+
+With ``faults`` (a ``repro_torch.resilience.FaultPlan``) two sites fire:
+``cache_promote`` (``oom``: the promote is refused, the entry stays on the
+host and :meth:`WarmCache.promote` returns ``None``) and ``host_spill``
+(``corrupt``: the spilled bytes are damaged *after* the checksum is taken,
+so the check at promote catches them).
 
 Not ported yet: owner-sharded placement (``OwnerPlacement``, ROADMAP queue
-1 item 11) and fault injection (``faults=``, item 10); each raises
-``NotImplementedError``.
+1 item 11), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -89,7 +94,7 @@ class CacheStats:
     promotions: int = 0    # host -> device
     evictions: int = 0     # dropped from both tiers (unreplayable / dead)
     corrupt: int = 0       # host entries failing checksum on promote
-    promote_failures: int = 0  # promotes refused (corrupt)
+    promote_failures: int = 0  # promotes refused (corrupt or device OOM)
 
     def as_dict(self) -> dict:
         return {
@@ -126,17 +131,17 @@ class WarmCache:
     def __init__(self, policy: TierPolicy | None = None, obs=None,
                  faults=None, placement: OwnerPlacement | None = None,
                  device: str | torch.device | None = None):
-        for given, what, item in ((faults, "faults", "item 10: Resilience"),
-                                  (placement, "placement", "item 11: Multi-GPU")):
-            if given is not None:
-                raise NotImplementedError(
-                    f"WarmCache: {what} is not ported yet (ROADMAP queue 1, {item})")
+        if placement is not None:
+            raise NotImplementedError(
+                "WarmCache: placement is not ported yet (ROADMAP queue 1, "
+                "item 11: Multi-GPU)")
         self.policy = policy or TierPolicy()
         self.device = resolve_device(device)
         self._entries: dict = {}
         self._clock = 0
         self.stats = CacheStats()
         self.obs = obs
+        self.faults = faults
 
     def _obs_event(self, name: str, key=None, **args) -> None:
         if self.obs is None:
@@ -241,7 +246,9 @@ class WarmCache:
         """Promote ``key``'s state back to the device tier, spilling colder
         entries if the budget requires; the round trip is bit-exact.  A host
         entry whose bytes no longer match its spill-time checksum is
-        counted, evicted, and ``None`` returned."""
+        counted, evicted, and ``None`` returned; an injected
+        ``cache_promote`` OOM returns ``None`` and leaves the entry on the
+        host."""
         entry = self._entries.get(key)
         if entry is None:
             return None
@@ -252,6 +259,10 @@ class WarmCache:
                 self.stats.promote_failures += 1
                 self._obs_event("corrupt", key, nbytes=entry.nbytes)
                 self.evict(key)
+                return None
+            if self.faults is not None and self.faults.fire("cache_promote") == "oom":
+                self.stats.promote_failures += 1
+                self._obs_event("promote_oom", key, nbytes=entry.nbytes)
                 return None
             entry.values = self._to_device(entry.values)
             entry.delta = self._to_device(entry.delta)
@@ -270,6 +281,10 @@ class WarmCache:
         entry.tier = HOST
         entry.nbytes = _nbytes(entry.values) + _nbytes(entry.delta)
         entry.checksum = state_checksum(entry.values, entry.delta)
+        if self.faults is not None and self.faults.fire("host_spill") == "corrupt":
+            # the spilled bytes land damaged; the checksum (taken from the
+            # intact state) catches this at promote time
+            entry.values = self.faults.corrupt(entry.values)
         self.stats.spills += 1
         self._obs_event("spill", key, nbytes=entry.nbytes)
 

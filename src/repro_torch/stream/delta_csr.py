@@ -28,8 +28,9 @@ in each ``UpdateReport`` names the blocks a batch touched.
 
 The host-side semantics are the reference's (``repro/stream/delta_csr.py``)
 step for step, so the same batches leave the same host log and the same
-device tensors.  The sharded views are ROADMAP queue 1, item 11; delivery
-faults are item 10.
+device tensors.  ``apply(faults=)`` injects delivery drops
+(``repro_torch.resilience``).  The sharded views are ROADMAP queue 1,
+item 11.
 """
 
 from __future__ import annotations
@@ -349,14 +350,18 @@ class DeltaCSR:
         :meth:`validate_batch` runs first, so a batch that would fail
         raises :class:`InvalidBatchError` with no side effect.  A
         ``batch_id`` seen within the last ``dedup_window`` batches returns
-        the original report without applying again.  ``faults`` (delivery
-        fault injection) is ROADMAP queue 1, item 10."""
-        if faults is not None:
-            raise NotImplementedError(
-                "DeltaCSR.apply: faults is not ported yet (ROADMAP queue 1, "
-                "item 10: Resilience)")
+        the original report without applying again.  ``faults`` (a
+        ``repro_torch.resilience.FaultPlan``) injects delivery drops at site
+        ``update_delivery``: after the dedup lookup and before validation or
+        any mutation, a dropped batch raises ``UpdateLost``, as if it never
+        arrived."""
         if batch_id is not None and batch_id in self._applied:
             return self._applied[batch_id]
+        if faults is not None and faults.fire("update_delivery") == "drop":
+            from repro_torch.resilience.faults import UpdateLost
+
+            raise UpdateLost("update_delivery", 0,
+                             f"injected drop of batch {batch_id!r}")
         self.validate_batch(batch)
 
         affected = np.unique(batch.src)

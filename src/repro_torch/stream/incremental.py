@@ -209,14 +209,15 @@ def run_incremental(
     since ``values``/``delta`` were computed, in order.  The run takes
     ``config`` (default ``dcsr.config``) on the DeltaCSR's device, its
     chunked driver included, and learns into ``calibrator`` with
-    ``config.autotune``, and records into ``obs`` as ``run_hytm`` does.
-    ``mesh``/``config.mesh_axis``, ``faults`` and ``retry`` belong to later
-    slices and raise ``NotImplementedError``."""
+    ``config.autotune``, and records into ``obs`` and guards its dispatches
+    with ``faults``/``retry`` as ``run_hytm`` does.  ``mesh`` and
+    ``config.mesh_axis`` belong to a later slice and raise
+    ``NotImplementedError``."""
     config = config if config is not None else dcsr.config
-    _reject_unported(config, mesh, faults, retry, None)
+    _reject_unported(config, mesh)
     state = incremental_state(program, values, delta, reports, dcsr, source)
     return run_hytm(
         None, program, source=source, config=config,
         runtime=dcsr.runtime_for(program), initial_state=state,
-        calibrator=calibrator, obs=obs,
+        calibrator=calibrator, obs=obs, faults=faults, retry=retry,
     )

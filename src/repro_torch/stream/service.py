@@ -32,10 +32,16 @@ device bytes, occupancy, backfill), the warm cache's tier events, the
 calibrator's correction updates and the ``run_hytm``/``run_incremental``
 dispatches.  ``obs=None`` records nothing anywhere.
 
+``faults`` (a ``repro_torch.resilience.FaultPlan``) reaches every fault
+site the service owns: the warm cache's promote and spill, the lane
+scheduler's dispatch and allocation, and the ``run_hytm``/
+``run_incremental`` dispatches; ``supervisor`` (a
+``repro_torch.resilience.Supervisor``) supplies the retry policy and the
+load-shed rung.  Both ``None`` take the unguarded paths.
+
 The service runs on ``cuda`` unless given ``device="cpu"``, which it
 passes to its ``DeltaCSR``.  Not ported yet: serving from a mesh (``mesh=``
-or ``HyTMConfig.mesh_axis``, ROADMAP queue 1 item 11) and fault injection
-and the supervisor (``faults=``, ``supervisor=``, item 10); each raises
+or ``HyTMConfig.mesh_axis``, ROADMAP queue 1 item 11), which raises
 ``NotImplementedError``.
 """
 
@@ -100,18 +106,15 @@ class GraphService:
         **delta_kw,
     ):
         self.config = config if config is not None else HyTMConfig()
-        for asked, what, item in (
-                (mesh is not None or self.config.mesh_axis is not None,
-                 "mesh/mesh_axis", "item 11: Multi-GPU"),
-                (faults is not None or supervisor is not None, "faults/supervisor",
-                 "item 10: Resilience")):
-            if asked:
-                raise NotImplementedError(
-                    f"GraphService: {what} is not ported yet (ROADMAP queue 1, {item})")
+        if mesh is not None or self.config.mesh_axis is not None:
+            raise NotImplementedError(
+                "GraphService: mesh/mesh_axis is not ported yet (ROADMAP queue 1, "
+                "item 11: Multi-GPU)")
         self.obs = obs
-        # read by the scheduler, which raises on either (items 11 and 10)
+        # read by the scheduler, which raises on a mesh (item 11)
         self.mesh = None
-        self.faults = None
+        self.faults = faults
+        self.supervisor = supervisor
         self.dcsr = DeltaCSR(graph, self.config, device=device, **delta_kw)
         self.device = self.dcsr.device
         self.max_lanes = max_lanes
@@ -125,7 +128,7 @@ class GraphService:
         self.cache = WarmCache(TierPolicy(
             device_budget_bytes=device_budget_bytes,
             max_reports=max_reports,
-        ), obs=obs, device=self.device)
+        ), obs=obs, faults=faults, device=self.device)
         self._reports: list[UpdateReport] = []
         self.stats = ServiceStats()
         # one calibrator for the service's lifetime
@@ -136,7 +139,8 @@ class GraphService:
 
             self._calibrator = OnlineCalibrator(decay=self.config.autotune_decay, obs=obs)
         self.scheduler = LaneScheduler(
-            self, buckets=tuple(lane_buckets) if lane_buckets else None)
+            self, buckets=tuple(lane_buckets) if lane_buckets else None,
+            supervisor=supervisor)
 
     # ----------------------------------------------------------------- update
     @property
@@ -147,7 +151,9 @@ class GraphService:
         """Apply an edge-update batch.  All cached results become stale for
         direct hits (version bump) and turn into warm states.  A
         redelivered ``batch_id`` returns the original report without
-        re-applying.  ``faults`` belongs to item 10 and raises."""
+        re-applying (the contract ``resilience.deliver_update`` relies on).
+        ``faults`` forwards to ``DeltaCSR.apply`` (injected delivery
+        drops)."""
         v0 = self.dcsr.version
         rep = self.dcsr.apply(batch, batch_id=batch_id, faults=faults)
         if self.dcsr.version == v0:
@@ -244,7 +250,8 @@ class GraphService:
     def _query_incremental(self, program, s) -> QueryResult:
         # spilled warm states come back through the device tier first
         # (bit-exact round trip), then replay the reports since their
-        # version; a corrupt entry falls back to a full recompute
+        # version; a corrupt entry or an injected promote OOM falls back to
+        # a full recompute
         entry = self.cache.promote((program, s))
         if entry is None:
             return self._query_fresh(program, [s])[s]
@@ -252,6 +259,7 @@ class GraphService:
             self.dcsr, program, self._reports_since(entry.version),
             entry.host_values(), entry.host_delta(),
             source=s, config=self.config, calibrator=self._calibrator, obs=self.obs,
+            faults=self.faults, retry=self._retry_policy(),
         )
         self._absorb_run(res)
         self._store(program, s, res.values, res.delta)
@@ -262,6 +270,9 @@ class GraphService:
             cache_hit=False, mode="incremental",
         )
 
+    def _retry_policy(self):
+        return self.supervisor.policy if self.supervisor is not None else None
+
     def _query_fresh(self, program, sources) -> dict:
         out: dict[int | None, QueryResult] = {}
         if program.peel_k is not None or (program.use_delta and not program.personalized):
@@ -270,7 +281,7 @@ class GraphService:
                 res = run_hytm(
                     None, program, source=s, config=self.config,
                     runtime=self.dcsr.runtime_for(program), calibrator=self._calibrator,
-                    obs=self.obs,
+                    obs=self.obs, faults=self.faults, retry=self._retry_policy(),
                 )
                 self._absorb_run(res)
                 self._store(program, s, res.values, res.delta)

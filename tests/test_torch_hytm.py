@@ -192,11 +192,10 @@ def test_chunked_driver_dispatch_counts():
 
 def test_unported_features_raise():
     g = jgen.uniform_graph(50, 300, seed=0)
-    # obs= is ported (tests/test_torch_obs.py); these belong to items 10-11
-    for kw in (dict(mesh=object()), dict(faults=object()), dict(retry=object()),
-               dict(on_chunk=print)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            th.run_hytm(g, talg.SSSP, device="cpu", **kw)
+    # obs= is ported (tests/test_torch_obs.py), and faults/retry/on_chunk
+    # (tests/test_torch_resilience.py); a mesh belongs to item 11
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        th.run_hytm(g, talg.SSSP, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         th.run_hytm(g, talg.SSSP, config=th.HyTMConfig(mesh_axis="graph"), device="cpu")
     # autotune is ported: a calibrator is read only with config.autotune

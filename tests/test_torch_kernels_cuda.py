@@ -761,3 +761,40 @@ def test_traced_sssp_reconciles_on_card(K):
     assert reconcile(rec, traced)["ok"]
     np.testing.assert_array_equal(traced.values, plain.values)
     assert traced.iterations == plain.iterations
+
+
+@pytest.mark.cuda
+def test_kill_resume_through_the_kernels_on_card(tmp_path):
+    """SSSP through the kernels at K=2, killed by an injected dispatch fault
+    at chunks 1-3 and resumed from its checkpoint: values, iterations,
+    transfer bytes and the history bit-equal to the uninterrupted card run,
+    and the values to the CPU's run through the wrappers' plain bodies."""
+    from repro_torch.core.hytm import HyTMConfig, run_hytm
+    from repro_torch.graph.algorithms import SSSP
+    from repro_torch.graph.generators import rmat_graph
+    from repro_torch.resilience import (CheckpointHook, FaultSpec, RetriesExhausted, plan_of,
+                                        resume_run)
+
+    dev = _cuda()
+    g = rmat_graph(20_000, 320_000, seed=5)
+    cfg = HyTMConfig(n_partitions=16, sync_every=2, use_kernels=True)
+    base = run_hytm(g, SSSP, 0, cfg, device=dev)
+    assert base.iterations > 6
+    cpu = run_hytm(g, SSSP, 0, cfg, device="cpu")
+    np.testing.assert_array_equal(base.values, cpu.values)
+    for k in (1, 2, 3):
+        path = tmp_path / f"kill{k}.npz"
+        hook = CheckpointHook(path, program=SSSP.name)
+        before = segment_spmm.launches + frontier_compact.launches + hyb_gather.launches
+        with pytest.raises(RetriesExhausted):
+            run_hytm(g, SSSP, 0, cfg, faults=plan_of(FaultSpec("chunk_dispatch", "fail",
+                                                                at=(k,))),
+                     on_chunk=hook, device=dev)
+        assert hook.saved == k
+        assert segment_spmm.launches + frontier_compact.launches + hyb_gather.launches > before
+        res = resume_run(path, g, SSSP, config=cfg, device=dev)
+        np.testing.assert_array_equal(res.values, base.values)
+        assert res.iterations == base.iterations
+        assert res.total_transfer_bytes == base.total_transfer_bytes
+        for key in base.history:
+            np.testing.assert_array_equal(res.history[key], base.history[key])

@@ -639,14 +639,11 @@ def test_serve_graph_selfcheck_on_cpu(capsys, tmp_path, monkeypatch):
 def test_unported_serving_options_raise():
     with pytest.raises(NotImplementedError, match="item 11"):
         tserve.warm_cache.OwnerPlacement(None, "graph", 10)
-    for kw, item in ((dict(faults=object()), "item 10"), (dict(placement=object()), "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            tserve.WarmCache(device="cpu", **kw)
-    # tracing is ported (tests/test_torch_obs.py): the cache takes a recorder
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tserve.WarmCache(device="cpu", placement=object())
+    # tracing is ported (tests/test_torch_obs.py): the cache takes a recorder;
+    # fault sites and the supervisor too (tests/test_torch_resilience.py)
     assert tserve.WarmCache(device="cpu", obs=None).obs is None
-    _, tsvc = _services(100, 600, 1, max_lanes=2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tserve.LaneScheduler(tsvc, supervisor=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tserve.WarmCache()

@@ -257,22 +257,18 @@ def test_batch_id_dedup_window_matches_reference():
 
 def test_unported_parts_raise():
     _, t = _pair("grid")
-    with pytest.raises(NotImplementedError, match="item 10: Resilience"):
-        t.apply(ts.EdgeBatch.inserts([1], [2], [1.0]), faults=object())
     with pytest.raises(NotImplementedError, match="item 11: Multi-GPU"):
         t.sharded_runtime_for(talg.SSSP)
     # GraphService is ported (tests/test_torch_stream_service.py), and its
-    # tracing (tests/test_torch_obs.py); its mesh and fault options are not
-    for kw, item in ((dict(mesh=object()), "item 11"), (dict(faults=object()), "item 10"),
-                     (dict(supervisor=object()), "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            ts.GraphService(_graph("grid")[1], device="cpu", **kw)
+    # tracing (tests/test_torch_obs.py) and its fault options
+    # (tests/test_torch_resilience.py); its mesh option is not
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ts.GraphService(_graph("grid")[1], device="cpu", mesh=object())
     with pytest.raises(AttributeError):
         ts.no_such_name
-    for kw in (dict(mesh=object()), dict(faults=object()), dict(retry=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ts.run_incremental(t, talg.SSSP, [], np.zeros(t.n_nodes, np.float32),
-                               np.zeros(t.n_nodes, np.float32), **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ts.run_incremental(t, talg.SSSP, [], np.zeros(t.n_nodes, np.float32),
+                           np.zeros(t.n_nodes, np.float32), mesh=object())
     with pytest.raises(NotImplementedError, match="item 11"):
         ts.run_incremental(t, talg.SSSP, [], np.zeros(t.n_nodes, np.float32),
                            np.zeros(t.n_nodes, np.float32),
