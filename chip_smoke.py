@@ -132,6 +132,22 @@ Phases, in order; any failure exits nonzero and prints no result line:
    budget held, no top-tier request shed, a corrupt spill detected; then an
    empty ``FaultPlan`` against none in turns, bit-equal, with the port's
    host syncs (PyTorch's sync debug mode) equal site by site;
+14. (right after phase 13, same graph and configuration) the sharded sweep
+   (``run_hytm`` with ``mesh_axis="graph"``, ``dist.graph_shard``) through
+   the kernels.  Leg (a): NCCL at world size 1 in this process, SSSP (K=8,
+   K=1) and Δ-PageRank against the single-device ``async_sweep=False``
+   runs (SSSP bit-equal in values, iterations, bytes and engines;
+   Δ-PageRank within phase 4's bound; ICI rows zero).  Leg (b): two gloo
+   ranks on the one card (this process rank 0, one spawned rank; the graph
+   handed over as ``.npy`` files), SSSP (K=8) and Δ-PageRank held to the
+   same contract, both ranks' results equal, SSSP's ``merged_entries``
+   equal to leg (a)'s and the D = 2 ICI rows ``ici_level_cost`` of them, a
+   seeded ``chunk_dispatch`` plan firing alike on both ranks with SSSP
+   bit-equal.  Every leg launches the kernels of the engines its rank
+   picked and no other.  Wall seconds in turns with the single-device sync
+   run (3 rounds; leg (b)'s Δ-PageRank 1), the all_reduces' device ms an
+   iteration (CUDA events; gloo stages them through the host) and host
+   syncs a dispatch;
 6. LM serving: the reduced gemma3-12b config on the card against the CPU
    (float32, logits within 1e-4, greedy tokens equal), then gemma3-12b at
    full width (11.8B parameters in bf16, random weights from the seed):
@@ -2683,6 +2699,345 @@ def phase_resilience(torch, cfg, hs, rt, source: int, main_runs: dict, smi: str)
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: the sharded sweep (dist.graph_shard, replicated layout)
+# ---------------------------------------------------------------------------
+
+SHARD_TURNS = 3       # rounds of (single-device sync, sharded) runs, alternating
+# leg (b)'s Δ-PageRank: one round; each of its sharded runs stages 568 16-MB
+# all_reduces through the host (about 10-15 s a run on the card)
+GLOO_PAGERANK_TURNS = 1
+
+
+def shard_legs(cfg, source: int) -> dict:
+    """Phase 14's legs: name -> (program, source, single-device sync config);
+    the sharded run of a leg is its config with ``mesh_axis="graph"``."""
+    legs = main_path_legs(dataclasses.replace(cfg, async_sweep=False), source)
+    return {name: legs[name] for name in ("sssp_k8", "sssp_k1", "pagerank")}
+
+
+def engine_launches_match(res, counts: dict, cols=slice(None)) -> bool:
+    """Each graph kernel launched iff the run picked its engine for one of
+    the partitions ``cols`` (a rank's own), COMPACT and ZEROCOPY combining
+    with the plain combine, and no other kernel ran."""
+    picked = set(np.unique(res.history["engines"][:, cols]).tolist())
+    return ([counts[k] > 0 for k in ALL_KERNELS] == [e in picked for e in (0, 1, 2)]
+            and all(v == 0 for k, v in counts.items() if k not in ALL_KERNELS))
+
+
+class TimedCollectives:
+    """CUDA events around every ``torch.distributed.all_reduce`` while
+    entered (``graph_shard`` reads the function at each call)."""
+
+    def __init__(self, torch):
+        self.torch, self.pairs = torch, []
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.dist, self.real = dist, dist.all_reduce
+
+        def timed(*args, **kwargs):
+            start = self.torch.cuda.Event(enable_timing=True)
+            end = self.torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.real(*args, **kwargs)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+
+        dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce = self.real
+
+    def ms(self) -> float:
+        self.torch.cuda.synchronize()
+        return float(sum(s.elapsed_time(e) for s, e in self.pairs))
+
+
+def align_ranks(torch, mesh) -> None:
+    """One small all_reduce on the group, waited for: the ranks leave it
+    together (a rank that built its runtime faster does not charge the
+    wait to its first timed collective), and NCCL builds its communicator
+    at its first collective, outside the measured runs."""
+    import torch.distributed as dist
+
+    dist.all_reduce(torch.zeros(1, device=mesh.device), group=mesh.group)
+    torch.cuda.synchronize()
+
+
+def instrumented(torch, run, count_syncs: bool = True) -> dict:
+    """One run of ``run(obs)`` with a ``TraceRecorder``, the all_reduces
+    timed and (``count_syncs``) the host syncs counted: the result, the ICI
+    instants' ``merged_entries`` and the result's ICI rows (the same run's:
+    a SUM program's run on the card is not repeatable bit for bit), the
+    collectives' ms an iteration, host syncs a dispatch."""
+    from repro_torch.obs import TraceRecorder, reconcile
+    from repro_torch.obs.export import CAT_ICI
+
+    rec, box = TraceRecorder(), {}
+    with TimedCollectives(torch) as coll:
+        def call():
+            box["res"] = run(rec)
+        syncs = host_syncs(torch, call) if count_syncs else {}
+        if not count_syncs:
+            call()
+    res = box["res"]
+    # dispatches: the chunks, or the K = 1 loop's iterations
+    dispatches = sum(1 for ev in rec.events if ev.name == "chunk") or res.iterations
+    check(reconcile(rec, res)["ok"], "sharded run: reconcile not exact")
+    return {"res": res, "merged": [ev.args["merged_entries"] for ev in rec.events
+                                   if ev.cat == CAT_ICI],
+            "ici_rows": list(zip(*(res.history[k].tolist()
+                                   for k in ("ici_bytes", "ici_time", "ici_engine")))),
+            "collective_ms_per_iter": coll.ms() / res.iterations, "n_collectives": len(coll.pairs),
+            "syncs": syncs, "dispatches": dispatches,
+            "syncs_per_dispatch": sum(syncs.values()) / dispatches}
+
+
+def shard_turns(sharded, single, rounds: int = SHARD_TURNS) -> dict:
+    """Wall seconds of ``rounds`` rounds of (single-device sync run, sharded
+    run), the order alternating; ``single`` is None on a rank that runs only
+    the sharded side."""
+    walls = {"single": [], "sharded": []}
+    for r in range(rounds):
+        for which in ("single", "sharded") if r % 2 == 0 else ("sharded", "single"):
+            fn = sharded if which == "sharded" else single
+            if fn is not None:
+                walls[which].append(fn())
+    return walls
+
+
+def shard_rank(group, graph_dir: str, cfg, source: int, n_hubs: int) -> dict:
+    """Leg (b) on one rank of a two-rank gloo group on one card: the graph
+    from ``graph_dir`` (``.npy`` files), its sharded runtime, then SSSP
+    (K=8) and Δ-PageRank instrumented, SSSP under a seeded
+    ``chunk_dispatch`` plan, and the turns; rank 0 also runs the
+    single-device sync legs in the turns (rank 1 meanwhile waits in its
+    next collective).
+    Both ranks make the same sharded calls in the same order.  Rank 1
+    counts the host syncs of its instrumented runs (its process logs no
+    C++ warning: gloo's worker threads, which stage every collective
+    through the host, sync outside the Python thread's site table)."""
+    import torch
+
+    from repro_torch.core.hytm import build_runtime, run_hytm
+    from repro_torch.dist.graph_shard import build_sharded_runtime
+    from repro_torch.graph.csr import CSRGraph
+    from repro_torch.launch.mesh import make_graph_mesh
+    from repro_torch.resilience import FaultSpec, RetryPolicy, plan_of
+
+    t = time.monotonic()
+    d = Path(graph_dir)
+    g = CSRGraph(np.load(d / "indptr.npy"), np.load(d / "indices.npy"),
+                 np.load(d / "weights.npy"))
+    mesh = make_graph_mesh(group=group, device="cuda:0")
+    legs = {k: v for k, v in shard_legs(cfg, source).items() if k != "sssp_k1"}
+    shard = {k: dataclasses.replace(c, mesh_axis="graph") for k, (_, _, c) in legs.items()}
+    srt = build_sharded_runtime(g, shard["sssp_k8"], mesh, n_hubs=n_hubs)
+    lead = mesh.rank == 0
+    rt1 = build_runtime(g, cfg, n_hubs=n_hubs, device=mesh.device) if lead else None
+    align_ranks(torch, mesh)
+
+    def step(msg):
+        if lead:
+            log(f"  (b) rank 0: {msg} ({time.monotonic() - t:.1f} s into its task)")
+
+    step("graph loaded, runtimes built")
+    out = {"rank": mesh.rank, "launches": {}, "info": {}, "walls": {}}
+    for name, (prog, src, _) in legs.items():
+        reset_launch_counts()
+        out["info"][name] = instrumented(
+            torch, lambda rec, p=prog, s=src, c=shard[name]:
+            run_hytm(None, p, s, c, runtime=srt, obs=rec), count_syncs=not lead)
+        out["launches"][name] = read_launch_counts()
+        step(f"{name} checked")
+    prog, src, _ = legs["sssp_k8"]
+    plan = plan_of(FaultSpec("chunk_dispatch", "fail", at=(0, 1)), seed=SEED)
+    out["faulted"] = run_hytm(None, prog, src, shard["sssp_k8"], runtime=srt, faults=plan,
+                              retry=RetryPolicy(max_attempts=4))
+    out["fired"] = [(e.site, e.kind, e.occurrence) for e in plan.events]
+    for name, (prog, src, c) in legs.items():
+        out["walls"][name] = shard_turns(
+            lambda p=prog, s=src, cc=shard[name]: run_hytm(None, p, s, cc,
+                                                           runtime=srt).wall_seconds,
+            (lambda p=prog, s=src, cc=c: run_hytm(None, p, s, cc, runtime=rt1).wall_seconds)
+            if lead else None,
+            rounds=GLOO_PAGERANK_TURNS if name == "pagerank" else SHARD_TURNS)
+        step(f"{name} turns")
+    return out
+
+
+def shard_summary(name: str, single: dict, walls: dict, res, info: dict) -> dict:
+    med = {k: float(np.median(v)) for k, v in walls.items() if v}
+    log(f"  {name}: {res.iterations} iterations; median wall {med['sharded']:.4f} s sharded "
+        f"vs {med['single']:.4f} s single-device sync (of {len(walls['sharded'])} each, in "
+        f"turns; the instrumented run {res.wall_seconds:.4f} s); "
+        f"collectives {info['collective_ms_per_iter']:.3f} ms an iteration "
+        f"({info['n_collectives']} all_reduces); {info['syncs_per_dispatch']:.2f} host syncs a "
+        f"dispatch ({info['dispatches']} dispatches: {info['syncs']})")
+    return {"iterations": res.iterations, "median_s": med, "walls": walls,
+            "instrumented_s": res.wall_seconds,
+            "single_iterations": single["iterations"],
+            **{k: info[k] for k in ("collective_ms_per_iter", "n_collectives", "syncs",
+                                    "dispatches", "syncs_per_dispatch")}}
+
+
+def phase_sharded(torch, cfg, hs, rt, source: int, smi: str) -> dict:
+    """Phase 14: ``run_hytm`` with ``mesh_axis="graph"`` through the kernels
+    at full size.  Leg (a): NCCL at world size 1 in this process, SSSP
+    (K=8, K=1) and Δ-PageRank against the single-device ``async_sweep=False``
+    runs on the card (SSSP bit-equal in values, iterations, bytes and
+    engines; Δ-PageRank within phase 4's bound; ICI rows zero).  Leg (b):
+    two ranks on this one card over gloo (this process rank 0, one spawned
+    rank 1; the graph handed over as ``.npy`` files): the same SSSP (K=8)
+    and Δ-PageRank held to the same contract, both ranks' results equal,
+    the ``merged_entries`` rows equal leg (a)'s (touched sets are unions) so
+    the D = 2 ICI rows are ``ici_level_cost`` of them, and a seeded
+    ``chunk_dispatch`` plan that fires on both ranks leaves SSSP bit-equal.
+    Each leg's launches: the kernels of the engines it picked, and no
+    other.  Wall seconds in turns with the single-device sync run (3
+    rounds; leg (b)'s Δ-PageRank 1), the all_reduces' device ms an iteration
+    (CUDA events; gloo stages them through the host) and host syncs a
+    dispatch."""
+    import tempfile
+
+    from repro_torch.core.hytm import run_hytm
+    from repro_torch.dist.graph_shard import build_sharded_runtime, ici_level_cost
+    from repro_torch.launch.mesh import RankPool, make_graph_mesh
+
+    legs = shard_legs(cfg, source)
+    shard = {k: dataclasses.replace(c, mesh_axis="graph") for k, (_, _, c) in legs.items()}
+    out, launches = {"card": smi}, {}
+    single = {}
+    for name, (prog, src, c) in legs.items():
+        single[name] = run_hytm(None, prog, src, c, runtime=rt)
+
+    def held(name, res, where):
+        s = single[name]
+        if name == "pagerank":
+            a, b = res.values + res.delta, s.values + s.delta
+            err = float(np.max(np.abs(a - b)))
+            check(bool(np.all(np.isfinite(a))) and np.allclose(a, b, rtol=1e-4, atol=1e-3),
+                  f"{where} Δ-PageRank vs single-device sync: max |err| {err:.3e}")
+            return {"max_abs_err": err}
+        check(same_min_run(res, s),
+              f"{where} {name} != single-device sync (values/iterations/bytes/engines)")
+        return {"bit_equal": True}
+
+    # -- leg (a): NCCL, world size 1, this process
+    t = time.monotonic()
+    a = {}
+    with RankPool(1, backend="nccl", timeout_s=120.0):
+        mesh = make_graph_mesh(device=rt.device)
+        srt = build_sharded_runtime(hs.graph, shard["sssp_k8"], mesh, n_hubs=hs.n_hubs)
+        align_ranks(torch, mesh)
+        summary = {}
+        for name, (prog, src, c) in legs.items():
+            reset_launch_counts()
+            info = instrumented(torch, lambda rec, p=prog, s=src, cc=shard[name]:
+                                run_hytm(None, p, s, cc, runtime=srt, obs=rec))
+            counts = launches[f"sharded_nccl_{name}"] = read_launch_counts()
+            res = info["res"]
+            check(engine_launches_match(res, counts),
+                  f"leg (a) {name}: launches {counts} do not match its engines")
+            check(res.total_ici_bytes == 0.0 and bool((res.history["ici_engine"] == -1).all())
+                  and not res.history["ici_time"].any(), f"leg (a) {name}: ICI rows not zero")
+            a[name] = {"merged": info["merged"], **held(name, res, "leg (a)")}
+            walls = shard_turns(
+                lambda p=prog, s=src, cc=shard[name]: run_hytm(None, p, s, cc,
+                                                               runtime=srt).wall_seconds,
+                lambda p=prog, s=src, cc=c: run_hytm(None, p, s, cc, runtime=rt).wall_seconds)
+            summary[name] = shard_summary(f"(a) nccl D=1 {name}", vars(single[name]), walls,
+                                          res, info)
+        log("phase 14 leg (a), NCCL at world size 1: SSSP (K=8, K=1) bit-equal to the "
+            "single-device sync runs, Δ-PageRank within phase 4's bound "
+            f"(max |err| {a['pagerank']['max_abs_err']:.3e}), ICI rows zero, launches "
+            + str({k: {kk: v for kk, v in c.items() if kk in ALL_KERNELS}
+                   for k, c in launches.items()}))
+        del srt
+    torch.cuda.empty_cache()
+    out["nccl_d1"] = summary
+    out["nccl_d1"]["seconds"] = time.monotonic() - t
+    log(f"phase 14 leg (a) took {out['nccl_d1']['seconds']:.1f} s")
+
+    # -- leg (b): gloo, two ranks on this card
+    t = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="phase14_") as tmp:
+        g = hs.graph
+        for key, arr in (("indptr", g.indptr), ("indices", g.indices),
+                         ("weights", g.weights if g.weights is not None
+                          else np.ones(g.n_edges, np.float32))):
+            np.save(Path(tmp) / f"{key}.npy", arr)
+        # the spawned rank logs no C++ warning (its gloo threads' syncs
+        # under the sync debug mode), so its host-sync count stays readable
+        level = os.environ.get("TORCH_CPP_LOG_LEVEL")
+        os.environ["TORCH_CPP_LOG_LEVEL"] = "ERROR"
+        try:
+            pool = RankPool(2, backend="gloo", timeout_s=300.0)
+        finally:
+            if level is None:
+                del os.environ["TORCH_CPP_LOG_LEVEL"]
+            else:
+                os.environ["TORCH_CPP_LOG_LEVEL"] = level
+        with pool:
+            ranks = pool.run(shard_rank, tmp, cfg, source, hs.n_hubs)
+    r0, r1 = ranks
+    half = rt.parts.n_partitions // 2
+    b = {}
+    for name in ("sssp_k8", "pagerank"):
+        res, other = r0["info"][name]["res"], r1["info"][name]["res"]
+        for r in ranks:
+            counts = launches[f"sharded_gloo_{name}_rank{r['rank']}"] = r["launches"][name]
+            own = slice(r["rank"] * half, (r["rank"] + 1) * half)
+            check(engine_launches_match(r["info"][name]["res"], counts, own),
+                  f"leg (b) {name} rank {r['rank']}: launches {counts} do not match its engines")
+        check(all(np.array_equal(res.history[k], other.history[k]) for k in res.history)
+              and np.array_equal(res.values, other.values)
+              and np.array_equal(res.delta, other.delta),
+              f"leg (b) {name}: the two ranks' results differ")
+        b[name] = held(name, res, "leg (b)")
+
+        merged = r0["info"][name]["merged"]
+        check(merged == r1["info"][name]["merged"],
+              f"leg (b) {name}: the two ranks' merged_entries differ")
+        # touched sets are unions, so a MIN program's rows equal leg (a)'s; a
+        # SUM program's frontier may move at its tolerance with the merge's
+        # float order, and with it the rows (reported, not required)
+        b[name]["merged_equal_leg_a"] = merged == a[name]["merged"]
+        check(b[name]["merged_equal_leg_a"] or name == "pagerank",
+              f"leg (b) {name}: merged_entries differ from leg (a)'s")
+        want = [ici_level_cost(g.n_nodes, m, 2, cfg.ici_link) for m in merged]
+        check(r0["info"][name]["ici_rows"] == [tuple(w) for w in want],
+              f"leg (b) {name}: ICI rows != ici_level_cost of the merged entries")
+        b[name]["ici_engines"] = {int(e): int(n) for e, n in zip(
+            *np.unique(res.history["ici_engine"], return_counts=True))}
+    check(bool(r0["fired"]) and r0["fired"] == r1["fired"],
+          f"leg (b): the fault plan fired {r0['fired']} on rank 0, {r1['fired']} on rank 1")
+    check(same_min_run(r0["faulted"], r0["info"]["sssp_k8"]["res"])
+          and same_min_run(r1["faulted"], r0["info"]["sssp_k8"]["res"]),
+          "leg (b): SSSP under the fault plan != the clean run")
+    log(f"phase 14 leg (b), gloo at D=2 on one card: SSSP bit-equal to the single-device sync "
+        f"run, Δ-PageRank within phase 4's bound (max |err| {b['pagerank']['max_abs_err']:.3e}), "
+        f"both ranks equal, merged_entries equal leg (a)'s (Δ-PageRank: "
+        f"{b['pagerank']['merged_equal_leg_a']}), ICI engines "
+        f"{ {k: v['ici_engines'] for k, v in b.items()} }; faults {r0['fired']} on both ranks, "
+        "SSSP bit-equal")
+    # the walls and collective times are rank 0's, the host syncs rank 1's
+    out["gloo_d2"] = {name: {**b[name], **shard_summary(
+        f"(b) gloo D=2 {name}", vars(single[name]), r0["walls"][name], r0["info"][name]["res"],
+        {**r0["info"][name], **{k: r1["info"][name][k] for k in (
+            "syncs", "dispatches", "syncs_per_dispatch")}})} for name in ("sssp_k8", "pagerank")}
+    out["gloo_d2"]["fired"] = r0["fired"]
+    out["gloo_d2"]["seconds"] = time.monotonic() - t
+    log(f"phase 14 leg (b) took {out['gloo_d2']['seconds']:.1f} s (collectives staged "
+        "through the host by gloo; the merge between two devices is not measured: one card)")
+    out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: LM serving, gemma3-12b at full width
 # ---------------------------------------------------------------------------
 
@@ -3418,6 +3773,11 @@ def main() -> int:
     resil["phase_s"] = time.monotonic() - t
     serve_launches.update(resil.pop("launches"))
     log(f"phase 13 (resilience) took {resil['phase_s']:.1f} s")
+    t = time.monotonic()
+    sharded = phase_sharded(torch, cfg, hs, rt, source, smi)
+    sharded["phase_s"] = time.monotonic() - t
+    launches.update(sharded.pop("launches"))
+    log(f"phase 14 (sharded sweep) took {sharded['phase_s']:.1f} s")
     del main_runs
     dev = rt.device
     del rt, hs
@@ -3454,6 +3814,7 @@ def main() -> int:
     kernels[0]["graph_serving"] = serve
     kernels[0]["calibration_observability"] = calib
     kernels[0]["resilience"] = resil
+    kernels[0]["sharded"] = sharded
     for key, row in (("sum_d2", "segment_spmm_sum"), ("last_partition", "segment_spmm_last"),
                      ("sum_d2_last_partition", "segment_spmm_sum_last")):
         kernels[0][key] = {k: rows[row][k] for k in ("shape", "ms", "cold_ms", "call_ms",

@@ -44,7 +44,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.constants import PCIE3, LinkModel
+from repro_torch.core.constants import PCIE3, TPU_V5E_ICI, LinkModel
 from repro_torch.core.cost_model import (
     HISTORY_KEYS,
     KEY_ACTIVE_EDGES,
@@ -104,14 +104,21 @@ class HyTMConfig:
     use_kernels: bool | str = "auto"
     forced_engine: int | None = None  # force a single engine (baselines)
     hub_fraction: float = 0.08
-    # Fields of features later slices bring (ROADMAP queue 1); run_hytm
-    # raises NotImplementedError when they ask for anything but the
-    # single-device defaults.  The reference's default ICI profile comes
-    # with the multi-GPU slice, so ici_link is None until then.
-    ici_link: LinkModel | None = None
+    # The link that charges the sharded sweep's cross-device merge in the
+    # model (``dist.graph_shard.ici_level_cost``); read only with
+    # ``mesh_axis``.  The default is the reference's TPU v5e ICI profile,
+    # so that modeled ICI seconds compare with the reference's: its numbers
+    # are the reference's model inputs, not a measurement of any GPU link.
+    ici_link: LinkModel = TPU_V5E_ICI
     autotune: bool = False
     autotune_decay: float = 0.25
+    # A 1-D process group's axis name: ``run_hytm`` then runs the sharded
+    # sweep (``dist.graph_shard.run_hytm_sharded``), which reproduces the
+    # single-device ``async_sweep=False`` dataflow whatever ``async_sweep``
+    # says.
     mesh_axis: str | None = None
+    # the sharded sweep's vertex-state layout: "replicated" ("owner" is
+    # ROADMAP queue 1 item 11b and raises)
     vertex_sharding: str = "replicated"
 
 
@@ -146,6 +153,10 @@ class Runtime:
     @property
     def device(self) -> torch.device:
         return self.csr.device
+
+    @property
+    def out_degree(self) -> torch.Tensor:
+        return self.csr.out_degree
 
 
 def build_runtime(
@@ -281,19 +292,24 @@ class _Planned(NamedTuple):
     stats: PartitionStats
     plan: TaskPlan
     sched: Schedule
+    delta_mass: torch.Tensor  # (P,) pending |Δ| per partition
 
 
 def _plan(
     state: HyTMState,
-    rt: Runtime,
+    rt,
     program: VertexProgram,
     config: HyTMConfig,
     correction: torch.Tensor | None = None,
 ) -> _Planned:
-    """Steps 1-4 of an iteration, on the device."""
+    """Steps 1-4 of an iteration, on the device.  ``rt`` is a ``Runtime``
+    or a ``dist.graph_shard.ShardedRuntime``: both hold the replicated
+    ``parts``, ``out_degree``, ``zc_req`` and ``n_hub_partitions``.  An
+    empty partition (the sharded table's padding) has zero stats, so it
+    plans NONE and zero bytes, and its Δ mass is an empty segment's 0."""
     P = rt.parts.n_partitions
     frontier = state.frontier
-    stats = partition_stats(frontier, rt.csr.out_degree, rt.zc_req, rt.parts)
+    stats = partition_stats(frontier, rt.out_degree, rt.zc_req, rt.parts)
     if config.forced_engine is None:
         plan = generate_tasks(
             stats, config.link, combine_k=config.combine_k,
@@ -317,7 +333,7 @@ def _plan(
         delta_mass = torch.zeros(P, dtype=torch.float32, device=frontier.device)
     sched = make_schedule(plan.engines, delta_mass, rt.n_hub_partitions,
                           config.cds_mode, config.recompute_once)
-    return _Planned(stats=stats, plan=plan, sched=sched)
+    return _Planned(stats=stats, plan=plan, sched=sched, delta_mass=delta_mass)
 
 
 def _fetch(planned: _Planned, prev_active: torch.Tensor | None = None):
@@ -349,7 +365,6 @@ def _iteration_impl(
     frontier = state.frontier
     use_kernels = resolve_use_kernels(config.use_kernels, frontier.device)
     engines_h, order_h, second_h = host
-    stats, plan = planned.stats, planned.plan
 
     # (5) asynchronous sweep in priority order
     state1, activated = _sweep(
@@ -371,24 +386,33 @@ def _iteration_impl(
         state1, rt, program, engines2, order_h, frontier2,
         config.async_sweep, consume="processed", use_kernels=use_kernels,
     )
-    activated |= activated2
+    return _finish(state2.values, state2.delta, activated | activated2, frontier,
+                   planned, program, config, correction)
 
+
+def _finish(
+    values: torch.Tensor,
+    delta: torch.Tensor,
+    activated: torch.Tensor,
+    frontier: torch.Tensor,   # the iteration's starting frontier
+    planned: _Planned,
+    program: VertexProgram,
+    config: HyTMConfig,
+    correction: torch.Tensor | None,
+) -> tuple[HyTMState, dict[str, Any]]:
+    """The next frontier and the iteration's info row, from the state after
+    both passes (the single-device and the sharded iteration share it)."""
+    stats, plan = planned.stats, planned.plan
     if program.peel_k is not None:
         # removal: alive vertices whose remaining degree fell below k
-        alive = state2.delta < 0.5
-        next_frontier = alive & (state2.values < program.peel_k)
-        new_state = HyTMState(
-            values=state2.values,
-            delta=state2.delta + next_frontier.to(torch.float32),
-            frontier=next_frontier,
-        )
+        alive = delta < 0.5
+        next_frontier = alive & (values < program.peel_k)
+        delta = delta + next_frontier.to(torch.float32)
+    elif program.combine == MIN:
+        next_frontier = activated
     else:
-        if program.combine == MIN:
-            next_frontier = activated
-        else:
-            next_frontier = torch.abs(state2.delta) > _scalar(program.tolerance, frontier)
-        new_state = HyTMState(values=state2.values, delta=state2.delta,
-                              frontier=next_frontier)
+        next_frontier = torch.abs(delta) > _scalar(program.tolerance, frontier)
+    new_state = HyTMState(values=values, delta=delta, frontier=next_frontier)
 
     per_engine_time, mispredictions = selection_diagnostics(
         plan.engines, plan.transfer_time, stats, plan.costs, correction,
@@ -427,8 +451,10 @@ def hytm_iteration(
 # Chunked driver
 # --------------------------------------------------------------------------
 
-def chunked_while(iter_fn, plan_fn, state: HyTMState, history: dict, chunk: int):
-    """Run up to ``chunk`` iterations: ``plan_fn(state) -> planned`` and
+def chunked_while(iter_fn, plan_fn, state: HyTMState, history: dict, chunk: int,
+                  fetch=_fetch):
+    """Run up to ``chunk`` iterations: ``plan_fn(state) -> planned``,
+    ``fetch(planned, prev_active) -> (*host, prev)`` and
     ``iter_fn(state, planned, host) -> (state, info)``, writing iteration
     ``i``'s info into ``history[k][i]`` and summing the (3,) per-engine
     modeled seconds.  The early-exit test reads the *previous* iteration's
@@ -443,10 +469,10 @@ def chunked_while(iter_fn, plan_fn, state: HyTMState, history: dict, chunk: int)
     n_done = 0
     while n_done < chunk:
         planned = plan_fn(state)
-        engines, order, second, prev = _fetch(planned, prev_active)
+        *host, prev = fetch(planned, prev_active)
         if prev == 0:
             break
-        state, info = iter_fn(state, planned, (engines, order, second))
+        state, info = iter_fn(state, planned, tuple(host))
         for k, buf in history.items():
             buf[n_done] = info[k]
         pe = info[KEY_PER_ENGINE_TIME]
@@ -827,11 +853,13 @@ class HyTMResult:
     engine_corrections: np.ndarray | None = None
 
 
-def _reject_unported(config: HyTMConfig, mesh) -> None:
+def _reject_unported(config: HyTMConfig, mesh, caller: str) -> None:
+    """Raise for a caller whose sharded path is not ported yet."""
     if config.mesh_axis is not None or mesh is not None:
         raise NotImplementedError(
-            "run_hytm: mesh_axis/mesh is not ported yet (ROADMAP queue 1, "
-            "item 11: Multi-GPU)")
+            f"{caller}: mesh_axis/mesh is not ported yet (ROADMAP queue 1, "
+            "item 11c: the sharded paths of the stream, serving and "
+            "resilience slices)")
 
 
 def run_hytm(
@@ -893,10 +921,22 @@ def run_hytm(
     device state), ``iterations``, ``rows`` (the drained host history so
     far), ``calibrator`` and ``last_active``.
 
-    ``mesh`` and the config's ``mesh_axis`` belong to a later slice and
-    raise ``NotImplementedError``.
+    With ``config.mesh_axis`` set the run is the sharded sweep over
+    ``mesh`` (a ``launch.mesh.GraphMesh``; every rank of its group calls
+    ``run_hytm`` with the same arguments): ``dist.graph_shard
+    .run_hytm_sharded``, whose device is the mesh's.  Without
+    ``mesh_axis``, ``mesh`` is not read (the supervisor's
+    ``mesh->single-device`` rung relies on that).
     """
-    _reject_unported(config, mesh)
+    if config.mesh_axis is not None:
+        # late import: graph_shard builds on this module
+        from repro_torch.dist.graph_shard import run_hytm_sharded
+
+        return run_hytm_sharded(
+            g, program, source=source, config=config, n_hubs=n_hubs,
+            mesh=mesh, runtime=runtime, calibrator=calibrator,
+            initial_state=initial_state, obs=obs, faults=faults, retry=retry,
+            on_chunk=on_chunk, device=device)
     if config.sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {config.sync_every}")
     if on_chunk is not None and config.sync_every == 1:

@@ -42,19 +42,31 @@ def make_schedule(
     mode: str,                 # 'hub' | 'delta' | 'none'
     recompute_once: bool,
     second_pass_fraction: float = 0.125,
+    pid_offset: int = 0,
+    priority_mask: torch.Tensor | None = None,
 ) -> Schedule:
+    """``pid_offset`` shifts local partition indices to global ids, so a
+    rank scheduling its shard of the partitions (``dist.graph_shard``)
+    ranks hubs as the single-device schedule does.  The Δ-mode priority
+    mask is a global top-fraction rank that a rank cannot derive from its
+    local |Δ| slice: the sharded sweep computes it on the replicated state
+    and passes it as ``priority_mask``, which then overrides the local
+    one."""
     P = engines.shape[0]
     dev = engines.device
-    pid = torch.arange(P, dtype=torch.int32, device=dev)
+    pid = pid_offset + torch.arange(P, dtype=torch.int32, device=dev)
     if mode == "delta":
         score = delta_mass
-        priority_mask = _rank(-delta_mass) < max(1, int(P * second_pass_fraction))
+        if priority_mask is None:
+            priority_mask = _rank(-delta_mass) < max(1, int(P * second_pass_fraction))
     elif mode == "hub":
         score = -pid.to(torch.float32)  # low id == hub partitions first
-        priority_mask = pid < n_hub_partitions
+        if priority_mask is None:
+            priority_mask = pid < n_hub_partitions
     else:
         score = torch.zeros(P, dtype=torch.float32, device=dev)
-        priority_mask = torch.zeros(P, dtype=torch.bool, device=dev)
+        if priority_mask is None:
+            priority_mask = torch.zeros(P, dtype=torch.bool, device=dev)
 
     # engine tier: FILTER first (paper §VI-B), then ZC/COMPACT, skips last
     tier = torch.where(engines == FILTER, 0, torch.where(engines >= 0, 1, 2))

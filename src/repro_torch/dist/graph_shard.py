@@ -1,0 +1,693 @@
+"""Multi-GPU HyTM: the partition sweep over a 1-D ``torch.distributed``
+group, replicated vertex layout (the reference's ``repro/dist/graph_shard.py``).
+
+Each rank owns a contiguous run of ``P_local = P_pad / D`` partitions: their
+edges, one contiguous range of the CSR edge arrays, live on the rank's
+device with rank-local offsets.  Every rank holds the replicated ``(n,)``
+state (values, Δ, frontier), the per-vertex vectors (``out_degree``,
+``zc_req``, ``inv_deg``) and the whole partition table, padded to ``P_pad =
+ceil(P/D)·D`` with empty partitions (:func:`_pad_table`).  One iteration on
+each rank, step for step the reference's (``graph_shard.py:528-662``):
+
+  1. the global stats, Δ mass, task plan and the global schedule's
+     second-pass mask, all from the replicated state (``core.hytm._plan``);
+  2. the rank's engines: its slice of the global plan (selection is per
+     partition, so this equals Algorithm 1 on the local stats);
+  3. the local schedules of both passes, hub ids made global with
+     ``pid_offset = rank·P_local`` and the global mask passed in;
+  4. ONE device-to-host copy: the local engines, both local orders, the
+     second-pass flags and the previous iteration's ``next_active``;
+  5. pass 1: each local partition relaxed by its engine against the
+     iteration-start operand, the results combined locally, then one
+     collective merge (``all_reduce`` MIN on the aggregate and SUM on the
+     touched counts for MIN programs, SUM on both for SUM programs) and
+     :func:`_apply_merged`;
+  6. pass 2 over the masked engines, merged the same way;
+  7. the next frontier and the info row (``core.hytm._finish``), with
+     ``merged_entries``: the destinations touched in either pass.
+
+The sweep is bulk-synchronous: every rank relaxes against the
+iteration-start state and the updates merge once a pass, so a sharded run
+reproduces the single-device ``async_sweep=False`` run, bit for bit for MIN
+programs and k-core, up to float summation order for SUM programs.
+
+What every rank decides on the host comes from replicated state, which
+stays bit-identical across ranks because an ``all_reduce`` hands every rank
+the same result: the plan copy, the chunk's early exit and the loop's end.
+With ``autotune`` each rank's wall clock differs, so rank 0's calibrator
+alone observes and its correction is broadcast once a chunk (or
+iteration).  A ``FaultPlan`` is seeded per site, so it fires alike on ranks
+that make the same calls.
+
+The cross-device merge is charged in the model by :func:`ici_level_cost`
+(the second transfer-management level) from the drained ``merged_entries``
+rows; the executed collective stays the dense merge.  The owner/halo layout
+(``vertex_sharding="owner"``) is ROADMAP queue 1 item 11b and the lane-batched
+chunk item 11c: both raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.cost_model import (
+    COMPACT,
+    FILTER,
+    HISTORY_KEYS,
+    KEY_ICI_BYTES,
+    KEY_ICI_ENGINE,
+    KEY_ICI_TIME,
+    KEY_MERGED_ENTRIES,
+    KEY_MISPREDICTIONS,
+    KEY_PER_ENGINE_TIME,
+    KEY_TRANSFER_BYTES,
+    KEY_TRANSFER_TIME,
+    NONE,
+    history_shapes,
+    init_history_buffers,
+    link_constants,
+    zc_request_counts,
+)
+from repro_torch.core.engines import EdgeBlock, relax_with_engine
+from repro_torch.core.hytm import (
+    HyTMConfig,
+    HyTMResult,
+    HyTMState,
+    _Planned,
+    _consume_warm,
+    _finish,
+    _plan,
+    _scalar,
+    chunked_while,
+)
+from repro_torch.core.partition import (
+    DevicePartitions,
+    PartitionTable,
+    partition_graph,
+    to_device_partitions,
+)
+from repro_torch.core.scheduler import make_schedule
+from repro_torch.graph.algorithms import MIN, SUM, VertexProgram
+from repro_torch.graph.csr import CSRGraph
+from repro_torch.kernels.runtime import resolve_use_kernels
+from repro_torch.launch.mesh import GraphMesh, make_graph_mesh
+from repro_torch.resilience.supervisor import guarded_dispatch
+
+_OWNER = ("vertex_sharding='owner' is not ported yet (ROADMAP queue 1, item 11b: the "
+          "owner/halo layout)")
+
+
+@dataclass
+class ShardedRuntime:
+    """One rank's device-placed inputs, shared by every sharded iteration."""
+
+    mesh: GraphMesh
+    parts: DevicePartitions    # the padded (P_pad) table, replicated
+    edge_src: torch.Tensor     # (E_local,) int32: this rank's edge range
+    edge_dst: torch.Tensor     # (E_local,) int32
+    edge_weight: torch.Tensor  # (E_local,) float32
+    edge_base: int             # global index of the rank's first edge
+    out_degree: torch.Tensor   # (n,) int32, replicated
+    zc_req: torch.Tensor       # (n,) float32, replicated
+    inv_deg: torch.Tensor      # (n,) float32, replicated
+    n_nodes: int
+    n_partitions: int          # padded: a multiple of the mesh size
+    n_hub_partitions: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device
+
+    @property
+    def n_local(self) -> int:
+        return self.n_partitions // self.mesh.size
+
+    @property
+    def p_offset(self) -> int:
+        """Global id of the rank's first partition."""
+        return self.mesh.rank * self.n_local
+
+
+def _pad_table(table: PartitionTable, n_dev: int) -> PartitionTable:
+    """Append empty partitions so the partition count divides the mesh."""
+    P_real = table.n_partitions
+    P_pad = -(-P_real // n_dev) * n_dev
+    if P_pad == P_real:
+        return table
+    extra = P_pad - P_real
+    vs = np.concatenate([table.vertex_start, np.full(extra, table.vertex_start[-1])])
+    es = np.concatenate([table.edge_start, np.full(extra, table.edge_start[-1])])
+    return PartitionTable(vertex_start=vs.astype(np.int64), edge_start=es.astype(np.int64))
+
+
+def _check_vertex_sharding(sharding: str) -> None:
+    if sharding not in ("replicated", "owner"):
+        raise ValueError(
+            f"vertex_sharding must be 'replicated' or 'owner', got {sharding!r}")
+    if sharding == "owner":
+        raise NotImplementedError(_OWNER)
+
+
+def build_sharded_runtime(
+    g: CSRGraph,
+    config: HyTMConfig,
+    mesh: GraphMesh,
+    n_hubs: int = 0,
+    weighted_norm: bool = False,
+) -> ShardedRuntime:
+    """Partition ``g``, pad the table to a multiple of the mesh size and
+    upload this rank's edge range and the replicated vectors to the mesh's
+    device."""
+    if config.mesh_axis != mesh.axis:
+        raise ValueError(
+            f"config.mesh_axis={config.mesh_axis!r} is not the mesh's axis {mesh.axis!r}")
+    _check_vertex_sharding(config.vertex_sharding)
+    dev = mesh.device
+    table = _pad_table(
+        partition_graph(g, n_partitions=config.n_partitions,
+                        partition_bytes=config.partition_bytes, d1=config.link.d1),
+        mesh.size)
+    P_pad = table.n_partitions
+    P_local = P_pad // mesh.size
+    e0 = int(table.edge_start[mesh.rank * P_local])
+    e1 = int(table.edge_start[(mesh.rank + 1) * P_local])
+    block = int(table.edges_per_partition.max(initial=1))
+    block = max(128, -(-block // 128) * 128)
+    parts = to_device_partitions(table, g.n_nodes, -(-(g.n_edges + block) // 128) * 128,
+                                 device=dev)
+
+    src_all = g.edge_sources()
+    w_all = g.weights if g.weights is not None else np.ones(g.n_edges, np.float32)
+
+    def up(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype), device=dev)
+
+    out_degree = up(g.out_degrees, np.int32)
+    zc_req = zc_request_counts(out_degree, up(g.indptr[:-1], np.int32), config.link)
+    c = link_constants(config.link, dev)
+    if weighted_norm:
+        # the reference's sharded runtime sums the weights on the host in
+        # float64 (a rank holds only its own edges)
+        wsum = np.bincount(src_all, weights=w_all.astype(np.float64), minlength=g.n_nodes)
+        inv_deg = up(1.0 / np.maximum(wsum, 1e-30), np.float32)
+    else:
+        inv_deg = c["one"] / torch.maximum(out_degree.to(torch.float32), c["one"])
+    n_hub_parts = int(np.searchsorted(table.vertex_start, n_hubs, side="left"))
+    n_hub_parts = max(n_hub_parts, 1) if n_hubs > 0 else 0
+    return ShardedRuntime(
+        mesh=mesh, parts=parts,
+        edge_src=up(src_all[e0:e1], np.int32), edge_dst=up(g.indices[e0:e1], np.int32),
+        edge_weight=up(w_all[e0:e1], np.float32), edge_base=e0,
+        out_degree=out_degree, zc_req=zc_req, inv_deg=inv_deg,
+        n_nodes=g.n_nodes, n_partitions=P_pad, n_hub_partitions=n_hub_parts,
+    )
+
+
+# --------------------------------------------------------------------------
+# One sharded iteration
+# --------------------------------------------------------------------------
+
+def _local_sweep(
+    rt: ShardedRuntime,
+    engines: list[int],        # (P_local,) host ints — NONE entries are skipped
+    order: list[int],          # (P_local,) local processing order
+    frontier: torch.Tensor,    # (n,) replicated
+    operand: torch.Tensor,     # (n,) replicated message operand
+    program: VertexProgram,
+    use_kernels: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Relax this rank's partitions, each its own ``part_edges[p]`` edges,
+    then merge across the group: the merged (n,) (agg, touched), one
+    collective exchange of the contribution vector a pass."""
+    n = rt.n_nodes
+    _, edge_start, part_edges = rt.parts.host
+    identity = float("inf") if program.combine == MIN else 0.0
+    agg = torch.full((n,), identity, dtype=torch.float32, device=operand.device)
+    touched = torch.zeros(n, dtype=torch.bool, device=operand.device)
+    for p in order:
+        eng = engines[p]
+        if eng == NONE:
+            continue
+        gp = rt.p_offset + p
+        start = edge_start[gp] - rt.edge_base
+        stop = start + part_edges[gp]
+        src = rt.edge_src[start:stop]
+        block = EdgeBlock(src=src, dst=rt.edge_dst[start:stop],
+                          weight=rt.edge_weight[start:stop],
+                          active=torch.index_select(frontier, 0, src))
+        out = relax_with_engine(eng, block, operand, n, program, use_kernels)
+        agg = torch.minimum(agg, out.agg) if program.combine == MIN else agg + out.agg
+        touched |= out.touched
+    group = rt.mesh.group
+    dist.all_reduce(agg, op=dist.ReduceOp.MIN if program.combine == MIN
+                    else dist.ReduceOp.SUM, group=group)
+    count = touched.to(torch.int32)
+    dist.all_reduce(count, op=dist.ReduceOp.SUM, group=group)
+    return agg, count > 0
+
+
+def _apply_merged(
+    values: torch.Tensor,
+    delta: torch.Tensor,
+    consumed: torch.Tensor,   # (n,) bool — frontier vertices absorbing Δ
+    agg: torch.Tensor,
+    touched: torch.Tensor,
+    program: VertexProgram,
+):
+    """Synchronous state update from a merged contribution vector (the
+    sharded counterpart of ``core.hytm._sweep``'s sync branch)."""
+    if program.combine == MIN:
+        improved = touched & (agg < values)
+        return torch.where(improved, agg, values), delta, improved
+    values = values + torch.where(consumed, delta, 0.0)
+    delta = torch.where(consumed, 0.0, delta) + agg
+    return values, delta, touched
+
+
+class _ShardPlanned(NamedTuple):
+    """One iteration's plan on the device: the global plan and the rank's
+    slice of it."""
+
+    planned: _Planned          # stats, plan, global schedule, Δ mass (P_pad)
+    engines: torch.Tensor      # (P_local,) the rank's engines
+    order1: torch.Tensor       # (P_local,) pass-1 local order
+    order2: torch.Tensor       # (P_local,) pass-2 local order (masked engines)
+    second: torch.Tensor       # (P_local,) bool: the global second-pass mask
+
+
+def _make_iteration_impl(rt: ShardedRuntime, program: VertexProgram, config: HyTMConfig):
+    """``(plan_fn, fetch, iter_fn)`` of one runtime and program:
+    ``plan_fn(state, correction)`` plans on the device, ``fetch(splanned,
+    prev_active)`` is the iteration's one copy to the host and
+    ``iter_fn(state, splanned, host, correction)`` sweeps both passes
+    (``core.hytm.chunked_while``'s protocol once the correction is
+    bound)."""
+    mode = config.cds_mode
+    P_local, p0 = rt.n_local, rt.p_offset
+    use_kernels = resolve_use_kernels(config.use_kernels, rt.device)
+
+    def plan_fn(state: HyTMState, correction: torch.Tensor | None):
+        planned = _plan(state, rt, program, config, correction)
+        sl = slice(p0, p0 + P_local)
+        engines_l = planned.plan.engines[sl]
+        mask_l = planned.sched.second_pass[sl]
+        dmass_l = planned.delta_mass[sl]
+        order1 = make_schedule(engines_l, dmass_l, rt.n_hub_partitions, mode,
+                               config.recompute_once, pid_offset=p0,
+                               priority_mask=mask_l).order
+        order2 = make_schedule(torch.where(mask_l, engines_l, NONE), dmass_l,
+                               rt.n_hub_partitions, mode, config.recompute_once,
+                               pid_offset=p0, priority_mask=mask_l).order
+        return _ShardPlanned(planned, engines_l, order1, order2, mask_l)
+
+    def fetch(splanned: _ShardPlanned, prev_active: torch.Tensor | None = None):
+        parts = [splanned.engines, splanned.order1, splanned.order2,
+                 splanned.second.to(torch.int32)]
+        if prev_active is not None:
+            parts.append(prev_active.reshape(1).to(torch.int32))
+        host = torch.cat(parts).tolist()
+        L = P_local
+        prev = host[4 * L] if prev_active is not None else None
+        return host[:L], host[L:2 * L], host[2 * L:3 * L], host[3 * L:4 * L], prev
+
+    def iter_fn(state: HyTMState, splanned: _ShardPlanned, host, correction):
+        planned = splanned.planned
+        engines_h, order1, order2, second_h = host
+        frontier, values, delta = state.frontier, state.values, state.delta
+        consume_sum = program.combine == SUM
+        damping = _scalar(program.damping, values) if consume_sum else None
+
+        # pass 1: every active partition, one merge
+        operand = damping * delta * rt.inv_deg if consume_sum else values
+        agg, touched = _local_sweep(rt, engines_h, order1, frontier, operand, program,
+                                    use_kernels)
+        if program.peel_k is not None:
+            # the merged agg counts each destination's newly-removed
+            # in-neighbours: additive, so sync == sharded
+            values1, delta1, activated = values - agg, delta, touched
+        else:
+            values1, delta1, activated = _apply_merged(values, delta, frontier, agg,
+                                                       touched, program)
+
+        # pass 2: recompute-once over the loaded priority partitions
+        if program.peel_k is not None:
+            frontier2 = torch.zeros_like(frontier)
+        elif program.combine == MIN:
+            frontier2 = frontier | activated
+        else:
+            frontier2 = torch.abs(delta1) > _scalar(program.tolerance, frontier)
+        operand2 = damping * delta1 * rt.inv_deg if consume_sum else values1
+        engines2 = [e if s else NONE for e, s in zip(engines_h, second_h)]
+        agg2, touched2 = _local_sweep(rt, engines2, order2, frontier2, operand2, program,
+                                      use_kernels)
+        if program.peel_k is not None:
+            values2, delta2, activated2 = values1 - agg2, delta1, touched2
+        else:
+            # pass-2 consumption only touches re-processed partitions
+            vpid = rt.parts.vertex_part_id
+            processed2 = (torch.index_select(planned.sched.second_pass, 0, vpid)
+                          & (torch.index_select(planned.plan.engines, 0, vpid) != NONE))
+            values2, delta2, activated2 = _apply_merged(
+                values1, delta1, frontier2 & processed2, agg2, touched2, program)
+        new_state, info = _finish(values2, delta2, activated | activated2, frontier,
+                                  planned, program, config, correction)
+        # the entries a compacted exchange would ship: destinations any rank
+        # touched in either pass
+        info[KEY_MERGED_ENTRIES] = (touched | touched2).sum(dtype=torch.int32)
+        return new_state, info
+
+    return plan_fn, fetch, iter_fn
+
+
+def make_sharded_iteration(rt: ShardedRuntime, program: VertexProgram, config: HyTMConfig):
+    """The K = 1 driver's dispatch unit: ``iteration(state, correction)
+    -> (state, info)``."""
+    plan_fn, fetch, iter_fn = _make_iteration_impl(rt, program, config)
+
+    def iteration(state: HyTMState, correction: torch.Tensor | None = None):
+        splanned = plan_fn(state, correction)
+        *host, _ = fetch(splanned)
+        return iter_fn(state, splanned, tuple(host), correction)
+
+    return iteration
+
+
+def make_sharded_chunk(rt: ShardedRuntime, program: VertexProgram, config: HyTMConfig,
+                       chunk: int):
+    """The chunked driver's dispatch unit: ``chunk_fn(state, history,
+    correction)`` runs up to ``chunk`` sharded iterations under
+    ``core.hytm.chunked_while``'s contract (the early exit reads the
+    previous iteration's replicated ``next_active``, so every rank stops
+    at the same iteration) and returns ``(state, history, n_done,
+    last_active, per_engine_sum)``; ``init_history()`` allocates the
+    (chunk, ...) buffers, ``merged_entries`` beside ``HISTORY_KEYS``."""
+    plan_fn, fetch, iter_fn = _make_iteration_impl(rt, program, config)
+    keys = HISTORY_KEYS + (KEY_MERGED_ENTRIES,)
+    shapes = {**history_shapes(rt.n_partitions), KEY_MERGED_ENTRIES: ((), torch.int32)}
+
+    def chunk_fn(state: HyTMState, history: dict, correction: torch.Tensor | None):
+        return chunked_while(
+            lambda st, sp, host: iter_fn(st, sp, host, correction),
+            lambda st: plan_fn(st, correction), state, history, chunk, fetch=fetch)
+
+    def init_history() -> dict:
+        return init_history_buffers(shapes, chunk, keys=keys, device=rt.device)
+
+    return chunk_fn, init_history
+
+
+def make_sharded_batched_chunk(rt, program, config, chunk):
+    """The lane-batched sharded chunk of graph serving: not ported yet."""
+    raise NotImplementedError(
+        "make_sharded_batched_chunk is not ported yet (ROADMAP queue 1, item 11c: "
+        "sharded serving)")
+
+
+# --------------------------------------------------------------------------
+# Second transfer-management level: the cross-device merge
+# --------------------------------------------------------------------------
+
+def _ring_per_dev_bytes(payload_bytes: float, n_devices: int) -> float:
+    """Bytes one device moves for a ring all-reduce of ``payload_bytes``."""
+    return 2.0 * (n_devices - 1) / n_devices * payload_bytes
+
+
+def _collective_charge(per_dev_bytes: float, link) -> float:
+    """Seconds for one collective, through the Eq-1 transaction-group
+    model (shared by the dense and compacted ICI candidates)."""
+    group = link.m * link.mr
+    return float(np.ceil(per_dev_bytes / group)) * link.rtt + link.launch_overhead_s
+
+
+def ici_merge_cost(n_nodes: int, n_devices: int, link,
+                   n_collectives: int = 4) -> tuple[float, float]:
+    """Modeled (bytes, seconds) of one iteration's cross-device merges:
+    two dense (n,) vectors (the aggregate and the touched counts) a pass,
+    two passes.  Bytes are the all-device total, seconds the per-device
+    critical path through the transaction-group model (Eqs. 1-3)."""
+    if n_devices <= 1:
+        return 0.0, 0.0
+    per_dev = _ring_per_dev_bytes(n_nodes * 4.0, n_devices)
+    total_bytes = per_dev * n_devices * n_collectives
+    return total_bytes, n_collectives * _collective_charge(per_dev, link)
+
+
+def ici_level_cost(
+    n_nodes: int,
+    merged_entries: float,
+    n_devices: int,
+    link,
+    correction: np.ndarray | None = None,
+    n_collectives: int = 4,
+) -> tuple[float, float, int]:
+    """Algorithm 1 at the second level: a dense all-reduce of the whole
+    (n,) vectors (the FILTER analogue) against a compacted exchange of the
+    ``merged_entries`` touched destinations as 8-byte (index, payload)
+    pairs (the COMPACT analogue).  Returns (bytes, seconds, engine).
+    ``correction`` rescales the two candidates for the comparison only;
+    the charge is the chosen engine's uncorrected time.  Host float64, as
+    in the reference."""
+    if n_devices <= 1:
+        return 0.0, 0.0, NONE
+    c = np.ones(3) if correction is None else np.asarray(correction, float)
+    per_dev_comp = _ring_per_dev_bytes(float(merged_entries) * 8.0, n_devices)
+    t_comp = n_collectives * _collective_charge(per_dev_comp, link)
+    dense_bytes, t_dense = ici_merge_cost(n_nodes, n_devices, link,
+                                          n_collectives=n_collectives)
+    if t_comp * c[COMPACT] < t_dense * c[FILTER]:
+        return per_dev_comp * n_devices * n_collectives, t_comp, COMPACT
+    return dense_bytes, t_dense, FILTER
+
+
+def build_halo_plan(*args, **kwargs):
+    """The owner/halo plan: not ported yet."""
+    raise NotImplementedError(_OWNER)
+
+
+def halo_level_cost(*args, **kwargs):
+    """The owner layout's ICI level: not ported yet."""
+    raise NotImplementedError(_OWNER)
+
+
+def _owner_place_state(*args, **kwargs):
+    """The owner layout's state placement: not ported yet."""
+    raise NotImplementedError(_OWNER)
+
+
+# --------------------------------------------------------------------------
+# Convergence loop
+# --------------------------------------------------------------------------
+
+def _rank0_correction(calib, mesh: GraphMesh) -> tuple[np.ndarray, torch.Tensor]:
+    """Rank 0's calibrator correction on every rank: (float64 host copy,
+    float32 device tensor rounded to nearest, as the single-device run
+    enters it)."""
+    c = torch.as_tensor(np.asarray(calib.correction(), np.float64), device=mesh.device)
+    dist.broadcast(c, src=dist.get_global_rank(mesh.group, 0), group=mesh.group)
+    c64 = c.cpu().numpy()
+    return c64, torch.from_numpy(c64.astype(np.float32)).to(mesh.device)
+
+
+def run_hytm_sharded(
+    g: CSRGraph | None,
+    program: VertexProgram,
+    source: int | None = 0,
+    config: HyTMConfig = HyTMConfig(mesh_axis="graph"),
+    n_hubs: int = 0,
+    mesh: GraphMesh | None = None,
+    runtime: ShardedRuntime | None = None,
+    calibrator=None,
+    initial_state: HyTMState | None = None,
+    obs=None,
+    faults=None,
+    retry=None,
+    on_chunk=None,
+    device: str | torch.device | None = None,
+) -> HyTMResult:
+    """``run_hytm`` over a 1-D process group; every rank of ``mesh``'s
+    group calls it with the same arguments and gets the same result.
+
+    Contract: the engine picks, the modeled transfer accounting, the
+    iteration count and the state trajectory of the single-device
+    ``async_sweep=False`` run (bit for bit for MIN programs and k-core, up
+    to float summation order for SUM programs); the history's ICI rows
+    (``ici_bytes``, ``ici_time``, ``ici_engine``) are the second level's
+    model charge, one row an iteration.
+
+    ``mesh`` defaults to ``make_graph_mesh(config.mesh_axis,
+    device=device)`` over the default group; the run takes the mesh's
+    device.  ``runtime`` (a :class:`ShardedRuntime` of this mesh) lets
+    callers amortize the set-up, and then ``g`` may be ``None``.
+    ``initial_state`` warm-starts from a replicated (values, Δ, frontier)
+    triple on the mesh's device.  ``calibrator``, ``obs``, ``faults``,
+    ``retry`` and ``on_chunk`` are ``run_hytm``'s: every rank guards its
+    dispatches at site ``chunk_dispatch`` (``mesh=True`` in the plan's
+    context) and calls ``on_chunk``; with ``config.autotune`` only rank 0's
+    calibrator observes, and its correction is broadcast; ``obs`` records
+    on track ``mesh``, one ``ici`` instant an iteration."""
+    if runtime is not None:
+        rt = runtime
+        mesh = rt.mesh
+        _check_vertex_sharding(config.vertex_sharding)
+    else:
+        if g is None:
+            raise ValueError("run_hytm_sharded needs a graph or a prebuilt runtime")
+        if mesh is None:
+            mesh = make_graph_mesh(axis=config.mesh_axis, device=device)
+        if program.symmetrize:
+            g = g.symmetrize()
+        rt = build_sharded_runtime(g, config, mesh, n_hubs=n_hubs,
+                                   weighted_norm=program.use_delta and program.weighted)
+    if config.sync_every < 1:
+        raise ValueError(f"sync_every must be >= 1, got {config.sync_every}")
+    if on_chunk is not None and config.sync_every == 1:
+        raise ValueError(
+            "on_chunk (checkpointing) requires the chunked driver: set sync_every >= 2")
+    dev = rt.device
+    if initial_state is None:
+        if program.peel_k is not None:
+            deg = rt.out_degree.to(torch.float32)
+            removed = deg < program.peel_k
+            state = HyTMState(values=deg, delta=removed.to(torch.float32), frontier=removed)
+        else:
+            state = HyTMState(*program.init_state(rt.n_nodes, source, dev))
+    else:
+        state = initial_state
+        if state.values.device.type != dev.type:
+            raise ValueError(
+                f"initial_state lives on {state.values.device}, the mesh on {dev}")
+    n_dev = mesh.size
+
+    calib = None
+    correction = corr_np = None
+    if config.autotune:
+        if calibrator is None:
+            from repro_torch.autotune.feedback import OnlineCalibrator
+
+            calibrator = OnlineCalibrator(decay=config.autotune_decay)
+        calib = calibrator
+        corr_np, correction = _rank0_correction(calib, mesh)
+    lead = mesh.rank == 0
+
+    rows: dict[str, list] = {k: [] for k in HISTORY_KEYS}
+    ici_hist: dict[str, list] = {KEY_ICI_BYTES: [], KEY_ICI_TIME: [], KEY_ICI_ENGINE: []}
+
+    def charge_ici(merged_entries: float) -> None:
+        ib, it_, ie = ici_level_cost(rt.n_nodes, float(merged_entries), n_dev,
+                                     config.ici_link, corr_np)
+        it = len(ici_hist[KEY_ICI_BYTES])
+        ici_hist[KEY_ICI_BYTES].append(ib)
+        ici_hist[KEY_ICI_TIME].append(it_)
+        ici_hist[KEY_ICI_ENGINE].append(ie)
+        if obs is not None:
+            from repro_torch.obs.record import record_ici
+
+            record_ici(obs, track="ici", it=it, bytes_=ib, seconds=it_, engine=ie,
+                       merged_entries=float(merged_entries))
+
+    use_kernels = resolve_use_kernels(config.use_kernels, dev)
+    dispatch = functools.partial(guarded_dispatch, site="chunk_dispatch", faults=faults,
+                                 policy=retry, obs=obs, mesh=True, kernels=use_kernels)
+    t0 = time.monotonic()
+    iters = 0
+    if config.sync_every > 1:
+        history, cur_chunk, cached = None, -1, None
+        while iters < config.max_iters:
+            chunk = min(config.sync_every, config.max_iters - iters)
+            if chunk != cur_chunk:
+                cached = make_sharded_chunk(rt, program, config, chunk)
+                history = cached[1]()
+                cur_chunk = chunk
+            warm = _consume_warm((
+                "sharded-chunk", program, config, rt.n_hub_partitions, chunk, rt.n_nodes,
+                rt.n_partitions, rt.parts.block_size, mesh.rank, n_dev,
+                correction is not None,
+            ))
+            t_chunk = time.monotonic()
+            state, history, n_done, last_active, pe_sum = dispatch(
+                functools.partial(cached[0], state, history, correction))
+            iters += n_done
+            if calib is not None:
+                # rank 0 observes (before the drain: the window covers
+                # dispatch and execution only); every rank takes its result
+                if lead:
+                    calib.observe_chunk(state.values, pe_sum.cpu().numpy().astype(float),
+                                        t_chunk, skip=not warm)
+                next_np, correction = _rank0_correction(calib, mesh)
+            drained = {k: v[:n_done].to("cpu", copy=True).numpy() for k, v in history.items()}
+            for me in drained[KEY_MERGED_ENTRIES]:
+                charge_ici(me)   # under the chunk's correction
+            if calib is not None:
+                corr_np = next_np
+            for k in rows:
+                rows[k].append(drained[k])
+            if obs is not None:
+                from repro_torch.obs.record import record_chunk, record_history_rows
+
+                record_history_rows(obs, drained, n_done, iters - n_done, track="mesh")
+                record_chunk(obs, track="mesh", wall_start=obs.wall_at(t_chunk),
+                             wall_dur=obs.wall() - obs.wall_at(t_chunk),
+                             start_iter=iters - n_done, n_done=n_done, warm=warm)
+            active = int(last_active)
+            if on_chunk is not None:
+                on_chunk(state=state, iterations=iters, rows=rows, calibrator=calib,
+                         last_active=active)
+            if active == 0:
+                break
+        history = {k: np.concatenate(v) for k, v in rows.items()}
+    else:
+        iteration = make_sharded_iteration(rt, program, config)
+        for _ in range(config.max_iters):
+            t_iter = time.monotonic()
+            state, info = dispatch(functools.partial(iteration, state, correction))
+            iters += 1
+            next_active, merged = torch.stack(
+                [info["next_active"], info[KEY_MERGED_ENTRIES]]).tolist()
+            charge_ici(merged)   # under this iteration's correction
+            if calib is not None:
+                if lead:
+                    calib.observe_iteration(state.values, info[KEY_PER_ENGINE_TIME], t_iter,
+                                            skip=iters == 1)
+                corr_np, correction = _rank0_correction(calib, mesh)
+            for k in rows:
+                rows[k].append(info[k])
+            if next_active == 0:
+                break
+        history = {k: torch.stack(v).cpu().numpy() for k, v in rows.items()}
+        if obs is not None:
+            from repro_torch.obs.record import record_history_rows
+
+            record_history_rows(obs, history, iters, 0, track="mesh")
+    values = state.values.cpu().numpy()
+    delta = state.delta.cpu().numpy()
+    wall = time.monotonic() - t0
+
+    for k, v in ici_hist.items():
+        history[k] = np.asarray(v)
+    result = HyTMResult(
+        values=values,
+        delta=delta,
+        iterations=iters,
+        wall_seconds=wall,
+        modeled_seconds=float(np.sum(history[KEY_TRANSFER_TIME])),
+        total_transfer_bytes=float(np.sum(history[KEY_TRANSFER_BYTES])),
+        history=history,
+        total_ici_bytes=float(np.sum(history[KEY_ICI_BYTES])),
+        modeled_ici_seconds=float(np.sum(history[KEY_ICI_TIME])),
+        total_mispredictions=int(np.sum(history[KEY_MISPREDICTIONS])),
+        # rank 0's calibrator, the same on every rank
+        engine_corrections=corr_np if calib is not None else None,
+    )
+    if obs is not None:
+        from repro_torch.obs.record import record_run
+
+        record_run(obs, result, track="mesh", wall_start=obs.wall_at(t0), wall_dur=wall,
+                   program=program.name, label=f"run[{n_dev}dev]")
+    return result

@@ -1,0 +1,189 @@
+"""Process groups for the sharded graph sweep (``dist.graph_shard``).
+
+The reference's ``make_graph_mesh`` (``repro/launch/mesh.py:44``) builds a
+1-D JAX mesh that one process drives.  Here a *mesh* is a 1-D
+``torch.distributed`` group with one process a rank: :class:`GraphMesh`
+names the group, its axis, this rank and this rank's device, and every
+rank of the group calls the sharded entry points with the same arguments
+(SPMD).
+
+:class:`RankPool` starts a group on one host with no network: this process
+is rank 0, ranks ``1..world_size-1`` are spawned processes, and the ranks
+meet through a ``FileStore`` in a temporary directory.  ``run(fn, *args)``
+calls ``fn(group, *args)`` on every rank (``group`` is ``None`` for the
+whole world) and returns the ranks' results in rank order.  Every group
+has a timeout and every wait for a rank a limit, so a deadlock on a
+collective fails the call instead of hanging it.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import shutil
+import tempfile
+import traceback
+from dataclasses import dataclass
+from queue import Empty
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.kernels.runtime import resolve_device
+
+
+@dataclass(frozen=True)
+class GraphMesh:
+    """One rank's view of a 1-D process group."""
+
+    group: object          # a torch.distributed ProcessGroup
+    axis: str
+    size: int
+    rank: int
+    device: torch.device   # this rank's device
+
+
+def make_graph_mesh(axis: str = "graph", group=None,
+                    device: str | torch.device | None = None) -> GraphMesh:
+    """This rank's :class:`GraphMesh` over ``group`` (the default group
+    when ``None``; ``torch.distributed`` must be initialized).  The device
+    is ``cuda:<rank % device count>`` unless the caller passes one
+    (``"cpu"``, or ``"cuda:0"`` for several ranks on one card); with no
+    card that raises, as ``resolve_device`` does."""
+    if device is None and not torch.cuda.is_available():
+        resolve_device(None)   # raises: no CUDA device
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_graph_mesh: torch.distributed is not initialized (start the "
+            "ranks with RankPool or init_process_group first)")
+    group = dist.group.WORLD if group is None else group
+    if device is None:
+        device = f"cuda:{dist.get_rank() % torch.cuda.device_count()}"
+    return GraphMesh(group=group, axis=axis, size=dist.get_world_size(group),
+                     rank=dist.get_rank(group), device=resolve_device(device))
+
+
+def _timeout(seconds: float) -> datetime.timedelta:
+    return datetime.timedelta(seconds=seconds)
+
+
+def _join_group(rank: int, world_size: int, backend: str, store: str,
+                timeout_s: float, subgroups) -> dict:
+    """Initialize the default group and every subgroup (collectively, in
+    order, on every rank); returns ``{ranks: group}``."""
+    dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
+                            world_size=world_size, timeout=_timeout(timeout_s))
+    return {tuple(r): dist.new_group(list(r), timeout=_timeout(timeout_s))
+            for r in subgroups}
+
+
+def _rank_main(rank, world_size, backend, store, timeout_s, subgroups, threads,
+               tasks, results):
+    """A spawned rank: run tasks until the ``None`` sentinel."""
+    if threads is not None:
+        torch.set_num_threads(threads)
+    groups = _join_group(rank, world_size, backend, store, timeout_s, subgroups)
+    try:
+        while (task := tasks.get()) is not None:
+            fn, args, ranks = task
+            if rank not in ranks:
+                continue
+            try:
+                results.put((rank, True, fn(groups.get(ranks), *args)))
+            except Exception:   # reported to rank 0, which raises
+                results.put((rank, False, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+class RankPool:
+    """``world_size`` ranks on this host: this process is rank 0, the others
+    spawned processes (``torch.multiprocessing``, ``spawn``) that run tasks
+    until :meth:`close`.  ``subgroups`` lists rank tuples to make groups of
+    (``run(..., ranks=(0, 1))`` runs on one); ``threads`` sets the spawned
+    ranks' ``torch.set_num_threads``.  Every group gets ``timeout_s``, and
+    :meth:`run` waits at most 30 s longer than that for a rank.
+    After a failed run the pool refuses further runs: its groups may be
+    mid-collective."""
+
+    def __init__(self, world_size: int, backend: str = "gloo", timeout_s: float = 60.0,
+                 subgroups=(), threads: int | None = None):
+        self.world_size = world_size
+        # a rank blocked in a collective raises after timeout_s
+        self.wait_s = timeout_s + 30.0
+        self._dir = tempfile.mkdtemp(prefix="repro_torch_ranks_")
+        store = os.path.join(self._dir, "store")
+        ctx = torch.multiprocessing.get_context("spawn")
+        self._tasks = [ctx.SimpleQueue() for _ in range(world_size - 1)]
+        self._results = ctx.Queue()
+        self._procs = [
+            ctx.Process(target=_rank_main, daemon=True, args=(
+                rank, world_size, backend, store, timeout_s, tuple(subgroups), threads,
+                self._tasks[rank - 1], self._results))
+            for rank in range(1, world_size)]
+        self.broken = False
+        self._joined = False
+        try:
+            for p in self._procs:
+                p.start()
+            self._groups = _join_group(0, world_size, backend, store, timeout_s, subgroups)
+            self._joined = True
+        except BaseException:
+            self.close()
+            raise
+
+    def run(self, fn, *args, ranks=None) -> list:
+        """``fn(group, *args)`` on each rank of ``ranks`` (all when
+        ``None``; else one of the pool's ``subgroups``), this process's call
+        included; their results in rank order.  ``fn`` and ``args`` are
+        pickled to the spawned ranks (``fn`` by its import path)."""
+        if self.broken:
+            raise RuntimeError("RankPool: an earlier run failed; the pool is unusable")
+        ranks = tuple(range(self.world_size)) if ranks is None else tuple(ranks)
+        for task in self._tasks:
+            task.put((fn, args, ranks))
+        self.broken = True   # until every rank has reported
+        out, errors = {}, []
+        try:
+            if 0 in ranks:
+                out[0] = fn(self._groups.get(ranks), *args)
+        except Exception:
+            errors.append("rank 0:\n" + traceback.format_exc())
+        finally:
+            for _ in range(sum(r != 0 for r in ranks)):
+                try:
+                    rank, ok, value = self._results.get(timeout=self.wait_s)
+                except Empty:
+                    errors.append(f"a rank gave no result within {self.wait_s:.0f} s")
+                    break
+                if ok:
+                    out[rank] = value
+                else:
+                    errors.append(f"rank {rank}:\n{value}")
+        if errors:
+            raise RuntimeError("RankPool.run failed:\n" + "\n".join(errors))
+        self.broken = False
+        return [out[r] for r in ranks]
+
+    def close(self) -> None:
+        """Stop the spawned ranks (each joined within a limit, killed
+        otherwise) and destroy this process's group."""
+        for task, p in zip(self._tasks, self._procs):
+            if p.is_alive():
+                task.put(None)
+        for p in self._procs:
+            if p.pid is not None:
+                p.join(timeout=10)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+        if self._joined:
+            dist.destroy_process_group()
+            self._joined = False
+        shutil.rmtree(self._dir, ignore_errors=True)
+
+    def __enter__(self) -> "RankPool":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -12,7 +12,7 @@ says otherwise.
 after updates == from-scratch, the multi-tenant scheduler's quotas and
 byte budget) and exits non-zero on any violation.  The reference's
 selfcheck also holds a mesh-sharded sweep against a single-device run;
-that step belongs to multi-GPU serving (ROADMAP queue 1, item 11) and is
+that step belongs to multi-GPU serving (ROADMAP queue 1, item 11c) and is
 left out.  ``--algorithm wcc`` symmetrizes the graph first.
 
 ``--trace PATH`` records the run through ``repro_torch.obs`` and writes a

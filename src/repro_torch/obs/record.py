@@ -10,8 +10,8 @@ sync, and never change what the traced run computes.
 The run-summary span (:func:`record_run`) copies its totals directly from
 the finished ``HyTMResult`` — the same host rows reduced by the same
 ``np.sum`` calls — which is what lets ``export.reconcile`` demand exact
-equality rather than a tolerance.  :func:`record_ici` belongs to the
-sharded sweep (ROADMAP queue 1, item 11), which is not ported yet.
+equality rather than a tolerance.  :func:`record_ici` is the sharded
+sweep's (``dist.graph_shard.run_hytm_sharded``).
 """
 
 from __future__ import annotations

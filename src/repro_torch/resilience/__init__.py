@@ -8,8 +8,9 @@ MIN-combine programs (tolerance-bounded for SUM), quota and device-byte
 budgets still hold, and recovery cost is bounded and observable (obs
 ``faults`` track + ``faults.*`` counters).  With ``faults=None`` every
 hook is zero-overhead — the same launches, copies and syncs as a build
-without this package.  The sharded ``chunk_dispatch`` site and resume on a
-mesh are ROADMAP queue 1 item 11.
+without this package.  The sharded ``chunk_dispatch`` site is guarded in
+``dist.graph_shard.run_hytm_sharded``; resume on a mesh and the
+supervised sharded run are ROADMAP queue 1 item 11c.
 """
 
 from repro_torch.resilience.checkpoint import (

@@ -19,8 +19,8 @@ unchanged* — degradation here means slower, never wronger:
    plain PyTorch versions (bit-identical for MIN programs by the kernel
    equivalence contract);
 2. ``mesh -> single-device``: replay on one device with
-   ``async_sweep=False`` (unreachable until the port runs on a mesh,
-   ROADMAP queue 1 item 11: a mesh raises first);
+   ``async_sweep=False`` (a sharded ``run_hytm`` reaches it; its supervised
+   test on a mesh is ROADMAP queue 1 item 11c);
 3. ``cache-promote -> full recompute``: a warm entry that fails promotion
    (corrupt or OOM) is dropped and the request recomputes from scratch
    (handled in ``serve.warm_cache``/``serve.scheduler``);

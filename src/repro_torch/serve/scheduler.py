@@ -49,7 +49,7 @@ pending requests of the lower tiers (mode ``"shed"``).  Without a plan
 neither site costs anything.
 
 Not ported yet: sharded serving and owner placement (ROADMAP queue 1 item
-11), which raise ``NotImplementedError``.
+11c), which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -337,7 +337,7 @@ class LaneScheduler:
     def _dispatch_sharded(self, program, state, bucket, correction, chunk):
         raise NotImplementedError(
             "LaneScheduler: sharded serving is not ported yet (ROADMAP queue 1, "
-            "item 11: Multi-GPU)")
+            "item 11c: sharded serving)")
 
     def _observe(self, pe_sum, mp_sum, t_chunk, warm, correction):
         svc = self.svc

@@ -34,7 +34,7 @@ host and :meth:`WarmCache.promote` returns ``None``) and ``host_spill``
 so the check at promote catches them).
 
 Not ported yet: owner-sharded placement (``OwnerPlacement``, ROADMAP queue
-1 item 11), which raises ``NotImplementedError``.
+1 item 11c), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -72,7 +72,8 @@ class OwnerPlacement:
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            "OwnerPlacement is not ported yet (ROADMAP queue 1, item 11: Multi-GPU)")
+            "OwnerPlacement is not ported yet (ROADMAP queue 1, item 11c: sharded "
+            "serving)")
 
 
 @dataclass(frozen=True)
@@ -134,7 +135,7 @@ class WarmCache:
         if placement is not None:
             raise NotImplementedError(
                 "WarmCache: placement is not ported yet (ROADMAP queue 1, "
-                "item 11: Multi-GPU)")
+                "item 11c: sharded serving)")
         self.policy = policy or TierPolicy()
         self.device = resolve_device(device)
         self._entries: dict = {}

@@ -30,7 +30,7 @@ The host-side semantics are the reference's (``repro/stream/delta_csr.py``)
 step for step, so the same batches leave the same host log and the same
 device tensors.  ``apply(faults=)`` injects delivery drops
 (``repro_torch.resilience``).  The sharded views are ROADMAP queue 1,
-item 11.
+item 11c.
 """
 
 from __future__ import annotations
@@ -575,7 +575,7 @@ class DeltaCSR:
         """The sharded (P_pad, B) grid view: not ported yet."""
         raise NotImplementedError(
             "DeltaCSR.sharded_runtime_for is not ported yet (ROADMAP queue 1, "
-            "item 11: Multi-GPU)")
+            "item 11c: the sharded stream path)")
 
 
 def random_batch(

@@ -211,10 +211,10 @@ def run_incremental(
     chunked driver included, and learns into ``calibrator`` with
     ``config.autotune``, and records into ``obs`` and guards its dispatches
     with ``faults``/``retry`` as ``run_hytm`` does.  ``mesh`` and
-    ``config.mesh_axis`` belong to a later slice and raise
+    ``config.mesh_axis`` belong to ROADMAP queue 1 item 11c and raise
     ``NotImplementedError``."""
     config = config if config is not None else dcsr.config
-    _reject_unported(config, mesh)
+    _reject_unported(config, mesh, "run_incremental")
     state = incremental_state(program, values, delta, reports, dcsr, source)
     return run_hytm(
         None, program, source=source, config=config,

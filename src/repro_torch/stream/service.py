@@ -41,7 +41,7 @@ load-shed rung.  Both ``None`` take the unguarded paths.
 
 The service runs on ``cuda`` unless given ``device="cpu"``, which it
 passes to its ``DeltaCSR``.  Not ported yet: serving from a mesh (``mesh=``
-or ``HyTMConfig.mesh_axis``, ROADMAP queue 1 item 11), which raises
+or ``HyTMConfig.mesh_axis``, ROADMAP queue 1 item 11c), which raises
 ``NotImplementedError``.
 """
 
@@ -109,9 +109,9 @@ class GraphService:
         if mesh is not None or self.config.mesh_axis is not None:
             raise NotImplementedError(
                 "GraphService: mesh/mesh_axis is not ported yet (ROADMAP queue 1, "
-                "item 11: Multi-GPU)")
+                "item 11c: sharded serving)")
         self.obs = obs
-        # read by the scheduler, which raises on a mesh (item 11)
+        # read by the scheduler, which raises on a mesh (item 11c)
         self.mesh = None
         self.faults = faults
         self.supervisor = supervisor

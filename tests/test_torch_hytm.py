@@ -26,6 +26,7 @@ from repro_torch import convert
 from repro_torch.core import hytm as th
 from repro_torch.core.constants import PCIE3
 from repro_torch.graph import algorithms as talg
+from repro_torch.launch.mesh import GraphMesh
 from repro_torch import stream as tstream
 
 GRAPHS = {
@@ -193,11 +194,12 @@ def test_chunked_driver_dispatch_counts():
 def test_unported_features_raise():
     g = jgen.uniform_graph(50, 300, seed=0)
     # obs= is ported (tests/test_torch_obs.py), and faults/retry/on_chunk
-    # (tests/test_torch_resilience.py); a mesh belongs to item 11
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        th.run_hytm(g, talg.SSSP, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        th.run_hytm(g, talg.SSSP, config=th.HyTMConfig(mesh_axis="graph"), device="cpu")
+    # (tests/test_torch_resilience.py), and the replicated sharded sweep
+    # (tests/test_torch_graph_shard.py); the owner layout is item 11b
+    mesh = GraphMesh(group=None, axis="graph", size=2, rank=0, device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11b"):
+        th.run_hytm(g, talg.SSSP, mesh=mesh,
+                    config=th.HyTMConfig(mesh_axis="graph", vertex_sharding="owner"))
     # autotune is ported: a calibrator is read only with config.autotune
     assert th.run_hytm(g, talg.SSSP, config=th.HyTMConfig(autotune=True),
                        device="cpu").engine_corrections.shape == (3,)
@@ -205,7 +207,7 @@ def test_unported_features_raise():
                        device="cpu").engine_corrections is None
     # the lane-batched chunk is ported (tests/test_torch_serve.py holds it);
     # a mesh for it is not
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 11c"):
         tstream.GraphService(g, th.HyTMConfig(mesh_axis="graph"), device="cpu")
     with pytest.raises(ValueError):
         th.run_hytm(g, talg.SSSP, config=th.HyTMConfig(sync_every=0), device="cpu")

@@ -798,3 +798,36 @@ def test_kill_resume_through_the_kernels_on_card(tmp_path):
         assert res.total_transfer_bytes == base.total_transfer_bytes
         for key in base.history:
             np.testing.assert_array_equal(res.history[key], base.history[key])
+
+
+@pytest.mark.cuda
+def test_sharded_sweep_at_world_size_one_on_nccl():
+    """The sharded sweep at D = 1 on NCCL, through the kernels: SSSP
+    bit-equal to the single-device ``async_sweep=False`` run (values,
+    iterations, bytes, engines), zero ICI rows, and every graph kernel
+    launched."""
+    import dataclasses
+
+    from repro_torch.core.hytm import HyTMConfig, run_hytm
+    from repro_torch.graph.algorithms import SSSP
+    from repro_torch.graph.generators import rmat_graph
+    from repro_torch.launch.mesh import RankPool, make_graph_mesh
+
+    dev = _cuda()
+    g = rmat_graph(20_000, 320_000, seed=5)
+    cfg = HyTMConfig(n_partitions=16, async_sweep=False, sync_every=4)
+    one = run_hytm(g, SSSP, 0, cfg, device=dev)
+    kernels = (segment_spmm, frontier_compact, hyb_gather)
+    for k in kernels:
+        k.launches = 0
+    with RankPool(1, backend="nccl", timeout_s=60.0):
+        res = run_hytm(g, SSSP, 0, dataclasses.replace(cfg, mesh_axis="graph"),
+                       mesh=make_graph_mesh(device=dev))
+    # each engine the run picked launched its kernel, and no other kernel ran
+    picked = set(np.unique(res.history["engines"]).tolist())
+    assert [k.launches > 0 for k in kernels] == [e in picked for e in (0, 1, 2)]
+    np.testing.assert_array_equal(res.values, one.values)
+    assert res.iterations == one.iterations
+    assert res.total_transfer_bytes == one.total_transfer_bytes
+    np.testing.assert_array_equal(res.history["engines"], one.history["engines"])
+    assert res.total_ici_bytes == 0.0 and (res.history["ici_engine"] == -1).all()
