@@ -143,11 +143,20 @@ Phases, in order; any failure exits nonzero and prints no result line:
    same contract, both ranks' results equal, SSSP's ``merged_entries``
    equal to leg (a)'s and the D = 2 ICI rows ``ici_level_cost`` of them, a
    seeded ``chunk_dispatch`` plan firing alike on both ranks with SSSP
-   bit-equal.  Every leg launches the kernels of the engines its rank
-   picked and no other.  Wall seconds in turns with the single-device sync
-   run (3 rounds; leg (b)'s Δ-PageRank 1), the all_reduces' device ms an
-   iteration (CUDA events; gloo stages them through the host) and host
-   syncs a dispatch;
+   bit-equal.  Legs (c) and (d): the owner layout
+   (``vertex_sharding="owner"``) in the same processes: at D = 1 SSSP (K=8)
+   bit-equal to leg (a) and Δ-PageRank within bound of it, ICI rows zero;
+   at D = 2 SSSP bit-equal to the sync run, Δ-PageRank within bound, both
+   ranks equal, their halo counts equal, SSSP's ``merged_entries`` equal to
+   leg (a)'s and the ICI rows ``halo_level_cost`` of them, and SSSP (K=2)
+   killed at chunk 2 on both ranks and resumed bit-equal, rank 0 alone
+   writing the owner checkpoint.  Every leg launches the kernels of the
+   engines its rank picked and no other.  Wall seconds in turns of the
+   single-device sync run and both layouts (3 rounds; at D = 2 Δ-PageRank
+   1), the collectives' device ms an iteration (CUDA events; gloo stages
+   them through the host), host syncs a dispatch, each rank's peak
+   allocated memory in each layout and the owner state triple's bytes
+   against ``vertex_state_bytes``;
 6. LM serving: the reduced gemma3-12b config on the card against the CPU
    (float32, logits within 1e-4, greedy tokens equal), then gemma3-12b at
    full width (11.8B parameters in bf16, random weights from the seed):
@@ -2699,13 +2708,15 @@ def phase_resilience(torch, cfg, hs, rt, source: int, main_runs: dict, smi: str)
 
 
 # ---------------------------------------------------------------------------
-# Phase 14: the sharded sweep (dist.graph_shard, replicated layout)
+# Phase 14: the sharded sweep (dist.graph_shard, replicated and owner layouts)
 # ---------------------------------------------------------------------------
 
-SHARD_TURNS = 3       # rounds of (single-device sync, sharded) runs, alternating
+SHARD_TURNS = 3       # rounds of (single-device sync, replicated, owner) runs, alternating
 # leg (b)'s Δ-PageRank: one round; each of its sharded runs stages 568 16-MB
 # all_reduces through the host (about 10-15 s a run on the card)
 GLOO_PAGERANK_TURNS = 1
+OWNER_LEGS = ("sssp_k8", "pagerank")   # the legs that also run the owner layout
+KILL_AT = 2           # leg (d): the seeded chunk_dispatch plan fails chunk 2 (K=2)
 
 
 def shard_legs(cfg, source: int) -> dict:
@@ -2725,31 +2736,42 @@ def engine_launches_match(res, counts: dict, cols=slice(None)) -> bool:
 
 
 class TimedCollectives:
-    """CUDA events around every ``torch.distributed.all_reduce`` while
-    entered (``graph_shard`` reads the function at each call)."""
+    """CUDA events around every ``torch.distributed`` ``all_reduce``,
+    ``all_gather`` and ``reduce_scatter`` while entered (``graph_shard``
+    reads the functions at each call); ``counts`` by collective."""
+
+    NAMES = ("all_reduce", "all_gather", "reduce_scatter")
 
     def __init__(self, torch):
         self.torch, self.pairs = torch, []
+        self.counts = {name: 0 for name in self.NAMES}
 
     def __enter__(self):
         import torch.distributed as dist
 
-        self.dist, self.real = dist, dist.all_reduce
+        self.dist, self.real = dist, {name: getattr(dist, name) for name in self.NAMES}
 
-        def timed(*args, **kwargs):
-            start = self.torch.cuda.Event(enable_timing=True)
-            end = self.torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = self.real(*args, **kwargs)
-            end.record()
-            self.pairs.append((start, end))
-            return out
+        def timed(name):
+            real = self.real[name]
 
-        dist.all_reduce = timed
+            def call(*args, **kwargs):
+                start = self.torch.cuda.Event(enable_timing=True)
+                end = self.torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = real(*args, **kwargs)
+                end.record()
+                self.pairs.append((start, end))
+                self.counts[name] += 1
+                return out
+            return call
+
+        for name in self.NAMES:
+            setattr(dist, name, timed(name))
         return self
 
     def __exit__(self, *exc):
-        self.dist.all_reduce = self.real
+        for name, real in self.real.items():
+            setattr(self.dist, name, real)
 
     def ms(self) -> float:
         self.torch.cuda.synchronize()
@@ -2768,54 +2790,109 @@ def align_ranks(torch, mesh) -> None:
 
 
 def instrumented(torch, run, count_syncs: bool = True) -> dict:
-    """One run of ``run(obs)`` with a ``TraceRecorder``, the all_reduces
-    timed and (``count_syncs``) the host syncs counted: the result, the ICI
-    instants' ``merged_entries`` and the result's ICI rows (the same run's:
-    a SUM program's run on the card is not repeatable bit for bit), the
-    collectives' ms an iteration, host syncs a dispatch."""
+    """One run of ``run(obs)`` with a ``TraceRecorder``, the collectives
+    timed, the peak of allocated device memory reset before it and read
+    after it, and (``count_syncs``) the host syncs counted: the result, the
+    ICI instants' ``merged_entries`` and ``halo_entries`` and the result's
+    ICI rows (the same run's: a SUM program's run on the card is not
+    repeatable bit for bit), the collectives' ms an iteration, host syncs a
+    dispatch, and the peak bytes (absolute, and above what was allocated
+    when the run began)."""
     from repro_torch.obs import TraceRecorder, reconcile
     from repro_torch.obs.export import CAT_ICI
 
     rec, box = TraceRecorder(), {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     with TimedCollectives(torch) as coll:
         def call():
             box["res"] = run(rec)
         syncs = host_syncs(torch, call) if count_syncs else {}
         if not count_syncs:
             call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     res = box["res"]
     # dispatches: the chunks, or the K = 1 loop's iterations
     dispatches = sum(1 for ev in rec.events if ev.name == "chunk") or res.iterations
     check(reconcile(rec, res)["ok"], "sharded run: reconcile not exact")
-    return {"res": res, "merged": [ev.args["merged_entries"] for ev in rec.events
-                                   if ev.cat == CAT_ICI],
+    ici = [ev.args for ev in rec.events if ev.cat == CAT_ICI]
+    return {"res": res, "merged": [a["merged_entries"] for a in ici],
+            "halo": [a.get("halo_entries") for a in ici],
             "ici_rows": list(zip(*(res.history[k].tolist()
                                    for k in ("ici_bytes", "ici_time", "ici_engine")))),
             "collective_ms_per_iter": coll.ms() / res.iterations, "n_collectives": len(coll.pairs),
+            "collectives": dict(coll.counts),
             "syncs": syncs, "dispatches": dispatches,
-            "syncs_per_dispatch": sum(syncs.values()) / dispatches}
+            "syncs_per_dispatch": sum(syncs.values()) / dispatches,
+            "peak_bytes": peak, "peak_above_start": peak - before}
 
 
-def shard_turns(sharded, single, rounds: int = SHARD_TURNS) -> dict:
-    """Wall seconds of ``rounds`` rounds of (single-device sync run, sharded
-    run), the order alternating; ``single`` is None on a rank that runs only
-    the sharded side."""
-    walls = {"single": [], "sharded": []}
+def shard_turns(runs: dict, rounds: int = SHARD_TURNS) -> dict:
+    """Wall seconds of ``rounds`` rounds of the ``runs`` (name -> a call
+    returning a wall time, or None on a rank that does not run it), the
+    order reversed every other round."""
+    walls = {name: [] for name in runs}
+    order = list(runs)
     for r in range(rounds):
-        for which in ("single", "sharded") if r % 2 == 0 else ("sharded", "single"):
-            fn = sharded if which == "sharded" else single
-            if fn is not None:
-                walls[which].append(fn())
+        for name in order if r % 2 == 0 else order[::-1]:
+            if runs[name] is not None:
+                walls[name].append(runs[name]())
     return walls
 
 
+def owner_state_bytes(rt, program, source: int | None) -> dict:
+    """The state triple's bytes on this rank, measured on the tensors the
+    owner layout places (``dist.graph_shard._owner_place_state`` of the
+    program's cold start), against ``cost_model.vertex_state_bytes`` of the
+    owner layout with the largest halo and of the replicated layout."""
+    from repro_torch.core.cost_model import vertex_state_bytes
+    from repro_torch.dist.graph_shard import _owner_place_state
+
+    st = _owner_place_state(rt, program, *program.init_state(rt.n_nodes, source, rt.device))
+    D = rt.mesh.size
+    return {"measured": sum(t.numel() * t.element_size()
+                            for t in (st.values, st.delta, st.frontier)),
+            "model_owner": vertex_state_bytes(rt.n_nodes, D, "owner", halo=rt.halo.max_halo),
+            "model_owner_no_halo": vertex_state_bytes(rt.n_nodes, D, "owner"),
+            "model_replicated": vertex_state_bytes(rt.n_nodes, D, "replicated")}
+
+
+def owner_kill_resume(torch, g, prog, src, c, ort, path: str) -> dict:
+    """Leg (d)'s kill and resume on one rank: SSSP (K=2) under the owner
+    layout uninterrupted, then with a ``CheckpointHook`` and a seeded
+    ``chunk_dispatch`` plan that fails chunk ``KILL_AT``, resumed by
+    ``resume_run`` from the file rank 0 wrote."""
+    from repro_torch.core.hytm import run_hytm
+    from repro_torch.resilience import (CheckpointHook, FaultSpec, RetriesExhausted, plan_of,
+                                        restore, resume_run)
+
+    base = run_hytm(None, prog, src, c, runtime=ort)
+    hook = CheckpointHook(path, program=prog.name, state_layout="owner", n_nodes=g.n_nodes)
+    plan = plan_of(FaultSpec("chunk_dispatch", "fail", at=(KILL_AT,)), seed=SEED)
+    killed = False
+    try:
+        run_hytm(None, prog, src, c, runtime=ort, faults=plan, on_chunk=hook)
+    except RetriesExhausted:
+        killed = True
+    res = resume_run(path, g, prog, config=c, source=src, runtime=ort)
+    ck = restore(path)
+    return {"base": base, "res": res, "killed": killed, "saved": hook.saved,
+            "committed": hook.committed, "fired": [(e.site, e.kind, e.occurrence)
+                                                   for e in plan.events],
+            "file": {"state_layout": ck.state_layout, "n_nodes": ck.n_nodes,
+                     "iterations": ck.iterations, "shape": tuple(ck.values.shape)}}
+
+
 def shard_rank(group, graph_dir: str, cfg, source: int, n_hubs: int) -> dict:
-    """Leg (b) on one rank of a two-rank gloo group on one card: the graph
-    from ``graph_dir`` (``.npy`` files), its sharded runtime, then SSSP
-    (K=8) and Δ-PageRank instrumented, SSSP under a seeded
-    ``chunk_dispatch`` plan, and the turns; rank 0 also runs the
-    single-device sync legs in the turns (rank 1 meanwhile waits in its
-    next collective).
+    """Legs (b) and (d) on one rank of a two-rank gloo group on one card:
+    the graph from ``graph_dir`` (``.npy`` files), its sharded runtimes in
+    both layouts, then SSSP (K=8) and Δ-PageRank instrumented in each
+    layout, SSSP under a seeded ``chunk_dispatch`` plan, the owner layout's
+    kill and resume (its checkpoint in ``graph_dir``), and the turns; rank 0
+    also runs the single-device sync legs in the turns (rank 1 meanwhile
+    waits in its next collective).
     Both ranks make the same sharded calls in the same order.  Rank 1
     counts the host syncs of its instrumented runs (its process logs no
     C++ warning: gloo's worker threads, which stage every collective
@@ -2835,53 +2912,77 @@ def shard_rank(group, graph_dir: str, cfg, source: int, n_hubs: int) -> dict:
     mesh = make_graph_mesh(group=group, device="cuda:0")
     legs = {k: v for k, v in shard_legs(cfg, source).items() if k != "sssp_k1"}
     shard = {k: dataclasses.replace(c, mesh_axis="graph") for k, (_, _, c) in legs.items()}
+    owner = {k: dataclasses.replace(c, vertex_sharding="owner") for k, c in shard.items()}
     srt = build_sharded_runtime(g, shard["sssp_k8"], mesh, n_hubs=n_hubs)
+    ort = build_sharded_runtime(g, owner["sssp_k8"], mesh, n_hubs=n_hubs)
     lead = mesh.rank == 0
     rt1 = build_runtime(g, cfg, n_hubs=n_hubs, device=mesh.device) if lead else None
     align_ranks(torch, mesh)
 
     def step(msg):
         if lead:
-            log(f"  (b) rank 0: {msg} ({time.monotonic() - t:.1f} s into its task)")
+            log(f"  (b, d) rank 0: {msg} ({time.monotonic() - t:.1f} s into its task)")
 
     step("graph loaded, runtimes built")
-    out = {"rank": mesh.rank, "launches": {}, "info": {}, "walls": {}}
+    out = {"rank": mesh.rank, "launches": {}, "info": {}, "owner": {}, "walls": {},
+           "halo": {"counts": ort.halo.halo_counts, "total": ort.halo.halo_total,
+                    "n_pad": ort.n_pad}}
     for name, (prog, src, _) in legs.items():
-        reset_launch_counts()
-        out["info"][name] = instrumented(
-            torch, lambda rec, p=prog, s=src, c=shard[name]:
-            run_hytm(None, p, s, c, runtime=srt, obs=rec), count_syncs=not lead)
-        out["launches"][name] = read_launch_counts()
-        step(f"{name} checked")
+        for layout, rt_, box in (("replicated", srt, out["info"]), ("owner", ort, out["owner"])):
+            c = shard[name] if layout == "replicated" else owner[name]
+            reset_launch_counts()
+            box[name] = instrumented(
+                torch, lambda rec, p=prog, s=src, cc=c, r=rt_:
+                run_hytm(None, p, s, cc, runtime=r, obs=rec), count_syncs=not lead)
+            out["launches"][(layout, name)] = read_launch_counts()
+            step(f"{name} ({layout}) checked")
     prog, src, _ = legs["sssp_k8"]
     plan = plan_of(FaultSpec("chunk_dispatch", "fail", at=(0, 1)), seed=SEED)
     out["faulted"] = run_hytm(None, prog, src, shard["sssp_k8"], runtime=srt, faults=plan,
                               retry=RetryPolicy(max_attempts=4))
     out["fired"] = [(e.site, e.kind, e.occurrence) for e in plan.events]
+    t_kill = time.monotonic()
+    out["kill"] = owner_kill_resume(
+        torch, g, prog, src, dataclasses.replace(owner["sssp_k8"], sync_every=2), ort,
+        str(d / "owner.ckpt.npz"))
+    out["kill"]["seconds"] = time.monotonic() - t_kill
+    out["state_bytes"] = owner_state_bytes(ort, prog, src)
+    step("owner kill and resume checked")
     for name, (prog, src, c) in legs.items():
         out["walls"][name] = shard_turns(
-            lambda p=prog, s=src, cc=shard[name]: run_hytm(None, p, s, cc,
-                                                           runtime=srt).wall_seconds,
-            (lambda p=prog, s=src, cc=c: run_hytm(None, p, s, cc, runtime=rt1).wall_seconds)
-            if lead else None,
+            {"single": (lambda p=prog, s=src, cc=c: run_hytm(None, p, s, cc,
+                                                             runtime=rt1).wall_seconds)
+             if lead else None,
+             "sharded": lambda p=prog, s=src, cc=shard[name]: run_hytm(
+                 None, p, s, cc, runtime=srt).wall_seconds,
+             "owner": lambda p=prog, s=src, cc=owner[name]: run_hytm(
+                 None, p, s, cc, runtime=ort).wall_seconds},
             rounds=GLOO_PAGERANK_TURNS if name == "pagerank" else SHARD_TURNS)
         step(f"{name} turns")
     return out
 
 
-def shard_summary(name: str, single: dict, walls: dict, res, info: dict) -> dict:
+def shard_summary(name: str, single: dict, walls: dict, res, info: dict,
+                  against: str = "single") -> dict:
+    """One leg's line: its median wall against the ``against`` side of the
+    same turns, the collectives' device ms an iteration, host syncs a
+    dispatch and the run's peak device memory."""
     med = {k: float(np.median(v)) for k, v in walls.items() if v}
-    log(f"  {name}: {res.iterations} iterations; median wall {med['sharded']:.4f} s sharded "
-        f"vs {med['single']:.4f} s single-device sync (of {len(walls['sharded'])} each, in "
-        f"turns; the instrumented run {res.wall_seconds:.4f} s); "
-        f"collectives {info['collective_ms_per_iter']:.3f} ms an iteration "
-        f"({info['n_collectives']} all_reduces); {info['syncs_per_dispatch']:.2f} host syncs a "
-        f"dispatch ({info['dispatches']} dispatches: {info['syncs']})")
+    side = "owner" if against == "sharded" else "sharded"
+    log(f"  {name}: {res.iterations} iterations; median wall {med[side]:.4f} s vs "
+        f"{med[against]:.4f} s {'replicated' if against == 'sharded' else 'single-device sync'}"
+        f" (of {len(walls[side])} each, in turns; the instrumented run "
+        f"{res.wall_seconds:.4f} s); collectives {info['collective_ms_per_iter']:.3f} ms an "
+        f"iteration ({info['collectives']}); {info['syncs_per_dispatch']:.2f} host syncs a "
+        f"dispatch ({info['dispatches']} dispatches: {info['syncs']}); peak allocated "
+        f"{info['peak_bytes'] / 2**20:.1f} MiB ({info['peak_above_start'] / 2**20:.1f} MiB "
+        "above the run's start)")
     return {"iterations": res.iterations, "median_s": med, "walls": walls,
             "instrumented_s": res.wall_seconds,
             "single_iterations": single["iterations"],
-            **{k: info[k] for k in ("collective_ms_per_iter", "n_collectives", "syncs",
-                                    "dispatches", "syncs_per_dispatch")}}
+            **{k: info[k] for k in ("collective_ms_per_iter", "n_collectives", "collectives",
+                                    "syncs", "dispatches", "syncs_per_dispatch", "peak_bytes",
+                                    "peak_above_start")}}
 
 
 def phase_sharded(torch, cfg, hs, rt, source: int, smi: str) -> dict:
@@ -2896,26 +2997,40 @@ def phase_sharded(torch, cfg, hs, rt, source: int, smi: str) -> dict:
     the ``merged_entries`` rows equal leg (a)'s (touched sets are unions) so
     the D = 2 ICI rows are ``ici_level_cost`` of them, and a seeded
     ``chunk_dispatch`` plan that fires on both ranks leaves SSSP bit-equal.
+    Legs (c) and (d): the owner layout (``vertex_sharding="owner"``) in the
+    same processes as legs (a) and (b).  At D = 1 (c) ``n_pad = n`` and the
+    halo is empty: SSSP (K=8) bit-equal to leg (a) and to the sync run,
+    Δ-PageRank within phase 4's bound of leg (a) (its sum kernel's atomics
+    make no two card runs bit-equal), ICI rows zero.  At D = 2 (d): SSSP
+    bit-equal to the sync run, Δ-PageRank within bound, both ranks equal,
+    SSSP's ``merged_entries`` equal to leg (a)'s and the ICI rows
+    ``halo_level_cost`` of them under the halo both ranks computed alike;
+    SSSP (K=2) killed at chunk 2 on both ranks and resumed bit-equal, rank
+    0 alone writing an owner checkpoint with the real ``n_nodes``.
     Each leg's launches: the kernels of the engines it picked, and no
-    other.  Wall seconds in turns with the single-device sync run (3
-    rounds; leg (b)'s Δ-PageRank 1), the all_reduces' device ms an iteration
-    (CUDA events; gloo stages them through the host) and host syncs a
-    dispatch."""
+    other.  Wall seconds in turns of the single-device sync run, the
+    replicated and the owner layout (3 rounds; at D = 2 Δ-PageRank 1), the
+    collectives' device ms an iteration (CUDA events; gloo stages them
+    through the host), host syncs a dispatch, each rank's peak allocated
+    memory in each layout, and the owner state triple's bytes against
+    ``vertex_state_bytes``."""
     import tempfile
 
     from repro_torch.core.hytm import run_hytm
-    from repro_torch.dist.graph_shard import build_sharded_runtime, ici_level_cost
+    from repro_torch.dist.graph_shard import (build_sharded_runtime, halo_level_cost,
+                                              ici_level_cost)
     from repro_torch.launch.mesh import RankPool, make_graph_mesh
 
     legs = shard_legs(cfg, source)
     shard = {k: dataclasses.replace(c, mesh_axis="graph") for k, (_, _, c) in legs.items()}
+    owner = {k: dataclasses.replace(shard[k], vertex_sharding="owner") for k in OWNER_LEGS}
     out, launches = {"card": smi}, {}
     single = {}
     for name, (prog, src, c) in legs.items():
         single[name] = run_hytm(None, prog, src, c, runtime=rt)
 
-    def held(name, res, where):
-        s = single[name]
+    def held(name, res, where, against=None):
+        s = single[name] if against is None else against
         if name == "pagerank":
             a, b = res.values + res.delta, s.values + s.delta
             err = float(np.max(np.abs(a - b)))
@@ -2926,43 +3041,89 @@ def phase_sharded(torch, cfg, hs, rt, source: int, smi: str) -> dict:
               f"{where} {name} != single-device sync (values/iterations/bytes/engines)")
         return {"bit_equal": True}
 
-    # -- leg (a): NCCL, world size 1, this process
+    def memory_line(where, rep, own, state):
+        log(f"  {where} peak allocated: owner {own['peak_bytes']} B vs replicated "
+            f"{rep['peak_bytes']} B ({own['peak_above_start']} B vs {rep['peak_above_start']} B "
+            f"above the run's start); state triple {state['measured']} B measured vs "
+            f"vertex_state_bytes owner {state['model_owner']} B (largest halo; "
+            f"{state['model_owner_no_halo']} B without), replicated "
+            f"{state['model_replicated']} B")
+
+    # -- legs (a) and (c): NCCL, world size 1, this process
     t = time.monotonic()
-    a = {}
+    a, c_leg = {}, {}
     with RankPool(1, backend="nccl", timeout_s=120.0):
         mesh = make_graph_mesh(device=rt.device)
         srt = build_sharded_runtime(hs.graph, shard["sssp_k8"], mesh, n_hubs=hs.n_hubs)
+        ort = build_sharded_runtime(hs.graph, owner["sssp_k8"], mesh, n_hubs=hs.n_hubs)
+        check(ort.n_pad == hs.graph.n_nodes and ort.halo.halo_counts == (0,),
+              f"leg (c): n_pad {ort.n_pad}, halo {ort.halo.halo_counts} at D = 1")
         align_ranks(torch, mesh)
-        summary = {}
+        summary, infos = {}, {}
         for name, (prog, src, c) in legs.items():
-            reset_launch_counts()
-            info = instrumented(torch, lambda rec, p=prog, s=src, cc=shard[name]:
-                                run_hytm(None, p, s, cc, runtime=srt, obs=rec))
-            counts = launches[f"sharded_nccl_{name}"] = read_launch_counts()
-            res = info["res"]
-            check(engine_launches_match(res, counts),
-                  f"leg (a) {name}: launches {counts} do not match its engines")
-            check(res.total_ici_bytes == 0.0 and bool((res.history["ici_engine"] == -1).all())
-                  and not res.history["ici_time"].any(), f"leg (a) {name}: ICI rows not zero")
-            a[name] = {"merged": info["merged"], **held(name, res, "leg (a)")}
+            sides = [("replicated", srt, shard[name], a)]
+            if name in owner:
+                sides.append(("owner", ort, owner[name], c_leg))
+            for layout, r_, cc, box in sides:
+                reset_launch_counts()
+                info = infos[(layout, name)] = instrumented(
+                    torch, lambda rec, p=prog, s=src, k=cc, r=r_:
+                    run_hytm(None, p, s, k, runtime=r, obs=rec))
+                key = f"sharded_nccl_{name}" if layout == "replicated" else \
+                    f"owner_nccl_{name}"
+                counts = launches[key] = read_launch_counts()
+                res = info["res"]
+                where = "leg (a)" if layout == "replicated" else "leg (c)"
+                check(engine_launches_match(res, counts),
+                      f"{where} {name}: launches {counts} do not match its engines")
+                check(res.total_ici_bytes == 0.0
+                      and bool((res.history["ici_engine"] == -1).all())
+                      and not res.history["ici_time"].any(), f"{where} {name}: ICI rows not zero")
+                box[name] = {"merged": info["merged"], **held(name, res, where)}
+            if name in owner:
+                rep, own = infos[("replicated", name)]["res"], infos[("owner", name)]["res"]
+                if name == "pagerank":
+                    c_leg[name]["vs_replicated"] = held(name, own, "leg (c) vs leg (a)", rep)
+                    c_leg[name]["bit_equal_replicated"] = bool(
+                        np.array_equal(own.values, rep.values)
+                        and np.array_equal(own.delta, rep.delta))
+                else:
+                    check(same_min_run(own, rep) and np.array_equal(own.delta, rep.delta),
+                          f"leg (c) {name} != leg (a)")
+                    c_leg[name]["bit_equal_replicated"] = True
             walls = shard_turns(
-                lambda p=prog, s=src, cc=shard[name]: run_hytm(None, p, s, cc,
-                                                               runtime=srt).wall_seconds,
-                lambda p=prog, s=src, cc=c: run_hytm(None, p, s, cc, runtime=rt).wall_seconds)
+                {"single": lambda p=prog, s=src, k=c: run_hytm(None, p, s, k,
+                                                               runtime=rt).wall_seconds,
+                 "sharded": lambda p=prog, s=src, k=shard[name]: run_hytm(
+                     None, p, s, k, runtime=srt).wall_seconds,
+                 "owner": (lambda p=prog, s=src, k=owner[name]: run_hytm(
+                     None, p, s, k, runtime=ort).wall_seconds) if name in owner else None})
             summary[name] = shard_summary(f"(a) nccl D=1 {name}", vars(single[name]), walls,
-                                          res, info)
+                                          infos[("replicated", name)]["res"],
+                                          infos[("replicated", name)])
+            if name in owner:
+                c_leg[name].update(shard_summary(
+                    f"(c) nccl D=1 owner {name}", vars(single[name]), walls,
+                    infos[("owner", name)]["res"], infos[("owner", name)], against="sharded"))
+                memory_line(f"(c) {name}", infos[("replicated", name)], infos[("owner", name)],
+                            owner_state_bytes(ort, prog, src))
+        c_leg["state_bytes"] = owner_state_bytes(ort, *legs["sssp_k8"][:2])
         log("phase 14 leg (a), NCCL at world size 1: SSSP (K=8, K=1) bit-equal to the "
             "single-device sync runs, Δ-PageRank within phase 4's bound "
-            f"(max |err| {a['pagerank']['max_abs_err']:.3e}), ICI rows zero, launches "
+            f"(max |err| {a['pagerank']['max_abs_err']:.3e}), ICI rows zero; leg (c), the owner "
+            "layout: SSSP (K=8) bit-equal to leg (a), Δ-PageRank within bound of leg (a) "
+            f"(max |err| {c_leg['pagerank']['vs_replicated']['max_abs_err']:.3e}, bit-equal "
+            f"{c_leg['pagerank']['bit_equal_replicated']}), ICI rows zero; launches "
             + str({k: {kk: v for kk, v in c.items() if kk in ALL_KERNELS}
                    for k, c in launches.items()}))
-        del srt
+        del srt, ort
     torch.cuda.empty_cache()
     out["nccl_d1"] = summary
+    out["owner_nccl_d1"] = c_leg
     out["nccl_d1"]["seconds"] = time.monotonic() - t
-    log(f"phase 14 leg (a) took {out['nccl_d1']['seconds']:.1f} s")
+    log(f"phase 14 legs (a) and (c) took {out['nccl_d1']['seconds']:.1f} s")
 
-    # -- leg (b): gloo, two ranks on this card
+    # -- legs (b) and (d): gloo, two ranks on this card
     t = time.monotonic()
     with tempfile.TemporaryDirectory(prefix="phase14_") as tmp:
         g = hs.graph
@@ -2985,54 +3146,110 @@ def phase_sharded(torch, cfg, hs, rt, source: int, smi: str) -> dict:
             ranks = pool.run(shard_rank, tmp, cfg, source, hs.n_hubs)
     r0, r1 = ranks
     half = rt.parts.n_partitions // 2
-    b = {}
-    for name in ("sssp_k8", "pagerank"):
-        res, other = r0["info"][name]["res"], r1["info"][name]["res"]
-        for r in ranks:
-            counts = launches[f"sharded_gloo_{name}_rank{r['rank']}"] = r["launches"][name]
-            own = slice(r["rank"] * half, (r["rank"] + 1) * half)
-            check(engine_launches_match(r["info"][name]["res"], counts, own),
-                  f"leg (b) {name} rank {r['rank']}: launches {counts} do not match its engines")
-        check(all(np.array_equal(res.history[k], other.history[k]) for k in res.history)
-              and np.array_equal(res.values, other.values)
-              and np.array_equal(res.delta, other.delta),
-              f"leg (b) {name}: the two ranks' results differ")
-        b[name] = held(name, res, "leg (b)")
-
-        merged = r0["info"][name]["merged"]
-        check(merged == r1["info"][name]["merged"],
-              f"leg (b) {name}: the two ranks' merged_entries differ")
-        # touched sets are unions, so a MIN program's rows equal leg (a)'s; a
-        # SUM program's frontier may move at its tolerance with the merge's
-        # float order, and with it the rows (reported, not required)
-        b[name]["merged_equal_leg_a"] = merged == a[name]["merged"]
-        check(b[name]["merged_equal_leg_a"] or name == "pagerank",
-              f"leg (b) {name}: merged_entries differ from leg (a)'s")
-        want = [ici_level_cost(g.n_nodes, m, 2, cfg.ici_link) for m in merged]
-        check(r0["info"][name]["ici_rows"] == [tuple(w) for w in want],
-              f"leg (b) {name}: ICI rows != ici_level_cost of the merged entries")
-        b[name]["ici_engines"] = {int(e): int(n) for e, n in zip(
-            *np.unique(res.history["ici_engine"], return_counts=True))}
+    b, d = {}, {}
+    check(r0["halo"] == r1["halo"],
+          f"leg (d): the ranks' halo plans differ: {r0['halo']} vs {r1['halo']}")
+    halo_total = r0["halo"]["total"]
+    for layout, box, key in (("replicated", b, "info"), ("owner", d, "owner")):
+        where = "leg (b)" if layout == "replicated" else "leg (d)"
+        for name in ("sssp_k8", "pagerank"):
+            res, other = r0[key][name]["res"], r1[key][name]["res"]
+            for r in ranks:
+                counts = r["launches"][(layout, name)]
+                tag = "sharded_gloo" if layout == "replicated" else "owner_gloo"
+                launches[f"{tag}_{name}_rank{r['rank']}"] = counts
+                own = slice(r["rank"] * half, (r["rank"] + 1) * half)
+                check(engine_launches_match(r[key][name]["res"], counts, own),
+                      f"{where} {name} rank {r['rank']}: launches {counts} do not match its "
+                      "engines")
+            check(all(np.array_equal(res.history[k], other.history[k]) for k in res.history)
+                  and np.array_equal(res.values, other.values)
+                  and np.array_equal(res.delta, other.delta),
+                  f"{where} {name}: the two ranks' results differ")
+            box[name] = held(name, res, where)
+            merged = r0[key][name]["merged"]
+            check(merged == r1[key][name]["merged"],
+                  f"{where} {name}: the two ranks' merged_entries differ")
+            # touched sets are unions, so a MIN program's rows equal leg (a)'s; a
+            # SUM program's frontier may move at its tolerance with the merge's
+            # float order, and with it the rows (reported, not required)
+            box[name]["merged_equal_leg_a"] = merged == a[name]["merged"]
+            check(box[name]["merged_equal_leg_a"] or name == "pagerank",
+                  f"{where} {name}: merged_entries differ from leg (a)'s")
+            if layout == "replicated":
+                want = [ici_level_cost(g.n_nodes, m, 2, cfg.ici_link) for m in merged]
+            else:
+                want = [halo_level_cost(g.n_nodes, m, halo_total, 2, cfg.ici_link)
+                        for m in merged]
+                check(r0[key][name]["halo"] == [min(m, float(halo_total)) for m in merged],
+                      f"{where} {name}: the ici instants' halo_entries are not the capped rows")
+            check(r0[key][name]["ici_rows"] == [tuple(w) for w in want],
+                  f"{where} {name}: ICI rows != the model's cost of the merged entries")
+            box[name]["ici_engines"] = {int(e): int(n) for e, n in zip(
+                *np.unique(res.history["ici_engine"], return_counts=True))}
     check(bool(r0["fired"]) and r0["fired"] == r1["fired"],
           f"leg (b): the fault plan fired {r0['fired']} on rank 0, {r1['fired']} on rank 1")
     check(same_min_run(r0["faulted"], r0["info"]["sssp_k8"]["res"])
           and same_min_run(r1["faulted"], r0["info"]["sssp_k8"]["res"]),
           "leg (b): SSSP under the fault plan != the clean run")
+    for r in ranks:
+        k = r["kill"]
+        check(k["killed"] and k["fired"] == r0["kill"]["fired"],
+              f"leg (d) rank {r['rank']}: the kill at chunk {KILL_AT} did not fire alike")
+        # the resumed history's ICI rows are the resumed part's only
+        check(same_min_run(k["res"], k["base"])
+              and all(np.array_equal(k["res"].history[h], k["base"].history[h])
+                      for h in k["base"].history if not h.startswith("ici_")),
+              f"leg (d) rank {r['rank']}: the resumed SSSP != the uninterrupted owner run")
+        check(k["saved"] == (KILL_AT if r["rank"] == 0 else 0) and k["committed"] == KILL_AT,
+              f"leg (d) rank {r['rank']}: saved {k['saved']}, committed {k['committed']}")
+        check(k["file"]["state_layout"] == "owner" and k["file"]["n_nodes"] == g.n_nodes
+              and k["file"]["shape"] == (r0["halo"]["n_pad"],),
+              f"leg (d): the checkpoint says {k['file']}")
+    check(same_min_run(r0["kill"]["base"], r1["kill"]["base"]),
+          "leg (d): the ranks' uninterrupted K=2 runs differ")
     log(f"phase 14 leg (b), gloo at D=2 on one card: SSSP bit-equal to the single-device sync "
         f"run, Δ-PageRank within phase 4's bound (max |err| {b['pagerank']['max_abs_err']:.3e}), "
         f"both ranks equal, merged_entries equal leg (a)'s (Δ-PageRank: "
         f"{b['pagerank']['merged_equal_leg_a']}), ICI engines "
         f"{ {k: v['ici_engines'] for k, v in b.items()} }; faults {r0['fired']} on both ranks, "
         "SSSP bit-equal")
+    log(f"phase 14 leg (d), the owner layout on the same ranks: n_pad {r0['halo']['n_pad']}, "
+        f"halo counts {r0['halo']['counts']} (rank 0) and {r1['halo']['counts']} (rank 1), "
+        f"halo_total {halo_total} on both; SSSP bit-equal to the sync run, Δ-PageRank within "
+        f"bound (max |err| {d['pagerank']['max_abs_err']:.3e}), both ranks equal, SSSP's "
+        f"merged_entries equal leg (a)'s, ICI rows halo_level_cost of them, ICI engines "
+        f"{ {k: v['ici_engines'] for k, v in d.items()} }; SSSP (K=2) killed at chunk {KILL_AT} "
+        f"on both ranks ({r0['kill']['fired']}), resumed bit-equal "
+        f"({r0['kill']['res'].iterations} iterations) in {r0['kill']['seconds']:.1f} s, saved "
+        f"{r0['kill']['saved']} (rank 0) and {r1['kill']['saved']} (rank 1), the file "
+        f"{r0['kill']['file']}")
     # the walls and collective times are rank 0's, the host syncs rank 1's
+    syncs_of = ("syncs", "dispatches", "syncs_per_dispatch")
     out["gloo_d2"] = {name: {**b[name], **shard_summary(
         f"(b) gloo D=2 {name}", vars(single[name]), r0["walls"][name], r0["info"][name]["res"],
-        {**r0["info"][name], **{k: r1["info"][name][k] for k in (
-            "syncs", "dispatches", "syncs_per_dispatch")}})} for name in ("sssp_k8", "pagerank")}
+        {**r0["info"][name], **{k: r1["info"][name][k] for k in syncs_of}})}
+        for name in ("sssp_k8", "pagerank")}
+    out["owner_gloo_d2"] = {name: {**d[name], **shard_summary(
+        f"(d) gloo D=2 owner {name}", vars(single[name]), r0["walls"][name],
+        r0["owner"][name]["res"], {**r0["owner"][name],
+                                   **{k: r1["owner"][name][k] for k in syncs_of}},
+        against="sharded")} for name in ("sssp_k8", "pagerank")}
+    for r in ranks:
+        for name in ("sssp_k8", "pagerank"):
+            memory_line(f"(d) rank {r['rank']} {name}", r["info"][name], r["owner"][name],
+                        r["state_bytes"])
+        out["owner_gloo_d2"][f"memory_rank{r['rank']}"] = {
+            name: {layout: {k: r[key][name][k] for k in ("peak_bytes", "peak_above_start")}
+                   for layout, key in (("replicated", "info"), ("owner", "owner"))}
+            for name in ("sssp_k8", "pagerank")}
+        out["owner_gloo_d2"][f"state_bytes_rank{r['rank']}"] = r["state_bytes"]
+    out["owner_gloo_d2"]["halo"] = {"rank0": r0["halo"], "rank1": r1["halo"]}
+    out["owner_gloo_d2"]["kill_resume_s"] = r0["kill"]["seconds"]
     out["gloo_d2"]["fired"] = r0["fired"]
     out["gloo_d2"]["seconds"] = time.monotonic() - t
-    log(f"phase 14 leg (b) took {out['gloo_d2']['seconds']:.1f} s (collectives staged "
-        "through the host by gloo; the merge between two devices is not measured: one card)")
+    log(f"phase 14 legs (b) and (d) took {out['gloo_d2']['seconds']:.1f} s (collectives staged "
+        "through the host by gloo; the exchange between two devices is not measured: one card)")
     out["launches"] = launches
     return out
 

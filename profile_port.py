@@ -5,6 +5,7 @@
     python3 profile_port.py --scale 16   # a quick rehearsal
     python3 profile_port.py --dlrm       # dlrm-mlperf serving instead of the graph
     python3 profile_port.py --against parent=DIR   # this tree against another, in turns
+    python3 profile_port.py --mesh       # the sharded sweep over every card, both layouts
 
 For SSSP (K=8) and Δ-PageRank, each through the kernels and through the
 plain engines (``use_kernels=False``):
@@ -48,6 +49,17 @@ every tree has ``repro_torch.stream``, each worker also builds a
 through the kernels in the same turns, then one profiled SSSP run over it
 (device busy, the largest device entries).
 
+With ``--mesh`` (two or more cards) it runs the sharded sweep with one
+rank a card over NCCL (``launch.mesh.RankPool``: this process rank 0 on
+card 0), the graph handed to the other ranks as ``.npy`` files, in both
+vertex layouts: SSSP (K=8) and Δ-PageRank, each once instrumented as
+``chip_smoke.py`` phase 14 instruments a leg (the collectives' device ms
+an iteration by CUDA events, the peak allocated device memory), then
+``MESH_ROUNDS`` rounds of (single-device sync on rank 0, replicated,
+owner) in turns.  It holds SSSP bit-equal to the single-device sync run
+and Δ-PageRank within phase 4's bound in both layouts, and every rank's
+result equal.
+
 A diagnostic: it checks nothing that ``chip_smoke.py`` does not check.
 The last line is one JSON object of the turns and profile numbers.
 """
@@ -74,6 +86,7 @@ ROUNDS = 3  # rounds of (plain, kernels, kernels, plain) runs
 AB_ROUNDS = 2  # rounds of the trees in turns (--against)
 AB_LEGS = ("pagerank", "pagerank_plain", "sssp_k8", "sssp_plain")
 AB_STREAM_LEGS = ("stream_sssp_k8", "stream_pagerank")  # over a DeltaCSR
+MESH_ROUNDS = 3  # rounds of (single-device sync, replicated, owner) runs (--mesh)
 
 
 def device_busy(prof) -> tuple[float, float]:
@@ -401,6 +414,131 @@ def ab_main(args, smi: str) -> dict:
     return out
 
 
+def mesh_rank(group, graph_dir: str, cfg, source: int, n_hubs: int) -> dict:
+    """One rank of ``--mesh`` on its own card: the graph from ``graph_dir``,
+    its sharded runtimes in both layouts, SSSP (K=8) and Δ-PageRank
+    instrumented in each, then the turns (rank 0 also runs the
+    single-device sync legs; the other ranks meanwhile wait in their next
+    collective)."""
+    import torch
+
+    from repro_torch.core.hytm import build_runtime, run_hytm
+    from repro_torch.dist.graph_shard import build_sharded_runtime
+    from repro_torch.graph.csr import CSRGraph
+    from repro_torch.launch.mesh import make_graph_mesh
+
+    mesh = make_graph_mesh(group=group)
+    torch.cuda.set_device(mesh.device)
+    d = Path(graph_dir)
+    g = CSRGraph(np.load(d / "indptr.npy"), np.load(d / "indices.npy"),
+                 np.load(d / "weights.npy"))
+    legs = {k: v for k, v in smoke.shard_legs(cfg, source).items() if k in smoke.OWNER_LEGS}
+    configs = {name: {"replicated": dataclasses.replace(c, mesh_axis="graph"),
+                      "owner": dataclasses.replace(c, mesh_axis="graph",
+                                                   vertex_sharding="owner")}
+               for name, (_, _, c) in legs.items()}
+    rts = {layout: build_sharded_runtime(g, configs["sssp_k8"][layout], mesh, n_hubs=n_hubs)
+           for layout in ("replicated", "owner")}
+    rt1 = build_runtime(g, cfg, n_hubs=n_hubs, device=mesh.device) if mesh.rank == 0 else None
+    smoke.align_ranks(torch, mesh)
+    out = {"rank": mesh.rank, "size": mesh.size, "info": {}, "walls": {},
+           "halo": {"counts": rts["owner"].halo.halo_counts,
+                    "total": rts["owner"].halo.halo_total},
+           "state_bytes": smoke.owner_state_bytes(rts["owner"], *legs["sssp_k8"][:2])}
+    for name, (prog, src, c) in legs.items():
+        for layout, rt_ in rts.items():
+            smoke.reset_launch_counts()
+            info = smoke.instrumented(
+                torch, lambda rec, k=configs[name][layout], r=rt_:
+                run_hytm(None, prog, src, k, runtime=r, obs=rec), count_syncs=False)
+            info["launches"] = smoke.read_launch_counts()
+            out["info"][(layout, name)] = info
+        out["walls"][name] = smoke.shard_turns(
+            {"single": (lambda k=c: run_hytm(None, prog, src, k, runtime=rt1).wall_seconds)
+             if rt1 is not None else None,
+             **{layout: (lambda k=configs[name][layout], r=rt_:
+                         run_hytm(None, prog, src, k, runtime=r).wall_seconds)
+                for layout, rt_ in rts.items()}},
+            rounds=MESH_ROUNDS)
+        if mesh.rank == 0:
+            log(f"  mesh rank 0: {name} done")
+    return out
+
+
+def mesh_main(args, smi: str) -> dict:
+    """``--mesh``: the sharded sweep over every card, both layouts."""
+    import tempfile
+
+    import torch
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        raise SystemExit(f"profile_port --mesh: needs two or more cards, found {n_cards}")
+    cfg, hs, source, rt = smoke.setup(torch, args.scale)   # puts src on the path
+    from repro_torch.core.hytm import run_hytm
+    from repro_torch.launch.mesh import RankPool
+
+    legs = {k: v for k, v in smoke.shard_legs(cfg, source).items() if k in smoke.OWNER_LEGS}
+    single = {name: run_hytm(None, prog, src, c, runtime=rt)
+              for name, (prog, src, c) in legs.items()}
+    with tempfile.TemporaryDirectory(prefix="mesh_") as tmp:
+        g = hs.graph
+        for key, arr in (("indptr", g.indptr), ("indices", g.indices),
+                         ("weights", g.weights if g.weights is not None
+                          else np.ones(g.n_edges, np.float32))):
+            np.save(Path(tmp) / f"{key}.npy", arr)
+        with RankPool(n_cards, backend="nccl", timeout_s=300.0) as pool:
+            ranks = pool.run(mesh_rank, tmp, cfg, source, hs.n_hubs)
+    out = {"card": smi, "scale": args.scale, "cards": n_cards,
+           "halo": ranks[0]["halo"], "state_bytes": ranks[0]["state_bytes"]}
+    smoke.check(all(r["halo"] == ranks[0]["halo"] for r in ranks),
+                "--mesh: the ranks' halo plans differ")
+    log(f"mesh: {n_cards} ranks, NCCL, one card each; owner halo counts "
+        f"{ranks[0]['halo']['counts']}, total {ranks[0]['halo']['total']}; state triple "
+        f"{ranks[0]['state_bytes']}")
+    for name in legs:
+        s = single[name]
+        for layout in ("replicated", "owner"):
+            res = ranks[0]["info"][(layout, name)]["res"]
+            for r in ranks[1:]:
+                other = r["info"][(layout, name)]["res"]
+                smoke.check(np.array_equal(res.values, other.values)
+                            and all(np.array_equal(res.history[k], other.history[k])
+                                    for k in res.history),
+                            f"--mesh {layout} {name}: rank {r['rank']}'s result differs")
+            if name == "pagerank":
+                a, b = res.values + res.delta, s.values + s.delta
+                err = float(np.max(np.abs(a - b)))
+                smoke.check(bool(np.all(np.isfinite(a))) and np.allclose(a, b, rtol=1e-4,
+                                                                         atol=1e-3),
+                            f"--mesh {layout} Δ-PageRank: max |err| {err:.3e}")
+            else:
+                err = 0.0
+                smoke.check(smoke.same_min_run(res, s),
+                            f"--mesh {layout} SSSP != the single-device sync run")
+            walls = ranks[0]["walls"][name]
+            med = {k: float(np.median(v)) for k, v in walls.items() if v}
+            row = {"iterations": res.iterations, "median_s": med, "walls": walls,
+                   "max_abs_err": err,
+                   "ici_engines": {int(e): int(c) for e, c in zip(
+                       *np.unique(res.history["ici_engine"], return_counts=True))}}
+            for r in ranks:
+                info = r["info"][(layout, name)]
+                row[f"rank{r['rank']}"] = {k: info[k] for k in (
+                    "collective_ms_per_iter", "collectives", "peak_bytes", "peak_above_start",
+                    "launches")}
+            out[f"{layout}_{name}"] = row
+            coll = [row[f"rank{r['rank']}"]["collective_ms_per_iter"] for r in ranks]
+            peaks = [row[f"rank{r['rank']}"]["peak_above_start"] for r in ranks]
+            log(f"mesh {layout} {name}: {res.iterations} iterations, median wall "
+                f"{med[layout]:.4f} s (single-device sync {med['single']:.4f} s, of "
+                f"{len(walls[layout])} each in turns); max |err| {err:.3e}; collectives "
+                f"{min(coll):.3f}-{max(coll):.3f} ms an iteration by rank "
+                f"({ranks[0]['info'][(layout, name)]['collectives']}); peak above the run's "
+                f"start {min(peaks)}-{max(peaks)} B by rank; ICI engines {row['ici_engines']}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22,
@@ -409,6 +547,8 @@ def main() -> int:
                     help="profile dlrm-mlperf serving instead of the graph path")
     ap.add_argument("--against", action="append", default=[], metavar="NAME=DIR",
                     help="compare this tree with the checkout DIR in turns")
+    ap.add_argument("--mesh", action="store_true",
+                    help="the sharded sweep over every card (NCCL), both vertex layouts")
     ap.add_argument("--worker", help=argparse.SUPPRESS)       # a tree's src, for --against
     ap.add_argument("--graph-file", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -427,6 +567,9 @@ def main() -> int:
         return 0
     if args.against:
         print(json.dumps(ab_main(args, smi)))
+        return 0
+    if args.mesh:
+        print(json.dumps(mesh_main(args, smi), default=str))
         return 0
     cfg, _, source, rt = smoke.setup(torch, args.scale)
     from repro_torch.core.hytm import run_hytm

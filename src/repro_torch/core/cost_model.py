@@ -256,6 +256,21 @@ KEY_STATE_BYTES_PER_DEVICE = "state_bytes_per_device"
 KEY_WARM_CACHE = "warm_cache"
 KEY_ENGINE_CORRECTIONS = "engine_corrections"
 
+# float32 values + float32 Δ + bool frontier, one entry each per vertex
+STATE_BYTES_PER_VERTEX = 4 + 4 + 1
+
+
+def vertex_state_bytes(n_nodes: int, n_devices: int = 1,
+                       vertex_sharding: str = "replicated", halo: int = 0) -> int:
+    """Per-device bytes of the (values, Δ, frontier) triple: the whole
+    ``(n,)`` triple under ``"replicated"``; under ``"owner"`` the device's
+    ``ceil(n/D)`` owned slice plus ``halo`` boundary entries.  Host
+    integer arithmetic, as in the reference."""
+    if vertex_sharding == "owner":
+        n_loc = -(-n_nodes // max(n_devices, 1))
+        return STATE_BYTES_PER_VERTEX * (n_loc + halo)
+    return STATE_BYTES_PER_VERTEX * n_nodes
+
 # The iteration-info keys that persist into ``HyTMResult.history``, one row
 # per iteration; ``next_active`` is read by the driver, not buffered.
 HISTORY_KEYS = (

@@ -81,7 +81,6 @@ from repro_torch.core.task_generation import TaskPlan, forced_engine_plan, gener
 from repro_torch.graph.algorithms import MIN, SUM, VertexProgram
 from repro_torch.graph.csr import CSRGraph, DeviceCSR, to_device_csr
 from repro_torch.kernels.runtime import resolve_device, resolve_use_kernels
-from repro_torch.resilience.supervisor import guarded_dispatch
 
 
 @dataclass(frozen=True)
@@ -157,6 +156,11 @@ class Runtime:
     @property
     def out_degree(self) -> torch.Tensor:
         return self.csr.out_degree
+
+    @property
+    def n_nodes(self) -> int:
+        """As ``dist.graph_shard.ShardedRuntime.n_nodes``."""
+        return self.csr.n_nodes
 
 
 def build_runtime(
@@ -326,8 +330,10 @@ def _plan(
         # partitions are contiguous vertex ranges: a segmented sum in index
         # order, as the reference's scatter-add adds on the CPU, instead of
         # n atomics on P addresses
+        # the lengths cover the n real vertices: an owner-layout view's
+        # [n, n_pad) pads are sliced off first
         delta_mass = torch.segment_reduce(
-            torch.abs(state.delta) * frontier, "sum",
+            (torch.abs(state.delta) * frontier)[:rt.parts.host[0][-1]], "sum",
             lengths=torch.diff(rt.parts.vertex_start), unsafe=True)
     else:
         delta_mass = torch.zeros(P, dtype=torch.float32, device=frontier.device)
@@ -858,8 +864,7 @@ def _reject_unported(config: HyTMConfig, mesh, caller: str) -> None:
     if config.mesh_axis is not None or mesh is not None:
         raise NotImplementedError(
             f"{caller}: mesh_axis/mesh is not ported yet (ROADMAP queue 1, "
-            "item 11c: the sharded paths of the stream, serving and "
-            "resilience slices)")
+            "item 11c: the sharded paths of the stream and serving slices)")
 
 
 def run_hytm(
@@ -986,6 +991,10 @@ def run_hytm(
             np.asarray(calib.correction(), np.float64).astype(np.float32)).to(rt.device)
 
     rows: dict[str, list] = {k: [] for k in HISTORY_KEYS}
+    # late import: the resilience package's checkpoint module imports
+    # dist.graph_shard, which builds on this module
+    from repro_torch.resilience.supervisor import guarded_dispatch
+
     # the fault plane's ``when={"kernels": ...}`` context
     use_kernels = resolve_use_kernels(config.use_kernels, rt.device)
     t0 = time.monotonic()

@@ -1,16 +1,31 @@
 """Multi-GPU HyTM: the partition sweep over a 1-D ``torch.distributed``
-group, replicated vertex layout (the reference's ``repro/dist/graph_shard.py``).
+group (the reference's ``repro/dist/graph_shard.py``), in both vertex
+layouts.
 
 Each rank owns a contiguous run of ``P_local = P_pad / D`` partitions: their
 edges, one contiguous range of the CSR edge arrays, live on the rank's
-device with rank-local offsets.  Every rank holds the replicated ``(n,)``
-state (values, Δ, frontier), the per-vertex vectors (``out_degree``,
-``zc_req``, ``inv_deg``) and the whole partition table, padded to ``P_pad =
-ceil(P/D)·D`` with empty partitions (:func:`_pad_table`).  One iteration on
-each rank, step for step the reference's (``graph_shard.py:528-662``):
+device with rank-local offsets.  Every rank holds the per-vertex vectors
+(``out_degree``, ``zc_req``, ``inv_deg``) and the whole partition table,
+padded to ``P_pad = ceil(P/D)·D`` with empty partitions (:func:`_pad_table`).
+The (values, Δ, frontier) state is laid out by
+``HyTMConfig.vertex_sharding``:
+
+* ``"replicated"``: every rank holds the whole ``(n,)`` triple;
+* ``"owner"`` (the owner/halo layout): ``n`` pads to ``n_pad = n_loc·D``
+  with ``n_loc = ceil(n/D)``, rank ``d`` owns the vertex slice
+  ``[d·n_loc, (d+1)·n_loc)`` and holds only that slice of the triple.  The
+  per-vertex vectors stay replicated, padded to ``n_pad`` with inert fills.
+  The owned slice is not the rank's partitions' vertex range (partitions
+  are balanced by edges, ownership by vertex count), so a rank's edges
+  name vertices it does not own: its halo (:class:`HaloPlan`).
+
+One iteration on each rank, step for step the reference's
+(``graph_shard.py:439-662``):
 
   1. the global stats, Δ mass, task plan and the global schedule's
-     second-pass mask, all from the replicated state (``core.hytm._plan``);
+     second-pass mask (``core.hytm._plan``), from the whole frontier and Δ:
+     under the owner layout the owned slices are all-gathered first, so
+     the plan is bit-identical to the replicated layout's;
   2. the rank's engines: its slice of the global plan (selection is per
      partition, so this equals Algorithm 1 on the local stats);
   3. the local schedules of both passes, hub ids made global with
@@ -18,22 +33,25 @@ each rank, step for step the reference's (``graph_shard.py:528-662``):
   4. ONE device-to-host copy: the local engines, both local orders, the
      second-pass flags and the previous iteration's ``next_active``;
   5. pass 1: each local partition relaxed by its engine against the
-     iteration-start operand, the results combined locally, then one
-     collective merge (``all_reduce`` MIN on the aggregate and SUM on the
-     touched counts for MIN programs, SUM on both for SUM programs) and
-     :func:`_apply_merged`;
-  6. pass 2 over the masked engines, merged the same way;
+     iteration-start operand (under the owner layout all-gathered into the
+     ``(n_pad,)`` view the edges read: the halo fill), the results combined
+     locally, then one collective merge (MIN on the aggregate and SUM on
+     the touched counts for MIN programs, SUM on both for SUM programs):
+     an ``all_reduce`` under the replicated layout, a ``reduce_scatter`` to
+     the owned slices under the owner layout; then :func:`_apply_merged`;
+  6. pass 2 over the masked engines, gathered and merged the same way;
   7. the next frontier and the info row (``core.hytm._finish``), with
-     ``merged_entries``: the destinations touched in either pass.
+     ``merged_entries``: the destinations touched in either pass.  Under
+     the owner layout ``next_active`` and ``merged_entries`` are owned-slice
+     sums, made global by one ``all_reduce`` of the two packed together.
 
 The sweep is bulk-synchronous: every rank relaxes against the
 iteration-start state and the updates merge once a pass, so a sharded run
 reproduces the single-device ``async_sweep=False`` run, bit for bit for MIN
 programs and k-core, up to float summation order for SUM programs.
 
-What every rank decides on the host comes from replicated state, which
-stays bit-identical across ranks because an ``all_reduce`` hands every rank
-the same result: the plan copy, the chunk's early exit and the loop's end.
+What every rank decides on the host comes from values a collective handed
+every rank alike: the plan copy, the chunk's early exit and the loop's end.
 With ``autotune`` each rank's wall clock differs, so rank 0's calibrator
 alone observes and its correction is broadcast once a chunk (or
 iteration).  A ``FaultPlan`` is seeded per site, so it fires alike on ranks
@@ -41,13 +59,17 @@ that make the same calls.
 
 The cross-device merge is charged in the model by :func:`ici_level_cost`
 (the second transfer-management level) from the drained ``merged_entries``
-rows; the executed collective stays the dense merge.  The owner/halo layout
-(``vertex_sharding="owner"``) is ROADMAP queue 1 item 11b and the lane-batched
-chunk item 11c: both raise ``NotImplementedError``.
+rows, and under the owner layout by :func:`halo_level_cost`, whose
+compacted candidate is capped at the halo; the executed collectives stay
+the dense ones.  The collectives are the list forms ``all_gather`` and
+``reduce_scatter``, which gloo and NCCL both take in torch 2.11 and 2.13
+(``torch.bool`` included).  The lane-batched chunk of sharded serving is
+ROADMAP queue 1 item 11c and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import time
 from dataclasses import dataclass
@@ -61,6 +83,7 @@ from repro_torch.core.cost_model import (
     COMPACT,
     FILTER,
     HISTORY_KEYS,
+    KEY_ACTIVE_VERTICES,
     KEY_ICI_BYTES,
     KEY_ICI_ENGINE,
     KEY_ICI_TIME,
@@ -98,15 +121,59 @@ from repro_torch.graph.algorithms import MIN, SUM, VertexProgram
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.kernels.runtime import resolve_use_kernels
 from repro_torch.launch.mesh import GraphMesh, make_graph_mesh
-from repro_torch.resilience.supervisor import guarded_dispatch
 
-_OWNER = ("vertex_sharding='owner' is not ported yet (ROADMAP queue 1, item 11b: the "
-          "owner/halo layout)")
+
+@dataclass(frozen=True)
+class HaloPlan:
+    """The owner layout of one sharded runtime, on the host: rank ``d``
+    owns the vertex slice ``[d·n_loc, (d+1)·n_loc)`` of the ``n_pad =
+    n_loc·D`` padded ids, and its halo is the set of vertices outside that
+    slice which its edges name as source or destination (the boundary
+    entries a compacted owner-layout exchange would ship)."""
+
+    n_pad: int
+    n_loc: int
+    halo_counts: tuple     # (D,) ints: distinct boundary vertices of each rank
+    halo_total: int
+
+    @property
+    def max_halo(self) -> int:
+        return max(self.halo_counts) if self.halo_counts else 0
+
+
+def build_halo_plan(g: CSRGraph, table: PartitionTable, n_nodes: int, n_devices: int,
+                    src: np.ndarray | None = None) -> HaloPlan:
+    """Every rank's halo count, from the host CSR and the padded table
+    (rank ``d`` holds the edges of partitions ``[d·P_local, (d+1)·P_local)``,
+    one contiguous range).  The reference counts ``np.unique`` over its
+    ``(P_total, B)`` grid; a boolean mark array over ``n`` counts the same
+    set in one pass over the edges.  Every rank computes all ``D`` counts,
+    so ``halo_total`` (an input of the ICI charge) is equal on every rank.
+    ``src`` is ``g.edge_sources()`` when the caller has it."""
+    n_loc = -(-n_nodes // n_devices)
+    P_local = table.n_partitions // n_devices
+    src = g.edge_sources() if src is None else src
+    mark = np.zeros(n_nodes, bool)
+    counts = []
+    for d in range(n_devices):
+        e0 = int(table.edge_start[d * P_local])
+        e1 = int(table.edge_start[(d + 1) * P_local])
+        mark[:] = False
+        mark[src[e0:e1]] = True
+        mark[g.indices[e0:e1]] = True
+        owned = int(np.count_nonzero(mark[d * n_loc:(d + 1) * n_loc]))
+        counts.append(int(np.count_nonzero(mark)) - owned)
+    return HaloPlan(n_pad=n_loc * n_devices, n_loc=n_loc, halo_counts=tuple(counts),
+                    halo_total=int(sum(counts)))
 
 
 @dataclass
 class ShardedRuntime:
-    """One rank's device-placed inputs, shared by every sharded iteration."""
+    """One rank's device-placed inputs, shared by every sharded iteration.
+    Under the owner layout the per-vertex vectors are padded to ``n_pad``
+    with inert fills (``out_degree`` 0, ``zc_req`` 0, ``inv_deg`` 1,
+    ``parts.vertex_part_id`` ``P_pad − 1``); under the replicated layout
+    ``n_pad == n_nodes`` and ``halo`` is None."""
 
     mesh: GraphMesh
     parts: DevicePartitions    # the padded (P_pad) table, replicated
@@ -114,12 +181,15 @@ class ShardedRuntime:
     edge_dst: torch.Tensor     # (E_local,) int32
     edge_weight: torch.Tensor  # (E_local,) float32
     edge_base: int             # global index of the rank's first edge
-    out_degree: torch.Tensor   # (n,) int32, replicated
-    zc_req: torch.Tensor       # (n,) float32, replicated
-    inv_deg: torch.Tensor      # (n,) float32, replicated
+    out_degree: torch.Tensor   # (n_pad,) int32, replicated
+    zc_req: torch.Tensor       # (n_pad,) float32, replicated
+    inv_deg: torch.Tensor      # (n_pad,) float32, replicated
     n_nodes: int
     n_partitions: int          # padded: a multiple of the mesh size
     n_hub_partitions: int
+    vertex_sharding: str = "replicated"
+    n_pad: int = 0
+    halo: HaloPlan | None = None
 
     @property
     def device(self) -> torch.device:
@@ -134,6 +204,15 @@ class ShardedRuntime:
         """Global id of the rank's first partition."""
         return self.mesh.rank * self.n_local
 
+    @property
+    def owned(self) -> slice:
+        """The rank's owned vertex slice (every vertex under the replicated
+        layout)."""
+        if self.halo is None:
+            return slice(0, self.n_nodes)
+        r, n_loc = self.mesh.rank, self.halo.n_loc
+        return slice(r * n_loc, (r + 1) * n_loc)
+
 
 def _pad_table(table: PartitionTable, n_dev: int) -> PartitionTable:
     """Append empty partitions so the partition count divides the mesh."""
@@ -147,12 +226,20 @@ def _pad_table(table: PartitionTable, n_dev: int) -> PartitionTable:
     return PartitionTable(vertex_start=vs.astype(np.int64), edge_start=es.astype(np.int64))
 
 
-def _check_vertex_sharding(sharding: str) -> None:
+def _check_vertex_sharding(sharding: str) -> str:
     if sharding not in ("replicated", "owner"):
         raise ValueError(
             f"vertex_sharding must be 'replicated' or 'owner', got {sharding!r}")
-    if sharding == "owner":
-        raise NotImplementedError(_OWNER)
+    return sharding
+
+
+def _pad_vertex_vec(vec: torch.Tensor, n_pad: int, fill) -> torch.Tensor:
+    """A per-vertex vector padded from ``(n,)`` to ``(n_pad,)`` with an inert
+    fill (pad ids carry no edges and never activate)."""
+    extra = n_pad - vec.shape[0]
+    if extra <= 0:
+        return vec
+    return torch.cat([vec, vec.new_full((extra,), fill)])
 
 
 def build_sharded_runtime(
@@ -164,11 +251,11 @@ def build_sharded_runtime(
 ) -> ShardedRuntime:
     """Partition ``g``, pad the table to a multiple of the mesh size and
     upload this rank's edge range and the replicated vectors to the mesh's
-    device."""
+    device (padded to ``n_pad`` under the owner layout)."""
     if config.mesh_axis != mesh.axis:
         raise ValueError(
             f"config.mesh_axis={config.mesh_axis!r} is not the mesh's axis {mesh.axis!r}")
-    _check_vertex_sharding(config.vertex_sharding)
+    sharding = _check_vertex_sharding(config.vertex_sharding)
     dev = mesh.device
     table = _pad_table(
         partition_graph(g, n_partitions=config.n_partitions,
@@ -201,13 +288,43 @@ def build_sharded_runtime(
         inv_deg = c["one"] / torch.maximum(out_degree.to(torch.float32), c["one"])
     n_hub_parts = int(np.searchsorted(table.vertex_start, n_hubs, side="left"))
     n_hub_parts = max(n_hub_parts, 1) if n_hubs > 0 else 0
+    halo, n_pad = None, g.n_nodes
+    if sharding == "owner":
+        halo = build_halo_plan(g, table, g.n_nodes, mesh.size, src=src_all)
+        n_pad = halo.n_pad
+        out_degree = _pad_vertex_vec(out_degree, n_pad, 0)
+        zc_req = _pad_vertex_vec(zc_req, n_pad, 0.0)
+        inv_deg = _pad_vertex_vec(inv_deg, n_pad, 1.0)
+        parts = dataclasses.replace(
+            parts, vertex_part_id=_pad_vertex_vec(parts.vertex_part_id, n_pad, P_pad - 1))
     return ShardedRuntime(
         mesh=mesh, parts=parts,
         edge_src=up(src_all[e0:e1], np.int32), edge_dst=up(g.indices[e0:e1], np.int32),
         edge_weight=up(w_all[e0:e1], np.float32), edge_base=e0,
         out_degree=out_degree, zc_req=zc_req, inv_deg=inv_deg,
         n_nodes=g.n_nodes, n_partitions=P_pad, n_hub_partitions=n_hub_parts,
+        vertex_sharding=sharding, n_pad=n_pad, halo=halo,
     )
+
+
+# --------------------------------------------------------------------------
+# The owner layout's collectives
+# --------------------------------------------------------------------------
+
+def all_gather_owned(x: torch.Tensor, mesh: GraphMesh) -> torch.Tensor:
+    """The ``(n_pad,)`` view of an owner-sharded ``(n_loc,)`` vector, every
+    rank's slice in rank order: one ``all_gather``."""
+    out = x.new_empty(x.shape[0] * mesh.size)
+    dist.all_gather(list(out.chunk(mesh.size)), x, group=mesh.group)
+    return out
+
+
+def _reduce_to_owned(x: torch.Tensor, op, mesh: GraphMesh) -> torch.Tensor:
+    """This rank's ``(n_loc,)`` slice of the group's elementwise ``op`` over
+    the ``(n_pad,)`` vectors ``x``: one ``reduce_scatter``."""
+    out = x.new_empty(x.shape[0] // mesh.size)
+    dist.reduce_scatter(out, list(x.chunk(mesh.size)), op=op, group=mesh.group)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -218,15 +335,17 @@ def _local_sweep(
     rt: ShardedRuntime,
     engines: list[int],        # (P_local,) host ints — NONE entries are skipped
     order: list[int],          # (P_local,) local processing order
-    frontier: torch.Tensor,    # (n,) replicated
-    operand: torch.Tensor,     # (n,) replicated message operand
+    frontier: torch.Tensor,    # (n_pad,) the whole frontier
+    operand: torch.Tensor,     # (n_pad,) the whole message operand
     program: VertexProgram,
     use_kernels: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Relax this rank's partitions, each its own ``part_edges[p]`` edges,
-    then merge across the group: the merged (n,) (agg, touched), one
-    collective exchange of the contribution vector a pass."""
-    n = rt.n_nodes
+    into ``(n_pad,)`` (agg, touched), then merge across the group, one
+    collective exchange of the contribution vector a pass: the merged
+    ``(n,)`` vectors under the replicated layout, the rank's owned
+    ``(n_loc,)`` slices of the same merge under the owner layout."""
+    n = rt.n_pad
     _, edge_start, part_edges = rt.parts.host
     identity = float("inf") if program.combine == MIN else 0.0
     agg = torch.full((n,), identity, dtype=torch.float32, device=operand.device)
@@ -245,10 +364,13 @@ def _local_sweep(
         out = relax_with_engine(eng, block, operand, n, program, use_kernels)
         agg = torch.minimum(agg, out.agg) if program.combine == MIN else agg + out.agg
         touched |= out.touched
-    group = rt.mesh.group
-    dist.all_reduce(agg, op=dist.ReduceOp.MIN if program.combine == MIN
-                    else dist.ReduceOp.SUM, group=group)
+    op = dist.ReduceOp.MIN if program.combine == MIN else dist.ReduceOp.SUM
     count = touched.to(torch.int32)
+    if rt.vertex_sharding == "owner":
+        return (_reduce_to_owned(agg, op, rt.mesh),
+                _reduce_to_owned(count, dist.ReduceOp.SUM, rt.mesh) > 0)
+    group = rt.mesh.group
+    dist.all_reduce(agg, op=op, group=group)
     dist.all_reduce(count, op=dist.ReduceOp.SUM, group=group)
     return agg, count > 0
 
@@ -272,14 +394,16 @@ def _apply_merged(
 
 
 class _ShardPlanned(NamedTuple):
-    """One iteration's plan on the device: the global plan and the rank's
-    slice of it."""
+    """One iteration's plan on the device: the global plan, the rank's
+    slice of it, and the whole frontier and Δ it was planned from."""
 
     planned: _Planned          # stats, plan, global schedule, Δ mass (P_pad)
     engines: torch.Tensor      # (P_local,) the rank's engines
     order1: torch.Tensor       # (P_local,) pass-1 local order
     order2: torch.Tensor       # (P_local,) pass-2 local order (masked engines)
     second: torch.Tensor       # (P_local,) bool: the global second-pass mask
+    frontier: torch.Tensor     # (n_pad,) the whole starting frontier
+    delta: torch.Tensor | None  # (n_pad,) the whole Δ (owner layout, Δ mode), else None
 
 
 def _make_iteration_impl(rt: ShardedRuntime, program: VertexProgram, config: HyTMConfig):
@@ -288,13 +412,31 @@ def _make_iteration_impl(rt: ShardedRuntime, program: VertexProgram, config: HyT
     prev_active)`` is the iteration's one copy to the host and
     ``iter_fn(state, splanned, host, correction)`` sweeps both passes
     (``core.hytm.chunked_while``'s protocol once the correction is
-    bound)."""
+    bound).  Under the owner layout ``state`` holds the rank's owned
+    slices."""
     mode = config.cds_mode
     P_local, p0 = rt.n_local, rt.p_offset
     use_kernels = resolve_use_kernels(config.use_kernels, rt.device)
+    owner = rt.vertex_sharding == "owner"
+    # the plan reads the whole Δ only for its Δ mass (core.hytm._plan)
+    gather_delta = owner and program.combine != MIN and mode == "delta"
+    own = rt.owned
+    inv_deg_own, vpid_own = rt.inv_deg[own], rt.parts.vertex_part_id[own]
+
+    def whole(x: torch.Tensor) -> torch.Tensor:
+        """The halo fill: the (n_pad,) view the rank's edges read."""
+        return all_gather_owned(x, rt.mesh) if owner else x
 
     def plan_fn(state: HyTMState, correction: torch.Tensor | None):
-        planned = _plan(state, rt, program, config, correction)
+        # gather before planning: the plan, the engine picks and the
+        # second-pass mask come from the whole frontier and Δ, as under the
+        # replicated layout (a sum of per-rank Δ masses would reorder a float
+        # sum); the gathered frontier is also pass 1's halo fill
+        view = HyTMState(values=state.values,
+                         delta=all_gather_owned(state.delta, rt.mesh) if gather_delta
+                         else state.delta,
+                         frontier=whole(state.frontier))
+        planned = _plan(view, rt, program, config, correction)
         sl = slice(p0, p0 + P_local)
         engines_l = planned.plan.engines[sl]
         mask_l = planned.sched.second_pass[sl]
@@ -305,7 +447,8 @@ def _make_iteration_impl(rt: ShardedRuntime, program: VertexProgram, config: HyT
         order2 = make_schedule(torch.where(mask_l, engines_l, NONE), dmass_l,
                                rt.n_hub_partitions, mode, config.recompute_once,
                                pid_offset=p0, priority_mask=mask_l).order
-        return _ShardPlanned(planned, engines_l, order1, order2, mask_l)
+        return _ShardPlanned(planned, engines_l, order1, order2, mask_l, view.frontier,
+                             view.delta if gather_delta else None)
 
     def fetch(splanned: _ShardPlanned, prev_active: torch.Tensor | None = None):
         parts = [splanned.engines, splanned.order1, splanned.order2,
@@ -325,9 +468,15 @@ def _make_iteration_impl(rt: ShardedRuntime, program: VertexProgram, config: HyT
         damping = _scalar(program.damping, values) if consume_sum else None
 
         # pass 1: every active partition, one merge
-        operand = damping * delta * rt.inv_deg if consume_sum else values
-        agg, touched = _local_sweep(rt, engines_h, order1, frontier, operand, program,
-                                    use_kernels)
+        if not consume_sum:
+            operand = whole(values)
+        elif splanned.delta is not None:
+            # elementwise: the same bits as gathering the owned products
+            operand = damping * splanned.delta * rt.inv_deg
+        else:
+            operand = whole(damping * delta * inv_deg_own)
+        agg, touched = _local_sweep(rt, engines_h, order1, splanned.frontier, operand,
+                                    program, use_kernels)
         if program.peel_k is not None:
             # the merged agg counts each destination's newly-removed
             # in-neighbours: additive, so sync == sharded
@@ -343,24 +492,31 @@ def _make_iteration_impl(rt: ShardedRuntime, program: VertexProgram, config: HyT
             frontier2 = frontier | activated
         else:
             frontier2 = torch.abs(delta1) > _scalar(program.tolerance, frontier)
-        operand2 = damping * delta1 * rt.inv_deg if consume_sum else values1
+        operand2 = damping * delta1 * inv_deg_own if consume_sum else values1
         engines2 = [e if s else NONE for e, s in zip(engines_h, second_h)]
-        agg2, touched2 = _local_sweep(rt, engines2, order2, frontier2, operand2, program,
-                                      use_kernels)
+        agg2, touched2 = _local_sweep(rt, engines2, order2, whole(frontier2), whole(operand2),
+                                      program, use_kernels)
         if program.peel_k is not None:
             values2, delta2, activated2 = values1 - agg2, delta1, touched2
         else:
             # pass-2 consumption only touches re-processed partitions
-            vpid = rt.parts.vertex_part_id
-            processed2 = (torch.index_select(planned.sched.second_pass, 0, vpid)
-                          & (torch.index_select(planned.plan.engines, 0, vpid) != NONE))
+            processed2 = (torch.index_select(planned.sched.second_pass, 0, vpid_own)
+                          & (torch.index_select(planned.plan.engines, 0, vpid_own) != NONE))
             values2, delta2, activated2 = _apply_merged(
                 values1, delta1, frontier2 & processed2, agg2, touched2, program)
         new_state, info = _finish(values2, delta2, activated | activated2, frontier,
                                   planned, program, config, correction)
         # the entries a compacted exchange would ship: destinations any rank
         # touched in either pass
-        info[KEY_MERGED_ENTRIES] = (touched | touched2).sum(dtype=torch.int32)
+        merged = (touched | touched2).sum(dtype=torch.int32)
+        if owner:
+            # owned-slice sums, made global (and equal on every rank) by one
+            # all_reduce before the host reads either
+            counts = torch.stack([info["next_active"], merged])
+            dist.all_reduce(counts, group=rt.mesh.group)
+            info["next_active"], merged = counts[0], counts[1]
+            info[KEY_ACTIVE_VERTICES] = splanned.frontier.sum(dtype=torch.int32)
+        info[KEY_MERGED_ENTRIES] = merged
         return new_state, info
 
     return plan_fn, fetch, iter_fn
@@ -466,24 +622,60 @@ def ici_level_cost(
     return dense_bytes, t_dense, FILTER
 
 
-def build_halo_plan(*args, **kwargs):
-    """The owner/halo plan: not ported yet."""
-    raise NotImplementedError(_OWNER)
-
-
-def halo_level_cost(*args, **kwargs):
-    """The owner layout's ICI level: not ported yet."""
-    raise NotImplementedError(_OWNER)
-
-
-def _owner_place_state(*args, **kwargs):
-    """The owner layout's state placement: not ported yet."""
-    raise NotImplementedError(_OWNER)
+def halo_level_cost(
+    n_nodes: int,
+    merged_entries: float,
+    halo_total: int,
+    n_devices: int,
+    link,
+    correction: np.ndarray | None = None,
+    n_collectives: int = 4,
+) -> tuple[float, float, int]:
+    """:func:`ici_level_cost` under the owner layout: a compacted exchange
+    never ships more than the boundary vertices the edges name, so the
+    compacted candidate's entry count is capped at ``halo_total``.  The
+    dense candidate and the select-corrected, charge-uncorrected contract
+    are unchanged."""
+    return ici_level_cost(n_nodes, min(float(merged_entries), float(halo_total)),
+                          n_devices, link, correction, n_collectives)
 
 
 # --------------------------------------------------------------------------
 # Convergence loop
 # --------------------------------------------------------------------------
+
+def owner_state_pad_values(program: VertexProgram) -> tuple[float, float]:
+    """(values, Δ) fill of the ``[n, n_pad)`` ghost vertices of the owner
+    layout.  Pads carry no edges, so the fills only keep them inert under
+    the next-frontier rules: a peel pads Δ = 1 (removed; Δ = 0 would make
+    them alive with degree < k), accumulative programs pad 0, min-combiners
+    pad values = inf (unreachable); frontier pads are always False."""
+    if program.peel_k is not None:
+        return 0.0, 1.0
+    if program.use_delta:
+        return 0.0, 0.0
+    return float(np.inf), 0.0
+
+
+def _owner_place_state(rt: ShardedRuntime, program: VertexProgram, values, delta,
+                       frontier) -> HyTMState:
+    """This rank's ``(n_loc,)`` slices of an ``(n,)`` (values, Δ, frontier)
+    triple padded with the program's inert fills, on the mesh's device: the
+    placement of every owner-layout start (cold, warm or resumed).  Only the
+    owned slice is copied; the whole padded vector is never built."""
+    pad_v, pad_d = owner_state_pad_values(program)
+    lo, hi = rt.owned.start, rt.owned.stop
+
+    def place(x, fill, dtype):
+        x = torch.as_tensor(x, dtype=dtype, device=rt.device)
+        real = x[lo:max(lo, min(hi, x.shape[0]))]
+        extra = hi - lo - real.shape[0]
+        return torch.cat([real, real.new_full((extra,), fill)]) if extra else real.clone()
+
+    return HyTMState(values=place(values, pad_v, torch.float32),
+                     delta=place(delta, pad_d, torch.float32),
+                     frontier=place(frontier, False, torch.bool))
+
 
 def _rank0_correction(calib, mesh: GraphMesh) -> tuple[np.ndarray, torch.Tensor]:
     """Rank 0's calibrator correction on every rank: (float64 host copy,
@@ -521,21 +713,34 @@ def run_hytm_sharded(
     (``ici_bytes``, ``ici_time``, ``ici_engine``) are the second level's
     model charge, one row an iteration.
 
+    ``config.vertex_sharding`` picks the vertex layout (module docstring);
+    both meet the contract, and the result's ``values``/``delta`` are host
+    ``(n,)`` arrays under either.  Under ``"owner"`` each rank's persistent
+    state is its ``(n_loc,)`` slice, and the ICI rows charge
+    :func:`halo_level_cost` of the runtime's :class:`HaloPlan`.
+
     ``mesh`` defaults to ``make_graph_mesh(config.mesh_axis,
     device=device)`` over the default group; the run takes the mesh's
-    device.  ``runtime`` (a :class:`ShardedRuntime` of this mesh) lets
-    callers amortize the set-up, and then ``g`` may be ``None``.
-    ``initial_state`` warm-starts from a replicated (values, Δ, frontier)
-    triple on the mesh's device.  ``calibrator``, ``obs``, ``faults``,
-    ``retry`` and ``on_chunk`` are ``run_hytm``'s: every rank guards its
-    dispatches at site ``chunk_dispatch`` (``mesh=True`` in the plan's
-    context) and calls ``on_chunk``; with ``config.autotune`` only rank 0's
-    calibrator observes, and its correction is broadcast; ``obs`` records
-    on track ``mesh``, one ``ici`` instant an iteration."""
+    device.  ``runtime`` (a :class:`ShardedRuntime` of this mesh, built
+    under the config's layout) lets callers amortize the set-up, and then
+    ``g`` may be ``None``.  ``initial_state`` warm-starts from a replicated
+    ``(n,)`` (values, Δ, frontier) triple on the mesh's device (placed by
+    :func:`_owner_place_state` under the owner layout).  ``calibrator``,
+    ``obs``, ``faults``, ``retry`` and ``on_chunk`` are ``run_hytm``'s:
+    every rank guards its dispatches at site ``chunk_dispatch``
+    (``mesh=True`` in the plan's context) and calls ``on_chunk``, with
+    ``mesh`` besides ``run_hytm``'s arguments (a ``CheckpointHook`` then
+    gathers an owner state and lets rank 0 alone write); with
+    ``config.autotune`` only rank 0's calibrator observes, and its
+    correction is broadcast; ``obs`` records on track ``mesh``, one ``ici``
+    instant an iteration."""
+    # late import: the resilience package's checkpoint module imports this one
+    from repro_torch.resilience.supervisor import guarded_dispatch
+
+    layout = _check_vertex_sharding(config.vertex_sharding)
     if runtime is not None:
         rt = runtime
         mesh = rt.mesh
-        _check_vertex_sharding(config.vertex_sharding)
     else:
         if g is None:
             raise ValueError("run_hytm_sharded needs a graph or a prebuilt runtime")
@@ -545,24 +750,38 @@ def run_hytm_sharded(
             g = g.symmetrize()
         rt = build_sharded_runtime(g, config, mesh, n_hubs=n_hubs,
                                    weighted_norm=program.use_delta and program.weighted)
+    if rt.vertex_sharding != layout:
+        raise ValueError(
+            f"the runtime was built with vertex_sharding={rt.vertex_sharding!r} but the "
+            f"config asks for {layout!r}; rebuild the runtime")
     if config.sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {config.sync_every}")
     if on_chunk is not None and config.sync_every == 1:
         raise ValueError(
             "on_chunk (checkpointing) requires the chunked driver: set sync_every >= 2")
+    if getattr(on_chunk, "state_layout", layout) != layout:
+        raise ValueError(
+            f"on_chunk saves state_layout={on_chunk.state_layout!r}, the run's "
+            f"vertex_sharding is {layout!r}")
+    owner = layout == "owner"
     dev = rt.device
     if initial_state is None:
         if program.peel_k is not None:
-            deg = rt.out_degree.to(torch.float32)
+            # sliced to the real vertices: pads never enter the frontier
+            deg = rt.out_degree[:rt.n_nodes].to(torch.float32)
             removed = deg < program.peel_k
-            state = HyTMState(values=deg, delta=removed.to(torch.float32), frontier=removed)
+            triple = (deg, removed.to(torch.float32), removed)
         else:
-            state = HyTMState(*program.init_state(rt.n_nodes, source, dev))
+            triple = program.init_state(rt.n_nodes, source, dev)
     else:
-        state = initial_state
-        if state.values.device.type != dev.type:
+        if initial_state.values.device.type != dev.type:
             raise ValueError(
-                f"initial_state lives on {state.values.device}, the mesh on {dev}")
+                f"initial_state lives on {initial_state.values.device}, the mesh on {dev}")
+        triple = (initial_state.values, initial_state.delta, initial_state.frontier)
+    if owner:
+        state = _owner_place_state(rt, program, *triple)
+    else:
+        state = initial_state if initial_state is not None else HyTMState(*triple)
     n_dev = mesh.size
 
     calib = None
@@ -580,8 +799,15 @@ def run_hytm_sharded(
     ici_hist: dict[str, list] = {KEY_ICI_BYTES: [], KEY_ICI_TIME: [], KEY_ICI_ENGINE: []}
 
     def charge_ici(merged_entries: float) -> None:
-        ib, it_, ie = ici_level_cost(rt.n_nodes, float(merged_entries), n_dev,
-                                     config.ici_link, corr_np)
+        if owner:
+            # a compacted exchange ships at most the halo
+            halo_entries = min(float(merged_entries), float(rt.halo.halo_total))
+            ib, it_, ie = halo_level_cost(rt.n_nodes, float(merged_entries),
+                                          rt.halo.halo_total, n_dev, config.ici_link, corr_np)
+        else:
+            halo_entries = None
+            ib, it_, ie = ici_level_cost(rt.n_nodes, float(merged_entries), n_dev,
+                                         config.ici_link, corr_np)
         it = len(ici_hist[KEY_ICI_BYTES])
         ici_hist[KEY_ICI_BYTES].append(ib)
         ici_hist[KEY_ICI_TIME].append(it_)
@@ -590,7 +816,7 @@ def run_hytm_sharded(
             from repro_torch.obs.record import record_ici
 
             record_ici(obs, track="ici", it=it, bytes_=ib, seconds=it_, engine=ie,
-                       merged_entries=float(merged_entries))
+                       merged_entries=float(merged_entries), halo_entries=halo_entries)
 
     use_kernels = resolve_use_kernels(config.use_kernels, dev)
     dispatch = functools.partial(guarded_dispatch, site="chunk_dispatch", faults=faults,
@@ -607,7 +833,7 @@ def run_hytm_sharded(
                 cur_chunk = chunk
             warm = _consume_warm((
                 "sharded-chunk", program, config, rt.n_hub_partitions, chunk, rt.n_nodes,
-                rt.n_partitions, rt.parts.block_size, mesh.rank, n_dev,
+                rt.n_partitions, rt.parts.block_size, mesh.rank, n_dev, layout,
                 correction is not None,
             ))
             t_chunk = time.monotonic()
@@ -638,7 +864,7 @@ def run_hytm_sharded(
             active = int(last_active)
             if on_chunk is not None:
                 on_chunk(state=state, iterations=iters, rows=rows, calibrator=calib,
-                         last_active=active)
+                         last_active=active, mesh=mesh)
             if active == 0:
                 break
         history = {k: np.concatenate(v) for k, v in rows.items()}
@@ -665,8 +891,15 @@ def run_hytm_sharded(
             from repro_torch.obs.record import record_history_rows
 
             record_history_rows(obs, history, iters, 0, track="mesh")
-    values = state.values.cpu().numpy()
-    delta = state.delta.cpu().numpy()
+    if owner:
+        # the whole vectors without their pads, on every rank
+        n = rt.n_nodes
+        both = torch.cat([all_gather_owned(state.values, mesh)[:n],
+                          all_gather_owned(state.delta, mesh)[:n]]).cpu().numpy()
+        values, delta = both[:n], both[n:]
+    else:
+        values = state.values.cpu().numpy()
+        delta = state.delta.cpu().numpy()
     wall = time.monotonic() - t0
 
     for k, v in ici_hist.items():

@@ -63,6 +63,17 @@ def make_graph_mesh(axis: str = "graph", group=None,
                      rank=dist.get_rank(group), device=resolve_device(device))
 
 
+def mesh_barrier(mesh: GraphMesh) -> None:
+    """Return on each rank only once every rank of ``mesh`` has called it:
+    one ``all_reduce`` of one element on the mesh's device, waited for on
+    the host (the same on gloo and NCCL).  No-op on a one-rank mesh."""
+    if mesh.size == 1:
+        return
+    token = torch.zeros(1, device=mesh.device)
+    dist.all_reduce(token, group=mesh.group)
+    token.item()
+
+
 def _timeout(seconds: float) -> datetime.timedelta:
     return datetime.timedelta(seconds=seconds)
 

@@ -1,5 +1,5 @@
 """Resilience plane: fault injection, checkpoint/recovery, supervision
-(the reference's ``repro.resilience``, on one device).
+(the reference's ``repro.resilience``, on one device and on a mesh).
 
 Exactness-under-faults contract: under any seeded
 :class:`~repro_torch.resilience.faults.FaultPlan`, every request that
@@ -9,8 +9,9 @@ budgets still hold, and recovery cost is bounded and observable (obs
 ``faults`` track + ``faults.*`` counters).  With ``faults=None`` every
 hook is zero-overhead — the same launches, copies and syncs as a build
 without this package.  The sharded ``chunk_dispatch`` site is guarded in
-``dist.graph_shard.run_hytm_sharded``; resume on a mesh and the
-supervised sharded run are ROADMAP queue 1 item 11c.
+``dist.graph_shard.run_hytm_sharded``; on a mesh, in either vertex layout,
+rank 0 alone writes checkpoints, every rank resumes from the same file,
+and ``run_supervised`` degrades to a single-device replay on every rank.
 """
 
 from repro_torch.resilience.checkpoint import (

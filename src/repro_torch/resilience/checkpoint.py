@@ -1,6 +1,9 @@
 """Versioned checkpoint/restore for chunked HyTM runs.
 
-The reference's ``repro/resilience/checkpoint.py`` on one device.  The
+The reference's ``repro/resilience/checkpoint.py``, on one device and on a
+mesh (``launch.mesh.GraphMesh``: every rank runs the same chunks, rank 0
+alone writes, and every rank passes a barrier after the write, so all of
+them resume from the same file).  The
 file format is the reference's (schema v2; v1 still reads), so a
 checkpoint or report log written by either package restores in the other.
 
@@ -48,7 +51,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.dist.graph_shard import all_gather_owned, owner_state_pad_values
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.launch.mesh import mesh_barrier
 
 # v2 adds the vertex-state layout fields (state_layout, n_nodes) for
 # owner-sharded runs; v1 checkpoints still load (implicitly replicated)
@@ -79,18 +84,6 @@ def _to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
         out.append(host[pos:pos + f.numel()].view(dtype).reshape(t.shape))
         pos += f.numel()
     return out
-
-
-def owner_state_pad_values(program) -> tuple[float, float]:
-    """(values, delta) fill for the ``[n, n_pad)`` ghost vertices of the
-    owner layout (the reference's ``dist.graph_shard`` rule): pads carry no
-    edges, so the fills only keep them inert — peels pad Δ=1 (removed),
-    accumulative programs pad 0, min-combiners pad values=inf."""
-    if program.peel_k is not None:
-        return 0.0, 1.0
-    if program.use_delta:
-        return 0.0, 0.0
-    return float(np.inf), 0.0
 
 
 def calibrator_state(calib) -> dict | None:
@@ -247,12 +240,21 @@ class CheckpointHook:
     Called at every chunk boundary with the live (on-device) state; every
     ``every``-th boundary copies ``values``, ``delta`` and ``frontier`` to
     the host (the one sync it adds) and persists them via :func:`save`.
-    """
+
+    On a mesh the sharded driver passes its ``mesh``: under the owner
+    layout the hook all-gathers the ranks' slices into the ``(n_pad,)``
+    arrays the reference saves (a collective: every rank reaches it at the
+    same boundary), rank 0 alone writes, and every rank passes a barrier
+    on the group before it goes on.  ``mesh`` given here does the same for
+    a single-device replay that every rank of that mesh runs (the
+    supervisor's ``mesh->single-device`` rung).  ``saved`` counts this
+    process's writes, ``committed`` the checkpoints the group has
+    written."""
 
     def __init__(self, path: str | os.PathLike, *, program: str = "",
                  anchor: tuple[int, int] = (0, 0), every: int = 1,
                  base_iterations: int = 0,
-                 state_layout: str = "replicated", n_nodes: int = 0):
+                 state_layout: str = "replicated", n_nodes: int = 0, mesh=None):
         self.path = Path(path)
         self.program = program
         self.anchor = (int(anchor[0]), int(anchor[1]))
@@ -262,31 +264,41 @@ class CheckpointHook:
         # count so restore can slice the pads off
         self.state_layout = state_layout
         self.n_nodes = int(n_nodes)
+        self.mesh = mesh
         self.n_chunks = 0
         self.saved = 0
+        self.committed = 0
 
     def __call__(self, *, state, iterations: int, rows: dict,
-                 calibrator=None, last_active: int | None = None) -> None:
+                 calibrator=None, last_active: int | None = None, mesh=None) -> None:
         self.n_chunks += 1
         if self.n_chunks % self.every:
             return
-        values, delta, frontier = _to_host(state.values, state.delta, state.frontier)
-        ckpt = RunCheckpoint(
-            program=self.program,
-            iterations=self.base_iterations + int(iterations),
-            graph_version=self.anchor[0],
-            layout_version=self.anchor[1],
-            values=values,
-            delta=delta,
-            frontier=frontier,
-            history={k: (np.concatenate(v) if v else np.zeros((0,)))
-                     for k, v in rows.items()},
-            calibrator=calibrator_state(calibrator),
-            state_layout=self.state_layout,
-            n_nodes=self.n_nodes,
-        )
-        save(ckpt, self.path)
-        self.saved += 1
+        tensors = (state.values, state.delta, state.frontier)
+        if mesh is not None and self.state_layout == "owner":
+            tensors = tuple(all_gather_owned(t, mesh) for t in tensors)
+        group = mesh if mesh is not None else self.mesh
+        if group is None or group.rank == 0:
+            values, delta, frontier = _to_host(*tensors)
+            ckpt = RunCheckpoint(
+                program=self.program,
+                iterations=self.base_iterations + int(iterations),
+                graph_version=self.anchor[0],
+                layout_version=self.anchor[1],
+                values=values,
+                delta=delta,
+                frontier=frontier,
+                history={k: (np.concatenate(v) if v else np.zeros((0,)))
+                         for k, v in rows.items()},
+                calibrator=calibrator_state(calibrator),
+                state_layout=self.state_layout,
+                n_nodes=self.n_nodes,
+            )
+            save(ckpt, self.path)
+            self.saved += 1
+        if group is not None:
+            mesh_barrier(group)
+        self.committed += 1
 
 
 def migrate_state_layout(ckpt: RunCheckpoint, to_layout: str, *,
@@ -387,8 +399,9 @@ def resume_run(path: str | os.PathLike, g, program, *, config, source=0,
     composed result is bit-identical (values, iterations, transfer
     bytes, engine picks) to the uninterrupted run, because the engine
     choice is a pure function of the state at each chunk boundary.  The
-    run takes the runtime's device, else ``device`` (``cuda`` unless given
-    ``device="cpu"``)."""
+    run takes the runtime's device, else the mesh's on a mesh, else
+    ``device`` (``cuda`` unless given ``device="cpu"``).  On a mesh every
+    rank calls it with the same arguments and restores the same file."""
     from repro_torch.core.hytm import HyTMState, run_hytm
 
     ckpt = restore(path, expect_anchor=expect_anchor, program=program.name)
@@ -412,7 +425,12 @@ def resume_run(path: str | os.PathLike, g, program, *, config, source=0,
         values = values[:ckpt.n_nodes]
         delta = delta[:ckpt.n_nodes]
         frontier = frontier[:ckpt.n_nodes]
-    dev = runtime.device if runtime is not None else resolve_device(device)
+    if runtime is not None:
+        dev = runtime.device
+    elif mesh is not None and config.mesh_axis is not None:
+        dev = mesh.device
+    else:
+        dev = resolve_device(device)
     state = HyTMState(values=torch.from_numpy(np.array(values)).to(dev),
                       delta=torch.from_numpy(np.array(delta)).to(dev),
                       frontier=torch.from_numpy(np.array(frontier)).to(dev))

@@ -19,8 +19,8 @@ unchanged* — degradation here means slower, never wronger:
    plain PyTorch versions (bit-identical for MIN programs by the kernel
    equivalence contract);
 2. ``mesh -> single-device``: replay on one device with
-   ``async_sweep=False`` (a sharded ``run_hytm`` reaches it; its supervised
-   test on a mesh is ROADMAP queue 1 item 11c);
+   ``async_sweep=False``; on a mesh every rank replays on its own device,
+   and rank 0 alone writes the replay's checkpoints;
 3. ``cache-promote -> full recompute``: a warm entry that fails promotion
    (corrupt or OOM) is dropped and the request recomputes from scratch
    (handled in ``serve.warm_cache``/``serve.scheduler``);
@@ -228,13 +228,26 @@ def run_supervised(g, program, source=0, config=None, *, n_hubs: int = 0,
     down the ladder; the final answer is bit-identical for MIN programs
     at every rung.  Raises :class:`RetriesExhausted` only once the ladder
     itself is exhausted; any other exception propagates at once.  Runs on
-    the runtime's device, else on ``device`` (``cuda`` unless given
-    ``device="cpu"``)."""
+    the runtime's device, else the mesh's on a mesh (every rank of it calls
+    this with the same arguments), else on ``device`` (``cuda`` unless
+    given ``device="cpu"``)."""
     from repro_torch.core.hytm import HyTMConfig, run_hytm
+    from repro_torch.launch.mesh import make_graph_mesh
     from repro_torch.resilience.checkpoint import CheckpointHook, resume_run
 
     cfg = config if config is not None else HyTMConfig()
-    dev = runtime.device if runtime is not None else resolve_device(device)
+    # on a mesh: the group whose rank 0 alone writes checkpoints, on every
+    # rung (the single-device replay runs on every rank)
+    writers = None
+    if cfg.mesh_axis is not None:
+        if mesh is None:
+            mesh = runtime.mesh if runtime is not None else make_graph_mesh(
+                cfg.mesh_axis, device=device)
+        writers = mesh
+    if runtime is not None:
+        dev = runtime.device
+    else:
+        dev = writers.device if writers is not None else resolve_device(device)
     sup = supervisor if supervisor is not None else Supervisor(
         policy=policy, faults=faults, obs=obs)
     rt = runtime
@@ -242,11 +255,11 @@ def run_supervised(g, program, source=0, config=None, *, n_hubs: int = 0,
     while True:
         hook = None
         if ckpt_path is not None and cfg.sync_every > 1:
-            n_nodes = g.n_nodes if g is not None else rt.csr.n_nodes
+            n_nodes = g.n_nodes if g is not None else rt.n_nodes
             hook = CheckpointHook(
                 ckpt_path, program=program.name, anchor=anchor,
                 every=checkpoint_every, state_layout=cfg.vertex_sharding,
-                n_nodes=n_nodes)
+                n_nodes=n_nodes, mesh=writers)
         try:
             if have_ckpt:
                 return resume_run(
@@ -263,7 +276,7 @@ def run_supervised(g, program, source=0, config=None, *, n_hubs: int = 0,
             rung = next_rung(cfg, dev)
             if rung is None:
                 raise
-            if hook is not None and hook.saved > 0:
+            if hook is not None and hook.committed > 0:
                 have_ckpt = True
             label, degraded = rung
             if "mesh" in label:

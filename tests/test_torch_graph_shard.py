@@ -49,13 +49,14 @@ from repro_torch import stream as tstream
 from repro_torch.core import hytm as th
 from repro_torch.core import scheduler as tsched
 from repro_torch.core.partition import PartitionTable as TTable
+from repro_torch.core.partition import partition_graph
 from repro_torch.dist import graph_shard as tgs
 from repro_torch.graph import algorithms as talg
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.launch.mesh import GraphMesh, RankPool, make_graph_mesh
 from repro_torch.obs import TraceRecorder
 from repro_torch.obs.export import CAT_ICI, reconcile
-from repro_torch.resilience import FaultSpec, RetryPolicy, plan_of
+from repro_torch.resilience import CheckpointHook, FaultSpec, RetryPolicy, plan_of
 
 SUM_ATOL = 1e-5
 PROGRAMS = ("bfs", "sssp", "cc", "pagerank", "kcore")
@@ -484,17 +485,43 @@ def _fake_mesh():
     return GraphMesh(group=None, axis="graph", size=2, rank=0, device=torch.device("cpu"))
 
 
-def test_owner_layout_raises_naming_item_11b():
-    g = _tgraph(GRAPHS["padded"]())
-    cfg = th.HyTMConfig(mesh_axis="graph", vertex_sharding="owner")
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        th.run_hytm(g, talg.SSSP, config=cfg, mesh=_fake_mesh())
-    for fn in (tgs.build_halo_plan, tgs.halo_level_cost, tgs._owner_place_state):
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            fn()
+def test_owner_layout_is_ported_and_layouts_are_checked(tmp_path):
+    """The owner layout no longer raises: its three host helpers give the
+    reference's values (``tests/test_torch_graph_shard_owner.py`` holds the
+    layout against the reference); a bad layout or axis, and a runtime run
+    under the other layout, still raise ``ValueError``."""
+    jg = GRAPHS["padded"]()
+    g = _tgraph(jg)
+    cfg = th.HyTMConfig(mesh_axis="graph", vertex_sharding="owner", n_partitions=10)
+    rt = tgs.build_sharded_runtime(g, cfg, _fake_mesh())
+    assert (rt.vertex_sharding, rt.n_pad, rt.halo.n_loc) == ("owner", 500, 250)
+    # the reference's (P_total, B) grid of the same padded table
+    table = tgs._pad_table(partition_graph(g, n_partitions=10), 2)
+    shape = (table.n_partitions, int(table.edges_per_partition.max()))
+    src, dst, valid = np.zeros(shape, np.int32), np.zeros(shape, np.int32), np.zeros(shape, bool)
+    for p in range(table.n_partitions):
+        e0, e1 = int(table.edge_start[p]), int(table.edge_start[p + 1])
+        src[p, :e1 - e0], dst[p, :e1 - e0] = g.edge_sources()[e0:e1], g.indices[e0:e1]
+        valid[p, :e1 - e0] = True
+    want = jgs.build_halo_plan(src, dst, valid, g.n_nodes, 2)
+    assert rt.halo.halo_counts == want.halo_counts and rt.halo.halo_total == want.halo_total
+    link = th.HyTMConfig().ici_link
+    assert tgs.halo_level_cost(500, 321, 17, 2, link) == \
+        jgs.halo_level_cost(500, 321, 17, 2, J_ICI)
+    vals = torch.arange(500, dtype=torch.float32)
+    st = tgs._owner_place_state(rt, talg.SSSP, vals, vals, vals > 100)
+    assert torch.equal(st.values, vals[:250]) and torch.equal(st.frontier, vals[:250] > 100)
     with pytest.raises(ValueError, match="vertex_sharding"):
         th.run_hytm(g, talg.SSSP, config=dataclasses.replace(cfg, vertex_sharding="rows"),
                     mesh=_fake_mesh())
+    with pytest.raises(ValueError, match="rebuild the runtime"):
+        th.run_hytm(None, talg.SSSP, runtime=rt, mesh=_fake_mesh(),
+                    config=dataclasses.replace(cfg, vertex_sharding="replicated"))
+    # a checkpoint hook of the other layout would save owned slices as whole vectors
+    with pytest.raises(ValueError, match="state_layout"):
+        th.run_hytm(None, talg.SSSP, runtime=rt, mesh=_fake_mesh(),
+                    config=dataclasses.replace(cfg, sync_every=2),
+                    on_chunk=CheckpointHook(tmp_path / "c.npz", program="sssp"))
     with pytest.raises(ValueError, match="mesh_axis"):
         th.run_hytm(g, talg.SSSP, config=th.HyTMConfig(mesh_axis="rows"), mesh=_fake_mesh())
 

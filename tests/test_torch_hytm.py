@@ -25,6 +25,7 @@ from repro.graph import generators as jgen
 from repro_torch import convert
 from repro_torch.core import hytm as th
 from repro_torch.core.constants import PCIE3
+from repro_torch.dist import graph_shard as tgs
 from repro_torch.graph import algorithms as talg
 from repro_torch.launch.mesh import GraphMesh
 from repro_torch import stream as tstream
@@ -191,15 +192,28 @@ def test_chunked_driver_dispatch_counts():
             assert counts["chunk"] <= res.iterations // K + 1
 
 
-def test_unported_features_raise():
+def test_unported_features_raise(monkeypatch):
     g = jgen.uniform_graph(50, 300, seed=0)
     # obs= is ported (tests/test_torch_obs.py), and faults/retry/on_chunk
-    # (tests/test_torch_resilience.py), and the replicated sharded sweep
-    # (tests/test_torch_graph_shard.py); the owner layout is item 11b
+    # (tests/test_torch_resilience.py), and the sharded sweep in both
+    # layouts (tests/test_torch_graph_shard*.py): an owner run goes through
+    # the sharded path with the owner config
     mesh = GraphMesh(group=None, axis="graph", size=2, rank=0, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11b"):
-        th.run_hytm(g, talg.SSSP, mesh=mesh,
-                    config=th.HyTMConfig(mesh_axis="graph", vertex_sharding="owner"))
+    owner = th.HyTMConfig(mesh_axis="graph", vertex_sharding="owner")
+    calls = []
+    monkeypatch.setattr(tgs, "run_hytm_sharded",
+                        lambda g, prog, **kw: calls.append((prog, kw["config"], kw["mesh"])))
+    th.run_hytm(g, talg.SSSP, mesh=mesh, config=owner)
+    assert calls == [(talg.SSSP, owner, mesh)]
+    monkeypatch.undo()
+    rt = tgs.build_sharded_runtime(g, owner, mesh)
+    assert (rt.vertex_sharding, rt.n_pad, rt.owned) == ("owner", 50, slice(0, 25))
+    # the stream and serving paths on a mesh are item 11c
+    with pytest.raises(NotImplementedError, match="item 11c"):
+        tgs.make_sharded_batched_chunk(rt, talg.SSSP, owner, 4)
+    with pytest.raises(NotImplementedError, match="item 11c"):
+        tstream.DeltaCSR(g, th.HyTMConfig(n_partitions=4), device="cpu").sharded_runtime_for(
+            talg.SSSP)
     # autotune is ported: a calibrator is read only with config.autotune
     assert th.run_hytm(g, talg.SSSP, config=th.HyTMConfig(autotune=True),
                        device="cpu").engine_corrections.shape == (3,)

@@ -831,3 +831,50 @@ def test_sharded_sweep_at_world_size_one_on_nccl():
     assert res.total_transfer_bytes == one.total_transfer_bytes
     np.testing.assert_array_equal(res.history["engines"], one.history["engines"])
     assert res.total_ici_bytes == 0.0 and (res.history["ici_engine"] == -1).all()
+
+
+@pytest.mark.cuda
+def test_owner_layout_at_world_size_one_on_nccl():
+    """The owner layout at D = 1 on NCCL, through the kernels: ``n_pad = n``
+    and no halo, so SSSP is bit-equal to the replicated layout's and to the
+    single-device ``async_sweep=False`` run; Δ-PageRank's sum kernel adds
+    with float atomics, so no two card runs of it are bit-equal, and it is
+    held to the replicated run within this file's sum tolerance
+    (``rtol=atol=1e-4``).  The ICI rows are zero, and every engine the run
+    picked launched its kernel."""
+    import dataclasses
+
+    from repro_torch.core.hytm import HyTMConfig, run_hytm
+    from repro_torch.dist.graph_shard import build_sharded_runtime
+    from repro_torch.graph.algorithms import PAGERANK, SSSP
+    from repro_torch.graph.generators import rmat_graph
+    from repro_torch.launch.mesh import RankPool, make_graph_mesh
+
+    dev = _cuda()
+    g = rmat_graph(20_000, 320_000, seed=5)
+    cfg = HyTMConfig(n_partitions=16, async_sweep=False, sync_every=4, mesh_axis="graph")
+    own = dataclasses.replace(cfg, vertex_sharding="owner")
+    one = run_hytm(g, SSSP, 0, dataclasses.replace(cfg, mesh_axis=None), device=dev)
+    kernels = (segment_spmm, frontier_compact, hyb_gather)
+    with RankPool(1, backend="nccl", timeout_s=60.0):
+        mesh = make_graph_mesh(device=dev)
+        rt = build_sharded_runtime(g, own, mesh)
+        assert (rt.n_pad, rt.halo.halo_counts) == (g.n_nodes, (0,))
+        for prog, c in ((SSSP, cfg), (PAGERANK, dataclasses.replace(cfg, cds_mode="delta"))):
+            src = 0 if prog is SSSP else None
+            rep = run_hytm(g, prog, src, c, mesh=mesh)
+            for k in kernels:
+                k.launches = 0
+            res = run_hytm(g, prog, src, dataclasses.replace(c, vertex_sharding="owner"),
+                           mesh=mesh)
+            picked = set(np.unique(res.history["engines"]).tolist())
+            assert [k.launches > 0 for k in kernels] == [e in picked for e in (0, 1, 2)]
+            assert res.total_ici_bytes == 0.0 and (res.history["ici_engine"] == -1).all()
+            if prog is SSSP:
+                np.testing.assert_array_equal(res.values, rep.values)
+                assert res.iterations == rep.iterations
+                np.testing.assert_array_equal(res.values, one.values)
+                assert res.total_transfer_bytes == one.total_transfer_bytes
+            else:
+                np.testing.assert_allclose(res.values + res.delta, rep.values + rep.delta,
+                                           rtol=1e-4, atol=1e-4)
