@@ -157,6 +157,31 @@ Phases, in order; any failure exits nonzero and prints no result line:
    them through the host), host syncs a dispatch, each rank's peak
    allocated memory in each layout and the owner state triple's bytes
    against ``vertex_state_bytes``;
+15. (right after phase 14, same graph and configuration) the sharded
+   stream and serving paths (``DeltaCSR.sharded_runtime_for``,
+   ``run_incremental`` and ``GraphService`` on a mesh) through the graph
+   kernels' solo and lane entries.  Leg (e), NCCL at world size 1 in this
+   process, both layouts: one DeltaCSR (K=8) with both views registered
+   before phase 10's three batches; after each, a warm SSSP on the mesh
+   bit-equal to the single-device sync warm run (values, iterations, bytes,
+   engines); after the last, fewer iterations than a cold sharded run and
+   a warm Δ-PageRank within phase 4's bound; each batch's ``apply`` seconds
+   (the views' refresh and the owner halo plan apart) and warm seconds
+   against phase 10's; phase 10's no-slack merge-compaction with the views
+   refilled and a warm SSSP on the mesh bit-equal.  Leg (f), the same
+   group: a single-device sync ``GraphService`` and one on the mesh in each
+   layout, 8 lanes, 16 SSSP sources with out-edges: answers bit-equal in
+   values and iterations, the repeat all cache hits, one update and an
+   incremental re-query bit-equal, k-core down the global path, the owner
+   service's ``lane_bytes`` 9 n_loc, an owner budget that spills and then
+   promotes bit-equal, and queries/s in turns (2 rounds) with host syncs a
+   chunk.  Leg (g): two gloo ranks on the one card, the owner layout at 63
+   partitions (a padding partition: the CUDA ``segment_reduce`` of an
+   empty segment runs in the warm Δ-PageRank's plan): one batch, warm SSSP
+   bit-equal to rank 0's single-device sync run, warm Δ-PageRank within
+   bound, an owner service with 4 lanes answering 8 SSSP queries, one
+   update and the re-query, all bit-equal to solo sync runs, both ranks
+   equal; each rank's launches and peak allocated memory;
 6. LM serving: the reduced gemma3-12b config on the card against the CPU
    (float32, logits within 1e-4, greedy tokens equal), then gemma3-12b at
    full width (11.8B parameters in bf16, random weights from the seed):
@@ -237,6 +262,7 @@ import sys
 import time
 import traceback
 import warnings
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -1099,9 +1125,15 @@ def engine_mix(res, max_rows: int = 12) -> str:
 
 
 def same_min_run(a, b) -> bool:
+    """Two MIN runs bit-equal in values, iterations, bytes and engine rows;
+    ``a`` may be a sharded run whose table pads ``b``'s partitions (its
+    padding partitions' rows NONE)."""
+    P = b.history["engines"].shape[1]
+    eng = a.history["engines"]
     return (a.iterations == b.iterations and np.array_equal(a.values, b.values)
             and a.total_transfer_bytes == b.total_transfer_bytes
-            and np.array_equal(a.history["engines"], b.history["engines"]))
+            and np.array_equal(eng[:, :P], b.history["engines"])
+            and bool((eng[:, P:] == -1).all()))
 
 
 TURN_ROUNDS = 2   # rounds of (plain, kernels, kernels, plain) whole runs
@@ -3255,6 +3287,555 @@ def phase_sharded(torch, cfg, hs, rt, source: int, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 15: the sharded stream and serving paths (DeltaCSR views,
+# run_incremental and GraphService on a mesh)
+# ---------------------------------------------------------------------------
+
+MESH_LAYOUTS = ("replicated", "owner")
+MESH_SERVE_LANES = 8
+MESH_SERVE_QUERIES = 16
+MESH_TURN_ROUNDS = 2   # rounds of (single-device sync, replicated, owner) services, alternating
+G_PARTITIONS = 63      # leg (g): P_pad 64 at D = 2, so one padding partition
+G_LANES, G_QUERIES = 4, 8
+
+
+def mesh_stream_configs(cfg) -> tuple:
+    """Phase 15's configs: the single-device sync SSSP (K=8) and Δ-PageRank
+    configs, and each layout's sharded counterpart of both."""
+    pr_cfg = main_path_legs(cfg, 0)["pagerank"][2]
+    sync8 = dataclasses.replace(cfg, sync_every=8, async_sweep=False)
+    sync_pr = dataclasses.replace(pr_cfg, async_sweep=False)
+
+    def on_mesh(c):
+        return {l: dataclasses.replace(c, mesh_axis="graph", vertex_sharding=l)
+                for l in MESH_LAYOUTS}
+    return sync8, sync_pr, on_mesh(sync8), on_mesh(sync_pr)
+
+
+def view_is_slice(dcsr, view) -> bool:
+    """A view's edge columns are slices of the container's device columns
+    (so its in-place patches reach them) over the rank's partitions."""
+    from repro_torch.dist.graph_shard import blocked_ranges
+
+    e0, e1 = blocked_ranges(dcsr.n_partitions, dcsr.block_size, view.mesh.size)[view.mesh.rank]
+    return (view.edge_base == e0 and view.edge_src.shape[0] == e1 - e0
+            and view.edge_src.data_ptr() == dcsr.csr.edge_src[e0:].data_ptr()
+            and view.parts.part_edges[:dcsr.n_partitions].tolist() == dcsr.counts.tolist())
+
+
+def counted(torch, name: str, fn, launches: dict, lanes: bool = False):
+    """Run ``fn`` with every launch count set to 0 just before and read just
+    after; returns (result, wall seconds, counts).  A leg launches graph
+    kernels only; a lane leg at least one lane entry and no solo
+    ``segment_spmm``/``frontier_compact``."""
+    reset_launch_counts()
+    t = time.monotonic()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t
+    counts = read_launch_counts()
+    others = {k: v for k, v in counts.items() if k not in SERVE_KERNELS and v}
+    check(not others, f"{name} launched {others}")
+    check(sum(counts[k] for k in SERVE_KERNELS) > 0, f"{name} launched no graph kernel")
+    if lanes:
+        check(all(counts[k] == 0 for k in SOLO_ONLY),
+              f"{name} (lanes only) launched a solo kernel: {counts}")
+    launches[name] = {k: counts[k] for k in SERVE_KERNELS}
+    return res, wall, launches[name]
+
+
+def mesh_stream_leg(torch, cfg, hs, rt, source: int, stream: dict, mesh, launches: dict) -> dict:
+    """Leg (e): one DeltaCSR of the main graph with both layouts' views
+    registered before the first batch; phase 10's three batches, each
+    followed by a warm SSSP on the mesh in both layouts held bit-equal to
+    the single-device sync warm run; after the last, fewer iterations than
+    a cold sharded run and a warm Δ-PageRank within phase 4's bound; then
+    the no-slack merge-compaction with the views refilled."""
+    from repro_torch.core.hytm import run_hytm
+    from repro_torch.graph.algorithms import SSSP
+    from repro_torch.stream import DeltaCSR, EdgeBatch, random_batch, run_incremental
+
+    pr = main_path_legs(cfg, source)["pagerank"][0]
+    sync8, sync_pr, shard, shard_pr = mesh_stream_configs(cfg)
+    out = {}
+    t = time.monotonic()
+    dcsr = DeltaCSR(hs.graph, shard["replicated"], device=rt.device)
+    views = {l: dcsr.sharded_runtime_for(SSSP, mesh, vertex_sharding=l) for l in MESH_LAYOUTS}
+    torch.cuda.synchronize()
+    out["build_s"] = time.monotonic() - t
+    check(all(view_is_slice(dcsr, v) for v in views.values()),
+          "leg (e): a view's columns are not the container's")
+    cold, _, _ = counted(torch, "mesh_stream_single_cold", lambda: run_hytm(
+        None, SSSP, source, sync8, runtime=dcsr.runtime_for(SSSP)), launches)
+    cold_pr, _, _ = counted(torch, "mesh_stream_single_cold_pagerank", lambda: run_hytm(
+        None, pr, None, sync_pr, runtime=dcsr.runtime_for(pr)), launches)
+    warm, reps, rows = cold, [], []
+    for i in range(STREAM_BATCHES):
+        batch = random_batch(dcsr, np.random.default_rng(SEED + i), **STREAM_OPS)
+        t = time.monotonic()
+        rep = dcsr.apply(batch)
+        torch.cuda.synchronize()
+        row = {"apply_s": time.monotonic() - t, **{f"view_{k}_s": v
+                                                   for k, v in dcsr.view_seconds.items()},
+               "phase10_apply_s": stream["batches"][i]["apply_s"],
+               "phase10_warm_s": stream["batches"][i]["sssp"]["wall_s"]}
+        check(not rep.merged, f"leg (e) batch {i} merged")
+        reps.append(rep)
+        single, _, _ = counted(torch, f"mesh_stream_single_b{i}", lambda: run_incremental(
+            dcsr, SSSP, [rep], warm.values, warm.delta, source, config=sync8), launches)
+        row["single"] = {"wall_s": single.wall_seconds, "iterations": single.iterations}
+        for l in MESH_LAYOUTS:
+            res, _, counts = counted(torch, f"mesh_stream_{l}_b{i}", lambda l=l: run_incremental(
+                dcsr, SSSP, [rep], warm.values, warm.delta, source, config=shard[l], mesh=mesh),
+                launches)
+            check(same_min_run(res, single),
+                  f"leg (e) batch {i}: warm SSSP on the mesh ({l}) != the single-device sync "
+                  "warm run (values/iterations/bytes/engines)")
+            check(engine_launches_match(res, counts),
+                  f"leg (e) batch {i} ({l}): launches {counts} do not match its engines")
+            row[l] = {"wall_s": res.wall_seconds, "iterations": res.iterations}
+        rows.append(row)
+        log(f"  (e) batch {i}: {len(batch)} ops, apply {row['apply_s']:.3f} s (view refresh "
+            f"{row['view_patch_s']:.3f} s, owner halo {row['view_halo_s']:.3f} s; phase 10 "
+            f"{row['phase10_apply_s']:.3f} s); warm SSSP {single.iterations} iterations, "
+            f"single-device sync {single.wall_seconds:.4f} s, replicated "
+            f"{row['replicated']['wall_s']:.4f} s, owner {row['owner']['wall_s']:.4f} s "
+            f"(phase 10's async warm run {row['phase10_warm_s']:.4f} s), bit-equal")
+        warm = single
+    out["batches"] = rows
+    out["cold"] = {}
+    for l in MESH_LAYOUTS:
+        c, _, _ = counted(torch, f"mesh_stream_{l}_cold", lambda l=l: run_hytm(
+            None, SSSP, source, shard[l], runtime=views[l]), launches)
+        check(np.array_equal(c.values, warm.values) and warm.iterations < c.iterations,
+              f"leg (e) ({l}): warm {warm.iterations} iterations vs cold {c.iterations}, or "
+              "different values")
+        out["cold"][l] = {"iterations": c.iterations, "wall_s": c.wall_seconds}
+    single_pr, _, _ = counted(torch, "mesh_stream_single_pagerank", lambda: run_incremental(
+        dcsr, pr, reps, cold_pr.values, cold_pr.delta, None, config=sync_pr), launches)
+    out["pagerank"] = {"single": {"iterations": single_pr.iterations,
+                                  "wall_s": single_pr.wall_seconds}}
+    for l in MESH_LAYOUTS:
+        res, _, _ = counted(torch, f"mesh_stream_{l}_pagerank", lambda l=l: run_incremental(
+            dcsr, pr, reps, cold_pr.values, cold_pr.delta, None, config=shard_pr[l],
+            mesh=mesh), launches)
+        ok, err, held = pr_close(res, single_pr, pr)
+        check(ok, f"leg (e) ({l}): warm Δ-PageRank vs single-device out of bound ({err:.3e})")
+        out["pagerank"][l] = {"iterations": res.iterations, "wall_s": res.wall_seconds,
+                              "max_abs_err": err, "bound": held}
+    log(f"  (e) after batch {STREAM_BATCHES - 1}: warm SSSP {warm.iterations} iterations < cold "
+        f"sharded {out['cold']['replicated']['iterations']} (replicated), "
+        f"{out['cold']['owner']['iterations']} (owner); warm Δ-PageRank over the three reports "
+        f"{single_pr.iterations} iterations, |err| vs single-device "
+        f"{out['pagerank']['replicated']['max_abs_err']:.3e} (replicated), "
+        f"{out['pagerank']['owner']['max_abs_err']:.3e} (owner)")
+    del dcsr, views
+    torch.cuda.empty_cache()
+
+    # the no-slack merge-compaction of phase 10, the views registered first
+    dcsr = DeltaCSR(hs.graph, shard["replicated"], slack=0.0, device=rt.device)
+    views = {l: dcsr.sharded_runtime_for(SSSP, mesh, vertex_sharding=l) for l in MESH_LAYOUTS}
+    p = int(np.argmax(dcsr.counts))
+    v0, v1 = int(dcsr.vertex_start[p]), int(dcsr.vertex_start[p + 1])
+    rng = np.random.default_rng(SEED + STREAM_BATCHES)
+    batch = EdgeBatch.inserts(rng.integers(v0, v1, MERGE_INSERTS),
+                              rng.integers(0, dcsr.n_nodes, MERGE_INSERTS),
+                              rng.integers(1, 64, MERGE_INSERTS).astype(np.float32))
+    t = time.monotonic()
+    rep = dcsr.apply(batch)
+    torch.cuda.synchronize()
+    merge_s = time.monotonic() - t
+    check(rep.merged and dcsr.layout_version == 1 and all(
+        view_is_slice(dcsr, v) for v in views.values()),
+        "leg (e): the merge did not happen, or did not refill the views")
+    single, _, _ = counted(torch, "mesh_stream_merge_single", lambda: run_incremental(
+        dcsr, SSSP, [rep], cold.values, cold.delta, source, config=sync8), launches)
+    for l in MESH_LAYOUTS:
+        res, _, _ = counted(torch, f"mesh_stream_merge_{l}", lambda l=l: run_incremental(
+            dcsr, SSSP, [rep], cold.values, cold.delta, source, config=shard[l], mesh=mesh),
+            launches)
+        check(same_min_run(res, single), f"leg (e): after the merge, warm SSSP ({l}) != "
+              "the single-device sync warm run")
+    out["merge"] = {"merge_s": merge_s, "iterations": single.iterations,
+                    "block_size": dcsr.block_size}
+    log(f"  (e) merge: {MERGE_INSERTS} inserts into partition {p} merged in {merge_s:.2f} s "
+        f"with both views refilled; warm SSSP on the mesh bit-equal in both layouts "
+        f"({single.iterations} iterations)")
+    del dcsr, views
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve_leg(torch, cfg, hs, rt, mesh, smi: str, launches: dict) -> dict:
+    """Leg (f): a single-device sync ``GraphService`` and one on the mesh in
+    each layout, 8 lanes, over the same 16 SSSP sources: answers bit-equal,
+    a repeat all cache hits, one update batch and an incremental re-query
+    bit-equal, one k-core query down the global path, the owner service's
+    ``lane_bytes``, an owner budget that spills and then promotes, and the
+    services' queries/s in turns with host syncs a chunk."""
+    from repro_torch.graph.algorithms import ALGORITHMS, SSSP
+    from repro_torch.serve import TierPolicy
+    from repro_torch.stream import GraphService, random_batch
+
+    sync8, _, shard, _ = mesh_stream_configs(cfg)
+    n = hs.graph.n_nodes
+    rng = np.random.default_rng(SEED + 15)
+    live = np.flatnonzero(np.diff(hs.graph.indptr) > 0)
+    sources = [int(v) for v in rng.choice(live, MESH_SERVE_QUERIES, replace=False)]
+    out = {"sources": sources}
+    t = time.monotonic()
+    svcs = {"single": GraphService(hs.graph, sync8, max_lanes=MESH_SERVE_LANES,
+                                   device=rt.device),
+            **{l: GraphService(hs.graph, shard[l], max_lanes=MESH_SERVE_LANES, mesh=mesh)
+               for l in MESH_LAYOUTS}}
+    torch.cuda.synchronize()
+    out["build_s"] = time.monotonic() - t
+    single = svcs["single"]
+    want = {}
+    for name, svc in svcs.items():
+        res, wall, _ = counted(torch, f"mesh_serve_{name}", lambda s=svc: s.query(SSSP, sources),
+                               launches, lanes=True)
+        check(all(r.mode == "batched" for r in res), f"leg (f) {name}: a query was not batched")
+        if name == "single":
+            want["cold"] = res
+        else:
+            check(all(np.array_equal(a.values, b.values) and a.iterations == b.iterations
+                      for a, b in zip(want["cold"], res)),
+                  f"leg (f) {name}: answers != the single-device sync service's")
+        hits = svc.query(SSSP, sources)
+        check(all(r.cache_hit and r.iterations == 0 for r in hits),
+              f"leg (f) {name}: the repeat was not all cache hits")
+        out[name] = {"cold_s": wall}
+    batch = random_batch(single.dcsr, np.random.default_rng(SEED), **STREAM_OPS)
+    for name, svc in svcs.items():
+        t = time.monotonic()
+        svc.update(batch)
+        torch.cuda.synchronize()
+        out[name]["apply_s"] = time.monotonic() - t
+        res, wall, _ = counted(torch, f"mesh_serve_{name}_requery",
+                               lambda s=svc: s.query(SSSP, sources), launches)
+        check(all(r.mode == "incremental" for r in res),
+              f"leg (f) {name}: a re-query was not incremental")
+        if name == "single":
+            want["requery"] = res
+        else:
+            check(all(np.array_equal(a.values, b.values) and a.iterations == b.iterations
+                      for a, b in zip(want["requery"], res)),
+                  f"leg (f) {name}: incremental answers != the single-device sync service's")
+        out[name]["requery_s"] = wall
+    kcore = ALGORITHMS["kcore"]
+    kc = {}
+    for name in ("single", "owner"):
+        res, wall, _ = counted(torch, f"mesh_serve_{name}_kcore",
+                               lambda s=svcs[name]: s.query(kcore, [None]), launches)
+        kc[name] = res[0]
+        check(res[0].mode == "batched", f"leg (f) {name}: k-core did not take the global path")
+        out[name]["kcore_s"] = wall
+    check(np.array_equal(kc["single"].values, kc["owner"].values)
+          and kc["single"].iterations == kc["owner"].iterations,
+          "leg (f): k-core on the mesh (owner) != single-device")
+    own = svcs["owner"]
+    n_loc = -(-n // mesh.size)
+    check(own.scheduler.lane_bytes == 9 * n_loc,
+          f"leg (f): owner lane_bytes {own.scheduler.lane_bytes} != 9 * {n_loc}")
+
+    # an owner budget of 4 lanes and 2 cached states: 8 sources spill, and an
+    # update's re-query promotes them
+    budget = 4 * own.scheduler.lane_bytes + 2 * 8 * n_loc
+    own.cache.clear()
+    own.cache.policy = TierPolicy(device_budget_bytes=budget, max_reports=own.max_reports)
+    few = sources[:8]
+    own.query(SSSP, few)
+    spills = own.cache.stats.spills
+    batch2 = random_batch(single.dcsr, np.random.default_rng(SEED + 1), **STREAM_OPS)
+    for svc in (single, own):
+        svc.update(batch2)
+    promotions = own.cache.stats.promotions
+    got, want2 = own.query(SSSP, few), single.query(SSSP, few)
+    check(spills > 0 and own.cache.stats.promotions > promotions,
+          f"leg (f): owner budget {budget}: {spills} spills, "
+          f"{own.cache.stats.promotions - promotions} promotions")
+    check(all(np.array_equal(a.values, b.values) and a.iterations == b.iterations
+              for a, b in zip(want2, got)), "leg (f): promoted owner answers != single-device")
+    own.cache.policy = TierPolicy(max_reports=own.max_reports)
+    out["budget"] = {"bytes": budget, "spills": spills,
+                     "promotions": own.cache.stats.promotions - promotions,
+                     "lane_bytes": own.scheduler.lane_bytes}
+
+    # queries/s in turns, host syncs a chunk
+    def batched(svc):
+        svc.cache.clear()
+        return svc.query(SSSP, sources)
+
+    walls = shard_turns({name: (lambda s=svc: counted(
+        torch, "mesh_serve_turn", lambda: batched(s), launches, lanes=True)[1])
+        for name, svc in svcs.items()}, rounds=MESH_TURN_ROUNDS)
+    launches.pop("mesh_serve_turn")
+    out["queries_per_s"] = {k: MESH_SERVE_QUERIES / float(np.median(v)) for k, v in walls.items()}
+    out["turn_walls"] = walls
+    for name in ("single", "owner"):
+        svc = svcs[name]
+        c0 = svc.scheduler.stats.chunks
+        sites = host_syncs(torch, lambda s=svc: batched(s))
+        chunks = svc.scheduler.stats.chunks - c0
+        out[name]["host_syncs"] = {"total": sum(sites.values()), "chunks": chunks,
+                                   "per_chunk": sum(sites.values()) / max(chunks, 1),
+                                   "sites": sites}
+    out["ici"] = {l: {k: svcs[l].stats.extra.get(k, 0.0) for k in ("ici_bytes", "ici_time")}
+                  for l in MESH_LAYOUTS}
+    log(f"  (f) {MESH_SERVE_QUERIES} SSSP sources on {MESH_SERVE_LANES} lanes: the mesh services "
+        f"(both layouts) bit-equal to the single-device sync service, repeats all hits, an "
+        f"update's re-query incremental and bit-equal, k-core (owner) bit-equal "
+        f"({kc['owner'].iterations} iterations); owner lane_bytes {own.scheduler.lane_bytes:,} "
+        f"= 9 n_loc; budget {budget:,} B: {spills} spills, {out['budget']['promotions']} "
+        f"promotions, bit-equal; queries/s (median of {MESH_TURN_ROUNDS}) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out["queries_per_s"].items())
+        + f"; host syncs a chunk single {out['single']['host_syncs']['per_chunk']:.2f}, owner "
+        f"{out['owner']['host_syncs']['per_chunk']:.2f} [{smi}]")
+    # a service and its scheduler hold each other: collect them now, or
+    # their DeltaCSRs stay on the card for the phases after this one
+    del svcs, single, own, svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def stream_shard_rank(group, graph_dir: str, cfg, source: int, sources: list) -> dict:
+    """Leg (g) on one rank of a two-rank gloo group on one card, the owner
+    layout at 63 partitions (padded to 64): a DeltaCSR with its view, one
+    batch, a warm SSSP and a warm Δ-PageRank on the mesh (rank 0 also runs
+    the single-device sync warm runs), then an owner service with 4 lanes:
+    8 SSSP queries, one update and the re-query (rank 0 also runs each
+    source's solo sync run before and after the update).  Each rank's
+    launches and peak allocated memory."""
+    from types import SimpleNamespace
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.hytm import run_hytm
+    from repro_torch.graph.algorithms import SSSP
+    from repro_torch.graph.csr import CSRGraph
+    from repro_torch.launch.mesh import make_graph_mesh
+    from repro_torch.stream import DeltaCSR, GraphService, random_batch, run_incremental
+
+    d = Path(graph_dir)
+    g = CSRGraph(np.load(d / "indptr.npy"), np.load(d / "indices.npy"),
+                 np.load(d / "weights.npy"))
+    mesh = make_graph_mesh(group=group, device="cuda:0")
+    lead = mesh.rank == 0
+    c63 = dataclasses.replace(cfg, n_partitions=G_PARTITIONS)
+    sync8, sync_pr, shard, shard_pr = mesh_stream_configs(c63)
+    pr = main_path_legs(cfg, source)["pagerank"][0]
+    own, own_pr = shard["owner"], shard_pr["owner"]
+    out = {"rank": mesh.rank, "launches": {}}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    t = time.monotonic()
+    dcsr = DeltaCSR(g, own, device=mesh.device)
+    view = dcsr.sharded_runtime_for(SSSP, mesh)
+    out["view"] = {"P_pad": view.n_partitions, "P": dcsr.n_partitions, "n_pad": view.n_pad,
+                   "halo": view.halo.halo_counts, "is_slice": view_is_slice(dcsr, view)}
+    align_ranks(torch, mesh)
+    cold = run_hytm(None, SSSP, source, own, runtime=view)
+    # the Δ-PageRank warm start: rank 0's single-device sync run, broadcast
+    # (a cold owner run through gloo would take ~15 s of the leg)
+    pr_state = torch.empty((2, g.n_nodes), dtype=torch.float32, device=mesh.device)
+    if lead:
+        base = run_hytm(None, SSSP, source, sync8, runtime=dcsr.runtime_for(SSSP))
+        base_pr = run_hytm(None, pr, None, sync_pr, runtime=dcsr.runtime_for(pr))
+        out["single_cold_equal"] = same_min_run(cold, base)
+        pr_state.copy_(torch.from_numpy(np.stack([base_pr.values, base_pr.delta])))
+    dist.broadcast(pr_state, src=dist.get_global_rank(mesh.group, 0), group=mesh.group)
+    cold_pr = SimpleNamespace(values=pr_state[0].cpu().numpy(), delta=pr_state[1].cpu().numpy())
+    batch = random_batch(dcsr, np.random.default_rng(SEED), **STREAM_OPS)
+    t_apply = time.monotonic()
+    rep = dcsr.apply(batch)
+    out["apply_s"] = time.monotonic() - t_apply
+    out["view_s"] = dict(dcsr.view_seconds)
+    out["halo_after"] = view.halo.halo_counts
+    reset_launch_counts()
+    out["warm"] = run_incremental(dcsr, SSSP, [rep], cold.values, cold.delta, source,
+                                  config=own, mesh=mesh)
+    out["launches"]["warm_sssp"] = read_launch_counts()
+    reset_launch_counts()
+    out["warm_pr"] = run_incremental(dcsr, pr, [rep], cold_pr.values, cold_pr.delta, None,
+                                     config=own_pr, mesh=mesh)
+    out["launches"]["warm_pagerank"] = read_launch_counts()
+    if lead:
+        out["single_warm"] = run_incremental(dcsr, SSSP, [rep], base.values, base.delta,
+                                             source, config=sync8)
+        out["single_warm_pr"] = run_incremental(dcsr, pr, [rep], base_pr.values,
+                                                base_pr.delta, None, config=sync_pr)
+    out["stream_s"] = time.monotonic() - t
+    del dcsr, view
+    torch.cuda.empty_cache()
+
+    t = time.monotonic()
+    svc = GraphService(g, own, max_lanes=G_LANES, mesh=mesh)
+    if lead:
+        rt1 = svc.dcsr.runtime_for(SSSP)
+        out["solo"] = [run_hytm(None, SSSP, s, sync8, runtime=rt1).values for s in sources]
+    align_ranks(torch, mesh)
+    reset_launch_counts()
+    t_serve = time.monotonic()
+    served = [r.values for r in svc.query(SSSP, sources)]
+    out["serve_query_s"] = time.monotonic() - t_serve
+    out["serve_iterations"] = svc.scheduler.stats.engine_iterations
+    out["launches"]["serve"] = read_launch_counts()
+    svc.update(batch)
+    if lead:
+        rt1 = svc.dcsr.runtime_for(SSSP)
+        solo2 = [run_hytm(None, SSSP, s, sync8, runtime=rt1).values for s in sources]
+    align_ranks(torch, mesh)
+    reset_launch_counts()
+    res = svc.query(SSSP, sources)
+    out["launches"]["requery"] = read_launch_counts()
+    requery = [r.values for r in res]
+    out["requery_modes"] = sorted({r.mode for r in res})
+    # rank 0 holds the answers to the solo runs; the ranks compare crc32s
+    if lead:
+        out["served_ok"] = all(np.array_equal(a, b) for a, b in zip(served, out.pop("solo")))
+        out["requery_ok"] = all(np.array_equal(a, b) for a, b in zip(requery, solo2))
+    out["crc"] = [zlib.crc32(v.tobytes()) for v in served + requery]
+    out["lane_bytes"] = svc.scheduler.lane_bytes
+    out["serve_s"] = time.monotonic() - t
+    torch.cuda.synchronize()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["peak_above_start"] = out["peak_bytes"] - start_bytes
+    return out
+
+
+def phase_stream_sharded(torch, cfg, hs, rt, source: int, stream: dict, smi: str) -> dict:
+    """Phase 15: the sharded stream and serving paths through the kernels
+    at full size, on the graph and configuration of phase 14.  Legs (e)
+    and (f) run NCCL at world size 1 in this process (``mesh_stream_leg``,
+    ``mesh_serve_leg``), leg (g) two gloo ranks on this one card, the owner
+    layout only (``stream_shard_rank``): the warm SSSP bit-equal to rank 0's
+    single-device sync run at 63 partitions (a padding partition, so the
+    CUDA ``segment_reduce`` of an empty segment runs in the warm
+    Δ-PageRank's plan), the owner service's answers bit-equal to solo runs,
+    both ranks equal.  Returns the phase's numbers with ``launches`` (solo
+    legs) and ``serve_launches`` (the serving legs)."""
+    import tempfile
+
+    from repro_torch.launch.mesh import RankPool, make_graph_mesh
+
+    launches, serve_launches = {}, {}
+    out = {"card": smi, "allocated_before": torch.cuda.memory_allocated()}
+    t = time.monotonic()
+    with RankPool(1, backend="nccl", timeout_s=300.0):
+        mesh = make_graph_mesh(device=rt.device)
+        align_ranks(torch, mesh)
+        out["stream"] = mesh_stream_leg(torch, cfg, hs, rt, source, stream, mesh, launches)
+        out["stream"]["seconds"] = time.monotonic() - t
+        log(f"phase 15 leg (e) took {out['stream']['seconds']:.1f} s")
+        t = time.monotonic()
+        out["serve"] = mesh_serve_leg(torch, cfg, hs, rt, mesh, smi, serve_launches)
+        out["serve"]["seconds"] = time.monotonic() - t
+        log(f"phase 15 leg (f) took {out['serve']['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+
+    t = time.monotonic()
+    rng = np.random.default_rng(SEED + 16)
+    live = np.flatnonzero(np.diff(hs.graph.indptr) > 0)
+    sources = [int(v) for v in rng.choice(live, G_QUERIES, replace=False)]
+    with tempfile.TemporaryDirectory(prefix="phase15_") as tmp:
+        g = hs.graph
+        for key, arr in (("indptr", g.indptr), ("indices", g.indices),
+                         ("weights", g.weights if g.weights is not None
+                          else np.ones(g.n_edges, np.float32))):
+            np.save(Path(tmp) / f"{key}.npy", arr)
+        level = os.environ.get("TORCH_CPP_LOG_LEVEL")
+        os.environ["TORCH_CPP_LOG_LEVEL"] = "ERROR"
+        try:
+            pool = RankPool(2, backend="gloo", timeout_s=300.0)
+        finally:
+            if level is None:
+                del os.environ["TORCH_CPP_LOG_LEVEL"]
+            else:
+                os.environ["TORCH_CPP_LOG_LEVEL"] = level
+        with pool:
+            ranks = pool.run(stream_shard_rank, tmp, cfg, source, sources)
+    # rank 0's service (this process) and its scheduler hold each other
+    gc.collect()
+    torch.cuda.empty_cache()
+    r0, r1 = ranks
+    pr = main_path_legs(cfg, source)["pagerank"][0]
+    check(r0["view"]["P_pad"] == 64 and r0["view"]["P"] == G_PARTITIONS
+          and r0["view"]["is_slice"] and r1["view"]["is_slice"]
+          and r0["view"]["halo"] == r1["view"]["halo"],
+          f"leg (g): views {r0['view']} and {r1['view']}")
+    check(r0["single_cold_equal"], "leg (g): the cold owner SSSP != the single-device sync one")
+    for r in ranks:
+        check(same_min_run(r["warm"], r0["single_warm"]),
+              f"leg (g) rank {r['rank']}: warm SSSP != rank 0's single-device sync warm run")
+        ok, err, _ = pr_close(r["warm_pr"], r0["single_warm_pr"], pr)
+        check(ok, f"leg (g) rank {r['rank']}: warm Δ-PageRank out of bound ({err:.3e})")
+        check(r["requery_modes"] == ["incremental"],
+              f"leg (g) rank {r['rank']}: re-query modes {r['requery_modes']}")
+        half = 32
+        own = slice(r["rank"] * half, (r["rank"] + 1) * half)
+        check(engine_launches_match(r["warm"], r["launches"]["warm_sssp"], own),
+              f"leg (g) rank {r['rank']}: launches {r['launches']['warm_sssp']} do not match "
+              "its engines")
+        for key in ("serve", "requery", "warm_pagerank"):
+            counts = r["launches"][key]
+            check(sum(counts[k] for k in SERVE_KERNELS) > 0,
+                  f"leg (g) rank {r['rank']} {key}: no graph kernel launched")
+            tag = {"serve": "mesh_gloo_serve", "requery": "mesh_gloo_requery",
+                   "warm_pagerank": "mesh_gloo_pagerank"}[key]
+            (serve_launches if key == "serve" else launches)[f"{tag}_rank{r['rank']}"] = {
+                k: counts[k] for k in SERVE_KERNELS}
+        launches[f"mesh_gloo_sssp_rank{r['rank']}"] = {k: r["launches"]["warm_sssp"][k]
+                                                       for k in SERVE_KERNELS}
+    check(r0["served_ok"] and r0["requery_ok"],
+          "leg (g): the owner service's answers != solo sync runs")
+    check(np.array_equal(r0["warm"].values, r1["warm"].values)
+          and np.array_equal(r0["warm_pr"].values, r1["warm_pr"].values)
+          and r0["crc"] == r1["crc"], "leg (g): the two ranks' results differ")
+    n_loc = -(-hs.graph.n_nodes // 2)
+    check(r0["lane_bytes"] == 9 * n_loc, f"leg (g): lane_bytes {r0['lane_bytes']}")
+    out["gloo_d2"] = {
+        "seconds": time.monotonic() - t, "view": r0["view"], "halo_after": r0["halo_after"],
+        "warm_iterations": r0["warm"].iterations, "warm_wall_s": r0["warm"].wall_seconds,
+        "single_warm_wall_s": r0["single_warm"].wall_seconds,
+        "pagerank_iterations": r0["warm_pr"].iterations,
+        "pagerank_wall_s": r0["warm_pr"].wall_seconds,
+        "serve_query_s": r0["serve_query_s"], "serve_iterations": r0["serve_iterations"],
+        "serve_ms_per_iteration": 1e3 * r0["serve_query_s"] / max(r0["serve_iterations"], 1),
+        **{f"rank{r['rank']}": {k: r[k] for k in ("apply_s", "view_s", "stream_s", "serve_s",
+                                                  "peak_bytes", "peak_above_start")}
+           for r in ranks}}
+    log(f"phase 15 leg (g), gloo at D=2 on one card, owner layout, {G_PARTITIONS} partitions "
+        f"(P_pad 64): halo {r0['view']['halo']} -> {r0['halo_after']} after the batch; warm "
+        f"SSSP bit-equal to rank 0's single-device sync run ({r0['warm'].iterations} "
+        f"iterations, {r0['warm'].wall_seconds:.3f} s vs {r0['single_warm'].wall_seconds:.3f} "
+        f"s), warm Δ-PageRank within bound ({r0['warm_pr'].iterations} iterations, "
+        f"{r0['warm_pr'].wall_seconds:.3f} s); {G_QUERIES} owner-service SSSP queries on "
+        f"{G_LANES} lanes ({r0['serve_iterations']} engine iterations in "
+        f"{r0['serve_query_s']:.3f} s, {out['gloo_d2']['serve_ms_per_iteration']:.1f} ms an "
+        f"iteration) and the re-query after one update bit-equal to solo runs, both ranks "
+        f"equal; apply {r0['apply_s']:.3f} s (halo {r0['view_s']['halo']:.3f} s); peak "
+        f"allocated {r0['peak_bytes'] / 2**20:.1f} MiB, {r0['peak_above_start'] / 2**20:.1f} "
+        f"above the leg's start (rank 0, the smoke's process, with its single-device runs), "
+        f"{r1['peak_bytes'] / 2**20:.1f} MiB, {r1['peak_above_start'] / 2**20:.1f} above "
+        f"(rank 1); took {out['gloo_d2']['seconds']:.1f} s")
+    lane_legs = [k for k in serve_launches
+                 if k in ("mesh_serve_single", "mesh_serve_replicated", "mesh_serve_owner")
+                 or k.startswith("mesh_gloo_serve")]
+    for name in ("segment_spmm_lanes", "frontier_compact_lanes", "hyb_gather"):
+        check(sum(serve_launches[k][name] for k in lane_legs) > 0,
+              f"phase 15: the mesh lanes never launched {name}")
+    out["launches"], out["serve_launches"], out["lane_legs"] = launches, serve_launches, lane_legs
+    out["allocated_after"] = torch.cuda.memory_allocated()
+    log(f"phase 15: {out['allocated_before'] / 2**20:.1f} MiB allocated before it, "
+        f"{out['allocated_after'] / 2**20:.1f} MiB after")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: LM serving, gemma3-12b at full width
 # ---------------------------------------------------------------------------
 
@@ -3995,6 +4576,12 @@ def main() -> int:
     sharded["phase_s"] = time.monotonic() - t
     launches.update(sharded.pop("launches"))
     log(f"phase 14 (sharded sweep) took {sharded['phase_s']:.1f} s")
+    t = time.monotonic()
+    mesh_stream = phase_stream_sharded(torch, cfg, hs, rt, source, stream, smi)
+    mesh_stream["phase_s"] = time.monotonic() - t
+    launches.update(mesh_stream.pop("launches"))
+    serve_launches.update(mesh_stream.pop("serve_launches"))
+    log(f"phase 15 (sharded stream and serving) took {mesh_stream['phase_s']:.1f} s")
     del main_runs
     dev = rt.device
     del rt, hs
@@ -4014,7 +4601,8 @@ def main() -> int:
         by_leg.update({leg: c[name] + (c[entry] if entry != name else 0)
                        for leg, c in serve_launches.items()})
         lane_legs = {leg: serve_launches[leg][entry]
-                     for leg in serve["lane_legs"] + resil["lane_legs"]}
+                     for leg in serve["lane_legs"] + resil["lane_legs"]
+                     + mesh_stream["lane_legs"]}
         kernels.append({
             "name": name, "route": "cuda", "source": r["source"],
             "replaces": r["replaces"],
@@ -4032,6 +4620,7 @@ def main() -> int:
     kernels[0]["calibration_observability"] = calib
     kernels[0]["resilience"] = resil
     kernels[0]["sharded"] = sharded
+    kernels[0]["stream_sharded"] = mesh_stream
     for key, row in (("sum_d2", "segment_spmm_sum"), ("last_partition", "segment_spmm_last"),
                      ("sum_d2_last_partition", "segment_spmm_sum_last")):
         kernels[0][key] = {k: rows[row][k] for k in ("shape", "ms", "cold_ms", "call_ms",

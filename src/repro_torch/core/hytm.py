@@ -116,8 +116,8 @@ class HyTMConfig:
     # single-device ``async_sweep=False`` dataflow whatever ``async_sweep``
     # says.
     mesh_axis: str | None = None
-    # the sharded sweep's vertex-state layout: "replicated" ("owner" is
-    # ROADMAP queue 1 item 11b and raises)
+    # the sharded sweep's vertex-state layout: "replicated" | "owner"
+    # (dist.graph_shard)
     vertex_sharding: str = "replicated"
 
 
@@ -541,8 +541,8 @@ def _lane_group(table: torch.Tensor, pos: int, lengths: tuple) -> LaneGroup:
                      lengths=lengths, total=sum(lengths))
 
 
-def _lane_steps(upload: _LaneUpload, rt: Runtime, engines: list, order: list,
-                consume: str | None) -> list:
+def _lane_steps(upload: _LaneUpload, rt, engines: list, order: list,
+                consume: str | None, p_offset: int = 0, edge_base: int = 0) -> list:
     """One pass's steps: step j relaxes partition ``order[q][j]`` of every
     lane q with that lane's engine, grouped by engine, so a step issues at
     most one call per engine whatever the lane count; NONE partitions relax
@@ -551,7 +551,10 @@ def _lane_steps(upload: _LaneUpload, rt: Runtime, engines: list, order: list,
     lanes whose partition's vertex range consumes its pending Δ at this
     step, or None.  ``consume`` is ``_sweep``'s: "all" (pass 1 of a SUM
     program: every lane), "processed" (pass 2: the lanes that relax), or
-    None (no consumption)."""
+    None (no consumption).  A sharded rank passes its local engines and
+    orders with ``p_offset`` (its first partition's global id) and
+    ``edge_base`` (its first edge's global index): the lane starts then
+    index its rank-local edge columns."""
     vertex_start, edge_start, part_edges = rt.parts.host
 
     def add(lanes, starts, lengths):
@@ -568,8 +571,8 @@ def _lane_steps(upload: _LaneUpload, rt: Runtime, engines: list, order: list,
                 by_engine.setdefault(eq[p], []).append((q, p))
             if consume == "all" or (consume == "processed" and eq[p] != NONE):
                 cons.append((q, p))
-        groups = [(e, *add(lanes, [edge_start[p] for _, p in lanes],
-                           [part_edges[p] for _, p in lanes]))
+        groups = [(e, *add(lanes, [edge_start[p_offset + p] - edge_base for _, p in lanes],
+                           [part_edges[p_offset + p] for _, p in lanes]))
                   for e, lanes in sorted(by_engine.items())]
         consumed = (add(cons, [vertex_start[p] for _, p in cons],
                         [vertex_start[p + 1] - vertex_start[p] for _, p in cons])
@@ -857,14 +860,6 @@ class HyTMResult:
     modeled_ici_seconds: float = 0.0  # sharded sweep only
     total_mispredictions: int = 0
     engine_corrections: np.ndarray | None = None
-
-
-def _reject_unported(config: HyTMConfig, mesh, caller: str) -> None:
-    """Raise for a caller whose sharded path is not ported yet."""
-    if config.mesh_axis is not None or mesh is not None:
-        raise NotImplementedError(
-            f"{caller}: mesh_axis/mesh is not ported yet (ROADMAP queue 1, "
-            "item 11c: the sharded paths of the stream and serving slices)")
 
 
 def run_hytm(

@@ -63,8 +63,16 @@ rows, and under the owner layout by :func:`halo_level_cost`, whose
 compacted candidate is capped at the halo; the executed collectives stay
 the dense ones.  The collectives are the list forms ``all_gather`` and
 ``reduce_scatter``, which gloo and NCCL both take in torch 2.11 and 2.13
-(``torch.bool`` included).  The lane-batched chunk of sharded serving is
-ROADMAP queue 1 item 11c and raises ``NotImplementedError``.
+(``torch.bool`` included).
+
+Sharded serving runs :func:`make_sharded_batched_chunk`: the same
+iteration over a ``(Q, ·)`` lane state, every lane planned on its own
+whole row and relaxed through the lane entries of the three graph kernels
+(``core.engines.relax_lanes``), one batched collective a pass merging
+every lane.  A ``stream.DeltaCSR`` serves a sharded view of its blocked
+edge log (``DeltaCSR.sharded_runtime_for``): the same
+:class:`ShardedRuntime`, its edge columns slices of the container's
+device columns, its halo plan from :func:`blocked_halo_plan`.
 """
 
 from __future__ import annotations
@@ -96,13 +104,18 @@ from repro_torch.core.cost_model import (
     history_shapes,
     init_history_buffers,
     link_constants,
+    selection_diagnostics,
     zc_request_counts,
 )
-from repro_torch.core.engines import EdgeBlock, relax_with_engine
+from repro_torch.core.engines import EdgeBlock, relax_lanes, relax_with_engine
 from repro_torch.core.hytm import (
     HyTMConfig,
     HyTMResult,
     HyTMState,
+    _lane_group,
+    _lane_plans,
+    _lane_steps,
+    _LaneUpload,
     _Planned,
     _consume_warm,
     _finish,
@@ -141,30 +154,68 @@ class HaloPlan:
         return max(self.halo_counts) if self.halo_counts else 0
 
 
-def build_halo_plan(g: CSRGraph, table: PartitionTable, n_nodes: int, n_devices: int,
-                    src: np.ndarray | None = None) -> HaloPlan:
-    """Every rank's halo count, from the host CSR and the padded table
-    (rank ``d`` holds the edges of partitions ``[d·P_local, (d+1)·P_local)``,
-    one contiguous range).  The reference counts ``np.unique`` over its
-    ``(P_total, B)`` grid; a boolean mark array over ``n`` counts the same
-    set in one pass over the edges.  Every rank computes all ``D`` counts,
-    so ``halo_total`` (an input of the ICI charge) is equal on every rank.
-    ``src`` is ``g.edge_sources()`` when the caller has it."""
+def _halo_plan(src: np.ndarray, dst: np.ndarray, segments, n_nodes: int,
+               n_devices: int) -> HaloPlan:
+    """The halo counts of ranks whose edges are ``src/dst[e0:e1]`` over the
+    ``(e0, e1)`` runs of ``segments[d]`` (rank order).  The reference
+    counts ``np.unique`` over its ``(P_total, B)`` grid; a boolean mark
+    array over ``n`` counts the same set in one pass over the edges.  Every
+    rank computes all ``D`` counts, so ``halo_total`` (an input of the ICI
+    charge) is equal on every rank.  On one rank every vertex is owned."""
     n_loc = -(-n_nodes // n_devices)
-    P_local = table.n_partitions // n_devices
-    src = g.edge_sources() if src is None else src
+    if n_devices == 1:
+        return HaloPlan(n_pad=n_loc, n_loc=n_loc, halo_counts=(0,), halo_total=0)
     mark = np.zeros(n_nodes, bool)
     counts = []
-    for d in range(n_devices):
-        e0 = int(table.edge_start[d * P_local])
-        e1 = int(table.edge_start[(d + 1) * P_local])
+    for d, runs in enumerate(segments):
         mark[:] = False
-        mark[src[e0:e1]] = True
-        mark[g.indices[e0:e1]] = True
+        for e0, e1 in runs:
+            mark[src[e0:e1]] = True
+            mark[dst[e0:e1]] = True
         owned = int(np.count_nonzero(mark[d * n_loc:(d + 1) * n_loc]))
         counts.append(int(np.count_nonzero(mark)) - owned)
     return HaloPlan(n_pad=n_loc * n_devices, n_loc=n_loc, halo_counts=tuple(counts),
                     halo_total=int(sum(counts)))
+
+
+def build_halo_plan(g: CSRGraph, table: PartitionTable, n_nodes: int, n_devices: int,
+                    src: np.ndarray | None = None) -> HaloPlan:
+    """Every rank's halo count, from the host CSR and the padded table
+    (rank ``d`` holds the edges of partitions ``[d·P_local, (d+1)·P_local)``,
+    one contiguous range).  ``src`` is ``g.edge_sources()`` when the caller
+    has it."""
+    P_local = table.n_partitions // n_devices
+    src = g.edge_sources() if src is None else src
+    segments = [[(int(table.edge_start[d * P_local]), int(table.edge_start[(d + 1) * P_local]))]
+                for d in range(n_devices)]
+    return _halo_plan(src, g.indices, segments, n_nodes, n_devices)
+
+
+def blocked_ranges(n_partitions: int, block_size: int, n_devices: int) -> list:
+    """Each rank's ``(e0, e1)`` of a blocked edge log (partition ``p``'s
+    lanes ``[p·B, (p+1)·B)``) whose ``P`` partitions pad to ``P_pad =
+    ceil(P/D)·D``: rank ``d`` holds the real partitions of ``[d·P_local,
+    (d+1)·P_local)``, an empty range when all of them are padding."""
+    P_local = -(-n_partitions // n_devices)
+    out = []
+    for d in range(n_devices):
+        p0 = d * P_local
+        out.append((p0 * block_size, max(p0, min(p0 + P_local, n_partitions)) * block_size))
+    return out
+
+
+def blocked_halo_plan(src: np.ndarray, dst: np.ndarray, counts: np.ndarray, block_size: int,
+                      n_nodes: int, n_devices: int) -> HaloPlan:
+    """:func:`build_halo_plan` of a blocked edge log (a ``stream.DeltaCSR``'s
+    host ``src``/``dst`` lanes, partition ``p``'s live edges the dense prefix
+    ``[p·B, p·B + counts[p])`` of its block): the counts of the reference's
+    ``build_halo_plan(src_g, dst_g, valid_g, n, D)`` on the log's padded
+    ``(P_pad, B)`` grid, whose padding rows hold no valid lane."""
+    P_local = -(-len(counts) // n_devices)
+    segments = [[(p * block_size, p * block_size + int(counts[p]))
+                 for p in range(d * P_local, min((d + 1) * P_local, len(counts)))]
+                for d in range(n_devices)]
+    return _halo_plan(src, dst, segments, n_nodes, n_devices)
 
 
 @dataclass
@@ -288,23 +339,48 @@ def build_sharded_runtime(
         inv_deg = c["one"] / torch.maximum(out_degree.to(torch.float32), c["one"])
     n_hub_parts = int(np.searchsorted(table.vertex_start, n_hubs, side="left"))
     n_hub_parts = max(n_hub_parts, 1) if n_hubs > 0 else 0
-    halo, n_pad = None, g.n_nodes
-    if sharding == "owner":
-        halo = build_halo_plan(g, table, g.n_nodes, mesh.size, src=src_all)
-        n_pad = halo.n_pad
-        out_degree = _pad_vertex_vec(out_degree, n_pad, 0)
-        zc_req = _pad_vertex_vec(zc_req, n_pad, 0.0)
-        inv_deg = _pad_vertex_vec(inv_deg, n_pad, 1.0)
-        parts = dataclasses.replace(
-            parts, vertex_part_id=_pad_vertex_vec(parts.vertex_part_id, n_pad, P_pad - 1))
-    return ShardedRuntime(
-        mesh=mesh, parts=parts,
-        edge_src=up(src_all[e0:e1], np.int32), edge_dst=up(g.indices[e0:e1], np.int32),
-        edge_weight=up(w_all[e0:e1], np.float32), edge_base=e0,
+    rt = ShardedRuntime(
+        mesh=mesh, parts=parts, edge_src=None, edge_dst=None, edge_weight=None, edge_base=e0,
         out_degree=out_degree, zc_req=zc_req, inv_deg=inv_deg,
         n_nodes=g.n_nodes, n_partitions=P_pad, n_hub_partitions=n_hub_parts,
-        vertex_sharding=sharding, n_pad=n_pad, halo=halo,
-    )
+        vertex_sharding=sharding)
+    rt.edge_src, rt.edge_dst, rt.edge_weight = shard_edge_range(
+        (src_all, g.indices, w_all), e0, e1, dev)
+    if sharding == "owner":
+        rt.halo = build_halo_plan(g, table, g.n_nodes, mesh.size, src=src_all)
+    place_vertex_vectors(rt, out_degree, zc_req, inv_deg, parts.vertex_part_id)
+    return rt
+
+
+def shard_edge_range(columns, e0: int, e1: int, device) -> tuple:
+    """One rank's ``[e0, e1)`` range of the ``(src, dst, weight)`` edge
+    columns on ``device``, the rank-local edge tensors of a
+    :class:`ShardedRuntime`: host arrays are uploaded, device tensors
+    sliced (views, which in-place patches of the whole columns reach)."""
+    out = []
+    for col, dtype in zip(columns, (np.int32, np.int32, np.float32)):
+        if torch.is_tensor(col):
+            out.append(col[e0:e1])
+        else:
+            out.append(torch.as_tensor(np.ascontiguousarray(col[e0:e1], dtype=dtype),
+                                       device=device))
+    return tuple(out)
+
+
+def place_vertex_vectors(rt: ShardedRuntime, out_degree, zc_req, inv_deg,
+                         vertex_part_id) -> None:
+    """Set the runtime's replicated per-vertex vectors from their ``(n,)``
+    forms: as they are under the replicated layout, padded to the halo
+    plan's ``n_pad`` with the inert fills under the owner layout."""
+    n_pad = rt.halo.n_pad if rt.halo is not None else rt.n_nodes
+    rt.n_pad = n_pad
+    rt.out_degree = _pad_vertex_vec(out_degree, n_pad, 0)
+    rt.zc_req = _pad_vertex_vec(zc_req, n_pad, 0.0)
+    rt.inv_deg = _pad_vertex_vec(inv_deg, n_pad, 1.0)
+    if vertex_part_id.shape[0] != n_pad:
+        rt.parts = dataclasses.replace(
+            rt.parts, vertex_part_id=_pad_vertex_vec(vertex_part_id, n_pad,
+                                                     rt.n_partitions - 1))
 
 
 # --------------------------------------------------------------------------
@@ -312,19 +388,43 @@ def build_sharded_runtime(
 # --------------------------------------------------------------------------
 
 def all_gather_owned(x: torch.Tensor, mesh: GraphMesh) -> torch.Tensor:
-    """The ``(n_pad,)`` view of an owner-sharded ``(n_loc,)`` vector, every
-    rank's slice in rank order: one ``all_gather``."""
-    out = x.new_empty(x.shape[0] * mesh.size)
-    dist.all_gather(list(out.chunk(mesh.size)), x, group=mesh.group)
-    return out
+    """The ``(..., n_pad)`` view of owner-sharded ``(..., n_loc)`` rows,
+    every rank's slice in rank order: one ``all_gather``.  The list form
+    splits its buffer along dim 0, so lane rows gather into a contiguous
+    ``(D, Q, n_loc)`` buffer that is then permuted (for one vector the
+    permute is a view)."""
+    buf = x.new_empty((mesh.size, *x.shape))
+    dist.all_gather(list(buf.unbind(0)), x.contiguous(), group=mesh.group)
+    return buf.movedim(0, -2).reshape(*x.shape[:-1], mesh.size * x.shape[-1])
 
 
 def _reduce_to_owned(x: torch.Tensor, op, mesh: GraphMesh) -> torch.Tensor:
-    """This rank's ``(n_loc,)`` slice of the group's elementwise ``op`` over
-    the ``(n_pad,)`` vectors ``x``: one ``reduce_scatter``."""
-    out = x.new_empty(x.shape[0] // mesh.size)
-    dist.reduce_scatter(out, list(x.chunk(mesh.size)), op=op, group=mesh.group)
+    """This rank's ``(..., n_loc)`` slice of the group's elementwise ``op``
+    over the ``(..., n_pad)`` rows ``x``: one ``reduce_scatter``, its input
+    laid out ``(D, ..., n_loc)`` (rank ``d``'s chunk contiguous)."""
+    D = mesh.size
+    chunks = x.reshape(*x.shape[:-1], D, x.shape[-1] // D).movedim(-2, 0).contiguous()
+    out = x.new_empty(chunks.shape[1:])
+    dist.reduce_scatter(out, list(chunks.unbind(0)), op=op, group=mesh.group)
     return out
+
+
+def _merge(rt: ShardedRuntime, agg: torch.Tensor, touched: torch.Tensor,
+           program: VertexProgram) -> tuple[torch.Tensor, torch.Tensor]:
+    """One pass's merge across the group (MIN on the aggregate and SUM on
+    the touched counts for MIN programs, SUM on both for SUM programs):
+    the merged ``(..., n)`` rows under the replicated layout, the rank's
+    owned ``(..., n_loc)`` slices of the same merge under the owner
+    layout.  Lane rows merge together, one collective each."""
+    op = dist.ReduceOp.MIN if program.combine == MIN else dist.ReduceOp.SUM
+    count = touched.to(torch.int32)
+    if rt.vertex_sharding == "owner":
+        return (_reduce_to_owned(agg, op, rt.mesh),
+                _reduce_to_owned(count, dist.ReduceOp.SUM, rt.mesh) > 0)
+    group = rt.mesh.group
+    dist.all_reduce(agg, op=op, group=group)
+    dist.all_reduce(count, op=dist.ReduceOp.SUM, group=group)
+    return agg, count > 0
 
 
 # --------------------------------------------------------------------------
@@ -364,15 +464,7 @@ def _local_sweep(
         out = relax_with_engine(eng, block, operand, n, program, use_kernels)
         agg = torch.minimum(agg, out.agg) if program.combine == MIN else agg + out.agg
         touched |= out.touched
-    op = dist.ReduceOp.MIN if program.combine == MIN else dist.ReduceOp.SUM
-    count = touched.to(torch.int32)
-    if rt.vertex_sharding == "owner":
-        return (_reduce_to_owned(agg, op, rt.mesh),
-                _reduce_to_owned(count, dist.ReduceOp.SUM, rt.mesh) > 0)
-    group = rt.mesh.group
-    dist.all_reduce(agg, op=op, group=group)
-    dist.all_reduce(count, op=dist.ReduceOp.SUM, group=group)
-    return agg, count > 0
+    return _merge(rt, agg, touched, program)
 
 
 def _apply_merged(
@@ -559,11 +651,206 @@ def make_sharded_chunk(rt: ShardedRuntime, program: VertexProgram, config: HyTMC
     return chunk_fn, init_history
 
 
-def make_sharded_batched_chunk(rt, program, config, chunk):
-    """The lane-batched sharded chunk of graph serving: not ported yet."""
-    raise NotImplementedError(
-        "make_sharded_batched_chunk is not ported yet (ROADMAP queue 1, item 11c: "
-        "sharded serving)")
+def _lane_sweep_local(rt: ShardedRuntime, steps: list, table: torch.Tensor,
+                      frontier: torch.Tensor, operand: torch.Tensor,
+                      program: VertexProgram, use_kernels: bool):
+    """:func:`_local_sweep` for ``(Q, n_pad)`` lane rows: at step j every
+    lane relaxes its own j-th local partition, each engine's lanes in one
+    ``relax_lanes`` call over the rank's edge columns, the ``(L, n_pad)``
+    results combined into the lanes' rows in each lane's own order; then
+    one :func:`_merge` of all the lanes."""
+    Q, n = frontier.shape
+    identity = float("inf") if program.combine == MIN else 0.0
+    agg = torch.full((Q, n), identity, dtype=torch.float32, device=operand.device)
+    touched = torch.zeros((Q, n), dtype=torch.bool, device=operand.device)
+    flat_op = operand.reshape(-1)
+
+    def operand_at(flat, src):
+        return torch.index_select(flat_op, 0, flat)
+
+    for groups, _ in steps:
+        for eng, pos, lengths in groups:
+            group = _lane_group(table, pos, lengths)
+            out = relax_lanes(eng, group, rt, frontier, operand_at, program, use_kernels)
+            rows = group.rows
+            cur = torch.index_select(agg, 0, rows)
+            agg.index_copy_(0, rows, torch.minimum(cur, out.agg) if program.combine == MIN
+                            else cur + out.agg)
+            touched.index_copy_(0, rows, torch.index_select(touched, 0, rows) | out.touched)
+    return _merge(rt, agg, touched, program)
+
+
+def make_sharded_batched_chunk(rt: ShardedRuntime, program: VertexProgram,
+                               config: HyTMConfig, chunk: int):
+    """The dispatch unit of sharded serving: ``chunk_fn(state, correction)``
+    runs up to ``chunk`` sharded iterations over a ``(Q, ·)`` lane state
+    (``(Q, n)`` rows under the replicated layout, the rank's ``(Q, n_loc)``
+    owned slices under the owner layout), while fewer than ``chunk`` ran
+    and any lane is active; the first always runs.
+
+    Each iteration is :func:`make_sharded_chunk`'s, lane by lane: every
+    lane plans on its own whole row with ``core.hytm._plan`` (under the
+    owner layout the lane frontiers, and for SUM lanes in Δ mode the Δ
+    rows, all-gathered to ``(Q, n_pad)`` first), so its engines, orders,
+    bytes and times equal its solo sharded run's; ONE host copy brings
+    every lane's local engines, both local orders and second-pass flags
+    with the previous iteration's ``(Q,)`` ``next_active``; the rank
+    relaxes its local partitions through the lane entries
+    (``core.engines.relax_lanes``, ``async_sweep=False``) and ONE batched
+    collective a pass merges every lane.  ``next_active`` and the merged
+    entries are summed per lane and, under the owner layout, made global
+    by one ``all_reduce`` of the two packed together, so every rank leaves
+    the chunk at the same iteration.
+
+    Returns ``(state, n_done, lane_active, per_engine_sum, mispred_sum,
+    merged_rows)``: ``n_done`` a host int, ``lane_active`` the last
+    iteration's ``(Q,)`` int32 ``next_active``, ``per_engine_sum`` the
+    ``(3,)`` modeled seconds summed over lanes and iterations,
+    ``mispred_sum`` an int32 0-dim tensor and ``merged_rows`` the
+    ``(n_done,)`` int32 lane-summed ``merged_entries`` of each iteration
+    (the second level's input), all on the device and equal on every
+    rank.  The input state is not modified.  ``rt``'s tensors are read
+    when the chunk is built: build it anew after a ``DeltaCSR`` patch."""
+    mode = config.cds_mode
+    P_local, p0 = rt.n_local, rt.p_offset
+    use_kernels = resolve_use_kernels(config.use_kernels, rt.device)
+    owner = rt.vertex_sharding == "owner"
+    gather_delta = owner and program.combine != MIN and mode == "delta"
+    own = rt.owned
+    inv_deg_own, vpid_own = rt.inv_deg[own], rt.parts.vertex_part_id[own]
+    consume_sum = program.combine == SUM
+    peel = program.peel_k is not None
+
+    def whole(x: torch.Tensor) -> torch.Tensor:
+        return all_gather_owned(x, rt.mesh) if owner else x
+
+    def plan(state: HyTMState, correction):
+        frontier = whole(state.frontier)
+        delta = all_gather_owned(state.delta, rt.mesh) if gather_delta else state.delta
+        plans = _lane_plans(HyTMState(values=state.values, delta=delta, frontier=frontier),
+                            rt, program, config, correction)
+        sl = slice(p0, p0 + P_local)
+        local = []
+        for pl in plans:
+            engines_l, mask_l = pl.plan.engines[sl], pl.sched.second_pass[sl]
+            dmass_l = pl.delta_mass[sl]
+            local.append((engines_l, *(make_schedule(
+                e, dmass_l, rt.n_hub_partitions, mode, config.recompute_once,
+                pid_offset=p0, priority_mask=mask_l).order
+                for e in (engines_l, torch.where(mask_l, engines_l, NONE))), mask_l))
+        return plans, local, frontier, delta if gather_delta else None
+
+    def fetch(local, prev_active):
+        """The iteration's ONE copy to the host: (Q, P_local) stacks of the
+        local engines, both orders and the flags, and the previous (Q,)
+        ``next_active``."""
+        Q, L = len(local), P_local
+        parts = [torch.stack([row[k] for row in local]).to(torch.int32).reshape(-1)
+                 for k in range(4)]
+        if prev_active is not None:
+            parts.append(prev_active.to(torch.int32))
+        host = torch.cat(parts).tolist()
+
+        def rows(k):
+            return [host[(k * Q + q) * L:(k * Q + q + 1) * L] for q in range(Q)]
+
+        prev = host[4 * Q * L:] if prev_active is not None else None
+        return rows(0), rows(1), rows(2), rows(3), prev
+
+    def iteration(state: HyTMState, plans, frontier_w, delta_w, host, correction):
+        engines_h, order1, order2, second_h = host
+        frontier, values, delta = state.frontier, state.values, state.delta
+        damping = _scalar(program.damping, values) if consume_sum else None
+        upload = _LaneUpload()
+        steps1 = _lane_steps(upload, rt, engines_h, order1, None, p0, rt.edge_base)
+        engines2 = [[e if f else NONE for e, f in zip(eq, sq)]
+                    for eq, sq in zip(engines_h, second_h)]
+        steps2 = _lane_steps(upload, rt, engines2, order2, None, p0, rt.edge_base)
+        table = upload.upload(rt.device)
+
+        # pass 1: every active partition of every lane, one merge
+        if not consume_sum:
+            operand = whole(values)
+        elif delta_w is not None:
+            operand = damping * delta_w * rt.inv_deg
+        else:
+            operand = whole(damping * delta * inv_deg_own)
+        agg, touched = _lane_sweep_local(rt, steps1, table, frontier_w, operand, program,
+                                         use_kernels)
+        if peel:
+            values1, delta1, activated = values - agg, delta, touched
+        else:
+            values1, delta1, activated = _apply_merged(values, delta, frontier, agg,
+                                                       touched, program)
+
+        # pass 2: recompute-once over each lane's loaded priority partitions
+        if peel:
+            frontier2 = torch.zeros_like(frontier)
+        elif program.combine == MIN:
+            frontier2 = frontier | activated
+        else:
+            frontier2 = torch.abs(delta1) > _scalar(program.tolerance, frontier)
+        operand2 = damping * delta1 * inv_deg_own if consume_sum else values1
+        agg2, touched2 = _lane_sweep_local(rt, steps2, table, whole(frontier2),
+                                           whole(operand2), program, use_kernels)
+        if peel:
+            values2, delta2, activated2 = values1 - agg2, delta1, touched2
+        else:
+            second = torch.stack([pl.sched.second_pass for pl in plans])
+            engines = torch.stack([pl.plan.engines for pl in plans])
+            processed2 = (torch.index_select(second, 1, vpid_own)
+                          & (torch.index_select(engines, 1, vpid_own) != NONE))
+            values2, delta2, activated2 = _apply_merged(
+                values1, delta1, frontier2 & processed2, agg2, touched2, program)
+        activated = activated | activated2
+
+        # the next frontier, as core.hytm._finish lane by lane
+        if peel:
+            next_frontier = (delta2 < 0.5) & (values2 < program.peel_k)
+            delta2 = delta2 + next_frontier.to(torch.float32)
+        elif program.combine == MIN:
+            next_frontier = activated
+        else:
+            next_frontier = torch.abs(delta2) > _scalar(program.tolerance, frontier)
+        diags = [selection_diagnostics(pl.plan.engines, pl.plan.transfer_time, pl.stats,
+                                       pl.plan.costs, correction) for pl in plans]
+        per_engine = torch.stack([d[0] for d in diags]).sum(dim=0)
+        mispredictions = torch.stack([d[1] for d in diags]).sum(dtype=torch.int32)
+        next_active = next_frontier.sum(dim=1, dtype=torch.int32)
+        merged = (touched | touched2).sum(dtype=torch.int32).reshape(1)
+        if owner:
+            # owned-slice sums, made global by one all_reduce
+            counts = torch.cat([next_active, merged])
+            dist.all_reduce(counts, group=rt.mesh.group)
+            next_active, merged = counts[:-1], counts[-1:]
+        return (HyTMState(values=values2, delta=delta2, frontier=next_frontier),
+                next_active, per_engine, mispredictions, merged)
+
+    def chunk_fn(state: HyTMState, correction: torch.Tensor | None = None):
+        Q = state.values.shape[0]
+        dev = state.values.device
+        pe_sum = torch.zeros(3, dtype=torch.float32, device=dev)
+        mp_sum = torch.zeros((), dtype=torch.int32, device=dev)
+        lane_active, merged_rows = None, []
+        n_done = 0
+        while n_done < chunk:
+            plans, local, frontier_w, delta_w = plan(state, correction)
+            *host, prev = fetch(local, lane_active)
+            if prev is not None and not any(prev):
+                break
+            state, lane_active, pe, mp, merged = iteration(
+                state, plans, frontier_w, delta_w, tuple(host), correction)
+            pe_sum = pe_sum + pe
+            mp_sum = mp_sum + mp
+            merged_rows.append(merged)
+            n_done += 1
+        if lane_active is None:
+            lane_active = torch.zeros(Q, dtype=torch.int32, device=dev)
+        merged = (torch.cat(merged_rows) if merged_rows
+                  else torch.zeros(0, dtype=torch.int32, device=dev))
+        return state, n_done, lane_active, pe_sum, mp_sum, merged
+
+    return chunk_fn
 
 
 # --------------------------------------------------------------------------

@@ -63,6 +63,14 @@ def make_graph_mesh(axis: str = "graph", group=None,
                      rank=dist.get_rank(group), device=resolve_device(device))
 
 
+def group_ranks(mesh: GraphMesh) -> tuple:
+    """The global ranks of ``mesh``'s group, in group order (``range(size)``
+    for a mesh with no group)."""
+    if mesh.group is None or not dist.is_initialized():
+        return tuple(range(mesh.size))
+    return tuple(dist.get_process_group_ranks(mesh.group))
+
+
 def mesh_barrier(mesh: GraphMesh) -> None:
     """Return on each rank only once every rank of ``mesh`` has called it:
     one ``all_reduce`` of one element on the mesh's device, waited for on

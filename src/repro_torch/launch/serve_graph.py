@@ -9,11 +9,12 @@ says otherwise.
 
 ``--selfcheck`` runs the serving equivalence contract on a small graph
 (batched == independent runs, cached repeat == zero sweeps, incremental
-after updates == from-scratch, the multi-tenant scheduler's quotas and
-byte budget) and exits non-zero on any violation.  The reference's
-selfcheck also holds a mesh-sharded sweep against a single-device run;
-that step belongs to multi-GPU serving (ROADMAP queue 1, item 11c) and is
-left out.  ``--algorithm wcc`` symmetrizes the graph first.
+after updates == from-scratch, a mesh-sharded sweep == a single-device
+run, the multi-tenant scheduler's quotas and byte budget) and exits
+non-zero on any violation.  The sharded step runs on the default process
+group when one exists, else on a one-rank group of its own (gloo on
+``--device cpu``, NCCL on the card), so it is never skipped.
+``--algorithm wcc`` symmetrizes the graph first.
 
 ``--trace PATH`` records the run through ``repro_torch.obs`` and writes a
 Chrome trace-event JSON to PATH.  ``--calibrated`` serves under the
@@ -74,7 +75,11 @@ def selfcheck(device: str = "cuda") -> None:
     fs = run_hytm(svc.dcsr.to_host_graph(), pr, source=None, config=cfg, device=device)
     assert np.max(np.abs(inc.values - fs.values)) < 1e-3
 
-    # 5. (the reference's sharded-sweep step: multi-GPU, not ported)
+    # 5. the serving path coexists with the sharded sweep: a fresh query
+    # equals a mesh-sharded run of the same graph
+    np.testing.assert_array_equal(
+        _sharded_sssp(g2, cfg, device), run_hytm(g2, SSSP, source=0, config=cfg,
+                                                 device=device).values)
 
     # 6. multi-tenant scheduler contract: EDF admission under per-tenant
     # quotas + a device byte budget small enough to force cache spills —
@@ -101,6 +106,25 @@ def selfcheck(device: str = "cuda") -> None:
 
     print(f"SELFCHECK OK (device {device}) — stats: {svc.stats}; "
           f"serve: {tiny.scheduler.stats} cache: {tiny.cache.stats.as_dict()}")
+
+
+def _sharded_sssp(g, cfg, device: str) -> np.ndarray:
+    """SSSP from vertex 0 through ``run_hytm`` with ``mesh_axis="graph"``:
+    on the default process group when one exists, else on a one-rank group
+    of its own (gloo on the CPU, NCCL on the card)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.hytm import run_hytm
+    from repro_torch.graph.algorithms import SSSP
+    from repro_torch.launch.mesh import RankPool, make_graph_mesh
+
+    mesh_cfg = dataclasses.replace(cfg, async_sweep=False, mesh_axis="graph")
+    if dist.is_initialized():
+        return run_hytm(g, SSSP, 0, mesh_cfg, mesh=make_graph_mesh(device=device)).values
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    with RankPool(1, backend=backend):
+        return run_hytm(g, SSSP, 0, mesh_cfg, mesh=make_graph_mesh(device=device)).values
 
 
 def main(argv=None) -> None:

@@ -1,5 +1,5 @@
 """repro_torch.serve — continuous multi-tenant serving on top of
-``GraphService``, on one device.
+``GraphService``, on one device or a mesh.
 
 Three pieces (one file each), as in the reference ``repro.serve``:
 
@@ -10,7 +10,8 @@ Three pieces (one file each), as in the reference ``repro.serve``:
   static bucket sizes, freeing converged lanes at chunk boundaries and
   backfilling them mid-flight;
 * :mod:`repro_torch.serve.warm_cache` — two-tier (device LRU → host RAM)
-  warm-state cache with promote-and-replay.
+  warm-state cache with promote-and-replay, owner-sharded on a mesh
+  (:class:`OwnerPlacement`).
 
 ``GraphService`` owns one :class:`LaneScheduler` and one
 :class:`WarmCache`; multi-tenant serving drives the scheduler's ``pump``.
@@ -23,7 +24,13 @@ from repro_torch.serve.scheduler import (
     ServedResult,
     default_buckets,
 )
-from repro_torch.serve.warm_cache import CacheStats, TierPolicy, WarmCache, WarmEntry
+from repro_torch.serve.warm_cache import (
+    CacheStats,
+    OwnerPlacement,
+    TierPolicy,
+    WarmCache,
+    WarmEntry,
+)
 
 __all__ = [
     "QueueStats",
@@ -34,6 +41,7 @@ __all__ = [
     "ServedResult",
     "default_buckets",
     "CacheStats",
+    "OwnerPlacement",
     "TierPolicy",
     "WarmCache",
     "WarmEntry",

@@ -48,8 +48,19 @@ the slots, and a streak the ``supervisor`` deems sustained sheds the
 pending requests of the lower tiers (mode ``"shed"``).  Without a plan
 neither site costs anything.
 
-Not ported yet: sharded serving and owner placement (ROADMAP queue 1 item
-11c), which raise ``NotImplementedError``.
+Sharded serving (the service's ``mesh``): each chunk runs
+``dist.graph_shard.make_sharded_batched_chunk`` over the container's
+sharded view, behind the same ``lane_dispatch`` guard, and charges the
+second transfer-management level one chunk row at a time.  Under the
+owner layout a lane pins its owned ``(n_loc,)`` slice (``lane_bytes`` is
+``9·n_loc``), the lane state stacks each lane's owned slice, and the done
+lanes' rows are gathered to canonical ``(n,)`` rows in one collective.
+The ranks run one process each, so every host decision (admission,
+buckets, backfill, the virtual clock, the byte budget of modeled bytes,
+the cache's spills, promotes and evictions, the lane-done gather) is made
+from values equal on every rank; wall time differs by rank, so only rank
+0's calibrator observes and its correction is broadcast, and
+``submit_wall``/``done_wall`` are per-rank statistics that decide nothing.
 """
 
 from __future__ import annotations
@@ -62,6 +73,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
+from repro_torch.core.cost_model import KEY_ICI_BYTES, KEY_ICI_TIME
 from repro_torch.core.hytm import (
     HyTMState,
     _consume_warm,
@@ -177,8 +189,16 @@ class LaneScheduler:
 
     @property
     def lane_bytes(self) -> int:
-        """Device bytes one lane pins."""
-        return LANE_STATE_BYTES_PER_NODE * self.svc.dcsr.n_nodes
+        """Device bytes one lane pins on a rank: its ``(n,)`` row, or under
+        the owner layout its owned ``(n_loc,)`` slice."""
+        n = self.svc.dcsr.n_nodes
+        if self._owner_mode():
+            n = -(-n // self.svc.mesh.size)
+        return LANE_STATE_BYTES_PER_NODE * n
+
+    def _owner_mode(self) -> bool:
+        svc = self.svc
+        return svc.mesh is not None and svc.config.vertex_sharding == "owner"
 
     def bucket_for(self, q: int) -> int:
         for b in self.buckets:
@@ -289,12 +309,25 @@ class LaneScheduler:
         return jobs
 
     # ------------------------------------------------------------- dispatch
+    def _lane_triple(self, program: VertexProgram, triple) -> tuple:
+        """One lane's ``(n,)`` (values, Δ, frontier) as the lane state holds
+        it: as it is, or under the owner layout this rank's owned slice of
+        it padded with the program's inert fills
+        (``dist.graph_shard.owner_state_pad_values``)."""
+        if not self._owner_mode():
+            return triple
+        from repro_torch.dist.graph_shard import _owner_place_state
+
+        st = _owner_place_state(self.svc._runtime_for(program), program, *triple)
+        return st.values, st.delta, st.frontier
+
     def _stack_state(self, program: VertexProgram,
                      jobs: list[_LaneJob | None], bucket: int) -> HyTMState:
         n = self.svc.dcsr.n_nodes
         dead = dead_lane_state(program, n, self.svc.dcsr.device)
         triples = [j.init if j is not None else dead for j in jobs]
         triples += [dead] * (bucket - len(jobs))
+        triples = [self._lane_triple(program, t) for t in triples]
         return HyTMState(
             values=torch.stack([t[0] for t in triples]),
             delta=torch.stack([t[1] for t in triples]),
@@ -335,18 +368,87 @@ class LaneScheduler:
         return state, n_done, lane_active.tolist(), correction
 
     def _dispatch_sharded(self, program, state, bucket, correction, chunk):
-        raise NotImplementedError(
-            "LaneScheduler: sharded serving is not ported yet (ROADMAP queue 1, "
-            "item 11c: sharded serving)")
+        """:meth:`_dispatch` on the mesh: one
+        ``make_sharded_batched_chunk`` over the container's sharded view,
+        then the second level's charge of each iteration the chunk ran (all
+        lanes merge in one batched collective: ``halo_level_cost`` of the
+        lane-summed merged entries capped at ``bucket·halo_total`` under
+        the owner layout, ``ici_level_cost`` of ``bucket·n`` entries
+        otherwise), into ``stats.extra`` and ``obs``."""
+        from repro_torch.dist.graph_shard import (halo_level_cost, ici_level_cost,
+                                                  make_sharded_batched_chunk)
+
+        svc = self.svc
+        cfg, mesh = svc.config, svc.mesh
+        rt = svc._runtime_for(program)
+        warm = _consume_warm((
+            "serve-lanes-sharded", program, cfg, bucket, rt.n_nodes, rt.n_pad,
+            rt.n_partitions, rt.parts.block_size, mesh.rank, mesh.size, chunk,
+            correction is not None,
+        ))
+        t_chunk = time.monotonic()
+        sup = self.supervisor
+        state, n_done, lane_active, pe_sum, mp_sum, merged = guarded_dispatch(
+            functools.partial(make_sharded_batched_chunk(rt, program, cfg, chunk), state,
+                              correction),
+            site="lane_dispatch", faults=svc.faults,
+            policy=sup.policy if sup is not None else None, obs=svc.obs,
+            stats=sup.counters if sup is not None else None, bucket=bucket, mesh=True)
+        # lane_active and the merged rows reach the host in one copy
+        host = torch.cat([lane_active, merged]).tolist()
+        lane_active, merged = host[:bucket], host[bucket:]
+        correction = self._observe(pe_sum, mp_sum, t_chunk, warm, correction)
+        corr_np = (correction.cpu().numpy().astype(float)
+                   if correction is not None else None)
+        n, base, obs = svc.dcsr.n_nodes, self.stats.engine_iterations, svc.obs
+        for k, me in enumerate(merged):
+            halo_entries = None
+            if rt.halo is not None:
+                # each lane's compacted exchange is capped by the same halo
+                cap = float(bucket) * float(rt.halo.halo_total)
+                halo_entries = min(float(me), cap)
+                ib, it_, ie = halo_level_cost(bucket * n, float(me), cap, mesh.size,
+                                              cfg.ici_link, corr_np)
+            else:
+                ib, it_, ie = ici_level_cost(bucket * n, float(me), mesh.size,
+                                             cfg.ici_link, corr_np)
+            svc.stats.extra[KEY_ICI_BYTES] = svc.stats.extra.get(KEY_ICI_BYTES, 0.0) + ib
+            svc.stats.extra[KEY_ICI_TIME] = svc.stats.extra.get(KEY_ICI_TIME, 0.0) + it_
+            if obs is not None:
+                from repro_torch.obs.record import record_ici
+
+                record_ici(obs, track="ici", it=base + k, bytes_=ib, seconds=it_, engine=ie,
+                           merged_entries=float(me), halo_entries=halo_entries)
+        return state, n_done, lane_active, correction
 
     def _observe(self, pe_sum, mp_sum, t_chunk, warm, correction):
+        """Feed the service's calibrator one chunk (on a mesh rank 0's
+        alone: the ranks' wall clocks differ) and return the correction
+        every rank then holds."""
         svc = self.svc
         if svc._calibrator is None:
             return correction
-        refreshed = svc._calibrator.observe_chunk(
-            pe_sum, pe_sum.cpu().numpy().astype(float), t_chunk, skip=not warm)
-        svc._record_feedback(int(mp_sum), refreshed)
+        refreshed = None
+        if svc.mesh is None or svc.mesh.rank == 0:
+            refreshed = svc._calibrator.observe_chunk(
+                pe_sum, pe_sum.cpu().numpy().astype(float), t_chunk, skip=not warm)
+        # on a mesh _record_feedback broadcasts rank 0's correction
+        svc._record_feedback(int(mp_sum), refreshed if svc.mesh is None else None)
         return svc._correction
+
+    def _done_rows(self, state: HyTMState, done_idx: list) -> tuple:
+        """The done lanes' canonical ``(k, n)`` (values, Δ) rows on the
+        device: under the owner layout the rank's ``(k, n_loc)`` slices of
+        both gathered in ONE collective, the pads sliced off."""
+        rows = [torch.stack([getattr(state, f)[i] for i in done_idx])
+                for f in ("values", "delta")]
+        if not self._owner_mode():
+            return tuple(rows)
+        from repro_torch.dist.graph_shard import all_gather_owned
+
+        both = all_gather_owned(torch.cat(rows), self.svc.mesh)[:, :self.svc.dcsr.n_nodes]
+        k = len(done_idx)
+        return both[:k], both[k:]
 
     def _alloc_pressure(self, queue: RequestQueue, slots: int,
                         results: list, floor: int) -> int:
@@ -446,8 +548,7 @@ class LaneScheduler:
                 # the done rows to the host in one copy each; the cache gets
                 # its own device copies (WarmCache.put), so the backfill
                 # below may overwrite these rows in place
-                values_dev = torch.stack([state.values[i] for i in done_idx])
-                deltas_dev = torch.stack([state.delta[i] for i in done_idx])
+                values_dev, deltas_dev = self._done_rows(state, done_idx)
                 values, deltas = values_dev.cpu().numpy(), deltas_dev.cpu().numpy()
                 freed = 0
                 for k, i in enumerate(done_idx):
@@ -475,7 +576,7 @@ class LaneScheduler:
                     slots = [i for i, j in enumerate(lane_jobs) if j is None]
                     for slot, job in zip(slots, refill):
                         lane_jobs[slot] = job
-                        v, d, f = job.init
+                        v, d, f = self._lane_triple(program, job.init)
                         state.values[slot].copy_(v)
                         state.delta[slot].copy_(d)
                         state.frontier[slot].copy_(f)

@@ -33,8 +33,11 @@ host and :meth:`WarmCache.promote` returns ``None``) and ``host_spill``
 (``corrupt``: the spilled bytes are damaged *after* the checksum is taken,
 so the check at promote catches them).
 
-Not ported yet: owner-sharded placement (``OwnerPlacement``, ROADMAP queue
-1 item 11c), which raises ``NotImplementedError``.
+With an :class:`OwnerPlacement` (sharded serving under the owner layout)
+a device-tier entry holds this rank's owned ``(n_loc,)`` slice and the
+budget counts that per-rank share; the host tier stays canonical ``(n,)``,
+so reading a device entry's values gathers the slices, a collective every
+rank of the group makes alike.
 """
 
 from __future__ import annotations
@@ -67,13 +70,43 @@ def _nbytes(t) -> int:
     return int(t.numel() * t.element_size()) if torch.is_tensor(t) else int(t.nbytes)
 
 
+@dataclass(frozen=True)
 class OwnerPlacement:
-    """Owner-sharded device-tier placement: not ported yet."""
+    """Owner-sharded device-tier placement for one rank of ``mesh`` (a
+    ``launch.mesh.GraphMesh``): a device entry is this rank's ``(n_loc,)``
+    slice of the state padded to ``n_pad = n_loc·D`` (zeros on the last
+    rank), so one cached state costs a rank ``8·n_loc`` bytes, the
+    granularity the budget counts.  :meth:`to_host` gathers the slices
+    back to the canonical ``(n,)`` array (one ``all_gather``), so checksums
+    cover the canonical bytes and the spill and promote round trip is
+    bit-exact."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "OwnerPlacement is not ported yet (ROADMAP queue 1, item 11c: sharded "
-            "serving)")
+    mesh: object
+    n_nodes: int
+
+    @property
+    def n_loc(self) -> int:
+        return -(-self.n_nodes // self.mesh.size)
+
+    @property
+    def n_pad(self) -> int:
+        return self.n_loc * self.mesh.size
+
+    def to_device(self, arr) -> torch.Tensor:
+        """This rank's owned slice of a canonical ``(n,)`` host array or
+        tensor, copied to the mesh's device."""
+        lo = self.mesh.rank * self.n_loc
+        hi = min(lo + self.n_loc, self.n_nodes)
+        x = arr.detach() if torch.is_tensor(arr) else torch.from_numpy(np.asarray(arr))
+        real = x[lo:max(lo, hi)].to(self.mesh.device, copy=True)
+        extra = self.n_loc - real.shape[0]
+        return torch.cat([real, real.new_zeros(extra)]) if extra else real
+
+    def to_host(self, arr: torch.Tensor) -> np.ndarray:
+        """The canonical ``(n,)`` array of a device entry's slices."""
+        from repro_torch.dist.graph_shard import all_gather_owned
+
+        return all_gather_owned(arr, self.mesh)[:self.n_nodes].cpu().numpy()
 
 
 @dataclass(frozen=True)
@@ -116,28 +149,35 @@ class WarmEntry:
     nbytes: int = 0
     lru: int = 0
     checksum: int | None = None  # set at spill, verified at promote
+    placement: OwnerPlacement | None = None  # device entries: owned slices
+
+    def _canonical(self, arr) -> np.ndarray:
+        if self.tier == DEVICE and self.placement is not None:
+            return self.placement.to_host(arr)
+        return _host(arr)
 
     def host_values(self) -> np.ndarray:
-        """The values as a host ``(n,)`` array (a copy for a device entry)."""
-        return _host(self.values)
+        """The values as a host ``(n,)`` array (a copy for a device entry;
+        under an owner placement the slices gathered, a collective)."""
+        return self._canonical(self.values)
 
     def host_delta(self) -> np.ndarray:
-        return _host(self.delta)
+        return self._canonical(self.delta)
 
 
 class WarmCache:
     """Two-tier LRU warm-state cache, dict-like over ``(program, source)``
-    keys.  Device-tier entries live on ``device`` (``cuda`` unless given)."""
+    keys.  Device-tier entries live on ``device`` (``cuda`` unless given),
+    or, with ``placement``, as owned slices on the placement mesh's
+    device."""
 
     def __init__(self, policy: TierPolicy | None = None, obs=None,
                  faults=None, placement: OwnerPlacement | None = None,
                  device: str | torch.device | None = None):
-        if placement is not None:
-            raise NotImplementedError(
-                "WarmCache: placement is not ported yet (ROADMAP queue 1, "
-                "item 11c: sharded serving)")
         self.policy = policy or TierPolicy()
-        self.device = resolve_device(device)
+        self.placement = placement
+        self.device = (placement.mesh.device if placement is not None
+                       else resolve_device(device))
         self._entries: dict = {}
         self._clock = 0
         self.stats = CacheStats()
@@ -186,7 +226,10 @@ class WarmCache:
         entry.lru = self._clock
 
     def _to_device(self, arr) -> torch.Tensor:
-        """A copy of ``arr`` on the cache's device that nothing else views."""
+        """A copy of ``arr`` on the cache's device that nothing else views
+        (the rank's owned slice of it under a placement)."""
+        if self.placement is not None:
+            return self.placement.to_device(arr)
         if torch.is_tensor(arr):
             return arr.detach().to(self.device, copy=True)
         return torch.from_numpy(np.array(arr, copy=True)).to(self.device)
@@ -237,7 +280,7 @@ class WarmCache:
         values = self._to_device(values)
         delta = self._to_device(delta)
         entry = WarmEntry(version=version, values=values, delta=delta, tier=DEVICE,
-                          nbytes=_nbytes(values) + _nbytes(delta))
+                          nbytes=_nbytes(values) + _nbytes(delta), placement=self.placement)
         self._touch(entry)
         self._entries[key] = entry
         self.shrink_to_budget(reserved_bytes)
@@ -268,6 +311,7 @@ class WarmCache:
             entry.values = self._to_device(entry.values)
             entry.delta = self._to_device(entry.delta)
             entry.tier = DEVICE
+            entry.nbytes = _nbytes(entry.values) + _nbytes(entry.delta)
             entry.checksum = None
             self.stats.promotions += 1
             self._obs_event("promote", key, nbytes=entry.nbytes)

@@ -29,13 +29,25 @@ in each ``UpdateReport`` names the blocks a batch touched.
 The host-side semantics are the reference's (``repro/stream/delta_csr.py``)
 step for step, so the same batches leave the same host log and the same
 device tensors.  ``apply(faults=)`` injects delivery drops
-(``repro_torch.resilience``).  The sharded views are ROADMAP queue 1,
-item 11c.
+(``repro_torch.resilience``).
+
+Sharded views: ``sharded_runtime_for(program, mesh)`` gives a rank of a
+``torch.distributed`` group (``launch.mesh.GraphMesh``) a
+``dist.graph_shard.ShardedRuntime`` over the blocked log.  The partition
+count pads to ``P_pad = ceil(P/D)·D`` with empty partitions (capacity
+start ``p·B``, no live edge), and rank ``d`` holds the lanes of its
+partitions ``[d·P_local, (d+1)·P_local)`` as slices of this container's
+device columns, so every in-place patch reaches the views.  Every rank
+keeps the whole log on its device, as the reference keeps it on device 0.
+The views are registered: each ``apply`` refreshes their live counts and
+per-vertex vectors (and under the owner layout their ``HaloPlan``), and a
+merge-compaction refills them from the re-blocked log.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import defaultdict
 from dataclasses import dataclass, field
 
@@ -50,6 +62,11 @@ from repro_torch.graph.csr import CSRGraph, DeviceCSR, csr_from_edges
 from repro_torch.kernels.runtime import resolve_device
 
 OP_INSERT, OP_DELETE, OP_REWEIGHT = 0, 1, 2
+
+
+def _placed(device) -> torch.device:
+    """Where a tensor on ``device`` lands (``cuda`` names the current card)."""
+    return torch.empty(0, device=device).device
 
 
 class InvalidBatchError(ValueError):
@@ -173,6 +190,12 @@ class DeltaCSR:
         self._applied: dict = {}
         self.dedup_window = 64
         self._inv_deg_cache: dict[bool, torch.Tensor] = {}
+        # registered sharded views: (axis, group ranks, weighted,
+        # vertex_sharding) -> ShardedRuntime
+        self._sharded_views: dict = {}
+        # seconds the last in-place patch spent refreshing the views (the
+        # owner layout's halo plans apart); 0 after a merge-compaction
+        self.view_seconds = {"patch": 0.0, "halo": 0.0}
         self._build_layout(g)
 
     # ------------------------------------------------------------ construction
@@ -234,9 +257,12 @@ class DeltaCSR:
 
         cap_start = np.arange(P + 1, dtype=np.int64) * B
         i32 = np.int32
-        # drop the old layout's tensors before the new ones are allocated
+        # drop the old layout's tensors (the views' slices of them too)
+        # before the new ones are allocated
         self.csr = self.parts = self.zc_req = None
         self._inv_deg_cache.clear()
+        for rt in self._sharded_views.values():
+            rt.edge_src = rt.edge_dst = rt.edge_weight = None
         self.parts = DevicePartitions(
             vertex_start=self._up(table.vertex_start, i32),
             edge_start=self._up(cap_start, i32),
@@ -258,6 +284,10 @@ class DeltaCSR:
         self.zc_req = zc_request_counts(
             self.csr.out_degree, self.csr.seg_start, self.config.link
         )
+        # a merge-compaction re-blocks the log: every view is refilled
+        self.view_seconds = {"patch": 0.0, "halo": 0.0}
+        for key, rt in self._sharded_views.items():
+            self._refill_sharded_view(rt, key[2])
 
     # ------------------------------------------------------------- inspection
     @property
@@ -520,6 +550,9 @@ class DeltaCSR:
             self.csr.out_degree, self.csr.seg_start, self.config.link
         )
         self._inv_deg_cache.clear()
+        self.view_seconds = {"patch": 0.0, "halo": 0.0}
+        for key, rt in self._sharded_views.items():
+            self._patch_sharded_view(rt, key[2], bool(touched))
 
     def _refresh_seg_start(self, dirty) -> None:
         """Recompute ``seg_start`` for the ``dirty`` partitions: vertex v's
@@ -570,12 +603,114 @@ class DeltaCSR:
             inv_deg=self._inv_deg(weighted), n_hub_partitions=0,
         )
 
+    # --------------------------------------------------------- sharded runtime
     def sharded_runtime_for(self, program: VertexProgram, mesh=None,
-                            axis: str | None = None):
-        """The sharded (P_pad, B) grid view: not ported yet."""
-        raise NotImplementedError(
-            "DeltaCSR.sharded_runtime_for is not ported yet (ROADMAP queue 1, "
-            "item 11c: the sharded stream path)")
+                            axis: str | None = None, vertex_sharding: str | None = None):
+        """This rank's ``dist.graph_shard.ShardedRuntime`` view of the
+        current version, on ``mesh`` (a ``launch.mesh.GraphMesh``, by
+        default ``make_graph_mesh`` over the default group on this
+        container's device) under ``vertex_sharding`` (by default
+        ``config.vertex_sharding``; ``run_incremental`` passes its run's).
+
+        The view is registered under (axis, the group's ranks, weighted,
+        vertex_sharding) and returned again on the next call: each
+        ``apply`` refreshes it, so a sharded run over it plans the same
+        engines and charges the same bytes as a run over
+        :meth:`runtime_for` at every version.  ``axis`` defaults to
+        ``config.mesh_axis``; with neither, or an axis the mesh does not
+        have, this raises ``ValueError``."""
+        from repro_torch.dist.graph_shard import ShardedRuntime, _check_vertex_sharding
+        from repro_torch.launch.mesh import group_ranks, make_graph_mesh
+
+        axis = axis if axis is not None else self.config.mesh_axis
+        if axis is None:
+            raise ValueError(
+                "no mesh axis: set config.mesh_axis or pass axis= (runtime_for() is the "
+                "single-device view)")
+        if mesh is None:
+            mesh = make_graph_mesh(axis=axis, device=self.device)
+        if axis != mesh.axis:
+            raise ValueError(
+                f"config.mesh_axis={axis!r} is not the mesh's axis {mesh.axis!r}")
+        if _placed(mesh.device) != _placed(self.device):
+            raise ValueError(
+                f"the mesh's device {mesh.device} is not the DeltaCSR's {self.device}: "
+                "the view slices the container's device columns")
+        weighted = bool(program.use_delta and program.weighted)
+        sharding = _check_vertex_sharding(vertex_sharding if vertex_sharding is not None
+                                          else self.config.vertex_sharding)
+        key = (axis, group_ranks(mesh), weighted, sharding)
+        rt = self._sharded_views.get(key)
+        if rt is None:
+            rt = ShardedRuntime(
+                mesh=mesh, parts=None, edge_src=None, edge_dst=None, edge_weight=None,
+                edge_base=0, out_degree=None, zc_req=None, inv_deg=None,
+                n_nodes=self.n_nodes, n_partitions=0, n_hub_partitions=0,
+                vertex_sharding=sharding)
+            self._refill_sharded_view(rt, weighted)
+            self._sharded_views[key] = rt
+        return rt
+
+    def _halo_plan(self, rt):
+        from repro_torch.dist.graph_shard import blocked_halo_plan
+
+        return blocked_halo_plan(self._src, self._dst, self.counts, self.block_size,
+                                 self.n_nodes, rt.mesh.size)
+
+    def _refill_sharded_view(self, rt, weighted: bool) -> None:
+        """(Re)build a view from the current layout: the build path and the
+        merge-compaction path."""
+        from repro_torch.dist.graph_shard import blocked_ranges, shard_edge_range
+
+        D, P, B = rt.mesh.size, self.n_partitions, self.block_size
+        P_pad = -(-P // D) * D
+        e0, e1 = blocked_ranges(P, B, D)[rt.mesh.rank]
+        rt.edge_src, rt.edge_dst, rt.edge_weight = shard_edge_range(
+            (self.csr.edge_src, self.csr.edge_dst, self.csr.edge_weight), e0, e1, self.device)
+        rt.edge_base = e0
+        rt.n_partitions = P_pad
+        rt.halo = self._halo_plan(rt) if rt.vertex_sharding == "owner" else None
+        pad = P_pad - P
+        vstart = np.concatenate([self.vertex_start, np.full(pad, self.vertex_start[-1])])
+        i32 = np.int32
+        rt.parts = DevicePartitions(
+            vertex_start=self._up(vstart, i32),
+            edge_start=self._up(np.arange(P_pad + 1, dtype=np.int64) * B, i32),
+            part_edges=self._view_counts(rt),
+            vertex_part_id=self.parts.vertex_part_id,
+            n_partitions=P_pad,
+            block_size=B,
+        )
+        self._place_view_vectors(rt, weighted)
+
+    def _view_counts(self, rt) -> torch.Tensor:
+        """The live counts padded to the view's ``P_pad`` with zeros."""
+        pad = rt.n_partitions - self.n_partitions
+        return self._up(np.concatenate([self.counts, np.zeros(pad, np.int64)]), np.int32)
+
+    def _place_view_vectors(self, rt, weighted: bool) -> None:
+        """A view's per-vertex vectors, the container's (padded under the
+        owner layout)."""
+        from repro_torch.dist.graph_shard import place_vertex_vectors
+
+        place_vertex_vectors(rt, self.csr.out_degree, self.zc_req, self._inv_deg(weighted),
+                             rt.parts.vertex_part_id)
+
+    def _patch_sharded_view(self, rt, weighted: bool, moved: bool) -> None:
+        """Refresh a view between merges.  Its edge columns are slices of the
+        device columns ``_patch_device`` just patched in place; its live
+        counts and per-vertex vectors follow the container's, and under the
+        owner layout, when lanes ``moved``, its halo plan is rebuilt from
+        the host log (the plan steers only the ICI charge, which must see
+        the live boundary)."""
+        t = time.monotonic()
+        if rt.vertex_sharding == "owner" and moved:
+            rt.halo = self._halo_plan(rt)
+        t_halo = time.monotonic()
+        rt.parts = dataclasses.replace(rt.parts, part_edges=self._view_counts(rt))
+        self._place_view_vectors(rt, weighted)
+        self.view_seconds["halo"] += t_halo - t
+        self.view_seconds["patch"] += time.monotonic() - t_halo
 
 
 def random_batch(

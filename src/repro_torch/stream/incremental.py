@@ -42,13 +42,7 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.hytm import (
-    HyTMConfig,
-    HyTMResult,
-    HyTMState,
-    _reject_unported,
-    run_hytm,
-)
+from repro_torch.core.hytm import HyTMConfig, HyTMResult, HyTMState, run_hytm
 from repro_torch.graph.algorithms import MIN, VertexProgram
 from repro_torch.stream.delta_csr import DeltaCSR, UpdateReport
 
@@ -210,12 +204,27 @@ def run_incremental(
     ``config`` (default ``dcsr.config``) on the DeltaCSR's device, its
     chunked driver included, and learns into ``calibrator`` with
     ``config.autotune``, and records into ``obs`` and guards its dispatches
-    with ``faults``/``retry`` as ``run_hytm`` does.  ``mesh`` and
-    ``config.mesh_axis`` belong to ROADMAP queue 1 item 11c and raise
-    ``NotImplementedError``."""
+    with ``faults``/``retry`` as ``run_hytm`` does.
+
+    With ``config.mesh_axis`` set the warm triple goes to the sharded sweep
+    over ``dcsr.sharded_runtime_for(program, mesh)`` (``mesh`` a
+    ``launch.mesh.GraphMesh``; every rank of its group makes the same
+    call), which places an owner-layout state itself.  The seeding is the
+    same, and the sharded sweep reproduces the single-device
+    ``async_sweep=False`` run, so the result equals the single-device
+    warm run with ``async_sweep=False`` bit for bit for MIN programs
+    (values, iterations, bytes, engine rows) and within the tolerance for
+    SUM programs.  Without ``mesh_axis``, ``mesh`` is not read."""
     config = config if config is not None else dcsr.config
-    _reject_unported(config, mesh, "run_incremental")
     state = incremental_state(program, values, delta, reports, dcsr, source)
+    if config.mesh_axis is not None:
+        runtime = dcsr.sharded_runtime_for(program, mesh=mesh, axis=config.mesh_axis,
+                                           vertex_sharding=config.vertex_sharding)
+        return run_hytm(
+            None, program, source=source, config=config, runtime=runtime,
+            mesh=runtime.mesh, initial_state=state, calibrator=calibrator, obs=obs,
+            faults=faults, retry=retry,
+        )
     return run_hytm(
         None, program, source=source, config=config,
         runtime=dcsr.runtime_for(program), initial_state=state,

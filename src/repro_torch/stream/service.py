@@ -1,4 +1,5 @@
-"""Batched graph-query serving over a live ``DeltaCSR``, on one device.
+"""Batched graph-query serving over a live ``DeltaCSR``, on one device or
+a mesh.
 
 The reference's ``GraphService`` (``repro/stream/service.py``).  It
 multiplexes concurrent vertex queries (SSSP / BFS / CC / Δ-PR / Δ-PPR /
@@ -40,9 +41,21 @@ scheduler's dispatch and allocation, and the ``run_hytm``/
 load-shed rung.  Both ``None`` take the unguarded paths.
 
 The service runs on ``cuda`` unless given ``device="cpu"``, which it
-passes to its ``DeltaCSR``.  Not ported yet: serving from a mesh (``mesh=``
-or ``HyTMConfig.mesh_axis``, ROADMAP queue 1 item 11c), which raises
-``NotImplementedError``.
+passes to its ``DeltaCSR``.
+
+With ``HyTMConfig.mesh_axis`` set it serves from a mesh (``mesh``, a
+``launch.mesh.GraphMesh``, by default ``make_graph_mesh`` over the default
+group): the container lives on the mesh's device, lane chunks run the
+sharded lane sweep over its sharded view
+(``DeltaCSR.sharded_runtime_for``), global programs go down
+``run_hytm_sharded`` and incremental refreshes down
+``run_incremental(mesh=)``; under ``vertex_sharding="owner"`` the warm
+cache holds owned slices (``serve.warm_cache.OwnerPlacement``).  Each
+answer equals the single-device ``async_sweep=False`` service's (bit for
+bit for MIN programs).  The ranks run one process each (SPMD): every rank
+of the group builds the same service and makes the same calls in the same
+order, and every rank gets the same canonical ``(n,)`` answers.  Without
+``mesh_axis``, ``mesh`` is not read.
 """
 
 from __future__ import annotations
@@ -62,7 +75,7 @@ from repro_torch.core.hytm import HyTMConfig, run_hytm
 from repro_torch.graph.algorithms import VertexProgram
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.serve.scheduler import LaneScheduler
-from repro_torch.serve.warm_cache import TierPolicy, WarmCache
+from repro_torch.serve.warm_cache import OwnerPlacement, TierPolicy, WarmCache
 from repro_torch.stream.delta_csr import DeltaCSR, EdgeBatch, UpdateReport
 from repro_torch.stream.incremental import run_incremental
 
@@ -106,13 +119,18 @@ class GraphService:
         **delta_kw,
     ):
         self.config = config if config is not None else HyTMConfig()
-        if mesh is not None or self.config.mesh_axis is not None:
-            raise NotImplementedError(
-                "GraphService: mesh/mesh_axis is not ported yet (ROADMAP queue 1, "
-                "item 11c: sharded serving)")
         self.obs = obs
-        # read by the scheduler, which raises on a mesh (item 11c)
         self.mesh = None
+        if self.config.mesh_axis is not None:
+            if mesh is None:
+                from repro_torch.launch.mesh import make_graph_mesh
+
+                mesh = make_graph_mesh(axis=self.config.mesh_axis, device=device)
+            if mesh.axis != self.config.mesh_axis:
+                raise ValueError(f"config.mesh_axis={self.config.mesh_axis!r} is not the "
+                                 f"mesh's axis {mesh.axis!r}")
+            self.mesh = mesh
+            device = mesh.device
         self.faults = faults
         self.supervisor = supervisor
         self.dcsr = DeltaCSR(graph, self.config, device=device, **delta_kw)
@@ -125,10 +143,15 @@ class GraphService:
         # keyed by the (frozen, hashable) program itself, not its name:
         # variants like dataclasses.replace(PAGERANK, tolerance=1e-8) must
         # not collide
+        # owner-sharded serving holds cache entries (and counts the byte
+        # budget) at owned-slice granularity
+        placement = None
+        if self.mesh is not None and self.config.vertex_sharding == "owner":
+            placement = OwnerPlacement(self.mesh, graph.n_nodes)
         self.cache = WarmCache(TierPolicy(
             device_budget_bytes=device_budget_bytes,
             max_reports=max_reports,
-        ), obs=obs, faults=faults, device=self.device)
+        ), obs=obs, faults=faults, placement=placement, device=self.device)
         self._reports: list[UpdateReport] = []
         self.stats = ServiceStats()
         # one calibrator for the service's lifetime
@@ -235,7 +258,12 @@ class GraphService:
         count into ``stats.extra``."""
         if self._calibrator is None:
             return
-        if correction is None:
+        if correction is None and self.mesh is not None:
+            # only rank 0's calibrator observes: its correction, on every rank
+            from repro_torch.dist.graph_shard import _rank0_correction
+
+            correction = _rank0_correction(self._calibrator, self.mesh)[1]
+        elif correction is None:
             correction = torch.from_numpy(
                 np.asarray(self._calibrator.correction(), np.float64).astype(np.float32)
             ).to(self.device)
@@ -258,8 +286,8 @@ class GraphService:
         res = run_incremental(
             self.dcsr, program, self._reports_since(entry.version),
             entry.host_values(), entry.host_delta(),
-            source=s, config=self.config, calibrator=self._calibrator, obs=self.obs,
-            faults=self.faults, retry=self._retry_policy(),
+            source=s, config=self.config, calibrator=self._calibrator, mesh=self.mesh,
+            obs=self.obs, faults=self.faults, retry=self._retry_policy(),
         )
         self._absorb_run(res)
         self._store(program, s, res.values, res.delta)
@@ -269,6 +297,15 @@ class GraphService:
             source=s, values=res.values, iterations=res.iterations,
             cache_hit=False, mode="incremental",
         )
+
+    def _runtime_for(self, program: VertexProgram):
+        """The container's runtime for ``program``: its sharded view on the
+        mesh, else its single-device view."""
+        if self.mesh is not None:
+            return self.dcsr.sharded_runtime_for(
+                program, mesh=self.mesh, axis=self.config.mesh_axis,
+                vertex_sharding=self.config.vertex_sharding)
+        return self.dcsr.runtime_for(program)
 
     def _retry_policy(self):
         return self.supervisor.policy if self.supervisor is not None else None
@@ -280,8 +317,9 @@ class GraphService:
             for s in sources:
                 res = run_hytm(
                     None, program, source=s, config=self.config,
-                    runtime=self.dcsr.runtime_for(program), calibrator=self._calibrator,
-                    obs=self.obs, faults=self.faults, retry=self._retry_policy(),
+                    runtime=self._runtime_for(program), mesh=self.mesh,
+                    calibrator=self._calibrator, obs=self.obs, faults=self.faults,
+                    retry=self._retry_policy(),
                 )
                 self._absorb_run(res)
                 self._store(program, s, res.values, res.delta)

@@ -527,19 +527,31 @@ def test_owner_layout_is_ported_and_layouts_are_checked(tmp_path):
 
 
 def test_sharded_stream_and_serving_raise_naming_item_11c():
+    """Item 11c is ported (tests/test_torch_stream_sharded.py): no module of
+    the port raises ``NotImplementedError`` naming it, and the stream and
+    serving paths on a mesh raise only their guards' ``ValueError``s (no
+    collective runs here: this process may hold the module's pool)."""
+    src = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+    for path in src.rglob("*.py"):
+        text = path.read_text()
+        assert not ("NotImplementedError" in text and "11c" in text), path
     jg = jgen.grid_mesh_graph(8, 8, seed=1)
     g = _tgraph(jg)
-    mesh_cfg = th.HyTMConfig(mesh_axis="graph")
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        tstream.GraphService(g, mesh_cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        tgs.make_sharded_batched_chunk(None, talg.SSSP, mesh_cfg, 4)
+    mesh_cfg = th.HyTMConfig(mesh_axis="graph", n_partitions=3)
+    with pytest.raises(ValueError, match="mesh's axis"):
+        tstream.GraphService(g, mesh_cfg, mesh=dataclasses.replace(_fake_mesh(), axis="rows"))
+    svc = tstream.GraphService(g, mesh_cfg, mesh=_fake_mesh())
+    assert svc.mesh == _fake_mesh() and svc.device == torch.device("cpu")
+    rt = svc._runtime_for(talg.SSSP)
+    assert (rt.n_partitions, rt.mesh.rank) == (4, 0)
+    assert callable(tgs.make_sharded_batched_chunk(rt, talg.SSSP, mesh_cfg, 4))
     dcsr = tstream.DeltaCSR(g, th.HyTMConfig(n_partitions=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11c"):
+    with pytest.raises(ValueError, match="no mesh axis"):
         dcsr.sharded_runtime_for(talg.SSSP)
-    with pytest.raises(NotImplementedError, match="item 11c"):
+    with pytest.raises(ValueError, match="mesh's axis"):
         tstream.run_incremental(dcsr, talg.SSSP, [], np.zeros(dcsr.n_nodes, np.float32),
-                                np.zeros(dcsr.n_nodes, np.float32), config=mesh_cfg)
+                                np.zeros(dcsr.n_nodes, np.float32),
+                                config=th.HyTMConfig(mesh_axis="rows"), mesh=_fake_mesh())
 
 
 def test_make_graph_mesh_needs_a_card_or_a_device():

@@ -208,10 +208,10 @@ def test_unported_features_raise(monkeypatch):
     monkeypatch.undo()
     rt = tgs.build_sharded_runtime(g, owner, mesh)
     assert (rt.vertex_sharding, rt.n_pad, rt.owned) == ("owner", 50, slice(0, 25))
-    # the stream and serving paths on a mesh are item 11c
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        tgs.make_sharded_batched_chunk(rt, talg.SSSP, owner, 4)
-    with pytest.raises(NotImplementedError, match="item 11c"):
+    # the stream and serving paths on a mesh are ported too
+    # (tests/test_torch_stream_sharded.py); a view needs a mesh axis
+    assert callable(tgs.make_sharded_batched_chunk(rt, talg.SSSP, owner, 4))
+    with pytest.raises(ValueError, match="no mesh axis"):
         tstream.DeltaCSR(g, th.HyTMConfig(n_partitions=4), device="cpu").sharded_runtime_for(
             talg.SSSP)
     # autotune is ported: a calibrator is read only with config.autotune
@@ -219,10 +219,12 @@ def test_unported_features_raise(monkeypatch):
                        device="cpu").engine_corrections.shape == (3,)
     assert th.run_hytm(g, talg.SSSP, calibrator=object(),
                        device="cpu").engine_corrections is None
-    # the lane-batched chunk is ported (tests/test_torch_serve.py holds it);
-    # a mesh for it is not
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        tstream.GraphService(g, th.HyTMConfig(mesh_axis="graph"), device="cpu")
+    # the lane-batched chunk is ported (tests/test_torch_serve.py holds it),
+    # and on a mesh: a service there lives on the mesh's device
+    svc = tstream.GraphService(g, th.HyTMConfig(mesh_axis="graph", vertex_sharding="owner"),
+                               mesh=mesh)
+    assert svc.mesh is mesh and svc.cache.placement.n_loc == 25
+    assert svc.scheduler.lane_bytes == 9 * 25
     with pytest.raises(ValueError):
         th.run_hytm(g, talg.SSSP, config=th.HyTMConfig(sync_every=0), device="cpu")
     with pytest.raises(ValueError):

@@ -46,6 +46,7 @@ from repro_torch.kernels.frontier_compact.ref import (
 from repro_torch.kernels.hyb_gather.ops import hyb_gather
 from repro_torch.kernels.segment_spmm.ref import segment_spmm_lanes_ref, segment_spmm_ref
 from repro_torch.launch import serve_graph
+from repro_torch.launch.mesh import GraphMesh
 
 SUM_ATOL = 1e-5
 JCFG = jh.HyTMConfig(n_partitions=8, sync_every=4)
@@ -637,10 +638,15 @@ def test_serve_graph_selfcheck_on_cpu(capsys, tmp_path, monkeypatch):
 
 
 def test_unported_serving_options_raise():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tserve.warm_cache.OwnerPlacement(None, "graph", 10)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tserve.WarmCache(device="cpu", placement=object())
+    # owner placement is ported (tests/test_torch_stream_sharded.py): the
+    # cache of a placement lives on its mesh's device as owned slices
+    mesh = GraphMesh(group=None, axis="graph", size=2, rank=1, device=torch.device("cpu"))
+    pl = tserve.warm_cache.OwnerPlacement(mesh, 9)
+    assert (pl.n_loc, pl.n_pad) == (5, 10)
+    cache = tserve.WarmCache(placement=pl)
+    assert cache.device == torch.device("cpu") and cache.placement is pl
+    entry = cache.put("k", 0, np.arange(9, dtype=np.float32), np.zeros(9, np.float32))
+    assert entry.values.tolist() == [5.0, 6.0, 7.0, 8.0, 0.0] and entry.nbytes == 40
     # tracing is ported (tests/test_torch_obs.py): the cache takes a recorder;
     # fault sites and the supervisor too (tests/test_torch_resilience.py)
     assert tserve.WarmCache(device="cpu", obs=None).obs is None

@@ -36,6 +36,7 @@ from repro_torch import stream as ts
 from repro_torch.core import hytm as th
 from repro_torch.core.cost_model import zc_request_counts
 from repro_torch.graph import algorithms as talg
+from repro_torch.launch.mesh import GraphMesh
 from repro_torch.stream import incremental as tinc
 
 SUM_ATOL = 1e-5         # warm run against the reference's warm run
@@ -256,23 +257,26 @@ def test_batch_id_dedup_window_matches_reference():
 
 
 def test_unported_parts_raise():
+    """Every part of the stream slice is ported: the sharded view, the
+    service and run_incremental on a mesh (tests/test_torch_stream_sharded.py).
+    A view needs a mesh axis; without ``mesh_axis`` a ``mesh`` is not read,
+    as in the reference."""
     _, t = _pair("grid")
-    with pytest.raises(NotImplementedError, match="item 11c"):
+    with pytest.raises(ValueError, match="no mesh axis"):
         t.sharded_runtime_for(talg.SSSP)
     # GraphService is ported (tests/test_torch_stream_service.py), and its
-    # tracing (tests/test_torch_obs.py) and its fault options
-    # (tests/test_torch_resilience.py); its mesh option is not
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        ts.GraphService(_graph("grid")[1], device="cpu", mesh=object())
+    # tracing (tests/test_torch_obs.py), its fault options
+    # (tests/test_torch_resilience.py) and its mesh option
+    assert ts.GraphService(_graph("grid")[1], device="cpu", mesh=object()).mesh is None
     with pytest.raises(AttributeError):
         ts.no_such_name
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.run_incremental(t, talg.SSSP, [], np.zeros(t.n_nodes, np.float32),
-                           np.zeros(t.n_nodes, np.float32), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        ts.run_incremental(t, talg.SSSP, [], np.zeros(t.n_nodes, np.float32),
-                           np.zeros(t.n_nodes, np.float32),
-                           config=th.HyTMConfig(mesh_axis="graph"))
+    zeros = np.zeros(t.n_nodes, np.float32)
+    res = ts.run_incremental(t, talg.SSSP, [], zeros, zeros, mesh=object())
+    assert res.iterations == 1 and res.total_ici_bytes == 0.0
+    cpu_mesh = GraphMesh(group=None, axis="graph", size=1, rank=0, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="mesh's axis"):
+        ts.run_incremental(t, talg.SSSP, [], zeros, zeros,
+                           config=th.HyTMConfig(mesh_axis="rows"), mesh=cpu_mesh)
     assert t.version == 0
 
 
