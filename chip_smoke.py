@@ -182,6 +182,27 @@ Phases, in order; any failure exits nonzero and prints no result line:
    bound, an owner service with 4 lanes answering 8 SSSP queries, one
    update and the re-query, all bit-equal to solo sync runs, both ranks
    equal; each rank's launches and peak allocated memory;
+16. (right after phase 8, on its model) models over a mesh
+   (``launch.mesh.make_debug_mesh``, ``moe_ffn(mesh=)``,
+   ``launch.serve.generate(mesh=)``) through ``flash_attention`` and
+   ``grouped_matmul``.  Leg (h): deepseek-v2-lite-16b through
+   ``generate(mesh=)`` on a one-rank NCCL mesh (the expert exchange a copy):
+   prefill logits and all 16 tokens bit-equal to phase 8's kernel leg, and
+   the same launches.  Leg (i): kimi-k2-1t-a32b at full width with its
+   depth cut to 2 layers (the dense first layer and one 384-expert MoE
+   layer, 39.8 GB in bf16), 4 x 2048 prompts, 16 generated: NCCL at D = 1,
+   then two gloo ranks on the one card (this process rank 0; rank 1 maps
+   rank 0's weights by CUDA IPC, so the card holds one copy), EP = 2 with
+   192 experts a rank, each rank 2 requests; kimi's ``chunk_tokens`` 4096
+   cuts D = 1's 8192 prefill tokens into the two ranks' halves, so
+   capacities and drops agree and each rank's prefill logits must equal
+   D = 1's rows (bit for bit, or within ``MOE_LAYER_TOL``) and its
+   gathered tokens D = 1's.  Leg (j): one deepseek MoE layer at full width
+   on the same two ranks as mesh (1, 2), TP = 2, within ``MOE_LAYER_TOL``
+   of the one-device layer, and as (2, 1), EP = 2, bit-equal to
+   ``_moe_core`` on each rank's tokens.  It prints each rank's peak
+   allocated memory, each exchange's MB and device ms (CUDA events) by leg
+   and kind, the launches by leg and rank, and the phase's seconds;
 6. LM serving: the reduced gemma3-12b config on the card against the CPU
    (float32, logits within 1e-4, greedy tokens equal), then gemma3-12b at
    full width (11.8B parameters in bf16, random weights from the seed):
@@ -4148,7 +4169,8 @@ def phase_moe(torch, dev, seed: int, smi: str) -> dict:
     MoE layer through both routes on the same hidden states, then 4
     requests of 2048 prompt tokens, 16 generated, through
     ``launch.serve.generate`` with the kernels (``use_kernels="auto"``) and
-    with the plain routes, both on the card."""
+    with the plain routes, both on the card.  Returns the phase's numbers,
+    and the model, prompts and kernel leg that phase 16 reuses."""
     from repro_torch.launch.serve import generate, serve_config
     from repro_torch.models.moe import moe_ffn
     from repro_torch.models.transformer import init_transformer
@@ -4281,9 +4303,377 @@ def phase_moe(torch, dev, seed: int, smi: str) -> dict:
     summary.update(bounds=bounds, max_abs_err=err, rel_l2=rel, route_flips=flips,
                    route_flips_settled=settle, decode_experts_per_layer=distinct, layer=layer,
                    host_syncs=syncs, card=smi)
-    del model, legs, routes
+    # phase 16's leg (h) serves this model again over a mesh, against the kernel leg
+    kept = {"model": model, "prompts": prompts, "kernel": legs["kernel"]}
+    del legs, routes
     torch.cuda.empty_cache()
-    return summary
+    return summary, kept
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: models over a mesh (moe_ffn(mesh=), generate(mesh=))
+# ---------------------------------------------------------------------------
+
+KIMI_ARCH, KIMI_LAYERS = "kimi-k2-1t-a32b", 2   # the dense first layer and one MoE layer
+KIMI_PARAMS = 19_923_635_200                     # at KIMI_LAYERS, full width
+MESH_POOL_TIMEOUT_S = 600.0
+
+
+def exchange_line(ex: dict) -> str:
+    """``ExchangeTimer.summary()`` by kind: calls, MB a call, ms a call."""
+    return ", ".join(f"{k} {r['calls']} x {r['bytes'] / r['calls'] / 1e6:.1f} MB "
+                     f"{r['ms'] / r['calls']:.3f} ms" for k, r in ex.items())
+
+
+def mesh_generate(torch, model, prompts, mesh) -> dict:
+    """``generate(mesh=)`` through the kernels after a short warm-up (the
+    communicator's first exchange, cuBLAS), launch counts set to 0 just
+    before and read just after, peak allocated memory over the run."""
+    from repro_torch.launch.serve import generate
+
+    generate(model, prompts[:, :64], 2, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = generate(model, prompts, LM_GEN, mesh=mesh)
+    out["total_launches"] = read_launch_counts()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def forced_logits(torch, model, prompts, tokens, mesh):
+    """The logits that pick each of ``tokens`` (B, G) when the model is fed
+    them (teacher forcing): the prefill's last-token logits, then G - 1
+    decode steps on ``tokens[:, s]``; (B, G, vocab) float32 on the host."""
+    from repro_torch.models.transformer import decode_step, init_cache, prefill
+
+    B, P = prompts.shape
+    G = tokens.shape[1]
+    caches = init_cache(model.cfg, B, P + G, prompts.device)
+    logits, caches = prefill(model, prompts, caches, mesh=mesh)
+    out = [logits.float().cpu()]
+    for s in range(G - 1):
+        logits, caches = decode_step(model, tokens[:, s:s + 1], caches, P + s, mesh=mesh)
+        out.append(logits.float().cpu())
+    return torch.stack(out, dim=1)
+
+
+def kimi_config():
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(KIMI_ARCH)
+    return cfg.replace(n_layers=KIMI_LAYERS, remat=False, param_dtype=cfg.dtype)
+
+
+def kimi_rank(group, state: dict, prompts, d1_tokens, seed: int) -> dict:
+    """Leg (i) at D = 2 on one rank of a two-rank gloo group on one card:
+    the whole kimi model's tensors arrive as CUDA IPC shares of rank 0's
+    (no copy), the rank keeps its 192 experts (views) and its 2 requests,
+    and runs ``generate(mesh=)`` through the kernels, then its requests fed
+    D = 1's tokens (``forced_logits``).  Returns its numbers on the host."""
+    import torch
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.transformer import Transformer, batch_shard, shard_transformer
+
+    torch.cuda.set_device(0)
+    cfg = kimi_config()
+    mesh = make_debug_mesh(2, 1, device="cuda:0")
+    full = Transformer(cfg, torch.device("meta"))
+    full.load_state_dict(state, assign=True)
+    model = shard_transformer(full, mesh)
+    del full, state
+    allocated = torch.cuda.memory_allocated()
+    out = mesh_generate(torch, model, batch_shard(prompts, mesh), mesh)
+    res = {"rank": mesh.rank, "experts": model.layers[1].moe["w_gate"].shape[0],
+           "allocated_before_gb": allocated / 1e9, "peak_gb": out["peak_gb"],
+           "launches": out["launches"], "total_launches": out["total_launches"],
+           "exchange": out["exchange"], "prefill_s": out["prefill_s"],
+           "decode_s_per_step": out["decode_s_per_step"],
+           "prefill_logits": out["prefill_logits"].float().cpu(),
+           "tokens": out["tokens"].cpu(), "all_tokens": out["all_tokens"].cpu(),
+           "forced": forced_logits(torch, model, batch_shard(prompts, mesh),
+                                   batch_shard(d1_tokens, mesh), mesh)}
+    del model, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.ipc_collect()
+    return res
+
+
+MESH_LAYER_TOKENS = {"prefill": LM_REQUESTS * LM_PROMPT, "decode": LM_REQUESTS}
+
+
+def layer_rank(group, seed: int) -> dict:
+    """Leg (j) on one rank of the two-rank gloo group: one deepseek MoE
+    layer at full width, drawn on each rank from ``seed`` (the same
+    weights), fed hidden states from ``seed + 1``, through the kernel
+    route as mesh (1, 2) (TP = 2: every token, half the width) against the
+    single-device layer, and as mesh (2, 1) (EP = 2: half the tokens, half
+    the experts) against the single-device ``_moe_core`` on this rank's
+    tokens, at a prefill's and a decode step's token counts."""
+    import torch
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.serve import serve_config
+    from repro_torch.models import moe
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda:0")
+    cfg = serve_config(MOE_ARCH, reduced=False).moe
+    d = 2048
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    full = moe.init_moe(gen, d, cfg, torch.bfloat16)
+    gen.manual_seed(seed + 1)
+    h = torch.randn((MESH_LAYER_TOKENS["prefill"], d), generator=gen, device=dev).bfloat16()
+    out = {"rank": None}
+    for name, shape in (("tp2", (1, 2)), ("ep2", (2, 1))):
+        mesh = make_debug_mesh(*shape, device="cuda:0")
+        out["rank"] = mesh.rank
+        ep, ei, tp, ti = moe.mesh_shards(mesh, ("data",))
+        p = {k: v.contiguous() for k, v in moe.shard_moe_params(full, cfg, ep, ei, tp, ti).items()}
+        for phase, n in MESH_LAYER_TOKENS.items():
+            n_local = n // ep
+            x = h[:n][ei * n_local:(ei + 1) * n_local]
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            with moe.ExchangeTimer() as timer:
+                t = time.monotonic()
+                y, _ = moe.moe_ffn(p, x, cfg, mesh=mesh, batch_axes=("data",), use_kernels=True)
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t
+            counts = read_launch_counts()
+            if name == "tp2":
+                want, _ = moe.moe_ffn(full, x, cfg, use_kernels=True)
+            else:
+                want, _ = moe._moe_core(x, full, cfg, moe.select_dispatch_engine(cfg, n_local),
+                                        True)
+            yf, wf = y.float(), want.float()
+            out[f"{name}_{phase}"] = {
+                "tokens": n_local, "launches": counts, "wall_ms": wall * 1e3,
+                "exchange": timer.summary(), "bit_equal": torch.equal(y, want),
+                "max_abs_err": float((yf - wf).abs().max()), "max_abs": float(wf.abs().max()),
+                "rel_l2": float((yf - wf).norm() / wf.norm()),
+                "finite": bool(torch.isfinite(yf).all())}
+            del x, y, want, yf, wf
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del full, h
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_models_mesh(torch, dev, seed: int, smi: str, kept: dict) -> dict:
+    """Phase 16: models over a mesh.  (h) deepseek-v2-lite-16b (phase 8's
+    model) through ``generate(mesh=)`` on a one-rank NCCL mesh, bit-equal
+    to phase 8's kernel leg with its launches; (i) kimi-k2-1t-a32b at full
+    width cut to ``KIMI_LAYERS`` layers, NCCL at D = 1, then two gloo ranks
+    on the one card (EP = 2, 192 experts a rank, the model shared by CUDA
+    IPC) equal to D = 1; (j) one deepseek MoE layer at full width on the
+    same two ranks as TP = 2 and EP = 2.  Returns the phase's numbers with
+    ``launches[leg] = {kernel: n}``."""
+    from repro_torch.launch.mesh import RankPool, make_debug_mesh
+    from repro_torch.launch.serve import lm_param_count
+    from repro_torch.models.transformer import init_transformer
+
+    t_phase = time.monotonic()
+    out, launches = {"card": smi}, {}
+
+    # -- (h) deepseek-v2-lite-16b, one-rank NCCL mesh, against phase 8
+    model, prompts, k8 = kept["model"], kept["prompts"], kept["kernel"]
+    t = time.monotonic()
+    with RankPool(1, backend="nccl", timeout_s=MESH_POOL_TIMEOUT_S):
+        mesh = make_debug_mesh(1, 1, device=dev)
+        h = mesh_generate(torch, model, prompts, mesh)
+    for phase in ("prefill", "decode"):
+        launches[f"h_deepseek_{phase}"] = h["launches"][phase]
+    same_logits = torch.equal(h["prefill_logits"], k8["prefill_logits"])
+    same_tokens = torch.equal(h["tokens"], k8["tokens"])
+    log(f"phase 16 leg (h), {MOE_ARCH} generate(mesh=) on a one-rank NCCL mesh: prefill logits "
+        f"bit-equal to phase 8's kernel leg {same_logits}, tokens equal {same_tokens}; launches "
+        f"{h['launches']} (phase 8: {k8['launches']}); prefill {h['prefill_s']:.3f} s (phase 8 "
+        f"{k8['prefill_s']:.3f} s), decode {h['decode_s_per_step'] * 1e3:.2f} ms/step (phase 8 "
+        f"{k8['decode_s_per_step'] * 1e3:.2f}); peak {h['peak_gb']:.1f} GB; exchanges: prefill "
+        f"{exchange_line(h['exchange']['prefill'])}; decode "
+        f"{exchange_line(h['exchange']['decode'])} [{smi}]")
+    check(same_logits and same_tokens, "leg (h): generate(mesh=) at D = 1 != phase 8's kernel leg")
+    check(h["launches"] == k8["launches"] and h["total_launches"] == {
+        **counts_zero(), **{k: h["launches"]["prefill"][k] + h["launches"]["decode"][k]
+                            for k in ("flash_attention", "grouped_matmul")}},
+          f"leg (h) launched {h['launches']} ({h['total_launches']} in all), phase 8 "
+          f"{k8['launches']}")
+    out["h"] = {k: h[k] for k in ("launches", "exchange", "prefill_s", "decode_s_per_step",
+                                  "peak_gb")}
+    out["h"].update(bit_equal=same_logits and same_tokens, seconds=time.monotonic() - t)
+    del model, prompts, k8, h
+    kept.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (i) kimi-k2-1t-a32b at full width, KIMI_LAYERS layers
+    t = time.monotonic()
+    cfg = kimi_config()
+    n_params = lm_param_count(cfg)
+    check(n_params == KIMI_PARAMS, f"{KIMI_ARCH} at {KIMI_LAYERS} layers has {n_params:,} "
+          "parameters")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = init_transformer(cfg, gen, dev)
+    gen.manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab, (LM_REQUESTS, LM_PROMPT), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    m = cfg.moe
+    expert_gb = 3 * m.n_experts * cfg.d_model * m.d_ff * 2 / 1e9
+    log(f"phase 16 leg (i): {KIMI_ARCH} at full width, depth cut from 61 to {KIMI_LAYERS} "
+        f"layers (the dense first layer, d_ff {cfg.d_ff_dense}, and one MoE layer of "
+        f"{m.n_experts} experts top-{m.top_k}, d_ff {m.d_ff}, chunk_tokens {m.chunk_tokens}): "
+        f"{n_params:,} parameters, {2 * n_params / 1e9:.1f} GB in bf16 ({expert_gb:.1f} GB of "
+        f"experts), drawn in {time.monotonic() - t:.1f} s; "
+        f"{LM_REQUESTS} x {LM_PROMPT} prompts, {LM_GEN} generated")
+    with RankPool(1, backend="nccl", timeout_s=MESH_POOL_TIMEOUT_S):
+        mesh = make_debug_mesh(1, 1, device=dev)
+        d1 = mesh_generate(torch, model, prompts, mesh)
+        forced1 = forced_logits(torch, model, prompts, d1["tokens"], mesh)
+    n_chunks = -(-LM_REQUESTS * LM_PROMPT // m.chunk_tokens)
+    want = {"prefill": {"flash_attention": cfg.n_layers, "grouped_matmul": 3 * n_chunks},
+            "decode": {"flash_attention": 0, "grouped_matmul": 3 * (LM_GEN - 1)}}
+    check(d1["launches"] == want, f"leg (i) D = 1 launched {d1['launches']}, expected {want}")
+    for phase in ("prefill", "decode"):
+        launches[f"i_kimi_d1_{phase}"] = d1["launches"][phase]
+    logits1 = d1["prefill_logits"].float()
+    check(logits1.shape == (LM_REQUESTS, cfg.vocab) and bool(torch.isfinite(logits1).all())
+          and d1["tokens"].shape == (LM_REQUESTS, LM_GEN) and int(d1["tokens"].min()) >= 0
+          and int(d1["tokens"].max()) < cfg.vocab, "leg (i) D = 1: logits or tokens misshapen")
+    log(f"phase 16 leg (i) NCCL D = 1: prefill {d1['prefill_s']:.3f} s "
+        f"({LM_REQUESTS * LM_PROMPT / d1['prefill_s']:.0f} tok/s), decode "
+        f"{d1['decode_s_per_step'] * 1e3:.2f} ms/step, peak {d1['peak_gb']:.1f} GB, launches "
+        f"{d1['launches']}; exchanges: prefill {exchange_line(d1['exchange']['prefill'])}; "
+        f"decode {exchange_line(d1['exchange']['decode'])} [{smi}]")
+
+    state = dict(model.state_dict())
+    level = os.environ.get("TORCH_CPP_LOG_LEVEL")
+    os.environ["TORCH_CPP_LOG_LEVEL"] = "ERROR"
+    try:
+        pool = RankPool(2, backend="gloo", timeout_s=MESH_POOL_TIMEOUT_S)
+    finally:
+        if level is None:
+            del os.environ["TORCH_CPP_LOG_LEVEL"]
+        else:
+            os.environ["TORCH_CPP_LOG_LEVEL"] = level
+    with pool:
+        ranks = pool.run(kimi_rank, state, prompts, d1["tokens"], seed)
+        del state
+        t_j = time.monotonic()
+        layer = pool.run(layer_rank, seed)
+    layer_s = time.monotonic() - t_j
+    half = LM_REQUESTS // 2
+    rows = {}
+    for r in ranks:
+        check(r["experts"] == m.n_experts // 2,
+              f"leg (i) rank {r['rank']} holds {r['experts']} experts")
+        for phase in ("prefill", "decode"):
+            launches[f"i_kimi_d2_rank{r['rank']}_{phase}"] = r["launches"][phase]
+        want_r = {"prefill": {"flash_attention": cfg.n_layers, "grouped_matmul": 3},
+                  "decode": {"flash_attention": 0, "grouped_matmul": 3 * (LM_GEN - 1)}}
+        check(r["launches"] == want_r, f"leg (i) D = 2 rank {r['rank']} launched "
+              f"{r['launches']}, expected {want_r}")
+        lo = r["rank"] * half
+        ref = logits1[lo:lo + half].cpu()
+        err = float((r["prefill_logits"] - ref).abs().max())
+        f1 = forced1[lo:lo + half]
+        step_err = (r["forced"] - f1).abs().amax(dim=2)          # (rows, G)
+        mine, want_tok = r["tokens"], d1["tokens"][lo:lo + half].cpu()
+        # where a request's tokens first part, D = 1's logits there must be a
+        # near-tie: its top-2 margin within twice the step's logit error
+        ties = []
+        for i in range(half):
+            diff = (mine[i] != want_tok[i]).nonzero()
+            if len(diff):
+                s0 = int(diff[0])
+                top2 = f1[i, s0].topk(2).values
+                ties.append({"request": lo + i, "step": s0,
+                             "margin": float(top2[0] - top2[1]),
+                             "step_err": float(step_err[i, s0])})
+        rows[r["rank"]] = {
+            "bit_equal": torch.equal(r["prefill_logits"], ref), "max_abs_err": err,
+            "max_abs": float(ref.abs().max()),
+            "forced_bit_equal": torch.equal(r["forced"], f1),
+            "forced_max_abs_err": float(step_err.max()),
+            "forced_max_abs": float(f1.abs().max()), "first_differences": ties,
+            "tokens_equal": torch.equal(mine, want_tok),
+            "all_tokens_equal": torch.equal(r["all_tokens"], d1["tokens"].cpu())}
+        log(f"phase 16 leg (i) gloo D = 2 rank {r['rank']}: {r['experts']} experts, prefill "
+            f"logits vs D = 1 rows bit-equal {rows[r['rank']]['bit_equal']} (max |err| {err:.4g} "
+            f"of max |logit| {rows[r['rank']]['max_abs']:.3f}), tokens equal "
+            f"{rows[r['rank']]['tokens_equal']}, gathered tokens equal "
+            f"{rows[r['rank']]['all_tokens_equal']}; fed D = 1's tokens, its logits of all "
+            f"{LM_GEN} steps bit-equal {rows[r['rank']]['forced_bit_equal']} (max |err| "
+            f"{rows[r['rank']]['forced_max_abs_err']:.4g}), first differing tokens "
+            f"{rows[r['rank']]['first_differences']}; prefill {r['prefill_s']:.3f} s, decode "
+            f"{r['decode_s_per_step'] * 1e3:.2f} ms/step; allocated before the run "
+            f"{r['allocated_before_gb']:.1f} GB, peak {r['peak_gb']:.1f} GB (this process's "
+            f"allocations only: rank 1 maps rank 0's weights by CUDA IPC); launches "
+            f"{r['launches']}; exchanges: prefill {exchange_line(r['exchange']['prefill'])}; "
+            f"decode {exchange_line(r['exchange']['decode'])} [{smi}]")
+    log(f"phase 16 leg (i): D = 1 tokens {d1['tokens'].tolist()}; D = 2 gathered "
+        f"{[r['all_tokens'].tolist() for r in ranks]}")
+    # the prefill runs the same rows through the same shapes: bit-equal.  A
+    # decode step runs the dense layers and attention on 2 rows where D = 1
+    # runs 4, and cuBLAS may round those otherwise: each step's logits, fed
+    # the same tokens, within MOE_LAYER_TOL, and a token may differ only
+    # from a near-tie on
+    for rank, row in rows.items():
+        check(row["bit_equal"], f"leg (i) rank {rank}: D = 2 prefill logits != D = 1's "
+              f"(max |err| {row['max_abs_err']:.4g})")
+        check(row["forced_max_abs_err"] <= MOE_LAYER_TOL * row["forced_max_abs"],
+              f"leg (i) rank {rank}: D = 2 decode logits vs D = 1 out of tolerance "
+              f"({row['forced_max_abs_err']:.4g})")
+        check(all(t["margin"] <= 2 * t["step_err"] for t in row["first_differences"]),
+              f"leg (i) rank {rank}: a token differs from D = 1's where D = 1 was decided: "
+              f"{row['first_differences']}")
+    check(torch.equal(ranks[0]["all_tokens"], ranks[1]["all_tokens"]),
+          "leg (i): the ranks' gathered tokens differ")
+    out["i"] = {"params": n_params, "layers": KIMI_LAYERS, "d1": {
+        k: d1[k] for k in ("launches", "exchange", "prefill_s", "decode_s_per_step", "peak_gb")},
+        "d2": {r["rank"]: {**{k: r[k] for k in ("launches", "exchange", "prefill_s",
+                                                 "decode_s_per_step", "peak_gb",
+                                                 "allocated_before_gb", "experts")},
+                           **rows[r["rank"]]} for r in ranks},
+        "tokens_d1": d1["tokens"].tolist(), "tokens_d2": ranks[0]["all_tokens"].tolist(),
+        "seconds": time.monotonic() - t - layer_s}
+    del model, prompts, d1, ranks, logits1, forced1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (j) one deepseek MoE layer, TP = 2 and EP = 2, on the same ranks
+    for r in layer:
+        for name in ("tp2", "ep2"):
+            for phase in MESH_LAYER_TOKENS:
+                row = r[f"{name}_{phase}"]
+                check(row["launches"] == {**counts_zero(), "grouped_matmul": 3},
+                      f"leg (j) {name} {phase} rank {r['rank']} launched {row['launches']}")
+                launches[f"j_{name}_{phase}_rank{r['rank']}"] = {
+                    k: row["launches"][k] for k in ("flash_attention", "grouped_matmul")}
+                check(row["finite"], f"leg (j) {name} {phase}: not finite")
+                if name == "tp2":
+                    check(row["max_abs_err"] <= MOE_LAYER_TOL * row["max_abs"]
+                          and row["rel_l2"] <= MOE_LAYER_REL_L2,
+                          f"leg (j) TP = 2 {phase} rank {r['rank']} vs one device out of "
+                          f"tolerance ({row['max_abs_err']:.4g})")
+                else:
+                    check(row["bit_equal"], f"leg (j) EP = 2 {phase} rank {r['rank']} != the "
+                          f"per-shard _moe_core (max |err| {row['max_abs_err']:.4g})")
+                against = "one device" if name == "tp2" else "its per-shard _moe_core"
+                log(f"phase 16 leg (j) {MOE_ARCH} MoE layer {name} {phase} rank {r['rank']} "
+                    f"({row['tokens']} tokens): vs {against} "
+                    f"bit-equal {row['bit_equal']}, max |err| {row['max_abs_err']:.4g} of "
+                    f"{row['max_abs']:.3f}, relative L2 {row['rel_l2']:.2e}; one call "
+                    f"{row['wall_ms']:.2f} ms; exchanges {exchange_line(row['exchange'])} [{smi}]")
+    out["j"] = {r["rank"]: r for r in layer}
+    out["j"]["seconds"] = layer_s
+    out["launches"] = launches
+    out["phase_s"] = time.monotonic() - t_phase
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4588,7 +4978,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_lm_small(torch, dev, SEED)
     lm = phase_lm(torch, dev, SEED)
-    moe = phase_moe(torch, dev, SEED, smi)
+    moe, kept = phase_moe(torch, dev, SEED, smi)
+    models_mesh = phase_models_mesh(torch, dev, SEED, smi, kept)
+    mesh_launches = models_mesh.pop("launches")
+    log(f"phase 16 (models over a mesh) took {models_mesh['phase_s']:.1f} s: leg (h) "
+        f"{models_mesh['h']['seconds']:.1f} s, (i) {models_mesh['i']['seconds']:.1f} s, (j) "
+        f"{models_mesh['j']['seconds']:.1f} s; launches by leg and rank {mesh_launches}")
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
     dlrm = phase_dlrm(torch, dev, SEED, smi)
 
     kernels = []
@@ -4636,7 +5034,8 @@ def main() -> int:
                   "lm_plain": sum(lm["plain"]["launches"].values()),
                   **{f"moe_{phase}": moe["kernel"]["launches"][phase]["flash_attention"]
                      for phase in ("prefill", "decode")},
-                  "moe_plain": sum(c["flash_attention"] for c in moe["plain"]["launches"].values())}
+                  "moe_plain": sum(c["flash_attention"] for c in moe["plain"]["launches"].values()),
+                  **{f"mesh_{leg}": c["flash_attention"] for leg, c in mesh_launches.items()}}
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -4651,7 +5050,8 @@ def main() -> int:
     g = gmm_rows["prefill_gate_up"]
     gmm_legs = {**{f"moe_{phase}": moe["kernel"]["launches"][phase]["grouped_matmul"]
                    for phase in ("prefill", "decode")},
-                "moe_plain": sum(c["grouped_matmul"] for c in moe["plain"]["launches"].values())}
+                "moe_plain": sum(c["grouped_matmul"] for c in moe["plain"]["launches"].values()),
+                **{f"mesh_{leg}": c["grouped_matmul"] for leg, c in mesh_launches.items()}}
     kernels.append({
         "name": "grouped_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/grouped_matmul/csrc/grouped_matmul.cu",
@@ -4659,7 +5059,7 @@ def main() -> int:
         "launches": sum(gmm_legs.values()), "launches_by_leg": gmm_legs,
         **{key: g[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "library", "shape", "call_ms")},
-        "rows": gmm_rows, "moe_serving": moe,
+        "rows": gmm_rows, "moe_serving": moe, "models_mesh": models_mesh,
         "resources": {k: r for k, r in resources.items() if k.startswith("grouped")},
     })
     # the main row is the bulk cell's field shape; the launches are the

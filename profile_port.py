@@ -6,6 +6,7 @@
     python3 profile_port.py --dlrm       # dlrm-mlperf serving instead of the graph
     python3 profile_port.py --against parent=DIR   # this tree against another, in turns
     python3 profile_port.py --mesh       # the sharded sweep over every card, both layouts
+    python3 profile_port.py --mesh --lm-only   # kimi-k2 (2 layers) over every card alone
 
 For SSSP (K=8) and Δ-PageRank, each through the kernels and through the
 plain engines (``use_kernels=False``):
@@ -58,7 +59,16 @@ an iteration by CUDA events, the peak allocated device memory), then
 ``MESH_ROUNDS`` rounds of (single-device sync on rank 0, replicated,
 owner) in turns.  It holds SSSP bit-equal to the single-device sync run
 and Δ-PageRank within phase 4's bound in both layouts, and every rank's
-result equal.
+result equal.  Then (alone with ``--lm-only``) kimi-k2-1t-a32b at full
+width cut to ``chip_smoke.KIMI_LAYERS`` layers over the same cards,
+expert-parallel (mesh (cards, 1), E/cards experts a card, one of the 4 x
+2048 prompts a card): every rank draws the whole model from the seed,
+serves its own request on its card alone (``generate`` without a mesh:
+the capacity of one request's tokens), keeps its experts and frees the
+rest, then runs ``generate(mesh=)``; each rank's prefill logits and tokens
+must equal its one-card run's (bit for bit, or the logits within
+``chip_smoke.MOE_LAYER_TOL``).  It prints the exchanges' MB and device ms
+by kind (NVLink), prefill seconds, decode ms a step and each rank's peak.
 
 A diagnostic: it checks nothing that ``chip_smoke.py`` does not check.
 The last line is one JSON object of the turns and profile numbers.
@@ -465,8 +475,85 @@ def mesh_rank(group, graph_dir: str, cfg, source: int, n_hubs: int) -> dict:
     return out
 
 
+def mesh_lm_rank(group, seed: int) -> dict:
+    """One rank of ``--mesh``'s kimi leg on its own card (see the module
+    docstring); its numbers on the host."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import batch_shard, init_transformer, shard_transformer
+
+    n = dist.get_world_size()
+    dev = torch.device(f"cuda:{dist.get_rank() % torch.cuda.device_count()}")
+    torch.cuda.set_device(dev)
+    cfg = smoke.kimi_config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    full = init_transformer(cfg, gen, dev)
+    gen.manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab, (smoke.LM_REQUESTS, smoke.LM_PROMPT), generator=gen,
+                            device=dev)
+    mesh = make_debug_mesh(n, 1, device=dev)
+    mine = batch_shard(prompts, mesh)
+    generate(full, mine[:, :64], 2)
+    torch.cuda.synchronize()
+    one = generate(full, mine, smoke.LM_GEN)
+    model = shard_transformer(full, mesh)
+    for layer in model.layers:        # own the expert slices; free the whole bank
+        if layer.moe is not None:
+            layer.moe.update({name: torch.nn.Parameter(w.clone(), requires_grad=False)
+                              for name, w in layer.moe.items()})
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = smoke.mesh_generate(torch, model, mine, mesh)
+    a, b = out["prefill_logits"].float(), one["prefill_logits"].float()
+    return {"rank": mesh.rank, "experts": model.layers[1].moe["w_gate"].shape[0],
+            "bit_equal": torch.equal(out["prefill_logits"], one["prefill_logits"]),
+            "max_abs_err": float((a - b).abs().max()), "max_abs": float(b.abs().max()),
+            "tokens_equal": torch.equal(out["tokens"], one["tokens"]),
+            "all_tokens": out["all_tokens"].cpu(), "launches": out["launches"],
+            "exchange": out["exchange"], "prefill_s": out["prefill_s"],
+            "decode_ms": out["decode_s_per_step"] * 1e3, "one_card_prefill_s": one["prefill_s"],
+            "one_card_decode_ms": one["decode_s_per_step"] * 1e3, "peak_gb": out["peak_gb"]}
+
+
+def mesh_lm(n_cards: int, smi: str) -> dict:
+    """The kimi leg of ``--mesh`` over ``n_cards`` cards."""
+    import torch
+
+    from repro_torch.launch.mesh import RankPool
+
+    t = time.monotonic()
+    with RankPool(n_cards, backend="nccl", timeout_s=600.0) as pool:
+        ranks = pool.run(mesh_lm_rank, smoke.SEED)
+    out = {"card": smi, "cards": n_cards, "layers": smoke.KIMI_LAYERS}
+    for r in ranks:
+        smoke.check(r["bit_equal"] or r["max_abs_err"] <= smoke.MOE_LAYER_TOL * r["max_abs"],
+                    f"--mesh kimi rank {r['rank']}: logits vs its one-card run out of tolerance")
+        smoke.check(torch.equal(r["all_tokens"], ranks[0]["all_tokens"]),
+                    f"--mesh kimi rank {r['rank']}: gathered tokens differ from rank 0's")
+        log(f"mesh kimi ({smoke.KIMI_LAYERS} layers) rank {r['rank']} of {n_cards}: "
+            f"{r['experts']} experts; vs its one-card run bit-equal {r['bit_equal']} (max |err| "
+            f"{r['max_abs_err']:.4g} of {r['max_abs']:.3f}), tokens equal {r['tokens_equal']}; "
+            f"prefill {r['prefill_s']:.3f} s (one card {r['one_card_prefill_s']:.3f}), decode "
+            f"{r['decode_ms']:.2f} ms/step (one card {r['one_card_decode_ms']:.2f}); peak "
+            f"{r['peak_gb']:.1f} GB; launches {r['launches']}; exchanges: prefill "
+            f"{smoke.exchange_line(r['exchange']['prefill'])}; decode "
+            f"{smoke.exchange_line(r['exchange']['decode'])} [{smi}]")
+        out[f"rank{r['rank']}"] = {k: v for k, v in r.items() if k != "all_tokens"}
+    out["seconds"] = time.monotonic() - t
+    log(f"mesh kimi leg took {out['seconds']:.1f} s")
+    return out
+
+
 def mesh_main(args, smi: str) -> dict:
-    """``--mesh``: the sharded sweep over every card, both layouts."""
+    """``--mesh``: the sharded sweep over every card, both layouts, then the
+    kimi leg (only that with ``--lm-only``)."""
     import tempfile
 
     import torch
@@ -474,6 +561,12 @@ def mesh_main(args, smi: str) -> dict:
     n_cards = torch.cuda.device_count()
     if n_cards < 2:
         raise SystemExit(f"profile_port --mesh: needs two or more cards, found {n_cards}")
+    if args.lm_only:
+        sys.path.insert(0, str(smoke.ROOT / "src"))
+        from repro_torch.kernels.runtime import build_kernels
+
+        build_kernels()
+        return {"kimi": mesh_lm(n_cards, smi)}
     cfg, hs, source, rt = smoke.setup(torch, args.scale)   # puts src on the path
     from repro_torch.core.hytm import run_hytm
     from repro_torch.launch.mesh import RankPool
@@ -536,6 +629,9 @@ def mesh_main(args, smi: str) -> dict:
                 f"{min(coll):.3f}-{max(coll):.3f} ms an iteration by rank "
                 f"({ranks[0]['info'][(layout, name)]['collectives']}); peak above the run's "
                 f"start {min(peaks)}-{max(peaks)} B by rank; ICI engines {row['ici_engines']}")
+    del rt, hs
+    torch.cuda.empty_cache()
+    out["kimi"] = mesh_lm(n_cards, smi)
     return out
 
 
@@ -549,6 +645,8 @@ def main() -> int:
                     help="compare this tree with the checkout DIR in turns")
     ap.add_argument("--mesh", action="store_true",
                     help="the sharded sweep over every card (NCCL), both vertex layouts")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="with --mesh: the kimi leg alone, no graph")
     ap.add_argument("--worker", help=argparse.SUPPRESS)       # a tree's src, for --against
     ap.add_argument("--graph-file", help=argparse.SUPPRESS)
     args = ap.parse_args()

@@ -19,7 +19,8 @@ from repro_torch.core.partition import DevicePartitions
 from repro_torch.graph.csr import CSRGraph, DeviceCSR
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.dlrm import DLRM, DLRMConfig
-from repro_torch.models.transformer import Transformer, TransformerConfig
+from repro_torch.models.moe import shard_moe_params
+from repro_torch.models.transformer import Transformer, TransformerConfig, model_shards
 
 
 def _up(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -100,18 +101,23 @@ def _put(caller: str, param: torch.Tensor, a) -> None:
 @torch.no_grad()
 def transformer_params(np_tree: dict, cfg: TransformerConfig,
                        device: str | torch.device | None = None,
-                       dtype: torch.dtype | None = None) -> Transformer:
+                       dtype: torch.dtype | None = None, mesh=None,
+                       batch_axes=("data",)) -> Transformer:
     """A ``Transformer`` holding the reference's parameter tree (numpy
     arrays: ``embed``, ``final_norm``, optional ``unembed``, the
     ``prefix`` list of dense layers (``first_dense_layers`` when ``moe`` is
     set), and ``layers`` stacked on axis 0 by the reference's scan over the
     others, each with ``attn`` (GQA or MLA keys) and ``ffn`` or ``moe``).
     The weights are cast to ``dtype`` (default ``cfg.param_dtype``); a MoE
-    router stays float32 whatever ``dtype`` is."""
+    router stays float32 whatever ``dtype`` is.  With ``mesh`` (a
+    ``launch.mesh.ModelMesh``), the model holds this rank's MoE shards over
+    ``batch_axes`` and ``model`` (``moe.shard_moe_params`` of the whole
+    arrays)."""
     dev = resolve_device(device)
     if dtype is not None:
         cfg = cfg.replace(param_dtype=str(dtype).removeprefix("torch."))
-    model = Transformer(cfg, dev)
+    model = Transformer(cfg, dev, mesh, batch_axes)
+    shards = model_shards(cfg, mesh, batch_axes)
 
     def put(param: torch.Tensor, a) -> None:
         _put("transformer_params", param, a)
@@ -139,8 +145,11 @@ def transformer_params(np_tree: dict, cfg: TransformerConfig,
             if group not in tree or set(params) != set(tree[group]):
                 raise ValueError(f"transformer_params: {group} holds "
                                  f"{sorted(tree.get(group, ()))}, expected {sorted(params)}")
+            arrays = {name: at(np.asarray(a)) for name, a in tree[group].items()}
+            if group == "moe":
+                arrays = shard_moe_params(arrays, cfg.moe, *shards)
             for name, param in params.items():
-                put(param, at(tree[group][name]))
+                put(param, arrays[name])
     return model
 
 

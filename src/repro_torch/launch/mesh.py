@@ -1,4 +1,5 @@
-"""Process groups for the sharded graph sweep (``dist.graph_shard``).
+"""Process groups for the sharded graph sweep (``dist.graph_shard``) and
+for models over a mesh (``models.moe``, ``models.transformer``).
 
 The reference's ``make_graph_mesh`` (``repro/launch/mesh.py:44``) builds a
 1-D JAX mesh that one process drives.  Here a *mesh* is a 1-D
@@ -14,11 +15,22 @@ calls ``fn(group, *args)`` on every rank (``group`` is ``None`` for the
 whole world) and returns the ranks' results in rank order.  Every group
 has a timeout and every wait for a rank a limit, so a deadlock on a
 collective fails the call instead of hanging it.
+
+:class:`ModelMesh` is the counterpart of the reference's
+``make_debug_mesh`` (``repro/launch/mesh.py:34``): an (optional ``pod``)
+x ``data`` x ``model`` mesh, one process a rank, ranks laid out row-major
+as ``jax.make_mesh`` lays out devices (rank ``(p * n_data + d) * n_model +
+m`` sits at ``(p, d, m)``).  It holds one process group for each axis set
+that a collective runs over (each axis alone, and ``("pod", "data")``), so
+an MoE layer can exchange over its expert axes and reduce over
+``model``, and a gloo group of the whole mesh for host-side checks.
 """
 
 from __future__ import annotations
 
 import datetime
+import itertools
+import math
 import os
 import shutil
 import tempfile
@@ -26,6 +38,7 @@ import traceback
 from dataclasses import dataclass
 from queue import Empty
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -86,12 +99,153 @@ def _timeout(seconds: float) -> datetime.timedelta:
     return datetime.timedelta(seconds=seconds)
 
 
+# the timeout RankPool gave this process's groups (None outside a pool)
+_POOL_TIMEOUT_S: float | None = None
+DEFAULT_TIMEOUT_S = 60.0
+
+MESH_AXES = ("pod", "data", "model")
+
+
+@dataclass(frozen=True)
+class ModelMesh:
+    """One rank's view of a (pod x) data x model mesh.
+
+    ``groups`` maps an axis tuple to the process group of the ranks that
+    share this rank's coordinates on every other axis (the ranks a
+    collective over those axes spans, in row-major order of the axes);
+    ``host_group`` is a gloo group of the whole mesh for checks on host
+    values (``None`` on a one-rank mesh)."""
+
+    axis_names: tuple
+    shape: tuple
+    coords: tuple          # this rank's index on each axis
+    rank: int              # this rank's index in the mesh, row-major
+    group: object          # the whole mesh
+    host_group: object
+    groups: dict
+    device: torch.device
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    def axes(self, axes) -> tuple:
+        """``axes`` (a name or a tuple of names) as a tuple; raises
+        ``ValueError`` for an axis the mesh lacks."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        missing = [a for a in axes if a not in self.axis_names]
+        if missing or not axes:
+            raise ValueError(f"mesh axes {self.axis_names} lack {missing or 'an axis'}")
+        return axes
+
+    def axis_size(self, axes) -> int:
+        return math.prod(self.shape[self.axis_names.index(a)] for a in self.axes(axes))
+
+    def axis_index(self, axes) -> int:
+        """This rank's index along ``axes``, row-major over them (the order
+        in which a tiled collective over them concatenates)."""
+        i = 0
+        for a in self.axes(axes):
+            k = self.axis_names.index(a)
+            i = i * self.shape[k] + self.coords[k]
+        return i
+
+    def group_of(self, axes):
+        """The process group over ``axes``; raises ``ValueError`` for an
+        axis set the mesh made no group for."""
+        axes = self.axes(axes)
+        key = tuple(a for a in self.axis_names if a in axes)
+        if key not in self.groups:
+            raise ValueError(f"the mesh has no group over {axes} (it has {sorted(self.groups)})")
+        return self.groups[key]
+
+
+_MESHES: dict = {}
+
+
+def _axis_sets(names: tuple) -> list:
+    sets = [(a,) for a in names]
+    if "pod" in names:
+        sets.append(("pod", "data"))
+    return sets
+
+
+def make_debug_mesh(n_data: int = 2, n_model: int = 2, pods: int = 0, ranks=None,
+                    device: str | torch.device | None = None) -> ModelMesh | None:
+    """This rank's :class:`ModelMesh` of shape (n_data, n_model), or (pods,
+    n_data, n_model) with a ``pod`` axis, over the global ``ranks`` (all of
+    the default group when ``None``) in row-major order.
+
+    Every rank of the default group must call it, in the same order as
+    the others (``dist.new_group``'s rule); a rank outside ``ranks`` gets
+    ``None``.  Groups are made once a process and mesh and reused, each
+    with the timeout ``RankPool`` gave this process's groups (60 s outside
+    a pool).  The device is ``cuda:<rank % device count>`` unless the
+    caller passes one; with no card that raises, as ``make_graph_mesh``
+    does."""
+    if device is None and not torch.cuda.is_available():
+        resolve_device(None)   # raises: no CUDA device
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_debug_mesh: torch.distributed is not initialized (start the "
+            "ranks with RankPool or init_process_group first)")
+    shape = (pods, n_data, n_model) if pods else (n_data, n_model)
+    names = MESH_AXES if pods else MESH_AXES[1:]
+    if min(shape) < 1:
+        raise ValueError(f"make_debug_mesh: mesh shape {shape} must be positive")
+    world = dist.get_world_size()
+    ranks = tuple(range(world)) if ranks is None else tuple(int(r) for r in ranks)
+    if len(ranks) != math.prod(shape) or list(ranks) != sorted(set(ranks)):
+        # ascending, so that each group's order (dist.new_group sorts) is the mesh's
+        raise ValueError(f"make_debug_mesh: {math.prod(shape)} distinct ascending ranks for a "
+                         f"mesh of shape {shape}, got {ranks}")
+    timeout = _timeout(_POOL_TIMEOUT_S or DEFAULT_TIMEOUT_S)
+    key = (ranks, shape, timeout)
+    default = dist.group.WORLD
+    if _MESHES.get("world") is not default:   # a new default group: drop the old meshes
+        _MESHES.clear()
+        _MESHES["world"] = default
+    if key not in _MESHES:
+        def make(members):
+            if len(members) == world:
+                return default
+            return dist.new_group(list(members), timeout=timeout)
+
+        grid = np.array(ranks).reshape(shape)
+        whole = make(ranks)
+        groups = {}
+        for axes in _axis_sets(names):
+            ks = [names.index(a) for a in axes]
+            # one row a group: the ranks along ``axes``, row-major over them
+            rows = np.moveaxis(grid, ks, range(-len(ks), 0)).reshape(
+                -1, math.prod(shape[k] for k in ks))
+            for row in rows.tolist():
+                groups[(axes, tuple(row))] = whole if len(row) == len(ranks) else make(row)
+        host = None
+        if len(ranks) > 1:
+            host = whole if dist.get_backend() == "gloo" else dist.new_group(
+                list(ranks), timeout=timeout, backend="gloo")
+        _MESHES[key] = (grid, whole, groups, host)
+    grid, whole, groups, host = _MESHES[key]
+    me = dist.get_rank()
+    if me not in ranks:
+        return None
+    coords = tuple(int(c) for c in np.argwhere(grid == me)[0])
+    mine = {axes: g for (axes, members), g in groups.items() if me in members}
+    if device is None:
+        device = f"cuda:{me % torch.cuda.device_count()}"
+    return ModelMesh(axis_names=names, shape=shape, coords=coords, rank=ranks.index(me),
+                     group=whole, host_group=host, groups=mine, device=resolve_device(device))
+
+
 def _join_group(rank: int, world_size: int, backend: str, store: str,
                 timeout_s: float, subgroups) -> dict:
     """Initialize the default group and every subgroup (collectively, in
     order, on every rank); returns ``{ranks: group}``."""
+    global _POOL_TIMEOUT_S
     dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
                             world_size=world_size, timeout=_timeout(timeout_s))
+    _POOL_TIMEOUT_S = timeout_s
     return {tuple(r): dist.new_group(list(r), timeout=_timeout(timeout_s))
             for r in subgroups}
 

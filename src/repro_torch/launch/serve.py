@@ -13,7 +13,10 @@ weights from a seeded generator: an LM's in its compute dtype (a MoE
 router in float32), DLRM's at full width with the one-card row cap
 (``configs.dlrm_mlperf``, 66 GB of float32 tables).  An LM whose weights
 exceed one card (kimi-k2-1t-a32b, about 2 TB in bf16) raises before
-allocating.  ``--reduced`` serves the reduced float32 configuration.  For
+allocating; ``serve_config(mesh=)`` counts one rank's share of a model
+over a mesh instead (the replicated part and its expert shards), and
+``generate(mesh=)`` serves it SPMD, each rank its own requests.
+``--reduced`` serves the reduced float32 configuration.  For
 an LM it prints the prefill's tokens/s and the decode's ms per step.
 The reference launcher takes LM archs only; for dlrm-mlperf the port runs
 the serving cells the reference defines (``--cell``: ``serve_p99``,
@@ -28,6 +31,7 @@ import statistics
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_arch
 from repro_torch.configs.common import reduce_dlrm_config, reduce_lm_config
@@ -38,6 +42,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
 from repro_torch.kernels.runtime import build_kernels, resolve_device, resolve_use_kernels
 from repro_torch.models.dlrm import DLRM, DLRMConfig, dlrm_forward, init_dlrm, retrieval_score
+from repro_torch.models.moe import ExchangeTimer
 from repro_torch.models.transformer import (Transformer, TransformerConfig, decode_step,
                                             init_cache, init_transformer, prefill)
 
@@ -47,25 +52,30 @@ from repro_torch.models.transformer import (Transformer, TransformerConfig, deco
 ONE_CARD_WEIGHT_BYTES = 60e9
 
 
-def lm_param_count(cfg: TransformerConfig) -> int:
-    """The parameters of ``cfg``'s model, counted from its shapes without
-    allocating it."""
-    return sum(p.numel() for p in Transformer(cfg, torch.device("meta")).parameters())
+def lm_param_count(cfg: TransformerConfig, mesh=None, batch_axes=("data",)) -> int:
+    """The parameters of ``cfg``'s model (of one rank's shard of it on
+    ``mesh``), counted from its shapes without allocating it."""
+    return sum(p.numel() for p in
+               Transformer(cfg, torch.device("meta"), mesh, batch_axes).parameters())
 
 
-def serve_config(arch: str, reduced: bool) -> TransformerConfig:
+def serve_config(arch: str, reduced: bool, mesh=None, batch_axes=("data",)) -> TransformerConfig:
     """The served configuration: the reduced smoke config, or the full one
     with its weights held in the compute dtype.  Raises for a full config
-    whose bf16 weights exceed one card."""
+    whose weights on one rank exceed one card: all of them without
+    ``mesh``, else the replicated part plus the rank's 1/EP of the experts
+    (1/TP of their width)."""
     cfg = get_arch(arch)
     if reduced:
         return reduce_lm_config(cfg).replace(remat=False)
     cfg = cfg.replace(remat=False, param_dtype=cfg.dtype)
-    n_bytes = lm_param_count(cfg) * torch.finfo(cfg.act_dtype).bits // 8
+    n_bytes = lm_param_count(cfg, mesh, batch_axes) * torch.finfo(cfg.act_dtype).bits // 8
     if n_bytes > ONE_CARD_WEIGHT_BYTES:
+        where = "" if mesh is None else f" on one rank of a {'x'.join(map(str, mesh.shape))} mesh"
         raise NotImplementedError(
-            f"{arch}: {n_bytes / 1e9:.0f} GB of {cfg.dtype} weights exceed one card; "
-            "a sharded layout comes with ROADMAP queue 1, item 11 (multi-GPU)")
+            f"{arch}: {n_bytes / 1e9:.0f} GB of {cfg.dtype} weights{where} exceed one card "
+            f"({ONE_CARD_WEIGHT_BYTES / 1e9:.0f} GB); shard the experts over more ranks "
+            "(ROADMAP item 11, models over a mesh)")
     return cfg
 
 
@@ -75,40 +85,58 @@ def _sync(device: torch.device) -> None:
 
 
 def generate(model: Transformer, prompts: torch.Tensor, gen: int,
-             use_kernels: bool | str = "auto") -> dict:
+             use_kernels: bool | str = "auto", mesh=None, batch_axes=("data",)) -> dict:
     """Prefill the (B, P) prompts, then ``gen - 1`` greedy decode steps.
 
     Returns the (B, gen) generated tokens, the prefill's last-token
     logits, the prefill's seconds and the decode's seconds per step (host
     clock around work that ends in a device synchronise), and the launches
-    of each LM kernel in each phase: ``launches[phase][kernel]``."""
+    of each LM kernel in each phase: ``launches[phase][kernel]``.
+
+    With ``mesh`` (SPMD: every rank calls it with the same ``gen``),
+    ``prompts`` are this rank's requests (``transformer.batch_shard``) and
+    ``model`` its shard; the launches are this rank's.  It also returns
+    ``all_tokens``, every request's (B * EP, gen) tokens gathered over
+    ``batch_axes``, and ``exchange[phase]``, the MoE collectives by kind
+    (``moe.ExchangeTimer``: calls, bytes, device ms by CUDA events)."""
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
     dev = prompts.device
     B, P = prompts.shape
+    mesh_kw = {} if mesh is None else {"mesh": mesh, "batch_axes": batch_axes}
     caches = init_cache(model.cfg, B, P + gen, dev)
     n0 = _lm_launches()
     _sync(dev)
     t0 = time.monotonic()
-    logits, caches = prefill(model, prompts, caches, use_kernels=use_kernels)
-    tok = logits.argmax(-1)[:, None]
+    with ExchangeTimer() as ex_prefill:
+        logits, caches = prefill(model, prompts, caches, use_kernels=use_kernels, **mesh_kw)
+        tok = logits.argmax(-1)[:, None]
     _sync(dev)
     prefill_s = time.monotonic() - t0
     n1 = _lm_launches()
     tokens = [tok]
     t0 = time.monotonic()
-    for s in range(gen - 1):
-        step_logits, caches = decode_step(model, tok, caches, P + s, use_kernels=use_kernels)
-        tok = step_logits.argmax(-1)[:, None]
-        tokens.append(tok)
+    with ExchangeTimer() as ex_decode:
+        for s in range(gen - 1):
+            step_logits, caches = decode_step(model, tok, caches, P + s,
+                                              use_kernels=use_kernels, **mesh_kw)
+            tok = step_logits.argmax(-1)[:, None]
+            tokens.append(tok)
     _sync(dev)
     decode_s = time.monotonic() - t0
-    return {
+    out = {
         "tokens": torch.cat(tokens, dim=1), "prefill_logits": logits,
         "prefill_s": prefill_s, "decode_s_per_step": decode_s / max(gen - 1, 1),
         "launches": {"prefill": {k: n1[k] - n0[k] for k in n0},
                      "decode": {k: n2 - n1[k] for k, n2 in _lm_launches().items()}},
     }
+    if mesh is not None:
+        group = mesh.group_of(batch_axes)
+        parts = [torch.empty_like(out["tokens"]) for _ in range(mesh.axis_size(batch_axes))]
+        dist.all_gather(parts, out["tokens"], group=group)
+        out["all_tokens"] = torch.cat(parts)
+        out["exchange"] = {"prefill": ex_prefill.summary(), "decode": ex_decode.summary()}
+    return out
 
 
 def _lm_launches() -> dict:

@@ -25,6 +25,18 @@ dropped.  Caches are updated in place (the reference's are functional).
 ``prefill`` computes the logits of the last position only, where the
 reference computes all and keeps the last.  The reference's ``lm_loss``
 comes with the training slice.
+
+Over a mesh (``mesh=``, a ``launch.mesh.ModelMesh``; the reference's
+``forward(mesh=, batch_axes=)``), SPMD: each rank holds B/EP requests
+(``batch_shard``; EP the size of ``batch_axes``) with their caches and
+runs their attention and dense layers itself, and a ``Transformer(cfg,
+device, mesh)`` holds this rank's expert shards (``moe.shard_shapes``).
+The reference splits the flattened (B*S, D) tokens ``P(batch_axes,
+None)``, which is that split of the requests when B % EP == 0.  The MoE
+layers exchange over ``batch_axes`` and sum over ``model``
+(``moe.moe_ffn(mesh=)``); with a ``pod`` axis and the default
+``("data",)`` the experts are replicated over ``pod``, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -40,7 +52,8 @@ from repro_torch.kernels.runtime import resolve_device, resolve_use_kernels
 from repro_torch.models.attention import (MLAConfig, gqa_attention, init_gqa, init_mla,
                                           mla_attention)
 from repro_torch.models.common import dense_init, embed_init, frozen, rms_norm, swiglu
-from repro_torch.models.moe import MoEConfig, init_moe, moe_ffn
+from repro_torch.models.moe import (MoEConfig, mesh_shards, moe_draws, moe_ffn, shard_moe_params,
+                                   shard_shapes)
 
 
 @dataclass(frozen=True)
@@ -115,16 +128,6 @@ def _attention_shapes(cfg: TransformerConfig) -> dict:
             "wo": (H * dh, d)}
 
 
-def _moe_shapes(cfg: TransformerConfig) -> dict:
-    d, m = cfg.d_model, cfg.moe
-    E, F = m.n_experts, m.d_ff
-    shapes = {"router": (d, E), "w_gate": (E, d, F), "w_up": (E, d, F), "w_down": (E, F, d)}
-    if m.n_shared > 0:
-        Fs = m.shared_hidden
-        shapes.update(shared_gate=(d, Fs), shared_up=(d, Fs), shared_down=(Fs, d))
-    return shapes
-
-
 class DecoderLayer(nn.Module):
     """Pre-norm block: RMS norm, GQA or MLA attention, residual; RMS norm,
     dense or MoE FFN, residual.  Weights are (d_in, d_out), applied as
@@ -132,7 +135,7 @@ class DecoderLayer(nn.Module):
     dense one as ``ffn``."""
 
     def __init__(self, cfg: TransformerConfig, window: int, moe_layer: bool,
-                 device: torch.device, dtype: torch.dtype):
+                 device: torch.device, dtype: torch.dtype, shards: tuple = (1, 1)):
         super().__init__()
         d = cfg.d_model
 
@@ -148,7 +151,7 @@ class DecoderLayer(nn.Module):
         if moe_layer:
             self.moe = nn.ParameterDict({
                 name: empty(shape, torch.float32 if name == "router" else dtype)
-                for name, shape in _moe_shapes(cfg).items()})
+                for name, shape in shard_shapes(cfg.d_model, cfg.moe, *shards).items()})
             self.ffn = None
         else:
             self.moe = None
@@ -161,7 +164,8 @@ class DecoderLayer(nn.Module):
                 self.ffn = nn.ParameterDict({"w_in": empty((d, d_ff)),
                                              "w_down": empty((d_ff, d))})
 
-    def forward(self, x, positions, cache=None, cache_index=None, use_kernels=False):
+    def forward(self, x, positions, cache=None, cache_index=None, use_kernels=False,
+                mesh=None, batch_axes=("data",)):
         cfg = self.cfg
         h = rms_norm(x, self.ln1, cfg.norm_eps)
         if cfg.attention == "mla":
@@ -178,7 +182,8 @@ class DecoderLayer(nn.Module):
         h = rms_norm(x, self.ln2, cfg.norm_eps)
         if self.moe is not None:
             B, S, D = h.shape
-            y, _ = moe_ffn(self.moe, h.reshape(B * S, D), cfg.moe, use_kernels=use_kernels)
+            y, _ = moe_ffn(self.moe, h.reshape(B * S, D), cfg.moe, mesh=mesh,
+                           batch_axes=batch_axes, use_kernels=use_kernels)
             return x + y.reshape(B, S, D), cache
         return x + _ffn_apply(self.ffn, h), cache
 
@@ -193,23 +198,36 @@ def _ffn_apply(p, x: torch.Tensor) -> torch.Tensor:
     return h @ p["w_down"].to(dt)
 
 
+def model_shards(cfg: TransformerConfig, mesh=None, batch_axes=("data",)) -> tuple:
+    """(EP, expert-axis index, TP, model-axis index) of this rank's MoE
+    shards: (1, 0, 1, 0) without a mesh or a MoE."""
+    if mesh is None or cfg.moe is None:
+        return 1, 0, 1, 0
+    return mesh_shards(mesh, batch_axes)
+
+
 class Transformer(nn.Module):
     """The LM: embedding (tied unembedding unless ``tie_embeddings`` is
     off), ``n_layers`` decoder layers, final RMS norm.  Parameters are
     allocated uninitialised in ``cfg.param_dtype``; ``init_transformer``
     fills them from a generator, ``convert.transformer_params`` from the
-    reference's parameter tree."""
+    reference's parameter tree.  With ``mesh``, the MoE layers hold this
+    rank's expert shards over ``batch_axes`` and ``model``
+    (``shard_transformer`` slices them from a whole model)."""
 
-    def __init__(self, cfg: TransformerConfig, device: torch.device):
+    def __init__(self, cfg: TransformerConfig, device: torch.device, mesh=None,
+                 batch_axes=("data",)):
         super().__init__()
         _check_config(cfg)
         dtype = getattr(torch, cfg.param_dtype)
         self.cfg = cfg
+        self.shards = model_shards(cfg, mesh, batch_axes)
+        ep, _, tp, _ = self.shards
         self.embed = frozen(torch.empty((cfg.vocab, cfg.d_model), device=device, dtype=dtype))
         self.final_norm = frozen(torch.zeros(cfg.d_model, device=device, dtype=dtype))
         n_prefix = cfg.n_prefix_layers
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, w, cfg.moe is not None and i >= n_prefix, device, dtype)
+            DecoderLayer(cfg, w, cfg.moe is not None and i >= n_prefix, device, dtype, (ep, tp))
             for i, w in enumerate(cfg.windows()))
         if not cfg.tie_embeddings:
             self.unembed = frozen(torch.empty_like(self.embed))
@@ -224,8 +242,9 @@ def init_transformer(cfg: TransformerConfig, generator: torch.Generator,
     """A ``Transformer`` with random weights from ``generator`` (which must
     live on ``device``): dense and expert weights normal with std
     1/sqrt(d_in), embeddings normal with std 0.02, norm scales 0.  Each
-    matrix is drawn in float32 on the device and cast to ``cfg.param_dtype``
-    at once, so no float32 copy of the whole model is ever held."""
+    matrix is drawn in float32 on the device and cast into its parameter
+    before the next is drawn, so no float32 copy of the whole model (or of
+    a whole expert bank beside its cast) is ever held."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"init_transformer: generator on {generator.device}, model on {dev}")
@@ -240,8 +259,9 @@ def init_transformer(cfg: TransformerConfig, generator: torch.Generator,
         for name, w in attn.items():
             layer.attn[name].copy_(w)
         if layer.moe is not None:
-            for name, w in init_moe(generator, cfg.d_model, cfg.moe, dtype).items():
+            for name, w in moe_draws(generator, cfg.d_model, cfg.moe, dtype):
                 layer.moe[name].copy_(w)
+                del w
         else:
             for name, w in layer.ffn.items():
                 w.copy_(dense_init(generator, w.shape[0], w.shape[1], dtype))
@@ -251,7 +271,41 @@ def init_transformer(cfg: TransformerConfig, generator: torch.Generator,
     return model
 
 
-def _hidden(model: Transformer, tokens: torch.Tensor, caches, cache_index, use_kernels):
+@torch.no_grad()
+def shard_transformer(model: Transformer, mesh, batch_axes=("data",)) -> Transformer:
+    """This rank's model on ``mesh`` from a whole ``model``: the same
+    tensors (no copy) for everything but the experts, and the rank's
+    expert slices (views along E; a copy, contiguous, where TP cuts the
+    hidden width).  The result lives where ``model`` does."""
+    if model.shards != (1, 0, 1, 0):
+        raise ValueError("shard_transformer: the model is a shard already")
+    cfg = model.cfg
+    ep, ep_i, tp, tp_i = model_shards(cfg, mesh, batch_axes)
+    state = dict(model.state_dict())
+    for i, layer in enumerate(model.layers):
+        if layer.moe is not None:
+            part = shard_moe_params(dict(layer.moe), cfg.moe, ep, ep_i, tp, tp_i)
+            state.update({f"layers.{i}.moe.{k}": v.contiguous() for k, v in part.items()})
+    out = Transformer(cfg, torch.device("meta"), mesh, batch_axes)
+    out.load_state_dict(state, assign=True)
+    return out
+
+
+def batch_shard(x: torch.Tensor, mesh, batch_axes=("data",)) -> torch.Tensor:
+    """This rank's rows of a whole (B, ...) batch: block ``i`` of EP equal
+    blocks, ``i`` its index along ``batch_axes`` (the reference's
+    ``P(batch_axes, None)`` split of the flattened tokens when B % EP ==
+    0).  ``ValueError`` when B % EP != 0."""
+    ep, i = mesh.axis_size(batch_axes), mesh.axis_index(batch_axes)
+    if x.shape[0] % ep:
+        raise ValueError(f"a batch of {x.shape[0]} does not split over {ep} ranks of "
+                         f"{tuple(batch_axes)}")
+    n = x.shape[0] // ep
+    return x[i * n:(i + 1) * n]
+
+
+def _hidden(model: Transformer, tokens: torch.Tensor, caches, cache_index, use_kernels,
+            mesh=None, batch_axes=("data",)):
     """The final-normed hidden states (B, S, D)."""
     cfg = model.cfg
     dt = cfg.act_dtype
@@ -262,7 +316,7 @@ def _hidden(model: Transformer, tokens: torch.Tensor, caches, cache_index, use_k
     for i, layer in enumerate(model.layers):
         cache = caches["layers"][i] if caches is not None else None
         x, _ = layer(x, positions, cache=cache, cache_index=cache_index,
-                     use_kernels=use_kernels)
+                     use_kernels=use_kernels, mesh=mesh, batch_axes=batch_axes)
     return rms_norm(x, model.final_norm, cfg.norm_eps)
 
 
@@ -270,13 +324,23 @@ def _logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
     return x @ model.unembedding().to(x.dtype).T
 
 
+def _check_mesh(model: Transformer, mesh, batch_axes) -> None:
+    if model.shards != model_shards(model.cfg, mesh, batch_axes):
+        raise ValueError(f"the model holds shards {model.shards} (EP, index, TP, index), the "
+                         f"mesh and batch_axes {tuple(batch_axes)} give "
+                         f"{model_shards(model.cfg, mesh, batch_axes)}")
+
+
 @torch.inference_mode()
 def forward(model: Transformer, tokens: torch.Tensor, caches: dict | None = None,
-            cache_index: int | None = None, use_kernels: bool | str = "auto"):
+            cache_index: int | None = None, use_kernels: bool | str = "auto", mesh=None,
+            batch_axes=("data",)):
     """tokens (B, S) int -> (logits (B, S, vocab), caches).  With
-    ``caches``, the new keys and values go in at ``cache_index``."""
+    ``caches``, the new keys and values go in at ``cache_index``.  With
+    ``mesh``, ``tokens`` are this rank's requests (``batch_shard``)."""
+    _check_mesh(model, mesh, batch_axes)
     use = resolve_use_kernels(use_kernels, tokens.device)
-    x = _hidden(model, tokens, caches, cache_index, use)
+    x = _hidden(model, tokens, caches, cache_index, use, mesh, batch_axes)
     return _logits(model, x), caches
 
 
@@ -301,21 +365,25 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
 
 @torch.inference_mode()
 def prefill(model: Transformer, tokens: torch.Tensor, caches: dict,
-            use_kernels: bool | str = "auto"):
+            use_kernels: bool | str = "auto", mesh=None, batch_axes=("data",)):
     """Run the prompt (B, S) through the stack, filling ``caches`` from
-    position 0; returns (last-token logits (B, vocab), caches)."""
+    position 0; returns (last-token logits (B, vocab), caches).  With
+    ``mesh``, B is this rank's requests."""
+    _check_mesh(model, mesh, batch_axes)
     use = resolve_use_kernels(use_kernels, tokens.device)
-    x = _hidden(model, tokens, caches, 0, use)
+    x = _hidden(model, tokens, caches, 0, use, mesh, batch_axes)
     return _logits(model, x[:, -1]), caches
 
 
 @torch.inference_mode()
 def decode_step(model: Transformer, token: torch.Tensor, caches: dict, cache_index: int,
-                use_kernels: bool | str = "auto"):
+                use_kernels: bool | str = "auto", mesh=None, batch_axes=("data",)):
     """One new token (B, 1) at ``cache_index`` against the caches; returns
     (logits (B, vocab), caches).  Decode attends over the cache with the
     plain attention (the attention kernel takes a prompt's own keys only);
-    ``use_kernels`` routes the MoE experts."""
+    ``use_kernels`` routes the MoE experts.  With ``mesh``, B is this rank's
+    requests."""
+    _check_mesh(model, mesh, batch_axes)
     use = resolve_use_kernels(use_kernels, token.device)
-    x = _hidden(model, token, caches, cache_index, use)
+    x = _hidden(model, token, caches, cache_index, use, mesh, batch_axes)
     return _logits(model, x[:, -1]), caches

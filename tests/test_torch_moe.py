@@ -227,8 +227,18 @@ def test_router_stays_float32_under_bfloat16():
 
 
 def test_moe_ffn_on_a_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        moe.moe_ffn({}, torch.zeros(2, D), CFG, mesh=object())
+    """``moe_ffn(mesh=)`` runs over a mesh now (``tests/test_torch_moe_mesh.py``);
+    it still raises before any collective for a mesh that lacks a batch axis
+    (the default ``("pod", "data")`` on a 2-D mesh) and for the dense engine."""
+    from repro_torch.launch.mesh import ModelMesh
+
+    mesh = ModelMesh(axis_names=("data", "model"), shape=(1, 1), coords=(0, 0), rank=0,
+                     group=None, host_group=None, groups={}, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="lack"):
+        moe.moe_ffn({}, torch.zeros(2, D), CFG, mesh=mesh)
+    with pytest.raises(ValueError, match="dense"):
+        moe.moe_ffn({}, torch.zeros(2, D), CFG.replace(dispatch="dense"), mesh=mesh,
+                    batch_axes=("data",))
 
 
 def test_moe_ffn_picks_the_reference_engine():
