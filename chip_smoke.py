@@ -203,6 +203,31 @@ Phases, in order; any failure exits nonzero and prints no result line:
    ``_moe_core`` on each rank's tokens.  It prints each rank's peak
    allocated memory, each exchange's MB and device ms (CUDA events) by leg
    and kind, the launches by leg and rank, and the phase's seconds;
+17. (right after phase 16's clean-up, before the DLRM phase; everything it
+   allocates is freed before that phase) the GNN side: graphsage-reddit,
+   pna, gatedgcn and meshgraphnet at full width and depth in float32,
+   through ``configs.get_arch``, ``models.gnn.init_gnn``, ``gnn_forward``
+   and ``gnn_loss``, on the reference's shape cells
+   (``configs.common.gnn_cells``): ``full_graph_sm`` (an R-MAT graph of
+   2,708 vertices and 10,556 arcs, 1,433 features), ``molecule``
+   (``batched_molecule_graphs(128, 30, 128)``, the graph task or
+   MeshGraphNet's regression), ``minibatch_lg`` (a reddit-shaped CSR of
+   232,965 vertices and 114,615,892 arcs drawn on the card, 1,024 seeds
+   sampled 15-10 by ``graph.sampler.sample_neighbors_device``, the hop
+   sizes and every id checked against its parent's row; GraphSAGE through
+   ``graphsage_minibatch_forward``, the others on the sampled block as an
+   edge list of 169,984 vertices and 168,960 arcs, the loss masked to the
+   seeds) and, for GraphSAGE only, ``ogb_products`` (2,449,029 vertices,
+   61,859,140 arcs drawn on the card).  Each leg is held against a
+   float64 copy of the module on the CPU on the same inputs (outputs
+   within ``GNN_TOL`` of the largest output, the loss within
+   ``GNN_LOSS_TOL``); ``ogb_products`` must be finite and its two runs
+   agree within ``GNN_ATOMICS_TOL``.  No leg may launch a kernel of the
+   port (the reference aggregates outside Pallas).  It prints each leg's
+   forward ms (CUDA events, median of warm runs), loss and peak allocated
+   memory beside the least time the card could take (the reference's
+   forward flops at 67 TF/s against the per-edge gathers and scatters at
+   3.35 TB/s), and the phase's seconds;
 6. LM serving: the reduced gemma3-12b config on the card against the CPU
    (float32, logits within 1e-4, greedy tokens equal), then gemma3-12b at
    full width (11.8B parameters in bf16, random weights from the seed):
@@ -270,6 +295,7 @@ network; the kernels build from the sources under ``src/repro_torch`` into
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import gc
 import itertools
@@ -4677,6 +4703,470 @@ def phase_models_mesh(torch, dev, seed: int, smi: str, kept: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 17: the GNN side (GraphSAGE, PNA, GatedGCN, MeshGraphNet)
+# ---------------------------------------------------------------------------
+
+GNN_ARCHS = ("graphsage-reddit", "pna", "gatedgcn", "meshgraphnet")
+GNN_REPS = 5             # warm forwards timed a leg (after call_ms's 3 warm-ups)
+GNN_PRODUCTS_REPS = 3
+# The card's float32 against a float64 copy of the same module on the CPU,
+# max |difference| over max(max |float64 output|, 1): float32 products and
+# scatters (atomics on the card) through up to 16 layers, TF32 off.
+GNN_TOL = 1e-3
+GNN_LOSS_TOL = 1e-4      # |loss difference| over max(|float64 loss|, 1)
+# two card runs of ogb_products, relative to max |output|: index_add_'s
+# float32 atomics add the 61.9M messages in another order each run
+GNN_ATOMICS_TOL = 1e-4
+
+
+def gnn_edge_bytes(cfg, m: int) -> float:
+    """Bytes of one forward's per-edge gathers and scatters, each row moved
+    once in float32.  Per layer of input width w: GraphSAGE (mean) gathers
+    h[src] and scatters it with its count (2w + 1 an edge); PNA gathers
+    h[src] and h[dst], scatters the message five times (mean, max, min and
+    std's two means) with three counts (7w + 3), and counts the degree once;
+    GatedGCN gathers h[src] and h[dst] and scatters the gated message and
+    the gate (4w); MeshGraphNet gathers h[src] and h[dst] and scatters the
+    edge state (3w)."""
+    if cfg.arch in ("gatedgcn", "meshgraphnet"):
+        widths = [cfg.d_hidden] * cfg.n_layers
+    else:
+        widths = [cfg.d_in] + [cfg.d_hidden] * (cfg.n_layers - 1)
+    per = {"graphsage": lambda w: 2 * w + 1, "pna": lambda w: 7 * w + 3,
+           "gatedgcn": lambda w: 4 * w, "meshgraphnet": lambda w: 3 * w}[cfg.arch]
+    return 4.0 * m * (sum(per(w) for w in widths) + (cfg.arch == "pna"))
+
+
+def mlp_flops(dims: list[int], rows: int) -> float:
+    return float(sum(2 * rows * dims[i] * dims[i + 1] for i in range(len(dims) - 1)))
+
+
+def gnn_forward_flops(cell: dict) -> float:
+    """The operations of one forward on the cell's shapes: every product
+    (2 x its multiply-adds) and one add a scattered or averaged element.
+    The reference's count (a third of ``model_flops``) misses layer 0's
+    width in GraphSAGE and PNA, counts GatedGCN's and MeshGraphNet's
+    per-edge products at 6d^2 and 12d^2 (the forwards do 8d^2 and 10d^2)
+    and, for the sampled cell, 4 * d_hidden * d_feat for each of the
+    169,984 gathered rows, the 153,600 leaves included (they are only
+    averaged): about 10x GraphSAGE's forward there."""
+    cfg = cell["cfg"]
+    d = cfg.d_hidden
+    if cell["kind"] == "minibatch":
+        sizes = [cell["batch_nodes"] * math.prod(cell["fanouts"][:k])
+                 for k in range(len(cell["fanouts"]) + 1)]
+        w, flops = cfg.d_in, 0.0
+        for li in range(cfg.n_layers):
+            for k in range(len(cell["fanouts"]) - li):
+                flops += 2 * 2 * sizes[k] * w * d + sizes[k + 1] * w
+            w = d
+        return flops + 2 * sizes[0] * d * cfg.d_out
+    n, m = cell["n_nodes"], cell["n_edges"]
+    widths = [cfg.d_in] + [d] * cfg.n_layers
+    if cfg.arch == "graphsage":
+        flops = sum(2 * 2 * n * widths[i] * d + m * widths[i] for i in range(cfg.n_layers))
+        return flops + 2 * n * d * cfg.d_out
+    if cfg.arch == "pna":
+        flops = sum(2 * m * 2 * widths[i] * widths[i] + 5 * m * widths[i]
+                    + 2 * n * 13 * widths[i] * widths[i + 1] for i in range(cfg.n_layers))
+        return flops + 2 * n * d * cfg.d_out
+    if cfg.arch == "gatedgcn":
+        flops = 2 * n * cfg.d_in * d + 2 * m * cfg.d_edge_in * d
+        return flops + cfg.n_layers * (8 * m * d * d + 2 * n * d * d + 2 * m * d) \
+            + 2 * n * d * cfg.d_out
+    hidden = [d] * cfg.mlp_layers
+    flops = (mlp_flops([cfg.d_in] + hidden + [d], n) + mlp_flops([cfg.d_edge_in] + hidden + [d], m)
+             + mlp_flops([d] + hidden + [cfg.d_out], n))
+    return flops + cfg.n_layers * (mlp_flops([3 * d] + hidden + [d], m)
+                                   + mlp_flops([2 * d] + hidden + [d], n) + m * d)
+
+
+def gnn_bound(cell: dict) -> dict:
+    """The least time of one forward: its operations
+    (``gnn_forward_flops``) at 67 TF/s float32 against the per-edge gathers
+    and scatters (``gnn_edge_bytes``; the sampled cell's feature gather,
+    each row once) at 3.35 TB/s.  ``ref_gflop`` is the reference's count,
+    a third of the cell's ``model_flops``."""
+    flops = gnn_forward_flops(cell)
+    if cell["kind"] == "minibatch":
+        rows = sum(cell["batch_nodes"] * math.prod(cell["fanouts"][:k])
+                   for k in range(len(cell["fanouts"]) + 1))
+        n_bytes = 4.0 * rows * cell["d_feat"]
+    else:
+        n_bytes = gnn_edge_bytes(cell["cfg"], cell["n_edges"])
+    t_ops, t_bytes = flops / PEAK_FLOPS["float32"] * 1e3, bound_ms(n_bytes)
+    return {"gflop": flops / 1e9, "ref_gflop": cell["model_flops"] / 3e9, "gb": n_bytes / 1e9,
+            "ops_ms": t_ops, "bytes_ms": t_bytes, "ms": max(t_ops, t_bytes),
+            "by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+class HostHeap:
+    """Within the block, glibc serves large host blocks from its heap and
+    keeps up to 2 GB freed at its top: by default every block above 32 MB
+    is a fresh ``mmap`` returned at ``free``, so each float64 CPU tensor of
+    the checks paid its page faults anew (a GatedGCN block forward 24 s
+    against 6.7 s on an 8-core host).  Leaves the defaults and trims the
+    heap on exit.  Only this process's allocator changes."""
+
+    M_TRIM_THRESHOLD, M_TOP_PAD, M_MMAP_MAX = -1, -2, -4
+
+    def __enter__(self):
+        import ctypes
+
+        self.libc = ctypes.CDLL("libc.so.6")
+        self.libc.mallopt(self.M_MMAP_MAX, 0)
+        self.libc.mallopt(self.M_TRIM_THRESHOLD, 2**31 - 1)
+        self.libc.mallopt(self.M_TOP_PAD, 2**30)
+        return self
+
+    def __exit__(self, *exc):
+        self.libc.mallopt(self.M_MMAP_MAX, 65536)
+        self.libc.mallopt(self.M_TRIM_THRESHOLD, 128 * 1024)
+        self.libc.mallopt(self.M_TOP_PAD, 128 * 1024)
+        self.libc.malloc_trim(0)
+        return False
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max(max |want|, 1), in float64 on want's device."""
+    want = want.double()
+    got = got.to(device=want.device, dtype=want.dtype)
+    return float((got - want).abs().max() / max(float(want.abs().max()), 1.0))
+
+
+def gnn_inputs(torch, cfg, n: int, m: int, gen, extra: dict | None = None) -> dict:
+    """A leg's features, labels and edge features on the generator's
+    device, drawn for the cell's config (its task, d_in and d_out)."""
+    dev = gen.device
+    inp = {"feats": torch.randn((n, cfg.d_in), generator=gen, device=dev),
+           "edge_feats": torch.randn((m, cfg.d_edge_in), generator=gen, device=dev),
+           **(extra or {})}
+    if cfg.task == "regression":
+        inp["labels"] = torch.randn((n, cfg.d_out), generator=gen, device=dev)
+    elif cfg.task == "graph":
+        inp["labels"] = torch.randint(0, cfg.d_out, (inp["n_graphs"],), generator=gen,
+                                      device=dev)
+    else:
+        inp["labels"] = torch.randint(0, cfg.d_out, (n,), generator=gen, device=dev)
+    return inp
+
+
+def to_host64(t):
+    """A tensor on the CPU, floating ones in float64."""
+    if t is None:
+        return None
+    return t.cpu().double() if t.is_floating_point() else t.cpu()
+
+
+def gnn_leg(torch, name: str, cell_name: str, cell: dict, model, inp: dict, src, dst,
+            smi: str) -> dict:
+    """One architecture on one edge-list cell: forward ms (CUDA events,
+    median of ``GNN_REPS`` warm runs), the loss through ``gnn_loss``, peak
+    allocated memory, launches (none), and the card against a float64 copy
+    of the module on the CPU on the same inputs (outputs and loss)."""
+    from repro_torch.models.gnn import gnn_forward, gnn_loss, output_loss
+
+    cfg = model.cfg
+    n = inp["feats"].shape[0]
+    kw = {k: inp.get(k) for k in ("label_mask", "edge_feats", "graph_ids")}
+    kw["n_graphs"] = inp.get("n_graphs", 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_launch_counts()
+
+    def forward():
+        return gnn_forward(model, None, inp["feats"], src, dst, kw["edge_feats"])
+
+    ms = call_ms(torch, forward, GNN_REPS)
+    out = forward()
+    loss = gnn_loss(model, None, inp["feats"], src, dst, inp["labels"], **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(read_launch_counts() == counts_zero(),
+          f"GNN {name} {cell_name}: launched {read_launch_counts()}")
+    check(out.shape == (n, cfg.d_out) and bool(torch.isfinite(out).all())
+          and bool(torch.isfinite(loss)), f"GNN {name} {cell_name}: output misshapen or not finite")
+
+    t = time.monotonic()
+    with HostHeap():
+        model64 = copy.deepcopy(model).to(device="cpu", dtype=torch.float64)
+        out64 = gnn_forward(model64, None, to_host64(inp["feats"]), src.cpu(), dst.cpu(),
+                            to_host64(kw["edge_feats"]))
+        loss64 = output_loss(out64, cfg, to_host64(inp["labels"]),
+                             to_host64(kw["label_mask"]), to_host64(kw["graph_ids"]),
+                             kw["n_graphs"])
+        del model64
+    cpu_s = time.monotonic() - t
+    err = rel_err(out, out64)
+    loss_err = abs(float(loss) - float(loss64)) / max(abs(float(loss64)), 1.0)
+    check(err <= GNN_TOL and loss_err <= GNN_LOSS_TOL,
+          f"GNN {name} {cell_name}: card vs float64 CPU, outputs {err:.3e} (tolerance "
+          f"{GNN_TOL:g}), loss {loss_err:.3e} (tolerance {GNN_LOSS_TOL:g})")
+    b = gnn_bound(cell)
+    log(f"GNN {name} {cell_name} ({n:,} vertices, {src.shape[0]:,} arcs, d_in {cfg.d_in}, "
+        f"d_out {cfg.d_out}, {cfg.task}): forward {ms:.4f} ms (median of {GNN_REPS} warm, "
+        f"CUDA events), loss {float(loss):.6f}, peak allocated {peak / 1e9:.3f} GB "
+        f"({before / 1e9:.3f} GB before); bound {b['ms']:.4f} ms by {b['by']} "
+        f"({b['gflop']:.3f} GFLOP at 67 TF/s: {b['ops_ms']:.4f} ms, the reference counts "
+        f"{b['ref_gflop']:.3f}; {b['gb']:.4f} GB of per-edge gathers and scatters at 3.35 "
+        f"TB/s: {b['bytes_ms']:.4f} ms), "
+        f"{b['ms'] / ms:.1%} of it; card vs float64 CPU: outputs {err:.2e} (tolerance "
+        f"{GNN_TOL:g}), loss {loss_err:.2e} (tolerance {GNN_LOSS_TOL:g}), CPU {cpu_s:.1f} s; "
+        f"no kernel launched [{smi}]")
+    return {"ms": ms, "loss": float(loss), "loss64": float(loss64), "peak_gb": peak / 1e9,
+            "before_gb": before / 1e9, "max_rel_err": err, "loss_rel_err": loss_err,
+            "bound": b, "cpu_s": cpu_s}
+
+
+def reddit_csr(torch, n: int, m: int, gen) -> dict:
+    """A reddit-shaped CSR drawn on the card: ``m`` arcs with uniform
+    sources and destinations, except that every vertex v with v % 100 == 99
+    has no out-arc (its arcs go from v - 1), so that the sampler's
+    self-loop fallback runs.  Each row sorted; ``keys`` (src * n + dst,
+    sorted) lets a membership check search them."""
+    src = torch.randint(0, n, (m,), generator=gen, device=gen.device)
+    src = torch.where(src % 100 == 99, src - 1, src)
+    keys = torch.sort(src * n + torch.randint(0, n, (m,), generator=gen,
+                                              device=gen.device)).values
+    del src
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=gen.device)
+    indptr[1:] = torch.bincount(keys // n, minlength=n).cumsum(0)
+    return {"keys": keys, "indptr": indptr, "indices": (keys % n).to(torch.int32)}
+
+
+def check_hops(torch, csr: dict, hops: list, fanouts, n: int) -> list[int]:
+    """The sampler's invariants: hop sizes, and every id a neighbour of its
+    parent, or the parent itself when the parent has no out-arc.  Returns
+    the number of isolated parents of each hop."""
+    keys, deg = csr["keys"], csr["indptr"].diff()
+    check([h.shape[0] for h in hops] == [hops[0].shape[0] * math.prod(fanouts[:k])
+                                          for k in range(len(fanouts) + 1)],
+          f"sampler: hop sizes {[h.shape[0] for h in hops]}")
+    isolated = []
+    for k, f in enumerate(fanouts):
+        parent = hops[k].long().repeat_interleave(f)
+        child = hops[k + 1].long()
+        iso = deg[parent] == 0
+        q = parent * n + child
+        pos = torch.searchsorted(keys, q).clamp_max(keys.shape[0] - 1)
+        ok = torch.where(iso, child == parent, keys[pos] == q)
+        check(bool(ok.all()), f"sampler: hop {k + 1} has {int((~ok).sum())} ids that are "
+                              f"not a neighbour of their parent")
+        isolated.append(int(iso.sum()) // f)
+    return isolated
+
+
+def phase_gnn(torch, dev, seed: int, smi: str) -> dict:
+    """The four GNN configurations at full width and depth, float32,
+    through ``get_arch``, ``init_gnn``, ``gnn_forward`` and ``gnn_loss`` on
+    the reference's shape cells: ``full_graph_sm`` (an R-MAT graph of 2,708
+    vertices and 10,556 arcs, 1,433 features), ``molecule``
+    (``batched_molecule_graphs(128, 30, 128)``), ``minibatch_lg`` (a
+    reddit-shaped CSR drawn on the card, 1,024 seeds sampled 15-10 by
+    ``sample_neighbors_device``: GraphSAGE through
+    ``graphsage_minibatch_forward``, the others on the sampled block as an
+    edge list) and, for GraphSAGE only, ``ogb_products`` (2,449,029
+    vertices, 61,859,140 arcs, drawn on the card).  Every leg but
+    ``ogb_products`` is held against a float64 copy of the module on the
+    CPU; ``ogb_products`` must be finite and agree between two runs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import gnn_cells
+    from repro_torch.graph.generators import batched_molecule_graphs, rmat_graph
+    from repro_torch.graph.sampler import sample_neighbors_device
+    from repro_torch.models.gnn import (gnn_forward, gnn_loss, graphsage_minibatch_forward,
+                                        init_gnn, output_loss)
+
+    t_phase = time.monotonic()
+    cells = {name: gnn_cells(get_arch(name)) for name in GNN_ARCHS}
+    gen = torch.Generator(device=dev)
+    rows = {name: {} for name in GNN_ARCHS}
+
+    def model_for(name, cell_name, k):
+        gen.manual_seed(seed + 100 * k)
+        return init_gnn(cells[name][cell_name]["cfg"], gen, dev)
+
+    # -- full_graph_sm and molecule: host generators, every architecture
+    sm, mo = cells["pna"]["full_graph_sm"], cells["pna"]["molecule"]
+    graphs = {"full_graph_sm": (rmat_graph(sm["n_nodes"], sm["n_edges"], seed=seed), {}),
+              "molecule": (batched_molecule_graphs(mo["n_graphs"], 30, 128, seed=seed),
+                           {"graph_ids": torch.arange(mo["n_graphs"], device=dev)
+                            .repeat_interleave(30), "n_graphs": mo["n_graphs"]})}
+    for cell_name, (graph, extra) in graphs.items():
+        src = torch.from_numpy(graph.edge_sources()).to(dev)
+        dst = torch.from_numpy(graph.indices).to(dev)
+        check((graph.n_nodes, graph.n_edges) == (cells["pna"][cell_name]["n_nodes"],
+                                                 cells["pna"][cell_name]["n_edges"]),
+              f"GNN {cell_name}: {graph.n_nodes} vertices, {graph.n_edges} arcs")
+        for k, name in enumerate(GNN_ARCHS):
+            cell = cells[name][cell_name]
+            model = model_for(name, cell_name, k)
+            inp = gnn_inputs(torch, cell["cfg"], graph.n_nodes, graph.n_edges, gen, extra)
+            rows[name][cell_name] = gnn_leg(torch, name, cell_name, cell, model, inp, src, dst,
+                                            smi)
+            del model, inp
+
+    # -- minibatch_lg: the reddit-shaped CSR, sampled on the card
+    mb = cells["graphsage-reddit"]["minibatch_lg"]
+    n, m, fanouts = mb["n_nodes"], mb["n_edges"], mb["fanouts"]
+    t = time.monotonic()
+    gen.manual_seed(seed)
+    csr = reddit_csr(torch, n, m, gen)
+    table = torch.randn((n, mb["d_feat"]), generator=gen, device=dev)
+    seeds = torch.randint(0, n, (mb["batch_nodes"],), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t
+    sampler_gen = torch.Generator(device=dev)
+
+    def draw():
+        sampler_gen.manual_seed(seed + 1)
+        return sample_neighbors_device(sampler_gen, csr["indptr"], csr["indices"], seeds,
+                                       fanouts, device=dev)
+
+    reset_launch_counts()
+    hops = draw()
+    check(all(torch.equal(a, b) for a, b in zip(hops, draw())),
+          "sampler: the same generator seed drew other ids")
+    isolated = check_hops(torch, csr, hops, fanouts, n)
+    sample_ms = call_ms(torch, draw, GNN_REPS)
+    layer_feats = [table[h] for h in hops]
+    gather_ms = call_ms(torch, lambda: [table[h] for h in hops], GNN_REPS)
+    log(f"GNN minibatch_lg: reddit-shaped CSR on the card, {n:,} vertices, {m:,} arcs "
+        f"({int((csr['indptr'].diff() == 0).sum()):,} without an out-arc), a ({n:,}, "
+        f"{mb['d_feat']}) feature table, set-up {setup_s:.2f} s; sample_neighbors_device "
+        f"{mb['batch_nodes']} seeds, fanout {fanouts}: hops {[h.shape[0] for h in hops]}, "
+        f"isolated parents by hop {isolated} (their children are themselves), every id a "
+        f"neighbour of its parent; sampling {sample_ms:.4f} ms, the feature gather "
+        f"{gather_ms:.4f} ms (medians of {GNN_REPS}, CUDA events) [{smi}]")
+
+    cfg = mb["cfg"]
+    model = model_for("graphsage-reddit", "minibatch_lg", 0)
+    labels = torch.randint(0, mb["n_classes"], (mb["batch_nodes"],), generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ms = call_ms(torch, lambda: graphsage_minibatch_forward(model, layer_feats), GNN_REPS)
+    out = graphsage_minibatch_forward(model, layer_feats)
+    loss = output_loss(out, cfg, labels)     # the loss of the reference's minibatch cell
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(read_launch_counts() == counts_zero(),
+          f"GNN graphsage-reddit minibatch_lg: launched {read_launch_counts()}")
+    check(out.shape == (mb["batch_nodes"], mb["n_classes"]) and bool(torch.isfinite(out).all()),
+          "GNN graphsage-reddit minibatch_lg: output misshapen or not finite")
+    t = time.monotonic()
+    with HostHeap():
+        model64 = copy.deepcopy(model).to(device="cpu", dtype=torch.float64)
+        out64 = graphsage_minibatch_forward(model64, [to_host64(x) for x in layer_feats])
+        loss64 = output_loss(out64, cfg, labels.cpu())
+    cpu_s = time.monotonic() - t
+    err = rel_err(out, out64)
+    loss_err = abs(float(loss) - float(loss64)) / max(abs(float(loss64)), 1.0)
+    check(err <= GNN_TOL and loss_err <= GNN_LOSS_TOL,
+          f"GNN graphsage-reddit minibatch_lg: card vs float64 CPU, outputs {err:.3e}, loss "
+          f"{loss_err:.3e}")
+    b = gnn_bound(mb)
+    log(f"GNN graphsage-reddit minibatch_lg (graphsage_minibatch_forward, hops "
+        f"{[h.shape[0] for h in hops]}, d_in {cfg.d_in}, {mb['n_classes']} classes): forward "
+        f"{ms:.4f} ms (median of {GNN_REPS} warm, CUDA events), loss {float(loss):.6f}, peak "
+        f"allocated {peak / 1e9:.3f} GB ({before / 1e9:.3f} GB before); bound {b['ms']:.4f} ms "
+        f"by {b['by']} ({b['gflop']:.3f} GFLOP at 67 TF/s: {b['ops_ms']:.4f} ms, the reference "
+        f"counts {b['ref_gflop']:.3f}; {b['gb']:.4f} GB of gathered rows at 3.35 TB/s: "
+        f"{b['bytes_ms']:.4f} ms), {b['ms'] / ms:.1%} of it; "
+        f"card vs float64 CPU on the same hop ids: outputs {err:.2e} (tolerance {GNN_TOL:g}), "
+        f"loss {loss_err:.2e} (tolerance {GNN_LOSS_TOL:g}), CPU {cpu_s:.1f} s [{smi}]")
+    rows["graphsage-reddit"]["minibatch_lg"] = {
+        "ms": ms, "sample_ms": sample_ms, "gather_ms": gather_ms, "loss": float(loss),
+        "loss64": float(loss64), "peak_gb": peak / 1e9, "before_gb": before / 1e9,
+        "max_rel_err": err, "loss_rel_err": loss_err, "bound": b, "cpu_s": cpu_s,
+        "isolated_parents": isolated, "setup_s": setup_s}
+    del model, model64, layer_feats, out, out64
+
+    # the sampled block as an edge list: hop k+1's position j -> its parent
+    ids = torch.cat(hops)
+    b0 = hops[0].shape[0]
+    blk_src = torch.arange(b0, ids.shape[0], device=dev, dtype=torch.int32)
+    blk_dst = torch.cat([torch.arange(hops[1].shape[0], device=dev) // fanouts[0],
+                         b0 + torch.arange(hops[2].shape[0], device=dev) // fanouts[1]]
+                        ).to(torch.int32)
+    blk_feats = table[ids]
+    seeds_mask = torch.zeros(ids.shape[0], device=dev)
+    seeds_mask[:b0] = 1.0
+    del csr, table, hops, ids
+    torch.cuda.empty_cache()
+    for k, name in enumerate(GNN_ARCHS[1:], start=1):
+        cell = cells[name]["minibatch_lg"]
+        check((blk_feats.shape[0], blk_src.shape[0]) == (cell["n_nodes"], cell["n_edges"]),
+              f"GNN {name} minibatch_lg: the block has {blk_feats.shape[0]} vertices and "
+              f"{blk_src.shape[0]} arcs")
+        model = model_for(name, "minibatch_lg", k)
+        inp = gnn_inputs(torch, cell["cfg"], cell["n_nodes"], cell["n_edges"], gen,
+                         {"label_mask": seeds_mask})
+        inp["feats"] = blk_feats
+        rows[name]["minibatch_lg"] = gnn_leg(torch, name, "minibatch_lg (sampled block)", cell,
+                                             model, inp, blk_src, blk_dst, smi)
+        del model, inp
+    del blk_src, blk_dst, blk_feats, seeds_mask
+    torch.cuda.empty_cache()
+
+    # -- ogb_products, GraphSAGE only: two runs agree within the atomics
+    cell = cells["graphsage-reddit"]["ogb_products"]
+    n, m = cell["n_nodes"], cell["n_edges"]
+    t = time.monotonic()
+    gen.manual_seed(seed + 7)
+    src = torch.randint(0, n, (m,), generator=gen, device=dev, dtype=torch.int32)
+    dst = torch.randint(0, n, (m,), generator=gen, device=dev, dtype=torch.int32)
+    inp = gnn_inputs(torch, cell["cfg"], n, 0, gen)
+    model = model_for("graphsage-reddit", "ogb_products", 0)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+
+    def forward():
+        return gnn_forward(model, None, inp["feats"], src, dst)
+
+    ms = call_ms(torch, forward, GNN_PRODUCTS_REPS)
+    # run a's output goes to the host and the cache is emptied: a 0.46 GB
+    # output left in a freed 30 GB block splits it, and run b's 29.5 GiB
+    # gather then finds no block whole
+    out_a = forward().cpu()
+    torch.cuda.empty_cache()
+    loss = gnn_loss(model, None, inp["feats"], src, dst, inp["labels"])
+    torch.cuda.empty_cache()
+    out_b = forward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(read_launch_counts() == counts_zero(),
+          f"GNN graphsage-reddit ogb_products: launched {read_launch_counts()}")
+    err = rel_err(out_b, out_a)
+    check(out_b.shape == (n, cell["cfg"].d_out) and bool(torch.isfinite(out_b).all())
+          and bool(torch.isfinite(loss)) and err <= GNN_ATOMICS_TOL,
+          f"GNN graphsage-reddit ogb_products: not finite, or two runs differ by {err:.3e} "
+          f"(tolerance {GNN_ATOMICS_TOL:g})")
+    b = gnn_bound(cell)
+    log(f"GNN graphsage-reddit ogb_products ({n:,} vertices, {m:,} arcs drawn on the card, "
+        f"set-up {setup_s:.2f} s, d_in {cell['cfg'].d_in}, d_out {cell['cfg'].d_out}): forward "
+        f"{ms:.4f} ms (median of {GNN_PRODUCTS_REPS} warm, CUDA events), loss "
+        f"{float(loss):.6f}, peak allocated {peak / 1e9:.3f} GB ({before / 1e9:.3f} GB "
+        f"before); bound {b['ms']:.4f} ms by {b['by']} ({b['gflop']:.3f} GFLOP at 67 TF/s: "
+        f"{b['ops_ms']:.4f} ms, the reference counts {b['ref_gflop']:.3f}; {b['gb']:.4f} GB "
+        f"of per-edge gathers and scatters at 3.35 "
+        f"TB/s: {b['bytes_ms']:.4f} ms), {b['ms'] / ms:.1%} of it; two runs agree within "
+        f"{err:.2e} (tolerance {GNN_ATOMICS_TOL:g}, float32 atomics) [{smi}]")
+    rows["graphsage-reddit"]["ogb_products"] = {
+        "ms": ms, "loss": float(loss), "peak_gb": peak / 1e9, "before_gb": before / 1e9,
+        "runs_rel_err": err, "bound": b, "setup_s": setup_s}
+    del src, dst, inp, model, out_a, out_b, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = {f"{name} {cell_name}": {"ms": r["ms"], "bound_ms": r["bound"]["ms"],
+                                       "loss": r["loss"], "peak_gb": r["peak_gb"]}
+               for name, by_cell in rows.items() for cell_name, r in by_cell.items()}
+    log("phase 17 rows: " + json.dumps(summary) + f" [{smi}]")
+    return {"rows": rows, "phase_s": time.monotonic() - t_phase, "card": smi}
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: DLRM serving, dlrm-mlperf at full width with the one-card row cap
 # ---------------------------------------------------------------------------
 
@@ -4985,6 +5475,11 @@ def main() -> int:
         f"{models_mesh['h']['seconds']:.1f} s, (i) {models_mesh['i']['seconds']:.1f} s, (j) "
         f"{models_mesh['j']['seconds']:.1f} s; launches by leg and rank {mesh_launches}")
     del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    gnn = phase_gnn(torch, dev, SEED, smi)
+    log(f"phase 17 (the GNN side) took {gnn['phase_s']:.1f} s [{smi}]")
+    del gnn
     gc.collect()
     torch.cuda.empty_cache()
     dlrm = phase_dlrm(torch, dev, SEED, smi)

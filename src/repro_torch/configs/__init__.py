@@ -1,11 +1,11 @@
 """Architecture registry of the port: ``--arch <id>`` -> the model's
-config (``TransformerConfig`` or ``DLRMConfig``).
+config (``TransformerConfig``, ``GNNConfig`` or ``DLRMConfig``).
 
-The LM configurations and dlrm-mlperf are ported; the other
-families of the reference's registry raise ``NotImplementedError`` naming
-the ROADMAP item that brings them.  The reference's ``ArchSpec`` and its
-mesh cells come with the dry-run and multi-device items; dlrm-mlperf's
-serving cells are ``configs.dlrm_mlperf.CELLS``.
+The LM, GNN and DLRM configurations are ported; ``hytgraph`` raises
+``NotImplementedError`` naming the ROADMAP item that brings it.  The
+reference's ``ArchSpec`` and its mesh cells come with the training item;
+dlrm-mlperf's serving cells are ``configs.dlrm_mlperf.CELLS``, the GNNs'
+shape cells ``configs.common.gnn_cells``.
 """
 
 from __future__ import annotations
@@ -18,15 +18,15 @@ ARCHS = {
     "gemma3-12b": "repro_torch.configs.gemma3_12b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
+    "graphsage-reddit": "repro_torch.configs.graphsage_reddit",
+    "pna": "repro_torch.configs.pna",
+    "gatedgcn": "repro_torch.configs.gatedgcn",
+    "meshgraphnet": "repro_torch.configs.meshgraphnet",
     "dlrm-mlperf": "repro_torch.configs.dlrm_mlperf",
 }
 
 NOT_PORTED = {
-    "graphsage-reddit": "item 16: GNN side",
-    "pna": "item 16: GNN side",
-    "gatedgcn": "item 16: GNN side",
-    "meshgraphnet": "item 16: GNN side",
-    "hytgraph": "item 12: benchmark twins",
+    "hytgraph": "item 12: the hytgraph workload config",
 }
 
 

@@ -3,7 +3,7 @@
 The reference's arrays come in as numpy (``np.asarray`` of a jax array)
 and leave as numpy, so this module imports neither jax nor ``repro``.  The
 tests use it to feed both packages the same graph and warm state, and the
-same LM and DLRM weights.
+same LM, DLRM and GNN weights.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from repro_torch.core.partition import DevicePartitions
 from repro_torch.graph.csr import CSRGraph, DeviceCSR
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.dlrm import DLRM, DLRMConfig
+from repro_torch.models.gnn import ARCHITECTURES, GNN, GNNConfig
 from repro_torch.models.moe import shard_moe_params
 from repro_torch.models.transformer import Transformer, TransformerConfig, model_shards
 
@@ -171,4 +172,37 @@ def dlrm_params(np_tree: dict, cfg: DLRMConfig,
                              f"{len(params)}")
         for param, a in zip(params, tree):
             _put("dlrm_params", param, a)
+    return model
+
+
+def _put_tree(node, tree, path: str) -> None:
+    """Copy the reference's (sub)tree into a module built from the same
+    layout, checking every key set, list length and shape."""
+    if isinstance(node, torch.Tensor):
+        _put(f"gnn_params: {path}", node, tree)
+    elif isinstance(node, (torch.nn.ModuleList, torch.nn.ParameterList)):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(node):
+            got = len(tree) if isinstance(tree, (list, tuple)) else type(tree).__name__
+            raise ValueError(f"gnn_params: {got} entries in {path}, config has {len(node)}")
+        for i, (item, sub) in enumerate(zip(node, tree)):
+            _put_tree(item, sub, f"{path}[{i}]")
+    else:
+        names = [k for k, _ in node.named_children()]
+        names += [k for k, _ in node.named_parameters(recurse=False)]
+        if not isinstance(tree, dict) or set(tree) != set(names):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+            raise ValueError(f"gnn_params: {path or 'the tree'} holds {got}, expected "
+                             f"{sorted(names)}")
+        for name in names:
+            _put_tree(getattr(node, name), tree[name], f"{path}.{name}" if path else name)
+
+
+@torch.no_grad()
+def gnn_params(np_tree: dict, cfg: GNNConfig,
+               device: str | torch.device | None = None) -> GNN:
+    """The architecture of ``cfg`` holding the reference's parameter tree
+    (numpy arrays, as ``repro.models.gnn.init_gnn`` lays it out; PNA's
+    scalar ``avg_log_deg`` included)."""
+    model = ARCHITECTURES[cfg.arch](cfg, resolve_device(device))
+    _put_tree(model, np_tree, "")
     return model

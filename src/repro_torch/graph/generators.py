@@ -3,8 +3,10 @@
 ``rmat_graph`` follows Chakrabarti et al. [arXiv:cs/0412052 / SIAM'04] with
 the canonical (a,b,c,d) = (0.57, 0.19, 0.19, 0.05) power-law parameters the
 paper's RMAT ladder uses (paper §VII-F).  ``grid_mesh_graph`` builds the
-MeshGraphNet-style simulation mesh.  The arrays equal ``repro``'s at the
-same seed (same numpy calls in the same order).
+MeshGraphNet-style simulation mesh; ``batched_molecule_graphs`` builds the
+`molecule` shape cell (128 graphs x 30 nodes x 64 bonds, 128 arcs).  The
+arrays equal ``repro``'s at the same seed (same numpy calls in the same
+order).
 """
 
 from __future__ import annotations
@@ -72,3 +74,30 @@ def grid_mesh_graph(height: int, width: int, seed: int = 0) -> CSRGraph:
     rng = np.random.default_rng(seed)
     w = rng.random(len(s)).astype(np.float32) + 0.5
     return csr_from_edges(height * width, s, d, w)
+
+
+def batched_molecule_graphs(
+    n_graphs: int, n_nodes: int = 30, n_edges: int = 64, seed: int = 0
+) -> CSRGraph:
+    """A batch of small molecule-like graphs packed into one block-diagonal
+    CSR (standard batched-small-graph layout; segment ids recover graphs).
+    ``n_edges`` counts arcs: ``n_edges // 2`` bonds a graph, each both ways."""
+    rng = np.random.default_rng(seed)
+    srcs, dsts = [], []
+    for gidx in range(n_graphs):
+        base = gidx * n_nodes
+        # a spanning path guarantees connectivity, rest random (bond-like)
+        path_s = np.arange(n_nodes - 1)
+        path_d = np.arange(1, n_nodes)
+        extra = n_edges // 2 - (n_nodes - 1)
+        rs = rng.integers(0, n_nodes, size=max(extra, 0))
+        rd = rng.integers(0, n_nodes, size=max(extra, 0))
+        s = np.concatenate([path_s, rs])
+        d = np.concatenate([path_d, rd])
+        # undirected
+        srcs.append(base + np.concatenate([s, d]))
+        dsts.append(base + np.concatenate([d, s]))
+    src = np.concatenate(srcs)
+    dst = np.concatenate(dsts)
+    w = rng.random(len(src)).astype(np.float32)
+    return csr_from_edges(n_graphs * n_nodes, src, dst, w)

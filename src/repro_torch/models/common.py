@@ -1,9 +1,10 @@
-"""Shared building blocks: RMS norm, RoPE, SwiGLU, the initializers and the
-biased MLP of the DLRM heads (port of ``repro.models.common``).
+"""Shared building blocks: RMS and layer norm, RoPE, SwiGLU, the
+initializers and the biased MLP of the DLRM and GNN heads (port of
+``repro.models.common``).
 
-The arithmetic follows the reference where the two could part: the norm
-runs in float32 and scales by ``1 + scale``; RoPE rotates interleaved
-(even, odd) pairs by float32 angles of the integer positions.
+The arithmetic follows the reference where the two could part: both norms
+run in float32 (the RMS norm scales by ``1 + scale``); RoPE rotates
+interleaved (even, odd) pairs by float32 angles of the integer positions.
 """
 
 from __future__ import annotations
@@ -18,6 +19,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """``(x - mu) * rsqrt(var + eps) * scale + bias`` over the last axis in
+    float32 (float64 stays float64), cast back to x's dtype."""
+    dtype = x.dtype
+    x = x.to(torch.promote_types(dtype, torch.float32))
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps) * scale + bias
     return out.to(dtype)
 
 
@@ -44,8 +57,9 @@ def embed_init(generator: torch.Generator, vocab: int, d: int,
 
 def mlp_init(generator: torch.Generator, dims: list[int],
              dtype: torch.dtype = torch.float32) -> dict:
-    """Simple biased MLP used by the DLRM towers: ``{"w": [(d_i, d_i+1)],
-    "b": [(d_i+1,)]}``, weights as ``dense_init``, biases 0."""
+    """Simple biased MLP used by the DLRM towers and the GNN heads:
+    ``{"w": [(d_i, d_i+1)], "b": [(d_i+1,)]}``, weights as ``dense_init``,
+    biases 0."""
     return {
         "w": [dense_init(generator, dims[i], dims[i + 1], dtype) for i in range(len(dims) - 1)],
         "b": [torch.zeros(dims[i + 1], dtype=dtype, device=generator.device)

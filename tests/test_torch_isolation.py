@@ -70,17 +70,24 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.autotune import default_device_kind, default_grid, wall_probe
     from repro_torch.launch import calibrate, serve
     from repro_torch.models.transformer import init_cache, init_transformer
+    from repro_torch.models.gnn import init_gnn
+    from repro_torch.graph.sampler import sample_neighbors_device
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry points run on it")
     g = uniform_graph(40, 200, seed=0)
     lm = reduce_lm_config(get_arch("gemma3-12b"))
+    sage = get_arch("graphsage-reddit").replace(d_in=8, d_hidden=16)
+    csr = (torch.from_numpy(g.indptr), torch.from_numpy(g.indices))
+    seeds = torch.arange(4)
     for call in (lambda: run_hytm(g, SSSP),
                  lambda: build_runtime(g, HyTMConfig()),
                  lambda: to_device_csr(g),
                  lambda: init_state(SSSP, 40, 0),
                  lambda: init_transformer(lm, torch.Generator()),
                  lambda: init_cache(lm, 1, 8),
+                 lambda: init_gnn(sage, torch.Generator()),
+                 lambda: sample_neighbors_device(torch.Generator(), *csr, seeds, (3, 2)),
                  lambda: serve.main(["--arch", "gemma3-12b", "--reduced"]),
                  lambda: wall_probe(default_grid()[:1]),
                  lambda: default_device_kind(),
@@ -90,6 +97,9 @@ def test_entry_points_raise_without_a_card():
     # an explicit CPU request runs
     assert run_hytm(g, SSSP, device="cpu").iterations >= 1
     assert init_transformer(lm, torch.Generator(), device="cpu").embed.device.type == "cpu"
+    assert init_gnn(sage, torch.Generator(), device="cpu").out.device.type == "cpu"
+    hops = sample_neighbors_device(torch.Generator(), *csr, seeds, (3, 2), device="cpu")
+    assert [h.shape[0] for h in hops] == [4, 12, 24]
 
 
 def test_chip_smoke_fails_without_the_program_or_a_card(tmp_path):
