@@ -42,7 +42,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
    its engines (the hybrid SSSP legs all three, Δ-PageRank ``segment_spmm``
    with its sum combine, each forced leg its own engine's kernel and no
    other), and the plain legs none.  Then SSSP (K=8) and Δ-PageRank run in
-   turns (plain, kernels, kernels, plain, twice): their median wall
+   turns (plain, kernels, kernels, plain, once): their median wall
    seconds.  Only then, after every host timing of the graph, does the
    profiler run (``torch.profiler``): phase 2's graph rows' device time a
    launch, by kernel, and their host time a call again, to show what the
@@ -98,11 +98,11 @@ Phases, in order; any failure exits nonzero and prints no result line:
    ``launch.calibrate`` selfcheck on the card and its CLI in wall mode
    into a temporary registry; the fitted profile saved under the card's
    device kind and reloaded equal; SSSP (K=8) and Δ-PageRank under the
-   calibrated profile against ``PCIE3`` in turns (4 rounds; SSSP
+   calibrated profile against ``PCIE3`` in turns (1 round; SSSP
    bit-equal, Δ-PageRank within phase 4's bound).  12b: a traced SSSP on
    both drivers (``reconcile`` exact, values bit-equal to untraced, every
    host sync equal traced and untraced, site by site, the traced/untraced wall
-   in turns, 4 rounds), a traced ``GraphService`` answering 8 SSSP
+   in turns, 2 rounds), a traced ``GraphService`` answering 8 SSSP
    queries through 8 lanes (the Chrome trace valid, with the scheduler,
    cache and tenant tracks; ``serve.requests`` totals the queries; written
    under ``build/``), and ``launch.serve_graph`` at its defaults with
@@ -115,7 +115,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
    alone (schema 2, the crc table) and held to the state copied from the
    card at that boundary; its bytes and the save, restore and resume
    times.  Δ-PageRank (K=8) killed at chunk 1 and resumed, within phase 4's
-   bound.  Hooked against unhooked SSSP in turns (5 rounds), and the
+   bound.  Hooked against unhooked SSSP in turns (3 rounds), and the
    hook's one host sync a checkpoint.  The
    degradation ladder: ``run_supervised`` with ``use_kernels="auto"`` and
    faults at chunk 2 while the kernels run degrades once
@@ -152,7 +152,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
    killed at chunk 2 on both ranks and resumed bit-equal, rank 0 alone
    writing the owner checkpoint.  Every leg launches the kernels of the
    engines its rank picked and no other.  Wall seconds in turns of the
-   single-device sync run and both layouts (3 rounds; at D = 2 Δ-PageRank
+   single-device sync run and both layouts (1 round; at D = 2 Δ-PageRank
    1), the collectives' device ms an iteration (CUDA events; gloo stages
    them through the host), host syncs a dispatch, each rank's peak
    allocated memory in each layout and the owner state triple's bytes
@@ -174,7 +174,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
    values and iterations, the repeat all cache hits, one update and an
    incremental re-query bit-equal, k-core down the global path, the owner
    service's ``lane_bytes`` 9 n_loc, an owner budget that spills and then
-   promotes bit-equal, and queries/s in turns (2 rounds) with host syncs a
+   promotes bit-equal, and queries/s in turns (1 round) with host syncs a
    chunk.  Leg (g): two gloo ranks on the one card, the owner layout at 63
    partitions (a padding partition: the CUDA ``segment_reduce`` of an
    empty segment runs in the warm Δ-PageRank's plan): one batch, warm SSSP
@@ -228,6 +228,30 @@ Phases, in order; any failure exits nonzero and prints no result line:
    memory beside the least time the card could take (the reference's
    forward flops at 67 TF/s against the per-edge gathers and scatters at
    3.35 TB/s), and the phase's seconds;
+18. (right after phase 17, before the DLRM phase; everything it allocates
+   is freed before that phase) training on one device, through
+   ``repro_torch.train`` on the plain routes (no kernel has a backward, and
+   each training leg must launch none of the six).  Leg (a):
+   internlm2-1.8b at full width and depth (float32 parameters, bf16
+   activations, remat, its AdamW ``OPT`` with warmup cut to 2 steps),
+   ``LMBatches`` of 4 x 1025 tokens, 2 microbatches: the first batch's
+   microbatched gradients against the unsplit batch's (each leaf within
+   ``TRAIN_MB_TOL`` of its largest), then 8 steps through
+   ``make_train_step``: seconds a step, tokens/s, 6*N*tokens against 989
+   TF/s, ``apply_updates``' ms (CUDA events), the losses (falling) and
+   grad norms, peak memory.  Leg (b): internlm2-1.8b at 2 layers in
+   float32: the loss and every gradient against a float64 copy on the CPU,
+   and one AdamW and one Adafactor update on the card against the CPU in
+   float32.  Leg (c): deepseek-v2-lite-16b at 2 layers (a dense and a MoE
+   layer) in float32, 3 steps, the aux loss.  Leg (d): the four GNN
+   configs on ``full_graph_sm`` and ``molecule``, gradients against
+   float64 copies, then the ``torch_train_gnn`` twin (40 steps, a fault at
+   20).  Leg (e): the reduced dlrm-mlperf against float64, then 20 steps on
+   Zipf ``RecSysBatches``.  Leg (f): the ``torch_train_lm`` twin's MoE with
+   int8 compression, 40 steps with checkpoints every 10 and a fault at 20
+   against none, under deterministic algorithms: bit-equal; the async save
+   and restore times.  Leg (g): the ``torch_quickstart`` twin's SSSP and
+   Δ-PageRank on the card, and ``torch_serve_lm`` at its defaults;
 6. LM serving: the reduced gemma3-12b config on the card against the CPU
    (float32, logits within 1e-4, greedy tokens equal), then gemma3-12b at
    full width (11.8B parameters in bf16, random weights from the seed):
@@ -295,6 +319,7 @@ network; the kernels build from the sources under ``src/repro_torch`` into
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -1183,7 +1208,7 @@ def same_min_run(a, b) -> bool:
             and bool((eng[:, P:] == -1).all()))
 
 
-TURN_ROUNDS = 2   # rounds of (plain, kernels, kernels, plain) whole runs
+TURN_ROUNDS = 1   # rounds of (plain, kernels, kernels, plain) whole runs
 # the kernels each leg must launch; every leg but Δ-PageRank launches no other
 ALL_KERNELS = ("segment_spmm", "frontier_compact", "hyb_gather")
 LEG_KERNELS = {
@@ -2112,8 +2137,8 @@ def phase_serve(torch, cfg, hs, rt, smi: str) -> dict:
 
 PROBE_MAX_EDGES = 4_300_000   # a scale-22 partition holds about 1.05M edges
 PROBE_REPEATS = 3
-CALIB_ROUNDS = 4              # rounds of (pcie3, calibrated, calibrated, pcie3)
-OBS_ROUNDS = 4                # rounds of (untraced, traced, traced, untraced)
+CALIB_ROUNDS = 1              # rounds of (pcie3, calibrated, calibrated, pcie3)
+OBS_ROUNDS = 2                # rounds of (untraced, traced, traced, untraced)
 OBS_LANES = 8
 
 
@@ -2431,7 +2456,7 @@ def phase_calibrate(torch, cfg, hs, rt, source: int, smi: str) -> tuple[dict, di
 # Phase 13: resilience (fault plane, checkpoint/resume, supervisor, chaos)
 # ---------------------------------------------------------------------------
 
-CKPT_ROUNDS = 5       # rounds of (unhooked, hooked, hooked, unhooked) SSSP runs
+CKPT_ROUNDS = 3       # rounds of (unhooked, hooked, hooked, unhooked) SSSP runs
 CHAOS_QUERIES = 8     # a trace's queries before and after its update batch
 CHAOS_TIERS = {"gold": 2, "silver": 1, "bronze": 0}
 CHAOS_OPS = dict(n_insert=12, n_delete=12)   # the chaos trace's update batch
@@ -2790,7 +2815,7 @@ def phase_resilience(torch, cfg, hs, rt, source: int, main_runs: dict, smi: str)
 # Phase 14: the sharded sweep (dist.graph_shard, replicated and owner layouts)
 # ---------------------------------------------------------------------------
 
-SHARD_TURNS = 3       # rounds of (single-device sync, replicated, owner) runs, alternating
+SHARD_TURNS = 1       # rounds of (single-device sync, replicated, owner) runs, alternating
 # leg (b)'s Δ-PageRank: one round; each of its sharded runs stages 568 16-MB
 # all_reduces through the host (about 10-15 s a run on the card)
 GLOO_PAGERANK_TURNS = 1
@@ -3088,7 +3113,7 @@ def phase_sharded(torch, cfg, hs, rt, source: int, smi: str) -> dict:
     0 alone writing an owner checkpoint with the real ``n_nodes``.
     Each leg's launches: the kernels of the engines it picked, and no
     other.  Wall seconds in turns of the single-device sync run, the
-    replicated and the owner layout (3 rounds; at D = 2 Δ-PageRank 1), the
+    replicated and the owner layout (1 round; at D = 2 Δ-PageRank 1), the
     collectives' device ms an iteration (CUDA events; gloo stages them
     through the host), host syncs a dispatch, each rank's peak allocated
     memory in each layout, and the owner state triple's bytes against
@@ -3341,7 +3366,7 @@ def phase_sharded(torch, cfg, hs, rt, source: int, smi: str) -> dict:
 MESH_LAYOUTS = ("replicated", "owner")
 MESH_SERVE_LANES = 8
 MESH_SERVE_QUERIES = 16
-MESH_TURN_ROUNDS = 2   # rounds of (single-device sync, replicated, owner) services, alternating
+MESH_TURN_ROUNDS = 1   # rounds of (single-device sync, replicated, owner) services, alternating
 G_PARTITIONS = 63      # leg (g): P_pad 64 at D = 2, so one padding partition
 G_LANES, G_QUERIES = 4, 8
 
@@ -5167,6 +5192,627 @@ def phase_gnn(torch, dev, seed: int, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 18: training on one device
+# ---------------------------------------------------------------------------
+
+TRAIN_LM_STEPS = 8           # leg (a): internlm2-1.8b steps
+TRAIN_LM_BATCH = 4
+TRAIN_LM_SEQ = 1025          # 1024 next-token positions a sequence
+TRAIN_LM_MICROBATCHES = 2    # internlm2-1.8b's reference ARCH accumulates 2
+TRAIN_LM_WARMUP = 2          # its OPT warms up over 2000 steps: cut to fit 8
+TRAIN_MB_TOL = 2e-2          # microbatched vs full-batch gradients, of each leaf's largest (bf16)
+TRAIN_F64_LAYERS = 2         # leg (b): internlm2-1.8b's depth cut to 2 layers, float32
+TRAIN_F64_BATCH, TRAIN_F64_SEQ = 2, 129
+TRAIN_F64_LOSS_TOL = 1e-5    # relative, card float32 vs CPU float64
+TRAIN_F64_GRAD_TOL = 1e-3    # of each leaf's largest |grad| (phase 17's convention)
+# Leg (d)'s gradient tolerances against float64, of each leaf's largest:
+# phase 17's 1e-3 where float32 holds it.  PNA's max and min send each
+# destination's gradient to its largest or smallest message; where two
+# messages lie within float32 rounding of each other the float32 run and
+# the float64 copy may pick different ones, and that message's whole share
+# moves.  MeshGraphNet's first encoder weight takes its gradient through 15
+# residual layers with layer norms and a sum over every vertex of 1,433
+# features; the reference's own float32 gradients miss float64 by more
+# than 1e-3 there too.
+TRAIN_GNN_GRAD_TOL = {"graphsage-reddit": 1e-3, "pna": 5e-2, "gatedgcn": 1e-3,
+                      "meshgraphnet": 2e-2}
+TRAIN_UPDATE_TOL = 1e-6      # one optimizer update, card vs CPU in float32, of each leaf's largest
+TRAIN_UPDATE_STEP = 5        # the step the update is applied at (the schedule is 0 at step 0)
+TRAIN_MOE_LAYERS = 2         # leg (c): deepseek-v2-lite's dense layer and one MoE layer
+TRAIN_MOE_STEPS = 3
+TRAIN_MOE_BATCH, TRAIN_MOE_SEQ = 2, 513
+TRAIN_GNN_STEPS = 40         # leg (d): the torch_train_gnn twin, a fault at step 20
+TRAIN_GNN_GRAPH = (50_000, 1_000_000)   # the twin's default RMAT graph
+TRAIN_DLRM_BATCH = 2048      # leg (e): reduced dlrm-mlperf on RecSysBatches
+TRAIN_DLRM_STEPS = 20
+TRAIN_FAULT_STEPS = 40       # leg (f): the torch_train_lm twin, checkpoints every 10
+TRAIN_FAULT_AT = 20
+TRAIN_CKPT_EVERY = 10
+# leg (g): Δ-PageRank's max error against the numpy PageRank; the reference
+# quickstart's own on this graph is 8.17e-3 (``examples/quickstart.py``,
+# tolerance 1e-5 on the Δ mass, 55 iterations)
+QUICKSTART_PR_TOL = 1e-2
+QUICKSTART_GRAPH = (50_000, 800_000)    # the quickstart's RMAT graph
+TRAIN_LEGS = ("a", "b", "c", "d", "e", "f")   # the legs that train: no kernel may launch
+
+
+def example_module(name: str):
+    """``examples/<name>.py`` imported as a module (its ``main`` not run)."""
+    import importlib.util
+
+    path = ROOT / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def leaf_errs(torch, leaves, got: dict, want: dict) -> tuple[float, str]:
+    """The worst leaf's max |got - want| over its largest |want| (in float64
+    on ``want``'s device), and its name; a leaf is the reference's
+    (``param_leaves``)."""
+    worst, where = 0.0, ""
+    for lf in leaves:
+        err = big = 0.0
+        for m in lf.members:
+            w = want[m].detach().double()
+            g = got[m].detach().to(device=w.device, dtype=torch.float64)
+            err = max(err, float((g - w).abs().max()))
+            big = max(big, float(w.abs().max()))
+        e = err / max(big, 1e-30)
+        if e > worst:
+            worst, where = e, lf.name
+    return worst, where
+
+
+def state_tensors(tree) -> list:
+    """The tensors of an optimizer state, in order."""
+    if isinstance(tree, dict):
+        return [t for k in tree for t in state_tensors(tree[k])]
+    return [tree]
+
+
+def rel_state_err(a, b) -> float:
+    """max |a - b| over max |b| (float64 on the CPU)."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(torch):
+    """``torch.use_deterministic_algorithms(True)`` (warning where an op has
+    no deterministic form, the warnings recorded) with cuBLAS's workspace
+    set for it; everything restored on exit."""
+    prior = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(prior[0], warn_only=prior[1])
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+
+
+def train_leg_lm(torch, dev, seed: int, smi: str) -> dict:
+    """Leg (a): internlm2-1.8b at full width and depth, float32 parameters,
+    bf16 activations, remat, AdamW: the microbatched gradients of the first
+    batch against the unsplit batch's, then ``TRAIN_LM_STEPS`` steps
+    through ``make_train_step`` with ``apply_updates`` timed apart."""
+    from repro_torch.configs.internlm2_1p8b import CONFIG, OPT
+    from repro_torch.data.pipeline import LMBatches
+    from repro_torch.models.transformer import init_transformer, lm_loss
+    from repro_torch.train import train_step as ts
+
+    cfg = CONFIG.replace(param_dtype="float32", dtype="bfloat16", remat=True)
+    opt = OPT.replace(warmup_steps=TRAIN_LM_WARMUP, total_steps=TRAIN_LM_STEPS)
+    log(f"train (a): {cfg.name} at full width and depth ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}), float32 parameters, bf16 activations, remat; its "
+        f"OPT ({OPT.name}, lr {OPT.learning_rate:g}) with warmup_steps {OPT.warmup_steps} -> "
+        f"{opt.warmup_steps} and total_steps {OPT.total_steps} -> {opt.total_steps}; "
+        f"microbatches {TRAIN_LM_MICROBATCHES}; LMBatches(vocab={cfg.vocab}, "
+        f"batch={TRAIN_LM_BATCH}, seq_len={TRAIN_LM_SEQ}, seed={seed})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.monotonic()
+    model = init_transformer(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    state = ts.init_train_state(model, opt, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t
+    n_params = sum(p.numel() for p in model.parameters())
+    pipe = LMBatches(vocab=cfg.vocab, batch=TRAIN_LM_BATCH, seq_len=TRAIN_LM_SEQ, seed=seed)
+    batches = [torch.from_numpy(pipe.make(s)["tokens"]).to(dev) for s in range(TRAIN_LM_STEPS)]
+    tokens = TRAIN_LM_BATCH * (TRAIN_LM_SEQ - 1)
+
+    def loss_fn(m, b):
+        return lm_loss(m, b)
+
+    reset_launch_counts()
+    loss_mb, g_mb = ts.value_and_grads(loss_fn, model, batches[0], TRAIN_LM_MICROBATCHES)
+    loss_full, g_full = ts.value_and_grads(loss_fn, model, batches[0], 1)
+    mb_err, mb_leaf = leaf_errs(torch, state.leaves, g_mb, g_full)
+    del g_mb, g_full
+    check(mb_err <= TRAIN_MB_TOL,
+          f"train (a): microbatched vs full-batch gradients differ by {mb_err:.3e} of leaf "
+          f"{mb_leaf}'s largest (tolerance {TRAIN_MB_TOL:g})")
+
+    step_fn = ts.make_train_step(loss_fn, opt, microbatches=TRAIN_LM_MICROBATCHES)
+    events = []
+    real = ts.apply_updates
+
+    def timed_updates(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    secs, losses, norms = [], [], []
+    ts.apply_updates = timed_updates
+    try:
+        for b in batches:
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            state, m = step_fn(state, b)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            secs.append(time.monotonic() - t)
+    finally:
+        ts.apply_updates = real
+    with torch.no_grad():
+        # each step's loss is on its own batch, and LMBatches' batches differ
+        # by more than a few steps move the loss (half of a row's tokens are
+        # one drawn token): the first batch again, after the last step
+        after = float(lm_loss(model, batches[0]))
+    launches = read_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    upd_ms = [s.elapsed_time(e) for s, e in events]
+    check(launches == counts_zero(), f"train (a): launched {launches}")
+    check(all(math.isfinite(v) for v in losses + norms + [after]),
+          f"train (a): a loss or grad norm is not finite: {losses} {norms} {after}")
+    check(after < losses[0], f"train (a): the first batch's loss did not fall: {losses[0]} -> "
+          f"{after} (the steps' losses {losses})")
+    step_s = float(np.median(secs[1:]))
+    upd = float(np.median(upd_ms[1:]))
+    flops = 6.0 * n_params * tokens
+    mfu = flops / step_s / PEAK_FLOPS["bfloat16"]
+    log(f"train (a): {n_params:,} parameters ({n_params * 4 / 1e9:.2f} GB float32; with "
+        f"gradients and AdamW's two moments {n_params * 16 / 1e9:.2f} GB), built in "
+        f"{init_s:.2f} s; microbatched vs full-batch gradients (loss {float(loss_mb):.6f} vs "
+        f"{float(loss_full):.6f}) within {mb_err:.3e} of leaf {mb_leaf}'s largest (tolerance "
+        f"{TRAIN_MB_TOL:g}); {TRAIN_LM_STEPS} steps: {step_s:.4f} s a step (median of steps "
+        f"2-{TRAIN_LM_STEPS}; each {[round(s, 4) for s in secs]}), {tokens / step_s:,.0f} "
+        f"tokens/s, 6*N*tokens with N = {n_params:,} (every parameter, the tied embedding "
+        f"included) = {flops / 1e12:.2f} TFLOP a step: {mfu:.2%} of 989 TF/s; apply_updates "
+        f"{upd:.2f} ms (median, CUDA events; each {[round(x, 2) for x in upd_ms]}); the "
+        f"steps' losses {[round(x, 4) for x in losses]}, the first batch's {losses[0]:.4f} -> "
+        f"{after:.4f} after the last step, grad_norm "
+        f"{norms[0]:.4f} -> {norms[-1]:.4f}; peak allocated {peak / 1e9:.2f} GB; no kernel "
+        f"launched [{smi}]")
+    del state, model, batches, step_fn
+    return {"n_params": n_params, "step_s": step_s, "step_secs": secs,
+            "tokens_per_s": tokens / step_s, "mfu_989": mfu, "apply_updates_ms": upd,
+            "apply_updates_all_ms": upd_ms, "losses": losses, "first_after": after,
+            "grad_norms": norms,
+            "microbatch_err": mb_err, "peak_gb": peak / 1e9, "init_s": init_s,
+            "launches": launches}
+
+
+def train_leg_f64(torch, dev, seed: int, smi: str) -> dict:
+    """Leg (b): internlm2-1.8b at full width, depth cut to 2 layers, float32:
+    the loss and every gradient on the card against a float64 copy on the
+    CPU; one AdamW and one Adafactor update of the card's gradients on the
+    card against the same update on the CPU in float32."""
+    from repro_torch.configs.internlm2_1p8b import CONFIG, OPT
+    from repro_torch.data.pipeline import LMBatches
+    from repro_torch.models.transformer import init_transformer, lm_loss
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as ts
+
+    cfg = CONFIG.replace(n_layers=TRAIN_F64_LAYERS, dtype="float32", param_dtype="float32")
+    model = init_transformer(cfg, torch.Generator(device=dev).manual_seed(seed + 1), dev)
+    for p in model.parameters():
+        p.requires_grad_(True)
+    leaves = ts.param_leaves(model)
+    tokens = torch.from_numpy(LMBatches(vocab=cfg.vocab, batch=TRAIN_F64_BATCH,
+                                        seq_len=TRAIN_F64_SEQ, seed=seed).make(0)["tokens"])
+    reset_launch_counts()
+    loss, grads = ts.value_and_grads(lambda m, b: lm_loss(m, b), model, tokens.to(dev))
+    launches = read_launch_counts()
+    check(launches == counts_zero(), f"train (b): launched {launches}")
+    t = time.monotonic()
+    with HostHeap():
+        m64 = copy.deepcopy(model).to(device="cpu", dtype=torch.float64)
+        m64.cfg = cfg.replace(dtype="float64", param_dtype="float64")
+        loss64, g64 = ts.value_and_grads(lambda m, b: lm_loss(m, b), m64, tokens)
+        del m64
+    cpu_s = time.monotonic() - t
+    loss_err = abs(float(loss) - float(loss64)) / abs(float(loss64))
+    grad_err, grad_leaf = leaf_errs(torch, leaves, grads, g64)
+    del g64
+    check(loss_err <= TRAIN_F64_LOSS_TOL and grad_err <= TRAIN_F64_GRAD_TOL,
+          f"train (b): card vs float64 CPU: loss {loss_err:.3e} (tolerance "
+          f"{TRAIN_F64_LOSS_TOL:g}), gradients {grad_err:.3e} of leaf {grad_leaf}'s largest "
+          f"(tolerance {TRAIN_F64_GRAD_TOL:g})")
+    updates = {}
+    for name in ("adamw", "adafactor"):
+        # warmup cut to 1 step, so that the update at TRAIN_UPDATE_STEP is at
+        # about the full learning rate and moves each weight well past 1e-6 of
+        # its leaf's largest
+        oc = OPT.replace(name=name, warmup_steps=1)
+        p_card = {n: p.detach().clone() for n, p in model.named_parameters()}
+        p_cpu = {n: p.cpu() for n, p in p_card.items()}
+        g_cpu = {n: g.cpu() for n, g in grads.items()}
+        s_card = topt.init_opt_state(oc, p_card, leaves)
+        s_cpu = topt.init_opt_state(oc, p_cpu, leaves)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        topt.apply_updates(oc, p_card, grads, s_card, TRAIN_UPDATE_STEP, leaves)
+        end.record()
+        end.synchronize()
+        t = time.monotonic()
+        topt.apply_updates(oc, p_cpu, g_cpu, s_cpu, TRAIN_UPDATE_STEP, leaves)
+        err, leaf = leaf_errs(torch, leaves, p_card, p_cpu)
+        state_err = max(rel_state_err(a, b) for a, b in zip(state_tensors(s_card),
+                                                            state_tensors(s_cpu)))
+        # the least any leaf moved, over that leaf's largest weight after the update
+        old = {n: p.detach() for n, p in model.named_parameters()}
+        moved = min(leaf_errs(torch, [lf], p_card, old)[0] for lf in leaves)
+        check(err <= TRAIN_UPDATE_TOL and state_err <= TRAIN_UPDATE_TOL
+              and moved >= 10 * TRAIN_UPDATE_TOL,
+              f"train (b): {name} update, card vs CPU float32: parameters {err:.3e} of leaf "
+              f"{leaf}'s largest, state {state_err:.3e} (tolerance {TRAIN_UPDATE_TOL:g}); the "
+              f"least-moved leaf moved {moved:.3e} of its largest")
+        updates[name] = {"err": err, "state_err": state_err, "card_ms": start.elapsed_time(end),
+                         "cpu_s": time.monotonic() - t, "least_move": moved}
+        del p_card, p_cpu, g_cpu, s_card, s_cpu
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"train (b): {cfg.name} at full width, {cfg.n_layers} layers, float32 ({n_params:,} "
+        f"parameters), B = {TRAIN_F64_BATCH}, S = {TRAIN_F64_SEQ - 1}: loss {float(loss):.6f} vs "
+        f"float64 {float(loss64):.6f} ({loss_err:.2e} relative, tolerance "
+        f"{TRAIN_F64_LOSS_TOL:g}); every gradient leaf within {grad_err:.2e} of its largest "
+        f"(worst {grad_leaf}; tolerance {TRAIN_F64_GRAD_TOL:g}); CPU float64 {cpu_s:.1f} s; "
+        + "; ".join(f"{k} update at step {TRAIN_UPDATE_STEP}: card {v['card_ms']:.2f} ms, CPU "
+                    f"{v['cpu_s']:.2f} s, card vs CPU float32: parameters {v['err']:.2e} of "
+                    f"each leaf's largest, state {v['state_err']:.2e} (tolerance "
+                    f"{TRAIN_UPDATE_TOL:g}), every leaf moved by at least "
+                    f"{v['least_move']:.2e} of its largest"
+                    for k, v in updates.items())
+        + f"; no kernel launched [{smi}]")
+    del model, grads
+    return {"loss": float(loss), "loss64": float(loss64), "loss_err": loss_err,
+            "grad_err": grad_err, "grad_leaf": grad_leaf, "updates": updates, "cpu_s": cpu_s,
+            "launches": launches}
+
+
+def train_leg_moe(torch, dev, seed: int, smi: str) -> dict:
+    """Leg (c): deepseek-v2-lite-16b at full width, depth cut to its dense
+    layer and one MoE layer, float32: ``TRAIN_MOE_STEPS`` AdamW steps
+    through the plain MoE route (no ``grouped_matmul``), the aux loss."""
+    from repro_torch.configs.deepseek_v2_lite_16b import CONFIG, OPT
+    from repro_torch.data.pipeline import LMBatches
+    from repro_torch.models.transformer import _train_hidden, init_transformer, lm_loss
+    from repro_torch.train import train_step as ts
+
+    cfg = CONFIG.replace(n_layers=TRAIN_MOE_LAYERS, dtype="float32", param_dtype="float32")
+    opt = OPT.replace(warmup_steps=1, total_steps=TRAIN_MOE_STEPS)
+    model = init_transformer(cfg, torch.Generator(device=dev).manual_seed(seed + 2), dev)
+    state = ts.init_train_state(model, opt, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    pipe = LMBatches(vocab=cfg.vocab, batch=TRAIN_MOE_BATCH, seq_len=TRAIN_MOE_SEQ, seed=seed)
+    step_fn = ts.make_train_step(lambda m, b: lm_loss(m, b), opt)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, secs = [], []
+    first = torch.from_numpy(pipe.make(0)["tokens"]).to(dev)
+    for s in range(TRAIN_MOE_STEPS):
+        b = torch.from_numpy(pipe.make(s)["tokens"]).to(dev)
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        state, m = step_fn(state, b)
+        losses.append(float(m["loss"]))
+        secs.append(time.monotonic() - t)
+    with torch.no_grad():
+        # the first batch again after the steps: its loss must have fallen
+        after = float(lm_loss(model, first))
+        _, aux = _train_hidden(model, b[:, :-1])
+    launches = read_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == counts_zero(), f"train (c): launched {launches}")
+    check(all(math.isfinite(v) for v in losses + [after, float(aux)]) and after < losses[0],
+          f"train (c): losses {losses}, the first batch's after the steps {after}: not finite "
+          "or not falling")
+    log(f"train (c): {cfg.name} at full width, {cfg.n_layers} layers (a dense layer and one "
+        f"MoE layer of {cfg.moe.n_experts} experts, top {cfg.moe.top_k}), float32, "
+        f"{n_params:,} parameters; OPT warmup_steps {OPT.warmup_steps} -> {opt.warmup_steps}, "
+        f"total_steps -> {opt.total_steps}; {TRAIN_MOE_STEPS} steps of {TRAIN_MOE_BATCH} x "
+        f"{TRAIN_MOE_SEQ - 1} tokens: loss {[round(x, 4) for x in losses]}, the first batch's "
+        f"loss after them {after:.4f}, aux "
+        f"{float(aux):.6f} after the last step, seconds a step {[round(x, 3) for x in secs]}, "
+        f"peak allocated {peak / 1e9:.2f} GB; grouped_matmul launched "
+        f"{launches['grouped_matmul']} times, no kernel launched [{smi}]")
+    del state, model, step_fn
+    return {"losses": losses, "first_after": after, "aux": float(aux), "step_secs": secs,
+            "peak_gb": peak / 1e9,
+            "n_params": n_params, "launches": launches}
+
+
+def train_leg_gnn(torch, dev, seed: int, smi: str) -> dict:
+    """Leg (d): the four GNN configs at full width and depth on
+    ``full_graph_sm`` and ``molecule``: the loss and every gradient on the
+    card against a float64 copy on the CPU; then the ``torch_train_gnn``
+    twin on the card, a fault at step ``TRAIN_FAULT_AT``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import gnn_cells
+    from repro_torch.graph.generators import batched_molecule_graphs, rmat_graph
+    from repro_torch.models.gnn import gnn_loss, init_gnn
+    from repro_torch.train import train_step as ts
+
+    gen = torch.Generator(device=dev)
+    cells = {name: gnn_cells(get_arch(name)) for name in GNN_ARCHS}
+    sm, mo = cells["pna"]["full_graph_sm"], cells["pna"]["molecule"]
+    graphs = {"full_graph_sm": (rmat_graph(sm["n_nodes"], sm["n_edges"], seed=seed), {}),
+              "molecule": (batched_molecule_graphs(mo["n_graphs"], 30, 128, seed=seed),
+                           {"graph_ids": torch.arange(mo["n_graphs"], device=dev)
+                            .repeat_interleave(30), "n_graphs": mo["n_graphs"]})}
+    rows = {}
+    reset_launch_counts()
+    for cell_name, (graph, extra) in graphs.items():
+        src = torch.from_numpy(graph.edge_sources()).to(dev)
+        dst = torch.from_numpy(graph.indices).to(dev)
+        for k, name in enumerate(GNN_ARCHS):
+            cell = cells[name][cell_name]
+            gen.manual_seed(seed + 200 + k)
+            model = init_gnn(cell["cfg"], gen, dev)
+            for p in model.parameters():
+                p.requires_grad_(True)
+            inp = gnn_inputs(torch, cell["cfg"], graph.n_nodes, graph.n_edges, gen, extra)
+            kw = {k2: inp.get(k2) for k2 in ("edge_feats", "graph_ids")}
+            kw["n_graphs"] = inp.get("n_graphs", 0)
+
+            def loss_fn(m, b, kw=kw):
+                return gnn_loss(m, None, b["feats"], b["src"], b["dst"], b["labels"], **kw)
+
+            batch = {"feats": inp["feats"], "src": src, "dst": dst, "labels": inp["labels"]}
+            loss, grads = ts.value_and_grads(loss_fn, model, batch)
+            with HostHeap():
+                m64 = copy.deepcopy(model).to(device="cpu", dtype=torch.float64)
+                kw64 = {k2: (to_host64(v) if isinstance(v, torch.Tensor) else v)
+                        for k2, v in kw.items()}
+                loss64, g64 = ts.value_and_grads(
+                    lambda m, b: gnn_loss(m, None, b["feats"], b["src"], b["dst"], b["labels"],
+                                          **kw64),
+                    m64, {k2: to_host64(v) for k2, v in batch.items()})
+                del m64
+            loss_err = abs(float(loss) - float(loss64)) / max(abs(float(loss64)), 1.0)
+            err, leaf = leaf_errs(torch, ts.param_leaves(model), grads, g64)
+            tol = TRAIN_GNN_GRAD_TOL[name]
+            check(loss_err <= GNN_LOSS_TOL and err <= tol,
+                  f"train (d): {name} {cell_name}: card vs float64 CPU, loss {loss_err:.3e} "
+                  f"(tolerance {GNN_LOSS_TOL:g}), gradients {err:.3e} of leaf {leaf}'s largest "
+                  f"(tolerance {tol:g})")
+            rows[f"{name} {cell_name}"] = {"loss": float(loss), "loss_err": loss_err,
+                                           "grad_err": err, "grad_leaf": leaf, "tol": tol}
+            del model, inp, grads, g64
+    launches_f64 = read_launch_counts()
+    t = time.monotonic()
+    twin = example_module("torch_train_gnn")
+    state, metrics, restarts = twin.train(*TRAIN_GNN_GRAPH, TRAIN_GNN_STEPS, dev,
+                                          ckpt_every=TRAIN_CKPT_EVERY,
+                                          fail_at=(TRAIN_FAULT_AT,))
+    twin_s = time.monotonic() - t
+    launches = read_launch_counts()
+    first = float(np.mean([m["loss"] for m in metrics[:10]]))
+    last = float(np.mean([m["loss"] for m in metrics[-10:]]))
+    check(launches == counts_zero(), f"train (d): launched {launches}")
+    check(restarts == 1 and state.step == TRAIN_GNN_STEPS and last < first,
+          f"train (d): the GraphSAGE twin: restarts {restarts}, step {state.step}, loss "
+          f"{first:.4f} -> {last:.4f}")
+    log("train (d): " + "; ".join(
+        f"{k}: loss {r['loss']:.6f}, vs float64 CPU loss {r['loss_err']:.2e}, gradients "
+        f"{r['grad_err']:.2e} (worst {r['grad_leaf']}; tolerance {r['tol']:g})"
+        for k, r in rows.items())
+        + f" (the loss's tolerance {GNN_LOSS_TOL:g}); the torch_train_gnn "
+        f"twin (GraphSAGE on its RMAT graph of {TRAIN_GNN_GRAPH[0]:,} vertices and "
+        f"{TRAIN_GNN_GRAPH[1]:,} arcs, {TRAIN_GNN_STEPS} steps, a fault at "
+        f"step {TRAIN_FAULT_AT}, checkpoints every {TRAIN_CKPT_EVERY}): restarts {restarts}, "
+        f"loss (mean of 10) {first:.4f} -> {last:.4f}, {twin_s:.1f} s; no kernel launched "
+        f"[{smi}]")
+    del state
+    return {"rows": rows, "twin": {"first": first, "last": last, "restarts": restarts,
+                                   "seconds": twin_s},
+            "launches": {k: launches[k] + launches_f64[k] for k in launches}}
+
+
+def train_leg_dlrm(torch, dev, seed: int, smi: str) -> dict:
+    """Leg (e): the reduced dlrm-mlperf: one step's loss and gradients on the
+    card against a float64 copy on the CPU (the plain bag), then
+    ``TRAIN_DLRM_STEPS`` AdamW steps on ``RecSysBatches`` with Zipf ids."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import reduce_dlrm_config
+    from repro_torch.configs.dlrm_mlperf import OPT
+    from repro_torch.data.pipeline import RecSysBatches
+    from repro_torch.models.dlrm import dlrm_loss, init_dlrm
+    from repro_torch.train import train_step as ts
+
+    cfg = reduce_dlrm_config(get_arch("dlrm-mlperf"))
+    opt = OPT.replace(warmup_steps=2, total_steps=TRAIN_DLRM_STEPS)
+    model = init_dlrm(cfg, torch.Generator(device=dev).manual_seed(seed + 3), dev)
+    state = ts.init_train_state(model, opt, device=dev)
+    pipe = RecSysBatches(vocab_sizes=cfg.vocab_sizes, batch=TRAIN_DLRM_BATCH,
+                         n_dense=cfg.n_dense, seed=seed)
+
+    def batch_of(s):
+        return {k: torch.from_numpy(v).to(dev) for k, v in pipe.make(s).items()}
+
+    def loss_fn(m, b):
+        return dlrm_loss(m, b["dense"], b["sparse"], b["labels"], use_kernels=False)
+
+    reset_launch_counts()
+    b0 = batch_of(0)
+    loss, grads = ts.value_and_grads(loss_fn, model, b0)
+    with HostHeap():
+        m64 = copy.deepcopy(model).to(device="cpu", dtype=torch.float64)
+        loss64, g64 = ts.value_and_grads(loss_fn, m64, {k: to_host64(v) for k, v in b0.items()})
+    loss_err = abs(float(loss) - float(loss64)) / max(abs(float(loss64)), 1.0)
+    err, leaf = leaf_errs(torch, state.leaves, grads, g64)
+    check(loss_err <= TRAIN_F64_LOSS_TOL and err <= TRAIN_F64_GRAD_TOL,
+          f"train (e): card vs float64 CPU, loss {loss_err:.3e}, gradients {err:.3e} of leaf "
+          f"{leaf}'s largest")
+    step_fn = ts.make_train_step(loss_fn, opt)
+    losses = []
+    for s in range(TRAIN_DLRM_STEPS):
+        state, m = step_fn(state, batch_of(s))
+        losses.append(float(m["loss"]))
+    with torch.no_grad():
+        after = float(loss_fn(model, b0))
+    launches = read_launch_counts()
+    check(launches == counts_zero(), f"train (e): launched {launches}")
+    check(all(math.isfinite(v) for v in losses + [after]) and after < losses[0],
+          f"train (e): losses {losses}, the first batch's after the steps {after}: not finite "
+          "or not falling")
+    log(f"train (e): reduced dlrm-mlperf (tables {cfg.vocab_sizes}, D {cfg.embed_dim}), "
+        f"B = {TRAIN_DLRM_BATCH}, Zipf ids: loss {float(loss):.6f} vs float64 "
+        f"{float(loss64):.6f} ({loss_err:.2e}), gradients within {err:.2e} of each leaf's "
+        f"largest (worst {leaf}); {TRAIN_DLRM_STEPS} steps: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, the first batch's {losses[0]:.4f} -> {after:.4f}; embedding_bag "
+        f"launched {launches['embedding_bag']} times, no kernel launched [{smi}]")
+    del state, model
+    return {"loss_err": loss_err, "grad_err": err, "losses": losses, "first_after": after,
+            "launches": launches}
+
+
+def train_leg_fault(torch, dev, seed: int, smi: str) -> dict:
+    """Leg (f): the ``torch_train_lm`` twin's MoE with int8 compression and
+    error feedback, ``TRAIN_FAULT_STEPS`` steps with checkpoints every
+    ``TRAIN_CKPT_EVERY`` and a fault at ``TRAIN_FAULT_AT``, against the
+    same run with no fault, both under deterministic algorithms: the final
+    parameters and error state bit-equal; then one async save and one
+    restore of the final state, timed."""
+    import tempfile
+
+    from repro_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.train.train_step import named_params
+
+    twin = example_module("torch_train_lm")
+    cfg = twin.lm_config()
+    runs = {}
+    reset_launch_counts()
+    with deterministic_algorithms(torch) as caught:
+        for name, fail_at in (("fault", (TRAIN_FAULT_AT,)), ("clean", ())):
+            t = time.monotonic()
+            state, metrics, restarts = twin.train(cfg, TRAIN_FAULT_STEPS, dev,
+                                                  ckpt_every=TRAIN_CKPT_EVERY, fail_at=fail_at)
+            torch.cuda.synchronize()
+            runs[name] = {"state": state, "restarts": restarts, "seconds": time.monotonic() - t,
+                          "first": metrics[0]["loss"], "last": metrics[-1]["loss"]}
+    launches = read_launch_counts()
+    nondet = sorted({str(w.message)[:120] for w in caught if "determinis" in str(w.message)})
+    a, b = runs["fault"]["state"], runs["clean"]["state"]
+    pa, pb = named_params(a.params), named_params(b.params)
+    same = (all(torch.equal(pa[n], pb[n]) for n in pa)
+            and all(torch.equal(a.error_state[k], b.error_state[k]) for k in a.error_state))
+    n_params = sum(p.numel() for p in pa.values())
+    check(launches == counts_zero(), f"train (f): launched {launches}")
+    check(runs["fault"]["restarts"] == 1 and runs["clean"]["restarts"] == 0,
+          f"train (f): restarts {runs['fault']['restarts']} and {runs['clean']['restarts']}")
+    check(same, "train (f): the resumed run's parameters or error state differ from the "
+          "uninterrupted run's")
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        writer = save_checkpoint(d, TRAIN_FAULT_STEPS, a, async_write=True)
+        snap_s = time.monotonic() - t
+        writer.join()
+        write_s = time.monotonic() - t
+        t = time.monotonic()
+        restore_checkpoint(d, b)
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t
+        ckpt_bytes = sum(f.stat().st_size for f in Path(d).rglob("*") if f.is_file())
+    log(f"train (f): the torch_train_lm twin ({cfg.name}, {n_params:,} parameters, int8 "
+        f"compression with error feedback), {TRAIN_FAULT_STEPS} steps, checkpoints every "
+        f"{TRAIN_CKPT_EVERY}, under torch.use_deterministic_algorithms(True): a fault at step "
+        f"{TRAIN_FAULT_AT} ({runs['fault']['restarts']} restart, {runs['fault']['seconds']:.1f} "
+        f"s) against none ({runs['clean']['seconds']:.1f} s): final parameters and error state "
+        f"bit-equal; loss {runs['clean']['first']:.4f} -> {runs['clean']['last']:.4f}; one "
+        f"checkpoint of the final state ({ckpt_bytes / 1e6:.1f} MB): async save returned in "
+        f"{snap_s:.3f} s (the host snapshot), written in {write_s:.3f} s, restored in "
+        f"{restore_s:.3f} s; ops without a deterministic form: {nondet or 'none'}; no kernel "
+        f"launched [{smi}]")
+    del runs, a, b, pa, pb
+    return {"restarts": 1, "bit_equal": same, "save_return_s": snap_s, "save_written_s": write_s,
+            "restore_s": restore_s, "ckpt_mb": ckpt_bytes / 1e6, "nondeterministic": nondet,
+            "launches": launches}
+
+
+def train_leg_serving_twins(torch, dev, smi: str) -> dict:
+    """Leg (g): the ``torch_quickstart`` twin's SSSP (correct against the
+    numpy reference) and Δ-PageRank (within ``QUICKSTART_PR_TOL``) on the
+    card, then ``torch_serve_lm`` at its defaults."""
+    from repro_torch.graph.generators import rmat_graph
+    from repro_torch.graph.hub_sort import hub_sort
+
+    qs = example_module("torch_quickstart")
+    t = time.monotonic()
+    g = rmat_graph(*QUICKSTART_GRAPH, seed=0)
+    hs = hub_sort(g)
+    cfg = qs.quickstart_config()
+    reset_launch_counts()
+    res, ok, _ = qs.run_sssp(g, hs, cfg, dev)
+    pr, err = qs.run_pagerank(g, hs, cfg, dev)
+    launches = read_launch_counts()
+    check(ok and err <= QUICKSTART_PR_TOL,
+          f"train (g): quickstart SSSP correct={ok}, Δ-PageRank max error {err:.3e} "
+          f"(tolerance {QUICKSTART_PR_TOL:g})")
+    qs_s = time.monotonic() - t
+    serve = example_module("torch_serve_lm")
+    t = time.monotonic()
+    out = serve.main([])
+    serve_s = time.monotonic() - t
+    log(f"train (g): torch_quickstart on the card: SSSP {res.iterations} iterations, "
+        f"correct, Δ-PageRank {pr.iterations} iterations, max error {err:.2e} (tolerance "
+        f"{QUICKSTART_PR_TOL:g}), {qs_s:.1f} s, launches {launches}; torch_serve_lm at its "
+        f"defaults: prefill {out['prefill_s'] * 1e3:.1f} ms, decode {out['decode_s'] * 1e3:.1f} "
+        f"ms, {serve_s:.1f} s [{smi}]")
+    return {"sssp_iterations": res.iterations, "pagerank_err": err, "quickstart_s": qs_s,
+            "serve_prefill_s": out["prefill_s"], "serve_decode_s": out["decode_s"],
+            "launches": launches}
+
+
+def phase_train(torch, dev, seed: int, smi: str) -> dict:
+    """Phase 18: training on one device, legs (a)-(g); everything the phase
+    allocates is freed before it returns."""
+    t_phase = time.monotonic()
+    legs = {}
+    for key, fn in (("a", train_leg_lm), ("b", train_leg_f64), ("c", train_leg_moe),
+                    ("d", train_leg_gnn), ("e", train_leg_dlrm), ("f", train_leg_fault)):
+        t = time.monotonic()
+        legs[key] = fn(torch, dev, seed, smi)
+        legs[key]["seconds"] = time.monotonic() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 18 leg ({key}) took {legs[key]['seconds']:.1f} s")
+    t = time.monotonic()
+    legs["g"] = train_leg_serving_twins(torch, dev, smi)
+    legs["g"]["seconds"] = time.monotonic() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {f"train_{k}": legs[k].pop("launches") for k in TRAIN_LEGS}
+    return {"legs": legs, "launches": launches, "phase_s": time.monotonic() - t_phase,
+            "card": smi}
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: DLRM serving, dlrm-mlperf at full width with the one-card row cap
 # ---------------------------------------------------------------------------
 
@@ -5482,6 +6128,13 @@ def main() -> int:
     del gnn
     gc.collect()
     torch.cuda.empty_cache()
+    train = phase_train(torch, dev, SEED, smi)
+    train_launches = train.pop("launches")
+    launches.update(train_launches)
+    log(f"phase 18 (training on one device) took {train['phase_s']:.1f} s; launches by leg "
+        f"{train_launches} [{smi}]")
+    gc.collect()
+    torch.cuda.empty_cache()
     dlrm = phase_dlrm(torch, dev, SEED, smi)
 
     kernels = []
@@ -5514,6 +6167,7 @@ def main() -> int:
     kernels[0]["resilience"] = resil
     kernels[0]["sharded"] = sharded
     kernels[0]["stream_sharded"] = mesh_stream
+    kernels[0]["training"] = train
     for key, row in (("sum_d2", "segment_spmm_sum"), ("last_partition", "segment_spmm_last"),
                      ("sum_d2_last_partition", "segment_spmm_sum_last")):
         kernels[0][key] = {k: rows[row][k] for k in ("shape", "ms", "cold_ms", "call_ms",
@@ -5530,7 +6184,8 @@ def main() -> int:
                   **{f"moe_{phase}": moe["kernel"]["launches"][phase]["flash_attention"]
                      for phase in ("prefill", "decode")},
                   "moe_plain": sum(c["flash_attention"] for c in moe["plain"]["launches"].values()),
-                  **{f"mesh_{leg}": c["flash_attention"] for leg, c in mesh_launches.items()}}
+                  **{f"mesh_{leg}": c["flash_attention"] for leg, c in mesh_launches.items()},
+                  **{leg: c["flash_attention"] for leg, c in train_launches.items()}}
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -5546,7 +6201,8 @@ def main() -> int:
     gmm_legs = {**{f"moe_{phase}": moe["kernel"]["launches"][phase]["grouped_matmul"]
                    for phase in ("prefill", "decode")},
                 "moe_plain": sum(c["grouped_matmul"] for c in moe["plain"]["launches"].values()),
-                **{f"mesh_{leg}": c["grouped_matmul"] for leg, c in mesh_launches.items()}}
+                **{f"mesh_{leg}": c["grouped_matmul"] for leg, c in mesh_launches.items()},
+                **{leg: c["grouped_matmul"] for leg, c in train_launches.items()}}
     kernels.append({
         "name": "grouped_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/grouped_matmul/csrc/grouped_matmul.cu",
@@ -5562,6 +6218,7 @@ def main() -> int:
     b = bag_rows["bulk"]
     kernel_legs = {f"{cell}_{leg}": r["launches"] for cell, c in dlrm["cells"].items()
                    for leg, r in c.get("legs", {}).items()}
+    kernel_legs.update({leg: c["embedding_bag"] for leg, c in train_launches.items()})
     kernels.append({
         "name": "embedding_bag", "route": "cuda",
         "source": "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",

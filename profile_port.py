@@ -7,6 +7,7 @@
     python3 profile_port.py --against parent=DIR   # this tree against another, in turns
     python3 profile_port.py --mesh       # the sharded sweep over every card, both layouts
     python3 profile_port.py --mesh --lm-only   # kimi-k2 (2 layers) over every card alone
+    python3 profile_port.py --train      # internlm2-1.8b's train step, as chip_smoke.py leg (a)
 
 For SSSP (K=8) and Δ-PageRank, each through the kernels and through the
 plain engines (``use_kernels=False``):
@@ -49,6 +50,13 @@ every tree has ``repro_torch.stream``, each worker also builds a
 ``chip_smoke.py`` phase 10) and runs cold SSSP (K=8) and Δ-PageRank over it
 through the kernels in the same turns, then one profiled SSSP run over it
 (device busy, the largest device entries).
+
+With ``--train`` it builds internlm2-1.8b as ``chip_smoke.py`` phase 18 leg
+(a) trains it (full width and depth, float32 parameters, bf16
+activations, remat, AdamW, 2 microbatches of 2 x 1024 tokens), takes two
+warm steps, then one step under the profiler (span, busy share, the
+largest device and host entries), ``apply_updates`` alone under the
+profiler on that step's gradients, and a step's host syncs by source line.
 
 With ``--mesh`` (two or more cards) it runs the sharded sweep with one
 rank a card over NCCL (``launch.mesh.RankPool``: this process rank 0 on
@@ -635,6 +643,59 @@ def mesh_main(args, smi: str) -> dict:
     return out
 
 
+def train_main(torch, smi: str) -> dict:
+    sys.path.insert(0, str(smoke.ROOT / "src"))
+    from repro_torch.configs.internlm2_1p8b import CONFIG, OPT
+    from repro_torch.data.pipeline import LMBatches
+    from repro_torch.models.transformer import init_transformer, lm_loss
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import apply_updates, clip_by_global_norm
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # as chip_smoke.setup states it
+    cfg = CONFIG.replace(param_dtype="float32", dtype="bfloat16", remat=True)
+    opt = OPT.replace(warmup_steps=smoke.TRAIN_LM_WARMUP, total_steps=smoke.TRAIN_LM_STEPS)
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    model = init_transformer(cfg, gen, "cuda")
+    state = {"s": ts.init_train_state(model, opt, device="cuda")}
+    pipe = LMBatches(vocab=cfg.vocab, batch=smoke.TRAIN_LM_BATCH, seq_len=smoke.TRAIN_LM_SEQ,
+                     seed=smoke.SEED)
+    batches = [torch.from_numpy(pipe.make(i)["tokens"]).cuda() for i in range(5)]
+
+    def loss_fn(m, b):
+        return lm_loss(m, b)
+
+    step_fn = ts.make_train_step(loss_fn, opt, microbatches=smoke.TRAIN_LM_MICROBATCHES)
+
+    def step(i):
+        state["s"], m = step_fn(state["s"], batches[i])
+        return float(m["loss"])
+
+    step(0)
+    step(1)
+    out = {"card": smi}
+    p = profile_run(torch, lambda: step(2), top=12)
+    if p["busy_s"]:
+        log_profile("train step", p)
+        out["profile_step"] = p
+    else:
+        log("profile train step: device time not measured (no device events)")
+    s = state["s"]
+    named = ts.named_params(s.params)
+    _, grads = ts.value_and_grads(loss_fn, s.params, batches[3], smoke.TRAIN_LM_MICROBATCHES)
+    grads, _ = clip_by_global_norm(grads, opt.grad_clip)
+    torch.cuda.synchronize()
+    p = profile_run(torch, lambda: apply_updates(opt, named, grads, s.opt_state, s.step,
+                                                 s.leaves), top=8)
+    if p["busy_s"]:
+        log_profile("apply_updates", p)
+        out["profile_apply_updates"] = p
+    del grads
+    sites = sync_sites(torch, lambda: step(4))
+    log(f"syncs train step: {sum(sites.values())} host syncs a step: {sites} [{smi}]")
+    out["syncs"] = sites
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22,
@@ -647,6 +708,8 @@ def main() -> int:
                     help="the sharded sweep over every card (NCCL), both vertex layouts")
     ap.add_argument("--lm-only", action="store_true",
                     help="with --mesh: the kimi leg alone, no graph")
+    ap.add_argument("--train", action="store_true",
+                    help="internlm2-1.8b's train step (chip_smoke.py phase 18 leg (a))")
     ap.add_argument("--worker", help=argparse.SUPPRESS)       # a tree's src, for --against
     ap.add_argument("--graph-file", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -662,6 +725,9 @@ def main() -> int:
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     if args.dlrm:
         print(json.dumps(dlrm_main(torch, smi)))
+        return 0
+    if args.train:
+        print(json.dumps(train_main(torch, smi), default=str))
         return 0
     if args.against:
         print(json.dumps(ab_main(args, smi)))

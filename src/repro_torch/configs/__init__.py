@@ -1,9 +1,11 @@
 """Architecture registry of the port: ``--arch <id>`` -> the model's
 config (``TransformerConfig``, ``GNNConfig`` or ``DLRMConfig``).
 
-The LM, GNN and DLRM configurations are ported; ``hytgraph`` raises
-``NotImplementedError`` naming the ROADMAP item that brings it.  The
-reference's ``ArchSpec`` and its mesh cells come with the training item;
+Every arch of the reference is ported: the LM, GNN and DLRM
+configurations, each with the reference's ``OPT`` (its
+``train.optimizer.OptimizerConfig``) beside its ``CONFIG``, and the
+``hytgraph`` workload (``HyTGraphWorkload``).  The reference's ``ArchSpec``
+and its mesh cells come with the arch specs (ROADMAP item 17c);
 dlrm-mlperf's serving cells are ``configs.dlrm_mlperf.CELLS``, the GNNs'
 shape cells ``configs.common.gnn_cells``.
 """
@@ -23,18 +25,13 @@ ARCHS = {
     "gatedgcn": "repro_torch.configs.gatedgcn",
     "meshgraphnet": "repro_torch.configs.meshgraphnet",
     "dlrm-mlperf": "repro_torch.configs.dlrm_mlperf",
-}
-
-NOT_PORTED = {
-    "hytgraph": "item 12: the hytgraph workload config",
+    "hytgraph": "repro_torch.configs.hytgraph_paper",
 }
 
 
 def get_arch(name: str):
-    """The model config of the architecture ``name``."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP queue 1, {NOT_PORTED[name]})")
+    """The model config of the architecture ``name`` (``hytgraph``: its
+    ``HyTGraphWorkload``)."""
     if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS) + sorted(NOT_PORTED)}")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return importlib.import_module(ARCHS[name]).CONFIG

@@ -9,6 +9,7 @@ so one 80 GB card serves it whole.
 from repro_torch.models.attention import MLAConfig
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import TransformerConfig
+from repro_torch.train.optimizer import OptimizerConfig
 
 CONFIG = TransformerConfig(
     name="deepseek-v2-lite-16b",
@@ -29,3 +30,5 @@ CONFIG = TransformerConfig(
     d_ff_dense=10944,
     tie_embeddings=False,
 )
+
+OPT = OptimizerConfig(name="adamw", learning_rate=3e-4, warmup_steps=2000)

@@ -7,6 +7,7 @@ padded (96.14 GB in float32): more than one card holds, so the card runs
 """
 
 from repro_torch.models.dlrm import MLPERF_VOCAB_SIZES, DLRMConfig
+from repro_torch.train.optimizer import OptimizerConfig
 
 # Row-sharded tables are padded to a shardable multiple (512 covers every
 # mesh: 16x16 and 2x16x16); small tables stay replicated and unpadded.
@@ -15,6 +16,8 @@ _PADDED_VOCABS = tuple(
 )
 
 CONFIG = DLRMConfig(vocab_sizes=_PADDED_VOCABS)
+
+OPT = OptimizerConfig(name="adamw", learning_rate=1e-3, warmup_steps=100)
 
 # The serving cells of the reference's ArchSpec (its train_batch cell comes
 # with training): the batch of a forward, or one query against N candidates.

@@ -3,6 +3,7 @@ aggregation (Bresson & Laurent residual gated graph convnets).
 Its cells: ``configs.common.gnn_cells``."""
 
 from repro_torch.models.gnn import GNNConfig
+from repro_torch.train.optimizer import OptimizerConfig
 
 CONFIG = GNNConfig(
     name="gatedgcn",
@@ -13,3 +14,5 @@ CONFIG = GNNConfig(
     d_out=10,
     d_edge_in=8,
 )
+
+OPT = OptimizerConfig(name="adamw", learning_rate=1e-3, warmup_steps=100)

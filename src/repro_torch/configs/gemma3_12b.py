@@ -5,6 +5,7 @@ Sliding window 1024 on local layers; every 6th layer global.
 """
 
 from repro_torch.models.transformer import TransformerConfig
+from repro_torch.train.optimizer import OptimizerConfig
 
 CONFIG = TransformerConfig(
     name="gemma3-12b",
@@ -19,3 +20,5 @@ CONFIG = TransformerConfig(
     tie_embeddings=True,
     sub_quadratic=True,
 )
+
+OPT = OptimizerConfig(name="adamw", learning_rate=2e-4, warmup_steps=2000)

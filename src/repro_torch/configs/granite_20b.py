@@ -6,6 +6,7 @@ not 20B).
 """
 
 from repro_torch.models.transformer import TransformerConfig
+from repro_torch.train.optimizer import OptimizerConfig
 
 CONFIG = TransformerConfig(
     name="granite-20b",
@@ -19,3 +20,5 @@ CONFIG = TransformerConfig(
     ffn_act="gelu",
     tie_embeddings=True,
 )
+
+OPT = OptimizerConfig(name="adamw", learning_rate=2e-4, warmup_steps=2000)

@@ -3,6 +3,7 @@ aggregator, sample_sizes 25-10 (training estimator; the `minibatch_lg`
 cell uses the assigned 15-10 fanout).  Its cells: ``configs.common.gnn_cells``."""
 
 from repro_torch.models.gnn import GNNConfig
+from repro_torch.train.optimizer import OptimizerConfig
 
 CONFIG = GNNConfig(
     name="graphsage-reddit",
@@ -14,3 +15,5 @@ CONFIG = GNNConfig(
     aggregator="mean",
     sample_sizes=(25, 10),
 )
+
+OPT = OptimizerConfig(name="adamw", learning_rate=1e-3, warmup_steps=100)

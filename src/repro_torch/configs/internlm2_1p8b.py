@@ -4,6 +4,7 @@
 """
 
 from repro_torch.models.transformer import TransformerConfig
+from repro_torch.train.optimizer import OptimizerConfig
 
 CONFIG = TransformerConfig(
     name="internlm2-1.8b",
@@ -17,3 +18,5 @@ CONFIG = TransformerConfig(
     rope_theta=1_000_000.0,
     tie_embeddings=True,
 )
+
+OPT = OptimizerConfig(name="adamw", learning_rate=3e-4, warmup_steps=2000)

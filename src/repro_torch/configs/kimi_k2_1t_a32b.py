@@ -9,6 +9,7 @@ without ``--reduced``; queue 1 item 11 brings the multi-GPU layout).
 
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import TransformerConfig
+from repro_torch.train.optimizer import OptimizerConfig
 
 CONFIG = TransformerConfig(
     name="kimi-k2-1t-a32b",
@@ -28,3 +29,5 @@ CONFIG = TransformerConfig(
     tie_embeddings=False,
     param_dtype="bfloat16",
 )
+
+OPT = OptimizerConfig(name="adafactor", learning_rate=2e-4, warmup_steps=2000)

@@ -4,6 +4,7 @@ Regression head (per-node dynamics), mesh-edge features.
 Its cells: ``configs.common.gnn_cells``."""
 
 from repro_torch.models.gnn import GNNConfig
+from repro_torch.train.optimizer import OptimizerConfig
 
 CONFIG = GNNConfig(
     name="meshgraphnet",
@@ -17,3 +18,5 @@ CONFIG = GNNConfig(
     d_edge_in=8,
     task="regression",
 )
+
+OPT = OptimizerConfig(name="adamw", learning_rate=1e-3, warmup_steps=100)

@@ -11,7 +11,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels.embedding_bag.ref import MODES, embedding_bag_ref
-from repro_torch.kernels.runtime import check_launch, load_kernel, require_cuda, stream_ptr
+from repro_torch.kernels.runtime import (check_launch, load_kernel, refuse_grad, require_cuda,
+                                         stream_ptr)
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                                      ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
@@ -25,6 +26,7 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor, mode: str = "sum")
     follow ``jnp.take``'s default mode: [-V, 0) wraps, anything else out
     of range makes its bag NaN.  Takes float32 or bfloat16 tables and int32
     or int64 ids."""
+    refuse_grad("embedding_bag", table, indices)
     if mode not in MODES:
         raise ValueError(f"embedding_bag: mode must be one of {MODES}, got {mode!r}")
     if table.dim() != 2 or indices.dim() != 2:

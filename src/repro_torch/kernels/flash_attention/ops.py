@@ -11,7 +11,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-from repro_torch.kernels.runtime import check_launch, load_kernel, require_cuda, stream_ptr
+from repro_torch.kernels.runtime import (check_launch, load_kernel, refuse_grad, require_cuda,
+                                         stream_ptr)
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
                                      ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -46,6 +47,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in, float32 scores and softmax, out (BH, S, dv) in q's dtype.  The bf16
     kernel rounds the probabilities to bf16 before P.V (the plain version
     keeps them in float32)."""
+    refuse_grad("flash_attention", q, k, v)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 or k.shape[:2] != v.shape[:2]:

@@ -20,6 +20,7 @@ from repro_torch.kernels.runtime import (
     check_launch,
     column_args,
     load_kernel,
+    refuse_grad,
     pointer_array,
     require_cuda,
     stream_ptr,
@@ -37,6 +38,7 @@ def frontier_compact(columns: Sequence[torch.Tensor], mask: torch.Tensor):
     by ``mask``: rows where it is set first, then the others, each in their
     original order.  Returns (columns, count): count is an int32 0-dim
     tensor on the same device, the number of rows kept."""
+    refuse_grad("frontier_compact", columns, mask)
     if mask.device.type == "cpu":
         return frontier_compact_ref(columns, mask)
     dev = require_cuda("frontier_compact", mask, *columns)
@@ -72,6 +74,7 @@ def frontier_compact_lanes(columns: Sequence[torch.Tensor], mask: torch.Tensor,
     ``frontier_compact`` partitions one block.  Returns (columns, counts):
     counts is (L,) int32 on the same device, each lane's kept rows.  One
     launch pair for all lanes."""
+    refuse_grad("frontier_compact_lanes", columns, mask)
     if mask.device.type == "cpu":
         return frontier_compact_lanes_ref(columns, mask, offsets)
     dev = require_cuda("frontier_compact_lanes", mask, offsets, *columns)

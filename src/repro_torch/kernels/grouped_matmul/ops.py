@@ -11,7 +11,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
-from repro_torch.kernels.runtime import check_launch, load_kernel, require_cuda, stream_ptr
+from repro_torch.kernels.runtime import (check_launch, load_kernel, refuse_grad, require_cuda,
+                                         stream_ptr)
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -28,6 +29,7 @@ def grouped_matmul(x_sorted: torch.Tensor, weights: torch.Tensor, starts: torch.
     T) bounds the rows of a group and the launch's grid: the MoE dispatch
     passes its capacity.  Takes float32 or bfloat16 x and weights of one
     dtype, and int32 ``starts`` and ``counts`` of shape (E,)."""
+    refuse_grad("grouped_matmul", x_sorted, weights)
     if x_sorted.dim() != 2 or weights.dim() != 3 or x_sorted.shape[1] != weights.shape[1]:
         raise ValueError(f"grouped_matmul: x must be (T, D) and weights (E, D, F), got "
                          f"{tuple(x_sorted.shape)} and {tuple(weights.shape)}")

@@ -16,6 +16,7 @@ from repro_torch.kernels.runtime import (
     check_launch,
     column_args,
     load_kernel,
+    refuse_grad,
     pointer_array,
     require_cuda,
     stream_ptr,
@@ -31,6 +32,7 @@ def hyb_gather(columns: Sequence[torch.Tensor], seg_start: torch.Tensor,
     rows each) — the zero-copy engine's fine-grained fetch.  Returns one
     (a, PAD) tensor per column; lanes past the request's degree, and rows
     outside the columns, are 0."""
+    refuse_grad("hyb_gather", columns)
     if seg_start.device.type == "cpu":
         return hyb_gather_ref(columns, seg_start, degree)
     dev = require_cuda("hyb_gather", seg_start, degree, *columns)

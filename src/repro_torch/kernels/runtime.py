@@ -160,6 +160,25 @@ def check_launch(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: CUDA kernel launch failed (cudaError {rc})")
 
 
+def refuse_grad(name: str, *inputs) -> None:
+    """``RuntimeError`` when grad mode is on and an input of the kernel
+    ``name`` (a tensor, or a sequence of them) requires grad.  No kernel of
+    the port has a backward, as no Pallas kernel of the reference has one:
+    its output would be cut from autograd and every gradient before it
+    silently lost, so training takes the plain routes
+    (``use_kernels=False``).  Checked before the device dispatch, so a CPU
+    call refuses as a CUDA one does."""
+    if not torch.is_grad_enabled():
+        return
+    for t in inputs:
+        for u in (t if isinstance(t, (list, tuple)) else (t,)):
+            if isinstance(u, torch.Tensor) and u.requires_grad:
+                raise RuntimeError(
+                    f"{name}: an input requires grad and the kernel has no backward; "
+                    "train through the plain route (use_kernels=False) or call under "
+                    "torch.no_grad()")
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     """The device all ``tensors`` share; raises unless it is CUDA."""
     dev = tensors[0].device

@@ -13,6 +13,7 @@ import torch
 from repro_torch.kernels.runtime import (
     check_launch,
     load_kernel,
+    refuse_grad,
     require_cuda,
     stream_ptr,
 )
@@ -37,6 +38,7 @@ def segment_spmm(
     engine's destination combine.  ``combine`` is ``"sum"`` or ``"min"``;
     segments receiving no valid message hold the identity (0 / +inf).
     1-D messages give a 1-D result."""
+    refuse_grad("segment_spmm", messages, valid)
     if combine not in ("sum", "min"):
         raise ValueError(f"combine must be 'sum' or 'min', got {combine!r}")
     squeeze = messages.dim() == 1
@@ -85,6 +87,7 @@ def segment_spmm_lanes(
     offsets[l+1]``; ``offsets`` is (L+1,) int64 from 0 to M), lane l into
     row l of an (L, n_segments[, d]) result, each row as ``segment_spmm``
     gives it for its lane alone.  One launch for all lanes."""
+    refuse_grad("segment_spmm_lanes", messages)
     if combine not in ("sum", "min"):
         raise ValueError(f"combine must be 'sum' or 'min', got {combine!r}")
     if messages.device.type == "cpu":

@@ -34,6 +34,7 @@ import math
 import os
 import shutil
 import tempfile
+import time
 import traceback
 from dataclasses import dataclass
 from queue import Empty
@@ -84,15 +85,61 @@ def group_ranks(mesh: GraphMesh) -> tuple:
     return tuple(dist.get_process_group_ranks(mesh.group))
 
 
+# per group (its global ranks), the number of barriers this process has
+# entered since the default group was made: the same on every rank (SPMD)
+_BARRIERS: dict = {}
+
+
+def _barrier_key(ranks: tuple) -> str:
+    default = dist.group.WORLD
+    if _BARRIERS.get("world") is not default:   # a new default group: count afresh
+        _BARRIERS.clear()
+        _BARRIERS["world"] = default
+    n = _BARRIERS.get(ranks, 0)
+    _BARRIERS[ranks] = n + 1
+    return f"mesh_barrier/{'-'.join(map(str, ranks))}/{n}"
+
+
+def _arrivals(store, key: str, ranks: tuple) -> dict:
+    """{rank: its wall-clock arrival} of the ranks that recorded one."""
+    out = {}
+    for r in ranks:
+        if store.check([f"{key}/{r}"]):
+            out[r] = float(store.get(f"{key}/{r}").decode())
+    return out
+
+
 def mesh_barrier(mesh: GraphMesh) -> None:
     """Return on each rank only once every rank of ``mesh`` has called it:
     one ``all_reduce`` of one element on the mesh's device, waited for on
-    the host (the same on gloo and NCCL).  No-op on a one-rank mesh."""
+    the host (the same on gloo and NCCL).  No-op on a one-rank mesh.
+
+    Each rank first writes its wall-clock time of arrival into the default
+    group's store under the barrier's key (the group's ranks and the count
+    of barriers it has passed).  When the ``all_reduce`` fails (a gloo
+    timeout, a rank gone), the ``RuntimeError`` names the ranks that had
+    not arrived and gives each arrival's time."""
     if mesh.size == 1:
         return
+    ranks = group_ranks(mesh)
+    key = _barrier_key(ranks)
+    store = dist.distributed_c10d._get_default_store()
+    me = dist.get_rank()
+    t_in = time.time()
+    store.set(f"{key}/{me}", repr(t_in))
     token = torch.zeros(1, device=mesh.device)
-    dist.all_reduce(token, group=mesh.group)
-    token.item()
+    try:
+        dist.all_reduce(token, group=mesh.group)
+        token.item()
+    except RuntimeError as exc:
+        waited = time.time() - t_in
+        seen = _arrivals(store, key, ranks)
+        late = [r for r in ranks if r not in seen]
+        first = min(seen.values())
+        times = ", ".join(f"rank {r} at +{t - first:.3f} s" for r, t in sorted(seen.items()))
+        raise RuntimeError(
+            f"mesh_barrier {key} failed on rank {me} after {waited:.1f} s: ranks {late} had "
+            f"not arrived; arrivals (from the first, at {first:.3f}): {times}") from exc
 
 
 def _timeout(seconds: float) -> datetime.timedelta:
@@ -238,13 +285,27 @@ def make_debug_mesh(n_data: int = 2, n_model: int = 2, pods: int = 0, ranks=None
                      group=whole, host_group=host, groups=mine, device=resolve_device(device))
 
 
+# the longest a rank waits at the store for the others to arrive: a spawned
+# rank imports torch first, which on a loaded host can take longer than a
+# short group timeout, and gloo's connection set-up is bounded by the
+# group's timeout, so every rank waits for the others before it starts
+RENDEZVOUS_S = 300.0
+
+
 def _join_group(rank: int, world_size: int, backend: str, store: str,
                 timeout_s: float, subgroups) -> dict:
     """Initialize the default group and every subgroup (collectively, in
-    order, on every rank); returns ``{ranks: group}``."""
+    order, on every rank); returns ``{ranks: group}``.  Every rank first
+    waits at the store (up to ``max(timeout_s, RENDEZVOUS_S)``) until all
+    have arrived; the groups and their collectives time out after
+    ``timeout_s``."""
     global _POOL_TIMEOUT_S
-    dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
-                            world_size=world_size, timeout=_timeout(timeout_s))
+    file_store = dist.FileStore(store, world_size)
+    file_store.set_timeout(_timeout(max(timeout_s, RENDEZVOUS_S)))
+    file_store.set(f"arrived/{rank}", "1")
+    file_store.wait([f"arrived/{r}" for r in range(world_size)])
+    dist.init_process_group(backend, store=file_store, rank=rank, world_size=world_size,
+                            timeout=_timeout(timeout_s))
     _POOL_TIMEOUT_S = timeout_s
     return {tuple(r): dist.new_group(list(r), timeout=_timeout(timeout_s))
             for r in subgroups}
@@ -356,6 +417,38 @@ class RankPool:
         shutil.rmtree(self._dir, ignore_errors=True)
 
     def __enter__(self) -> "RankPool":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class PoolKeeper:
+    """One :class:`RankPool` at a time for a run of cases (a test module's
+    pool): :meth:`get` returns the live pool, or closes a broken one (a run
+    of it failed) and starts a fresh one with the same arguments, so one
+    failed run fails one case and not every case after it."""
+
+    def __init__(self, *args, **kwargs):
+        self._args, self._kwargs = args, kwargs
+        self._pool: RankPool | None = None
+        self.started = 0
+
+    def get(self) -> RankPool:
+        if self._pool is not None and self._pool.broken:
+            self._pool.close()
+            self._pool = None
+        if self._pool is None:
+            self._pool = RankPool(*self._args, **self._kwargs)
+            self.started += 1
+        return self._pool
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.close()
+            self._pool = None
+
+    def __enter__(self) -> "PoolKeeper":
         return self
 
     def __exit__(self, *exc) -> None:

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.common import apply_rope, dense_init, rms_norm
+from repro_torch.models.common import apply_rope, at_least_f32, dense_init, rms_norm
 
 
 @dataclass(frozen=True)
@@ -71,9 +71,15 @@ def attention_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor,
     return mask[None, None]
 
 
+# The reference attends blocked, with an online softmax and its own
+# FlashAttention-2 backward, above this many score elements (q_len x
+# kv_len); the port's training route is the plain ``_sdpa`` below it.
+_FLASH_THRESHOLD = 2048 * 2048
+
+
 def _sdpa(q, k, v, mask, scale):
     """q: (B,S,KV,G,dh) k/v: (B,L,KV,dh) -> (B,S,KV,G,dv)."""
-    scores = torch.einsum("bskgd,btkd->bkgst", q, k).float() * scale
+    scores = at_least_f32(torch.einsum("bskgd,btkd->bkgst", q, k)) * scale
     # mask: (B|1, 1, S, L) -> (B|1, 1, 1, S, L) broadcasts over (B,KV,G,S,L)
     scores = torch.where(mask[:, None], scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
@@ -203,7 +209,8 @@ def mla_attention(p, x: torch.Tensor, positions: torch.Tensor, n_heads: int, mla
     else:
         mask = attention_mask(positions, kv_pos, None, window)          # (1, 1, S, L)
         scores = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
-                  + torch.einsum("bshd,btd->bhst", q_rope, kr_all)).float() * scale
+                  + torch.einsum("bshd,btd->bhst", q_rope, kr_all))
+        scores = at_least_f32(scores) * scale
         scores = torch.where(mask, scores, -1e30)
         probs = torch.softmax(scores, dim=-1).to(dt)
         out = torch.einsum("bhst,bthd->bshd", probs, v).reshape(B, S, H * dv)

@@ -1,9 +1,10 @@
 """Shared building blocks: RMS and layer norm, RoPE, SwiGLU, the
-initializers and the biased MLP of the DLRM and GNN heads (port of
-``repro.models.common``).
+initializers, the biased MLP of the DLRM and GNN heads and the LM's cross
+entropy (port of ``repro.models.common``).
 
 The arithmetic follows the reference where the two could part: both norms
-run in float32 (the RMS norm scales by ``1 + scale``); RoPE rotates
+run in float32, or float64 for a float64 input (the RMS norm scales by
+``1 + scale``); RoPE rotates
 interleaved (even, odd) pairs by float32 angles of the integer positions.
 """
 
@@ -14,11 +15,17 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or in its own dtype when that is wider (float64
+    stays float64, so a float64 copy of a model computes in float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dtype = x.dtype
-    x = x.float()
+    x = at_least_f32(x)
     var = x.square().mean(dim=-1, keepdim=True)
-    out = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    out = x * torch.rsqrt(var + eps) * (1.0 + scale.to(x.dtype))
     return out.to(dtype)
 
 
@@ -102,3 +109,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token-level cross entropy in float32 (float64 stays float64):
+    the log-sum-exp with its max detached, and the label logit from a masked
+    sum over the vocab (the reference's sharding-aware form).  A label outside [0, V) gets a logit
+    of 0 there and does not fail, where ``gather`` would raise.  ``mask``
+    weights the tokens, divided by ``max(sum(mask), 1)``."""
+    logits = at_least_f32(logits)
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    label_logit = torch.where(vocab == labels[..., None], logits, 0.0).sum(dim=-1)
+    ll = label_logit - lse
+    if mask is None:
+        return -ll.mean()
+    mask = mask.to(ll.dtype)
+    return -(ll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -12,8 +12,11 @@ The reference's parameter tree becomes a ``DLRM`` module: ``tables`` (one
 ("auto", True or False), which routes the ``gather`` and ``dedup`` lookups
 through the ``embedding_bag`` kernel.  The MLPs and the interaction run in
 float32 as the reference's do; TF32 stays off (PyTorch's default).
-Training (and the reference's ``abstract_dlrm_params``, which serves the
-dry-run) comes with a later slice.  ``torch.triu_indices(F, F, 1)`` gives
+``dlrm_loss`` runs under grad mode (training passes ``use_kernels=False``:
+the plain bag, ``take_rows``' wrap of a negative id included, since the
+kernel has no backward); ``dlrm_forward`` and ``retrieval_score`` serve
+under ``torch.inference_mode``.  The reference's ``abstract_dlrm_params``
+serves the dry run, which comes with the arch specs.  ``torch.triu_indices(F, F, 1)`` gives
 the row-major order of ``jnp.triu_indices(F, k=1)``.  ``torch.topk`` does
 not promise ``jax.lax.top_k``'s lower-index-first order on ties.
 """
@@ -28,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.runtime import resolve_device, resolve_use_kernels
-from repro_torch.models.common import frozen, mlp_apply, mlp_init
+from repro_torch.models.common import at_least_f32, frozen, mlp_apply, mlp_init
 from repro_torch.models.embedding import embedding_bag
 
 # MLPerf DLRM vocab sizes (Criteo Terabyte, day-sampled), 26 sparse fields.
@@ -129,6 +132,10 @@ def dlrm_forward(model: DLRM, dense: torch.Tensor, sparse: torch.Tensor,
                  use_kernels: bool | str = "auto") -> torch.Tensor:
     """dense: (B, 13) float32; sparse: (B, 26) or (B, 26, L) int ->
     (B,) logits.  ``cfg`` (default ``model.cfg``) gives the table engine."""
+    return _forward(model, dense, sparse, cfg, use_kernels)
+
+
+def _forward(model: DLRM, dense, sparse, cfg, use_kernels) -> torch.Tensor:
     cfg = model.cfg if cfg is None else cfg
     use = resolve_use_kernels(use_kernels, dense.device)
     if sparse.dim() == 2:
@@ -147,9 +154,9 @@ def dlrm_forward(model: DLRM, dense: torch.Tensor, sparse: torch.Tensor,
 
 def dlrm_loss(model: DLRM, dense: torch.Tensor, sparse: torch.Tensor, labels: torch.Tensor,
               cfg: DLRMConfig | None = None, use_kernels: bool | str = "auto") -> torch.Tensor:
-    """Mean binary cross-entropy of the logits (forward only)."""
-    logits = dlrm_forward(model, dense, sparse, cfg, use_kernels).float()
-    labels = labels.float()
+    """Mean binary cross-entropy of the logits, under grad mode."""
+    logits = at_least_f32(_forward(model, dense, sparse, cfg, use_kernels))
+    labels = labels.to(logits.dtype)
     return torch.mean(logits.clamp_min(0.0) - logits * labels
                       + torch.log1p(torch.exp(-logits.abs())))
 

@@ -15,8 +15,15 @@ also answer ``[key]``, lists ``ModuleList``/``ParameterList``):
 from the reference's tree.  PNA carries ``avg_log_deg`` as a 0-d
 parameter.  The forwards run in the parameters' dtype wherever the inputs
 lie, with TF32 off (PyTorch's default); the losses take log-softmax in
-float32 (float64 stays float64).  Training (gradients, the optimizer, the
-batch pipeline) comes with a later slice.
+float32 (float64 stays float64).
+
+Training: ``gnn_loss`` and ``graphsage_minibatch_forward`` run under grad
+mode (``gnn_forward``, a serving entry point, keeps
+``torch.inference_mode``).  The max and min aggregators reduce with
+``include_self=True`` over the ∓inf fill, so a tie (ReLU zeros make them
+common) shares the gradient equally among the tied messages, as
+``jax.ops.segment_max`` does; with ``include_self=False`` over a zero fill
+the excluded fill would count as one more tie.
 """
 
 from __future__ import annotations
@@ -73,7 +80,10 @@ def aggregate(messages: torch.Tensor, dst: torch.Tensor, n: int, how: str) -> to
     if how == "std":
         mean = aggregate(messages, dst, n, "mean")
         sq = aggregate(messages.square(), dst, n, "mean")
-        return torch.sqrt((sq - mean.square()).clamp_min(0.0) + 1e-6)
+        # torch.maximum, as jnp.maximum, sends half the gradient at a tie (a
+        # destination with one message has a variance of exactly 0);
+        # clamp_min would pass all of it
+        return torch.sqrt(torch.maximum(sq - mean.square(), sq.new_zeros(())) + 1e-6)
     raise ValueError(how)
 
 
@@ -228,7 +238,6 @@ def graphsage_forward(model: GNN, feats: torch.Tensor, edge_src: torch.Tensor,
     return h @ model.out
 
 
-@torch.inference_mode()
 def graphsage_minibatch_forward(model: GNN, layer_feats: list[torch.Tensor],
                                 cfg: GNNConfig | None = None) -> torch.Tensor:
     """Sampled forward: ``layer_feats[k]`` are features of hop-k vertices
@@ -325,6 +334,10 @@ def gnn_forward(model: GNN, cfg: GNNConfig | None, feats: torch.Tensor,
     (n, d_out), on the inputs' device.  ``cfg`` (default ``model.cfg``)
     gives the architecture and its aggregator; GatedGCN and MeshGraphNet
     take ``edge_feats`` (m, d_edge_in), ones by default."""
+    return _forward(model, cfg, feats, edge_src, edge_dst, edge_feats)
+
+
+def _forward(model: GNN, cfg: GNNConfig | None, feats, edge_src, edge_dst, edge_feats=None):
     cfg = model.cfg if cfg is None else cfg
     if cfg.arch == "graphsage":
         return graphsage_forward(model, feats, edge_src, edge_dst, cfg)
@@ -342,14 +355,14 @@ def _log_softmax(logits: torch.Tensor) -> torch.Tensor:
     return F.log_softmax(logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=-1)
 
 
-@torch.inference_mode()
 def gnn_loss(model: GNN, cfg: GNNConfig | None, feats: torch.Tensor, edge_src: torch.Tensor,
              edge_dst: torch.Tensor, labels: torch.Tensor,
              label_mask: torch.Tensor | None = None, edge_feats: torch.Tensor | None = None,
              graph_ids: torch.Tensor | None = None, n_graphs: int = 0) -> torch.Tensor:
-    """The task's loss of one forward (``output_loss`` of ``gnn_forward``)."""
+    """The task's loss of one forward (``output_loss`` of the forward), under
+    grad mode."""
     cfg = model.cfg if cfg is None else cfg
-    out = gnn_forward(model, cfg, feats, edge_src, edge_dst, edge_feats)
+    out = _forward(model, cfg, feats, edge_src, edge_dst, edge_feats)
     return output_loss(out, cfg, labels, label_mask, graph_ids, n_graphs)
 
 

@@ -25,7 +25,9 @@ scatter: equal to rounding in float32, within bf16 rounding of the sum in
 bf16.  The router runs in float32 on float32 weights whatever the model's
 dtype.  ``jax.lax.top_k`` breaks ties by the lower index; the port takes a
 stable descending sort, which does the same (``torch.topk`` promises no
-order).  The aux loss is computed as the reference's; inference drops it.
+order).  The aux loss is computed as the reference's; serving drops it and
+``transformer.lm_loss`` adds it, training through the plain routes (the
+kernel has no backward).
 
 Over a mesh (``moe_ffn(mesh=)``, the reference's ``shard_map`` at
 ``moe.py:254-305``), SPMD on ``torch.distributed``: every rank calls with

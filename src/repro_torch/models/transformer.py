@@ -15,16 +15,22 @@ the weights in ``cfg.param_dtype`` (a MoE router in float32 whatever it
 is), so serving with ``param_dtype == dtype`` casts once at build time (the
 same values, since the cast is deterministic).
 
-The slice is inference only: ``forward``, ``prefill`` and ``decode_step``
-run under ``torch.inference_mode()`` and take ``use_kernels`` ("auto",
-True or False), resolved by ``kernels.runtime.resolve_use_kernels``: on,
-attention over a prompt's own keys goes through the ``flash_attention``
-kernel (decode attends over the cache with the plain attention) and the
-MoE experts through ``grouped_matmul``.  The MoE aux loss is computed and
+Serving: ``forward``, ``prefill`` and ``decode_step`` run under
+``torch.inference_mode()`` and take ``use_kernels`` ("auto", True or
+False), resolved by ``kernels.runtime.resolve_use_kernels``: on, attention
+over a prompt's own keys goes through the ``flash_attention`` kernel
+(decode attends over the cache with the plain attention) and the MoE
+experts through ``grouped_matmul``.  The MoE aux loss is computed and
 dropped.  Caches are updated in place (the reference's are functional).
 ``prefill`` computes the logits of the last position only, where the
-reference computes all and keeps the last.  The reference's ``lm_loss``
-comes with the training slice.
+reference computes all and keeps the last.
+
+Training: ``lm_loss`` runs under grad mode through the plain routes (the
+kernels have no backward and refuse a gradient), adds the MoE aux loss,
+and with ``cfg.remat`` recomputes each layer past the dense prefix in the
+backward (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of
+its scan body).  Nothing on a layer's path draws random numbers, so a
+recomputed MoE layer routes, and drops, as its first pass did.
 
 Over a mesh (``mesh=``, a ``launch.mesh.ModelMesh``; the reference's
 ``forward(mesh=, batch_axes=)``), SPMD: each rank holds B/EP requests
@@ -47,11 +53,13 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.runtime import resolve_device, resolve_use_kernels
-from repro_torch.models.attention import (MLAConfig, gqa_attention, init_gqa, init_mla,
-                                          mla_attention)
-from repro_torch.models.common import dense_init, embed_init, frozen, rms_norm, swiglu
+from repro_torch.models.attention import (_FLASH_THRESHOLD, MLAConfig, gqa_attention, init_gqa,
+                                          init_mla, mla_attention)
+from repro_torch.models.common import (cross_entropy_loss, dense_init, embed_init, frozen,
+                                       rms_norm, swiglu)
 from repro_torch.models.moe import (MoEConfig, mesh_shards, moe_draws, moe_ffn, shard_moe_params,
                                    shard_shapes)
 
@@ -166,6 +174,7 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, positions, cache=None, cache_index=None, use_kernels=False,
                 mesh=None, batch_axes=("data",)):
+        """-> (x, cache, the MoE aux loss or None for a dense layer)."""
         cfg = self.cfg
         h = rms_norm(x, self.ln1, cfg.norm_eps)
         if cfg.attention == "mla":
@@ -182,10 +191,10 @@ class DecoderLayer(nn.Module):
         h = rms_norm(x, self.ln2, cfg.norm_eps)
         if self.moe is not None:
             B, S, D = h.shape
-            y, _ = moe_ffn(self.moe, h.reshape(B * S, D), cfg.moe, mesh=mesh,
-                           batch_axes=batch_axes, use_kernels=use_kernels)
-            return x + y.reshape(B, S, D), cache
-        return x + _ffn_apply(self.ffn, h), cache
+            y, aux = moe_ffn(self.moe, h.reshape(B * S, D), cfg.moe, mesh=mesh,
+                             batch_axes=batch_axes, use_kernels=use_kernels)
+            return x + y.reshape(B, S, D), cache, aux
+        return x + _ffn_apply(self.ffn, h), cache, None
 
 
 def _ffn_apply(p, x: torch.Tensor) -> torch.Tensor:
@@ -315,8 +324,8 @@ def _hidden(model: Transformer, tokens: torch.Tensor, caches, cache_index, use_k
     x = model.embed.to(dt)[tokens]
     for i, layer in enumerate(model.layers):
         cache = caches["layers"][i] if caches is not None else None
-        x, _ = layer(x, positions, cache=cache, cache_index=cache_index,
-                     use_kernels=use_kernels, mesh=mesh, batch_axes=batch_axes)
+        x, _, _ = layer(x, positions, cache=cache, cache_index=cache_index,
+                        use_kernels=use_kernels, mesh=mesh, batch_axes=batch_axes)
     return rms_norm(x, model.final_norm, cfg.norm_eps)
 
 
@@ -342,6 +351,50 @@ def forward(model: Transformer, tokens: torch.Tensor, caches: dict | None = None
     use = resolve_use_kernels(use_kernels, tokens.device)
     x = _hidden(model, tokens, caches, cache_index, use, mesh, batch_axes)
     return _logits(model, x), caches
+
+
+def _train_hidden(model: Transformer, tokens: torch.Tensor):
+    """(final-normed hidden states (B, S, D), summed MoE aux) through the
+    plain routes; with ``cfg.remat`` under grad mode, each layer past the
+    dense prefix is recomputed in the backward."""
+    cfg = model.cfg
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
+    x = model.embed.to(cfg.act_dtype)[tokens]
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i, layer in enumerate(model.layers):
+        if remat and i >= cfg.n_prefix_layers:
+            x, _, a = checkpoint(layer, x, positions, use_reentrant=False)
+        else:
+            x, _, a = layer(x, positions)
+        if a is not None:
+            aux = aux + a
+    return rms_norm(x, model.final_norm, cfg.norm_eps), aux
+
+
+def lm_loss(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy of ``tokens`` (B, S + 1) int (the float32
+    ``cross_entropy_loss`` of the logits of ``tokens[:, :-1]`` against
+    ``tokens[:, 1:]``), plus ``aux_loss_weight * aux / max(n_scan_layers,
+    1)`` for a MoE, on one device and through the plain routes; runs under
+    grad mode.  Attention is the plain ``S x S`` one, so an S past the
+    reference's blocked-attention threshold (S * S > 2048 * 2048, where the
+    reference switches to its FlashAttention-2 ``custom_vjp``) raises
+    ``NotImplementedError``."""
+    _check_mesh(model, None, ("data",))
+    cfg = model.cfg
+    S = tokens.shape[1] - 1
+    if S * S > _FLASH_THRESHOLD:
+        raise NotImplementedError(
+            f"lm_loss: {S} x {S} attention scores exceed the plain route's "
+            f"{_FLASH_THRESHOLD:,}; the blocked attention with its backward comes with ROADMAP "
+            "item 17c")
+    x, aux = _train_hidden(model, tokens[:, :-1])
+    loss = cross_entropy_loss(_logits(model, x), tokens[:, 1:])
+    if cfg.moe is not None:
+        n = torch.full((), float(max(cfg.n_scan_layers, 1)), device=aux.device)
+        loss = loss + cfg.moe.aux_loss_weight * aux / n
+    return loss
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,

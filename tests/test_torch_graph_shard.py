@@ -1,7 +1,8 @@
 """The port's sharded sweep (``repro_torch.dist.graph_shard``, replicated
 layout) against the reference, on gloo ranks on the CPU.
 
-One pool of 4 ranks serves the module (``launch.mesh.RankPool``: this
+One pool of 4 ranks serves the module (a ``launch.mesh.RankPool``, started anew
+by ``PoolKeeper`` after a case whose run broke it: this
 process is rank 0, three spawned ranks with one thread each); D = 2 cases
 run on its ``(0, 1)`` subgroup.  The reference's single-device oracle runs
 in this process; its sharded run needs forced-host JAX devices, so one
@@ -53,7 +54,7 @@ from repro_torch.core.partition import partition_graph
 from repro_torch.dist import graph_shard as tgs
 from repro_torch.graph import algorithms as talg
 from repro_torch.graph.csr import CSRGraph
-from repro_torch.launch.mesh import GraphMesh, RankPool, make_graph_mesh
+from repro_torch.launch.mesh import GraphMesh, PoolKeeper, make_graph_mesh
 from repro_torch.obs import TraceRecorder
 from repro_torch.obs.export import CAT_ICI, reconcile
 from repro_torch.resilience import CheckpointHook, FaultSpec, RetryPolicy, plan_of
@@ -194,9 +195,15 @@ def ref_sharded(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def pool(ref_sharded):
-    with RankPool(4, subgroups=[(0, 1)], threads=1, timeout_s=60.0) as p:
-        yield p
+def pools(ref_sharded):
+    with PoolKeeper(4, subgroups=[(0, 1)], threads=1, timeout_s=60.0) as keeper:
+        yield keeper
+
+
+@pytest.fixture
+def pool(pools):
+    """The module's pool, or a fresh one after a case whose run broke it."""
+    return pools.get()
 
 
 @pytest.fixture(scope="module")

@@ -2,7 +2,8 @@
 (``HyTMConfig(vertex_sharding="owner")`` in ``repro_torch.dist.graph_shard``)
 and resilience on a mesh, against the reference, on gloo ranks on the CPU.
 
-One pool of 4 ranks serves the module (``launch.mesh.RankPool``: this
+One pool of 4 ranks serves the module (a ``launch.mesh.RankPool``, started anew
+by ``PoolKeeper`` after a case whose run broke it: this
 process is rank 0, three spawned ranks with one thread each); D = 2 cases
 run on its ``(0, 1)`` subgroup.  The reference's single-device oracle runs
 in this process; its owner runs need forced-host JAX devices, so one
@@ -58,7 +59,7 @@ from repro_torch.core.partition import to_device_partitions
 from repro_torch.dist import graph_shard as tgs
 from repro_torch.graph import algorithms as talg
 from repro_torch.graph.csr import CSRGraph
-from repro_torch.launch.mesh import GraphMesh, RankPool, make_graph_mesh, mesh_barrier
+from repro_torch.launch.mesh import GraphMesh, PoolKeeper, make_graph_mesh, mesh_barrier
 from repro_torch.obs import TraceRecorder
 from repro_torch.obs.export import CAT_ICI, reconcile
 from repro_torch.resilience import (CheckpointError, CheckpointHook, FaultSpec,
@@ -242,9 +243,15 @@ def ref_owner(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def pool(ref_owner):
-    with RankPool(4, subgroups=[(0, 1)], threads=1, timeout_s=60.0) as p:
-        yield p
+def pools(ref_owner):
+    with PoolKeeper(4, subgroups=[(0, 1)], threads=1, timeout_s=60.0) as keeper:
+        yield keeper
+
+
+@pytest.fixture
+def pool(pools):
+    """The module's pool, or a fresh one after a case whose run broke it."""
+    return pools.get()
 
 
 @pytest.fixture(scope="module")

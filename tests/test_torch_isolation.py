@@ -1,8 +1,10 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither jax nor the reference package ``repro``, and the entry points never
-fall back to the CPU on their own."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+examples' twins (``examples/torch_*.py``) import neither jax nor the
+reference package ``repro``, and the entry points never fall back to the
+CPU on their own."""
 
 import ast
+import importlib.util
 import os
 import subprocess
 import sys
@@ -14,6 +16,14 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+
+
+def _example(path: Path):
+    spec = importlib.util.spec_from_file_location(f"_example_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _modules():
@@ -33,7 +43,8 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("path", [p for p, _ in _modules()] + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path",
+                         [p for p, _ in _modules()] + [ROOT / "chip_smoke.py"] + EXAMPLES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     roots = set(_imported_roots(path))
@@ -72,7 +83,13 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.models.transformer import init_cache, init_transformer
     from repro_torch.models.gnn import init_gnn
     from repro_torch.graph.sampler import sample_neighbors_device
+    from repro_torch.launch import train
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import init_train_state
 
+    twins = [_example(path) for path in EXAMPLES]
+    assert [t.__name__ for t in twins] == [f"_example_torch_{n}" for n in
+                                          ("quickstart", "serve_lm", "train_gnn", "train_lm")]
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry points run on it")
     g = uniform_graph(40, 200, seed=0)
@@ -91,7 +108,10 @@ def test_entry_points_raise_without_a_card():
                  lambda: serve.main(["--arch", "gemma3-12b", "--reduced"]),
                  lambda: wall_probe(default_grid()[:1]),
                  lambda: default_device_kind(),
-                 lambda: calibrate.main(["--dry-run"])):
+                 lambda: calibrate.main(["--dry-run"]),
+                 lambda: init_train_state({"w": torch.ones(3)}, OptimizerConfig()),
+                 lambda: train.main(["--arch", "internlm2-1.8b", "--steps", "1"]),
+                 *[lambda twin=twin: twin.main([]) for twin in twins]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # an explicit CPU request runs

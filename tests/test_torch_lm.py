@@ -73,14 +73,28 @@ def test_gemma_windows_are_five_local_to_one_global():
 
 @pytest.mark.parametrize("arch", ["pna", "hytgraph"])
 def test_unported_archs_raise(arch):
-    """hytgraph is still unported (item 12); pna, once unported, now gives
-    the reference's config."""
+    """The two archs that were once unported now give the reference's
+    configs: pna's GNNConfig, and hytgraph's workload field by field, its
+    HyTMConfig field by field too (the link model as its fields); an
+    unknown arch still raises."""
+    ref = jax_get_arch(arch).model_config
+    got = get_arch(arch)
     if arch == "pna":
-        ref = jax_get_arch(arch).model_config
-        assert dataclasses.asdict(get_arch(arch)) == dataclasses.asdict(ref)
+        assert dataclasses.asdict(got) == dataclasses.asdict(ref)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
-            get_arch(arch)
+        names = [f.name for f in dataclasses.fields(ref)]
+        assert [f.name for f in dataclasses.fields(got)] == names
+        for name in names:
+            if name != "hytm":
+                assert getattr(got, name) == getattr(ref, name), name
+        hytm_names = [f.name for f in dataclasses.fields(ref.hytm)]
+        assert [f.name for f in dataclasses.fields(got.hytm)] == hytm_names
+        for name in hytm_names:
+            want, have = getattr(ref.hytm, name), getattr(got.hytm, name)
+            if dataclasses.is_dataclass(want):
+                assert dataclasses.asdict(have) == dataclasses.asdict(want), name
+            else:
+                assert have == want, name
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 

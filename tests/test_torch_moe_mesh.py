@@ -2,7 +2,8 @@
 ``decode_step`` / ``generate`` over a ``launch.mesh.ModelMesh`` against the
 reference's ``shard_map`` runs, on gloo ranks on the CPU.
 
-One pool of 8 ranks serves the module (``launch.mesh.RankPool``: this
+One pool of 8 ranks serves the module (a ``launch.mesh.RankPool``, started anew
+by ``PoolKeeper`` after a case whose run broke it: this
 process is rank 0, seven spawned ranks with one thread each).  A 2-D mesh
 runs on ranks 0-3; every rank still calls ``make_debug_mesh`` (ranks 4-7
 get ``None``), as ``dist.new_group`` wants.  The reference's sharded runs
@@ -57,7 +58,7 @@ from repro_torch import convert
 from repro_torch.configs import get_arch
 from repro_torch.configs.common import reduce_lm_config
 from repro_torch.launch import serve
-from repro_torch.launch.mesh import RankPool, make_debug_mesh
+from repro_torch.launch.mesh import PoolKeeper, make_debug_mesh
 from repro_torch.models import moe, transformer
 
 MOE_TOL = 1e-5
@@ -271,9 +272,15 @@ def ref_sharded(tmp_path_factory, inputs):
 
 
 @pytest.fixture(scope="module")
-def pool(ref_sharded):
-    with RankPool(8, threads=1, timeout_s=60.0) as p:
-        yield p
+def pools(ref_sharded):
+    with PoolKeeper(8, threads=1, timeout_s=60.0) as keeper:
+        yield keeper
+
+
+@pytest.fixture
+def pool(pools):
+    """The module's pool, or a fresh one after a case whose run broke it."""
+    return pools.get()
 
 
 # --------------------------------------------------------------------------
@@ -596,9 +603,9 @@ def test_moe_mesh_matches_reference(pool, inputs, ref_sharded, name, use_kernels
 
 
 @pytest.fixture(scope="module")
-def lm_runs(pool, inputs, ref_sharded):
+def lm_runs(pools, inputs, ref_sharded):
     ref_tokens = ref_sharded.get("lm/tokens")
-    return {use: [o for o in pool.run(_lm_rank, inputs["lm_tree"], inputs["prompts"], use,
+    return {use: [o for o in pools.get().run(_lm_rank, inputs["lm_tree"], inputs["prompts"], use,
                                       ref_tokens) if o is not None]
             for use in (False, True)}
 

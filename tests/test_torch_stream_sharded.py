@@ -3,7 +3,8 @@
 ``dist.graph_shard.make_sharded_batched_chunk``) against the reference, on
 gloo ranks on the CPU; the counterpart of ``tests/test_stream_sharded.py``.
 
-One pool of 4 ranks serves the module (``launch.mesh.RankPool``: this
+One pool of 4 ranks serves the module (a ``launch.mesh.RankPool``, started anew
+by ``PoolKeeper`` after a case whose run broke it: this
 process is rank 0, three spawned ranks with one thread each); D = 2 cases
 run on its ``(0, 1)`` subgroup.  The reference's single-device oracles run
 in this process; one forced-device reference subprocess at D = 4, started by
@@ -57,7 +58,7 @@ from repro_torch.core.cost_model import KEY_ENGINE_CORRECTIONS, KEY_ICI_BYTES, K
 from repro_torch.dist import graph_shard as tgs
 from repro_torch.graph import algorithms as talg
 from repro_torch.graph.csr import CSRGraph
-from repro_torch.launch.mesh import GraphMesh, RankPool, make_graph_mesh
+from repro_torch.launch.mesh import GraphMesh, PoolKeeper, make_graph_mesh
 from repro_torch.obs import TraceRecorder
 from repro_torch.obs.export import CAT_ICI
 from repro_torch.resilience import FaultSpec, RetryPolicy, Supervisor, plan_of
@@ -184,9 +185,15 @@ def ref_sharded(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def pool(ref_sharded):
-    with RankPool(4, subgroups=[(0, 1)], threads=1, timeout_s=60.0) as p:
-        yield p
+def pools(ref_sharded):
+    with PoolKeeper(4, subgroups=[(0, 1)], threads=1, timeout_s=60.0) as keeper:
+        yield keeper
+
+
+@pytest.fixture
+def pool(pools):
+    """The module's pool, or a fresh one after a case whose run broke it."""
+    return pools.get()
 
 
 def _ranks(d: int):
