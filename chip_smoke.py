@@ -71,7 +71,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
    lanes answers 32 SSSP sources (vertices with out-edges, drawn from the
    seed) with backfill, each bit-equal to its solo ``run_hytm`` over the
    service's runtime; the same 32 queries batched against a loop of solo
-   runs in turns (batched, solo, solo, batched): queries/s, lane
+   runs in turns (batched, solo; once each): queries/s, lane
    occupancy, peak device memory, host syncs a chunk (PyTorch's sync debug
    mode) and the kernels' device ms in one traced batched run; a
    three-tenant ``pump`` of 24 SSSP/BFS requests under quotas with a
@@ -102,7 +102,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
    bit-equal, Δ-PageRank within phase 4's bound).  12b: a traced SSSP on
    both drivers (``reconcile`` exact, values bit-equal to untraced, every
    host sync equal traced and untraced, site by site, the traced/untraced wall
-   in turns, 2 rounds), a traced ``GraphService`` answering 8 SSSP
+   in turns, 1 round), a traced ``GraphService`` answering 8 SSSP
    queries through 8 lanes (the Chrome trace valid, with the scheduler,
    cache and tenant tracks; ``serve.requests`` totals the queries; written
    under ``build/``), and ``launch.serve_graph`` at its defaults with
@@ -115,7 +115,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
    alone (schema 2, the crc table) and held to the state copied from the
    card at that boundary; its bytes and the save, restore and resume
    times.  Δ-PageRank (K=8) killed at chunk 1 and resumed, within phase 4's
-   bound.  Hooked against unhooked SSSP in turns (3 rounds), and the
+   bound.  Hooked against unhooked SSSP in turns (1 round), and the
    hook's one host sync a checkpoint.  The
    degradation ladder: ``run_supervised`` with ``use_kernels="auto"`` and
    faults at chunk 2 while the kernels run degrades once
@@ -153,7 +153,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
    writing the owner checkpoint.  Every leg launches the kernels of the
    engines its rank picked and no other.  Wall seconds in turns of the
    single-device sync run and both layouts (1 round; at D = 2 Δ-PageRank
-   1), the collectives' device ms an iteration (CUDA events; gloo stages
+   none: the checked runs' walls), the collectives' device ms an iteration (CUDA events; gloo stages
    them through the host), host syncs a dispatch, each rank's peak
    allocated memory in each layout and the owner state triple's bytes
    against ``vertex_state_bytes``;
@@ -252,6 +252,28 @@ Phases, in order; any failure exits nonzero and prints no result line:
    against none, under deterministic algorithms: bit-equal; the async save
    and restore times.  Leg (g): the ``torch_quickstart`` twin's SSSP and
    Δ-PageRank on the card, and ``torch_serve_lm`` at its defaults;
+19. (right after phase 18, before the DLRM phase; everything it allocates
+   is freed before that phase) training past 2048 x 2048 attention scores
+   and over a model mesh; no leg may launch a kernel.  Leg (a): the blocked
+   attention with its FlashAttention-2 backward (``attention._flash_sdpa``)
+   at S = L = 4096, batch 1, on internlm2-1.8b's heads, gemma3-12b's local
+   (window 1024) and global layers and deepseek-v2-lite's MLA (keys 192,
+   values 128 wide), in float32 and bf16: the output and the three
+   gradients against the plain S x S core in float64 on the card (each
+   within ``BLOCKED_TOL`` of its largest), its forward+backward ms beside
+   the plain core's.  Leg (b): internlm2-1.8b at full width and depth,
+   ``lm_loss`` at 4096 positions (train_4k's sequence; its 256 rows cut to
+   2), its AdamW ``OPT`` with 2 microbatches and remat: seconds a step
+   (median of 3 after a warm-up), tokens/s, 6*N*tokens plus the blocked
+   attention's products against 989 TF/s, peak memory, the blocked core's
+   calls, and the first batch's loss falling.  Leg (c): internlm2-1.8b at
+   full width cut to 2 layers, float32, two steps of the train step on
+   DTensor placements (``dist.sharding``) on a (1, 1) NCCL mesh, held to
+   the single-device step (losses and grad norms within 1e-5 relative, the
+   parameters after the first step within 1e-5 of each leaf's largest;
+   two gloo ranks sharing the card crash on DTensor's collectives, so the
+   two- and four-rank meshes run across cards, ``profile_port.py
+   --train-mesh``);
 6. LM serving: the reduced gemma3-12b config on the card against the CPU
    (float32, logits within 1e-4, greedy tokens equal), then gemma3-12b at
    full width (11.8B parameters in bf16, random weights from the seed):
@@ -323,6 +345,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import inspect
 import itertools
 import json
 import math
@@ -1752,6 +1775,7 @@ SERVE_QUERIES = 32
 SERVE_PUMP = 24
 SERVE_PPR = 8
 SERVE_REQUERY = 8
+SERVE_TURNS = ("batched", "solo")   # the serving leg's timed runs, in this order
 # the lane entries each graph kernel gains (hyb_gather's lane path is its own
 # entry with every lane's windows in one request list)
 LANE_ENTRIES = {"segment_spmm": "segment_spmm_lanes",
@@ -1977,7 +2001,7 @@ def phase_serve(torch, cfg, hs, rt, smi: str) -> dict:
         return solo_runs(SSSP, sources)
 
     turns = {"batched": [], "solo": []}
-    for i, kind in enumerate(("batched", "solo", "solo", "batched")):
+    for i, kind in enumerate(SERVE_TURNS):
         if i == 0:
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
@@ -1989,11 +2013,11 @@ def phase_serve(torch, cfg, hs, rt, smi: str) -> dict:
         turns[kind].append(wall)
     rate = {k: SERVE_QUERIES / float(np.median(v)) for k, v in turns.items()}
     out["turns"] = {"wall_s": turns, "queries_per_s": rate}
-    log(f"serving turns (batched, solo, solo, batched): batched {turns['batched']} s, solo "
+    log(f"serving turns {SERVE_TURNS}: batched {turns['batched']} s, solo "
         f"{turns['solo']} s; {rate['batched']:.2f} queries/s batched against "
-        f"{rate['solo']:.2f} solo (median of 2 each) [{smi}]; peak device memory "
-        f"{out['peak_device_bytes'] / 1e9:.3f} GB ({out['peak_over_base_bytes'] / 1e9:.3f} GB "
-        f"over the leg's start)")
+        f"{rate['solo']:.2f} solo (median of {len(turns['solo'])} each) [{smi}]; peak device "
+        f"memory {out['peak_device_bytes'] / 1e9:.3f} GB "
+        f"({out['peak_over_base_bytes'] / 1e9:.3f} GB over the leg's start)")
 
     # -- 3. host syncs a chunk, and the kernels' device time in one traced run
     st0 = dataclasses.replace(svc.scheduler.stats)
@@ -2136,9 +2160,9 @@ def phase_serve(torch, cfg, hs, rt, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 PROBE_MAX_EDGES = 4_300_000   # a scale-22 partition holds about 1.05M edges
-PROBE_REPEATS = 3
+PROBE_REPEATS = 1
 CALIB_ROUNDS = 1              # rounds of (pcie3, calibrated, calibrated, pcie3)
-OBS_ROUNDS = 2                # rounds of (untraced, traced, traced, untraced)
+OBS_ROUNDS = 1                # rounds of (untraced, traced, traced, untraced)
 OBS_LANES = 8
 
 
@@ -2456,7 +2480,7 @@ def phase_calibrate(torch, cfg, hs, rt, source: int, smi: str) -> tuple[dict, di
 # Phase 13: resilience (fault plane, checkpoint/resume, supervisor, chaos)
 # ---------------------------------------------------------------------------
 
-CKPT_ROUNDS = 3       # rounds of (unhooked, hooked, hooked, unhooked) SSSP runs
+CKPT_ROUNDS = 1       # rounds of (unhooked, hooked, hooked, unhooked) SSSP runs
 CHAOS_QUERIES = 8     # a trace's queries before and after its update batch
 CHAOS_TIERS = {"gold": 2, "silver": 1, "bronze": 0}
 CHAOS_OPS = dict(n_insert=12, n_delete=12)   # the chaos trace's update batch
@@ -2816,9 +2840,10 @@ def phase_resilience(torch, cfg, hs, rt, source: int, main_runs: dict, smi: str)
 # ---------------------------------------------------------------------------
 
 SHARD_TURNS = 1       # rounds of (single-device sync, replicated, owner) runs, alternating
-# leg (b)'s Δ-PageRank: one round; each of its sharded runs stages 568 16-MB
-# all_reduces through the host (about 10-15 s a run on the card)
-GLOO_PAGERANK_TURNS = 1
+# legs (b) and (d)'s Δ-PageRank: no turns; each of its sharded runs stages
+# 568 16-MB all_reduces through the host (12-26 s a run on the card), so its
+# walls are the checked runs' against leg (a)'s single-device sync run
+GLOO_PAGERANK_TURNS = 0
 OWNER_LEGS = ("sssp_k8", "pagerank")   # the legs that also run the owner layout
 KILL_AT = 2           # leg (d): the seeded chunk_dispatch plan fails chunk 2 (K=2)
 
@@ -3067,15 +3092,19 @@ def shard_rank(group, graph_dir: str, cfg, source: int, n_hubs: int) -> dict:
 
 
 def shard_summary(name: str, single: dict, walls: dict, res, info: dict,
-                  against: str = "single") -> dict:
+                  against: str = "single", checked: dict | None = None) -> dict:
     """One leg's line: its median wall against the ``against`` side of the
     same turns, the collectives' device ms an iteration, host syncs a
-    dispatch and the run's peak device memory."""
-    med = {k: float(np.median(v)) for k, v in walls.items() if v}
+    dispatch and the run's peak device memory.  Where no turns ran, the
+    walls are ``checked``'s: the checked runs' own (side -> [seconds])."""
     side = "owner" if against == "sharded" else "sharded"
+    how = "in turns"
+    if not walls[side]:
+        walls, how = checked, "the checked runs"
+    med = {k: float(np.median(v)) for k, v in walls.items() if v}
     log(f"  {name}: {res.iterations} iterations; median wall {med[side]:.4f} s vs "
         f"{med[against]:.4f} s {'replicated' if against == 'sharded' else 'single-device sync'}"
-        f" (of {len(walls[side])} each, in turns; the instrumented run "
+        f" (of {len(walls[side])} each, {how}; the instrumented run "
         f"{res.wall_seconds:.4f} s); collectives {info['collective_ms_per_iter']:.3f} ms an "
         f"iteration ({info['collectives']}); {info['syncs_per_dispatch']:.2f} host syncs a "
         f"dispatch ({info['dispatches']} dispatches: {info['syncs']}); peak allocated "
@@ -3113,7 +3142,8 @@ def phase_sharded(torch, cfg, hs, rt, source: int, smi: str) -> dict:
     0 alone writing an owner checkpoint with the real ``n_nodes``.
     Each leg's launches: the kernels of the engines it picked, and no
     other.  Wall seconds in turns of the single-device sync run, the
-    replicated and the owner layout (1 round; at D = 2 Δ-PageRank 1), the
+    replicated and the owner layout (1 round; at D = 2 Δ-PageRank none:
+    the checked runs' walls), the
     collectives' device ms an iteration (CUDA events; gloo stages them
     through the host), host syncs a dispatch, each rank's peak allocated
     memory in each layout, and the owner state triple's bytes against
@@ -3330,15 +3360,19 @@ def phase_sharded(torch, cfg, hs, rt, source: int, smi: str) -> dict:
         f"{r0['kill']['file']}")
     # the walls and collective times are rank 0's, the host syncs rank 1's
     syncs_of = ("syncs", "dispatches", "syncs_per_dispatch")
+    checked = {name: {"single": [single[name].wall_seconds],
+                      "sharded": [r0["info"][name]["res"].wall_seconds],
+                      "owner": [r0["owner"][name]["res"].wall_seconds]}
+               for name in ("sssp_k8", "pagerank")}
     out["gloo_d2"] = {name: {**b[name], **shard_summary(
         f"(b) gloo D=2 {name}", vars(single[name]), r0["walls"][name], r0["info"][name]["res"],
-        {**r0["info"][name], **{k: r1["info"][name][k] for k in syncs_of}})}
-        for name in ("sssp_k8", "pagerank")}
+        {**r0["info"][name], **{k: r1["info"][name][k] for k in syncs_of}},
+        checked=checked[name])} for name in ("sssp_k8", "pagerank")}
     out["owner_gloo_d2"] = {name: {**d[name], **shard_summary(
         f"(d) gloo D=2 owner {name}", vars(single[name]), r0["walls"][name],
         r0["owner"][name]["res"], {**r0["owner"][name],
                                    **{k: r1["owner"][name][k] for k in syncs_of}},
-        against="sharded")} for name in ("sssp_k8", "pagerank")}
+        against="sharded", checked=checked[name])} for name in ("sssp_k8", "pagerank")}
     for r in ranks:
         for name in ("sssp_k8", "pagerank"):
             memory_line(f"(d) rank {r['rank']} {name}", r["info"][name], r["owner"][name],
@@ -5813,6 +5847,315 @@ def phase_train(torch, dev, seed: int, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 19: training past 2048² attention scores and over a model mesh
+# ---------------------------------------------------------------------------
+
+BLOCKED_SEQ = 4096            # train_4k's sequence: S = L = 4096 positions
+BLOCKED_REPS = 3              # timed fwd+bwd calls a leg (a) row, after 3 warm-ups
+# leg (a): the blocked core against a float64 plain copy on the card, of each
+# tensor's largest: float32 sums in another order; bf16 adds one rounding of
+# each output and gradient (2^-8 of a value at most)
+BLOCKED_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+TRAIN4K_ROWS = 2              # leg (b): train_4k's 256 rows cut to 2
+TRAIN4K_STEPS = 4             # a warm-up, then 3 timed
+MESH_TRAIN_LAYERS = 2         # leg (c): internlm2-1.8b's 24 layers cut to 2
+MESH_TRAIN_ROWS = 4
+MESH_TRAIN_SEQ = 1025         # 1024 next-token positions a row
+MESH_LOSS_TOL = 1e-5          # relative, against the single-device step
+MESH_PARAM_TOL = 1e-5         # of each leaf's largest
+MESH_TRAIN_TIMEOUT_S = 300.0
+MESH_REFERENCE: dict = {}     # leg (c): the single-device step
+
+
+def blocked_shapes() -> dict:
+    """Leg (a)'s rows: name -> (KV heads, query heads a KV head, dh, dv,
+    window), from the configs."""
+    from repro_torch.configs import deepseek_v2_lite_16b, gemma3_12b, internlm2_1p8b
+
+    i, g, d = internlm2_1p8b.CONFIG, gemma3_12b.CONFIG, deepseek_v2_lite_16b.CONFIG
+    local = next(w for w in g.window_pattern if w > 0)
+    return {
+        "internlm2": (i.n_kv_heads, i.n_heads // i.n_kv_heads, i.d_head, i.d_head, 0),
+        "gemma3_local": (g.n_kv_heads, g.n_heads // g.n_kv_heads, g.d_head, g.d_head, local),
+        "gemma3_global": (g.n_kv_heads, g.n_heads // g.n_kv_heads, g.d_head, g.d_head, 0),
+        "deepseek_mla": (d.n_heads, 1, d.mla.d_nope + d.mla.d_rope, d.mla.d_v, 0),
+    }
+
+
+def blocked_flops(heads: int, dh: int, dv: int, S: int, window: int, forwards: int) -> float:
+    """The blocked route's product flops over (S x S) at ``window``, as it
+    computes them (the planned block pairs whole): ``forwards`` forward
+    passes (QK, PV) and one backward (QK again, dO.V, dQ, dK, dV)."""
+    from repro_torch.models import attention as attn
+
+    pairs = sum(len(r) for r in attn.block_plan(0, S, 0, S, S - 1, window))
+    per_pair = 2.0 * attn._Q_BLOCK * attn._KV_BLOCK * heads
+    return pairs * per_pair * (forwards * (dh + dv) + 3 * dh + 2 * dv)
+
+
+def blocked_core_leg(torch, dev, seed: int, smi: str) -> dict:
+    """Leg (a): ``attention._flash_sdpa`` forward and backward at S = L =
+    ``BLOCKED_SEQ``, batch 1, on internlm2-1.8b's heads, gemma3-12b's local
+    and global layers and deepseek-v2-lite's MLA, in float32 and bf16,
+    against the plain ``S x S`` core (``_sdpa``) in float64 on the same
+    inputs; its time and the plain core's in the same dtype."""
+    from repro_torch.models import attention as attn
+
+    S = BLOCKED_SEQ
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev)
+    rows = {}
+    reset_launch_counts()
+    for name, (KV, G, dh, dv, w) in blocked_shapes().items():
+        scale = attn.attention_scale(dh)
+        plan = attn.block_plan(0, S, 0, S, S - 1, w)
+        mask = attn.attention_mask(pos, pos, None, w)
+        gen.manual_seed(seed)
+        base = [torch.randn(shape, generator=gen, device=dev) for shape in
+                ((1, S, KV, G, dh), (1, S, KV, dh), (1, S, KV, dv), (1, S, KV, G, dv))]
+        for dtype in ("float32", "bfloat16"):
+            td = getattr(torch, dtype)
+            ops = [t.to(td) for t in base]
+
+            def run(fn, *extra, dt=td):
+                ts = [t.detach().to(dt).requires_grad_(True) for t in ops[:3]]
+                out = fn(*ts, *extra)
+                out.backward(ops[3].to(dt))
+                return [out.detach()] + [t.grad for t in ts]
+
+            def blocked():
+                return run(attn._flash_sdpa, pos, pos, S - 1, w, scale, plan)
+
+            got = blocked()
+            want = run(attn._sdpa, mask, scale, dt=torch.float64)
+            errs = {what: float((a.double() - b).abs().max()) / float(b.abs().max())
+                    for what, a, b in zip(("out", "dq", "dk", "dv"), got, want)}
+            del got, want
+            ms = call_ms(torch, blocked, reps=BLOCKED_REPS)
+            plain_ms = call_ms(torch, lambda: run(attn._sdpa, mask, scale), reps=BLOCKED_REPS)
+            flops = blocked_flops(KV * G, dh, dv, S, w, forwards=1)
+            row = {"window": w, "heads": KV * G, "kv_heads": KV, "dh": dh, "dv": dv,
+                   "pairs": sum(len(r) for r in plan),
+                   "of_pairs": -(-S // attn._Q_BLOCK) * -(-S // attn._KV_BLOCK),
+                   "errs": errs, "ms": ms, "plain_ms": plain_ms, "tflops": flops / ms / 1e9}
+            rows[f"{name}_{dtype}"] = row
+            worst = max(errs.values())
+            log(f"train 4k (a) {name} {dtype}: q (1, {S}, {KV}, {G}, {dh}), v {dv} wide, window "
+                f"{w}: {row['pairs']} of {row['of_pairs']} block pairs; out/dq/dk/dv vs float64 "
+                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                + f" of each largest (tolerance {BLOCKED_TOL[dtype]:g}); forward+backward "
+                f"{ms:.2f} ms ({row['tflops']:.1f} TFLOP/s of its products) against the plain "
+                f"S x S core's {plain_ms:.2f} ms [{smi}]")
+            check(worst <= BLOCKED_TOL[dtype], f"train 4k (a) {name} {dtype}: the blocked core "
+                  f"is {worst:.3e} of a largest from float64 (tolerance {BLOCKED_TOL[dtype]:g})")
+            del ops
+        del base, mask
+        torch.cuda.empty_cache()
+    launches = read_launch_counts()
+    check(launches == counts_zero(), f"train 4k (a): launched {launches}")
+    return {"rows": rows, "launches": launches}
+
+
+def train4k_leg(torch, dev, seed: int, smi: str) -> dict:
+    """Leg (b): internlm2-1.8b at full width and depth, float32 parameters,
+    bf16 activations, remat, ``lm_loss`` at ``BLOCKED_SEQ`` positions
+    (train_4k's sequence; above 2048² scores, so attention is blocked)
+    through ``make_train_step`` with its AdamW ``OPT`` (warmup cut as in
+    phase 18) and 2 microbatches: ``TRAIN4K_STEPS`` steps, the first a
+    warm-up; the blocked core's calls counted."""
+    from repro_torch.configs.internlm2_1p8b import CONFIG, OPT
+    from repro_torch.data.pipeline import LMBatches
+    from repro_torch.models import attention as attn
+    from repro_torch.models.transformer import init_transformer, lm_loss
+    from repro_torch.train import train_step as ts
+
+    cfg = CONFIG.replace(param_dtype="float32", dtype="bfloat16", remat=True)
+    opt = OPT.replace(warmup_steps=TRAIN_LM_WARMUP, total_steps=TRAIN4K_STEPS)
+    S = BLOCKED_SEQ
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_transformer(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    state = ts.init_train_state(model, opt, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    pipe = LMBatches(vocab=cfg.vocab, batch=TRAIN4K_ROWS, seq_len=S + 1, seed=seed)
+    batches = [torch.from_numpy(pipe.make(s)["tokens"]).to(dev) for s in range(TRAIN4K_STEPS)]
+    step_fn = ts.make_train_step(lambda m, b: lm_loss(m, b), opt,
+                                 microbatches=TRAIN_LM_MICROBATCHES)
+    calls = [0]
+    real = attn._flash_sdpa
+
+    def counted(*args):
+        calls[0] += 1
+        return real(*args)
+
+    reset_launch_counts()
+    secs, losses = [], []
+    attn._flash_sdpa = counted
+    try:
+        for b in batches:
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            state, m = step_fn(state, b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.monotonic() - t)
+        step_calls = calls[0]
+        with torch.no_grad():
+            after = float(lm_loss(model, batches[0]))
+    finally:
+        attn._flash_sdpa = real
+    launches = read_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want_calls = TRAIN4K_STEPS * TRAIN_LM_MICROBATCHES * cfg.n_layers * (2 if cfg.remat else 1)
+    check(step_calls == want_calls, f"train 4k (b): the blocked core ran {step_calls} times in "
+          f"{TRAIN4K_STEPS} steps, expected {want_calls}")
+    check(launches == counts_zero(), f"train 4k (b): launched {launches}")
+    check(all(math.isfinite(v) for v in losses + [after]),
+          f"train 4k (b): a loss is not finite: {losses} {after}")
+    check(after < losses[0], f"train 4k (b): the first batch's loss did not fall: {losses[0]} -> "
+          f"{after} (the steps' losses {losses})")
+    step_s = float(np.median(secs[1:]))
+    tokens = TRAIN4K_ROWS * S
+    model_flops = 6.0 * n_params * tokens
+    attn_flops = TRAIN4K_ROWS * cfg.n_layers * blocked_flops(
+        cfg.n_heads, cfg.d_head, cfg.d_head, S, 0, forwards=2 if cfg.remat else 1)
+    mfu = (model_flops + attn_flops) / step_s / PEAK_FLOPS["bfloat16"]
+    log(f"train 4k (b): {cfg.name} at full width and depth ({n_params:,} parameters), "
+        f"{TRAIN4K_ROWS} x {S} positions a step (train_4k's 256 rows cut to {TRAIN4K_ROWS}), "
+        f"{TRAIN_LM_MICROBATCHES} microbatches, remat, {OPT.name} with warmup "
+        f"{opt.warmup_steps}: {step_s:.4f} s a step (median of steps 2-{TRAIN4K_STEPS}; each "
+        f"{[round(s, 4) for s in secs]}), {tokens / step_s:,.0f} tokens/s; 6*N*tokens "
+        f"{model_flops / 1e12:.2f} TFLOP + the blocked attention's products "
+        f"{attn_flops / 1e12:.2f} TFLOP (forward, remat's forward, backward; float32) = "
+        f"{mfu:.2%} of 989 TF/s; the blocked core ran {step_calls} times; losses "
+        f"{[round(x, 4) for x in losses]}, the first batch's {losses[0]:.4f} -> {after:.4f} "
+        f"after the last step; peak allocated {peak / 1e9:.2f} GB; no kernel launched [{smi}]")
+    del state, model, batches, step_fn
+    return {"n_params": n_params, "step_s": step_s, "step_secs": secs,
+            "tokens_per_s": tokens / step_s, "model_tflop": model_flops / 1e12,
+            "attention_tflop": attn_flops / 1e12, "mfu_989": mfu, "losses": losses,
+            "first_after": after, "blocked_calls": step_calls, "peak_gb": peak / 1e9,
+            "launches": launches}
+
+
+def mesh_train_run(torch, dev, seed: int, mesh=None) -> dict:
+    """Leg (c)'s run: internlm2-1.8b at full width cut to
+    ``MESH_TRAIN_LAYERS`` layers, float32, AdamW (its ``OPT`` without
+    warmup, so the first step moves every parameter), 2 microbatches; on
+    ``mesh`` (a ``ModelMesh``) placed by ``lm_rule`` and ``lm_batch_spec``.
+    Two steps on two batches: each step's loss, grad norm and seconds, the
+    parameters after the first step."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs.internlm2_1p8b import CONFIG, OPT
+    from repro_torch.data.pipeline import LMBatches
+    from repro_torch.dist.sharding import (distribute, lm_batch_spec, lm_rule, placements,
+                                           tree_shardings)
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models.transformer import init_transformer, lm_loss
+    from repro_torch.train import train_step as ts
+
+    cfg = CONFIG.replace(n_layers=MESH_TRAIN_LAYERS, dtype="float32", param_dtype="float32")
+    opt = OPT.replace(warmup_steps=0)
+    model = init_transformer(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    state = ts.init_train_state(model, opt, device=dev)
+    pipe = LMBatches(vocab=cfg.vocab, batch=MESH_TRAIN_ROWS, seq_len=MESH_TRAIN_SEQ, seed=seed)
+    batches = [torch.from_numpy(pipe.make(s)["tokens"]).to(dev) for s in range(2)]
+    if mesh is not None:
+        dm = device_mesh(mesh)
+        state = distribute(state, dm, tree_shardings(state, mesh, lm_rule(mesh)))
+        batches = [distribute_tensor(b, dm, placements(lm_batch_spec(mesh), 2, dm),
+                                     src_data_rank=None) for b in batches]
+    step = ts.make_train_step(lambda m, b: lm_loss(m, b, mesh=mesh), opt,
+                              microbatches=TRAIN_LM_MICROBATCHES)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = {"secs": [], "losses": [], "norms": [], "leaves": state.leaves}
+    for b in batches:
+        sync()
+        t = time.monotonic()
+        state, m = step(state, b)
+        sync()
+        out["secs"].append(time.monotonic() - t)
+        out["losses"].append(float(m["loss"]))
+        out["norms"].append(float(m["grad_norm"]))
+        if "params" not in out:
+            out["params"] = {n: (p.full_tensor() if hasattr(p, "full_tensor") else p)
+                             .detach().clone() for n, p in state.params.named_parameters()}
+    out["placements"] = {n: str(getattr(p, "placements", "plain"))
+                         for n, p in state.params.named_parameters()}
+    del state, model, batches
+    return out
+
+
+def mesh_train_compare(torch, run: dict) -> dict:
+    """A mesh run against the single-device run in ``MESH_REFERENCE``."""
+    ref = MESH_REFERENCE
+    err, leaf = leaf_errs(torch, run["leaves"], run["params"], ref["params"])
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(run["losses"] + run["norms"],
+                                                        ref["losses"] + ref["norms"]))
+    return {"losses": run["losses"], "norms": run["norms"], "loss_err": loss_err,
+            "param_err": err, "param_leaf": leaf or "none", "secs": run["secs"]}
+
+
+def mesh_train_leg(torch, dev, seed: int, smi: str) -> dict:
+    """Leg (c): the train step on a (1, 1) NCCL mesh in this process, held
+    to the single-device step: the losses and grad norms within
+    ``MESH_LOSS_TOL`` relative and every parameter after the first step
+    within ``MESH_PARAM_TOL`` of its leaf's largest.  Two gloo ranks
+    sharing the card cannot run it: DTensor's collectives on CUDA tensors
+    crash gloo (torch 2.11, a segmentation fault in ``wait_tensor`` of the
+    first ``all_gather``), so the (2, 1) and (1, 2) meshes run on NCCL
+    across cards (``profile_port.py --train-mesh``)."""
+    from repro_torch.launch.mesh import RankPool, make_debug_mesh
+
+    reset_launch_counts()
+    single = mesh_train_run(torch, dev, seed)
+    MESH_REFERENCE.update(losses=single["losses"], norms=single["norms"],
+                          params=single["params"])
+    out = {"single": {"losses": single["losses"], "norms": single["norms"],
+                      "secs": single["secs"]}}
+    del single
+    card = dev.type == "cuda"
+    with RankPool(1, backend="nccl" if card else "gloo", timeout_s=MESH_TRAIN_TIMEOUT_S):
+        run = mesh_train_run(torch, dev, seed, make_debug_mesh(1, 1, device=dev))
+        r = out["nccl_1x1" if card else "gloo_1x1"] = mesh_train_compare(torch, run)
+        r["wq"] = run["placements"]["layers.0.attn.wq"]
+        del run
+    launches = read_launch_counts()
+    MESH_REFERENCE.clear()
+    check(launches == counts_zero(), f"train 4k (c): launched {launches}")
+    log(f"train 4k (c) (1, 1) mesh: losses {r['losses']} and grad norms {r['norms']} (within "
+        f"{r['loss_err']:.2e} relative of the single device's {out['single']['losses']} and "
+        f"{out['single']['norms']}; tolerance {MESH_LOSS_TOL:g}), the parameters after the "
+        f"first step within {r['param_err']:.2e} of leaf {r['param_leaf']}'s largest "
+        f"(tolerance {MESH_PARAM_TOL:g}); wq placed {r['wq']}; steps "
+        f"{[round(x, 4) for x in r['secs']]} s (single device "
+        f"{[round(x, 4) for x in out['single']['secs']]}) [{smi}]")
+    check(r["loss_err"] <= MESH_LOSS_TOL and r["param_err"] <= MESH_PARAM_TOL,
+          f"train 4k (c): the mesh step is off the single-device step: {r}")
+    out["launches"] = launches
+    return out
+
+
+def phase_train_blocked(torch, dev, seed: int, smi: str) -> dict:
+    """Phase 19: training past 2048² attention scores and over a model mesh,
+    legs (a)-(c); everything the phase allocates is freed before it
+    returns."""
+    t_phase = time.monotonic()
+    legs = {}
+    for key, fn in (("a", blocked_core_leg), ("b", train4k_leg), ("c", mesh_train_leg)):
+        t = time.monotonic()
+        legs[key] = fn(torch, dev, seed, smi)
+        legs[key]["seconds"] = time.monotonic() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 19 leg ({key}) took {legs[key]['seconds']:.1f} s")
+    launches = {f"train4k_{k}": legs[k].pop("launches") for k in legs}
+    return {"legs": legs, "launches": launches, "phase_s": time.monotonic() - t_phase,
+            "card": smi}
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: DLRM serving, dlrm-mlperf at full width with the one-card row cap
 # ---------------------------------------------------------------------------
 
@@ -6029,11 +6372,14 @@ def setup(torch, scale: int, src: Path = ROOT / "src", graph_file: Path | None =
     build_kernels()
     log(f"kernels built in {time.monotonic() - t:.1f} s into {os.path.relpath(build_dir(), ROOT)}")
     t = time.monotonic()
+    on_card = {"device": "cuda"} if "device" in inspect.signature(rmat_graph).parameters else {}
     if graph_file is not None and graph_file.exists():
         with open(graph_file, "rb") as f:
             hs = pickle.load(f)
     else:
-        hs = hub_sort(rmat_graph(2**scale, 16 * 2**scale, seed=SEED))
+        # drawn on the host, its levels and sorts on the card (the same graph;
+        # a tree older than the ``device`` argument builds it on the host)
+        hs = hub_sort(rmat_graph(2**scale, 16 * 2**scale, seed=SEED, **on_card), **on_card)
         if graph_file is not None:
             graph_file.parent.mkdir(parents=True, exist_ok=True)
             with open(graph_file, "wb") as f:
@@ -6041,9 +6387,20 @@ def setup(torch, scale: int, src: Path = ROOT / "src", graph_file: Path | None =
     cfg = HyTMConfig(link=PCIE3.with_(mr=4.0), n_partitions=64)
     rt = build_runtime(hs.graph, cfg, n_hubs=hs.n_hubs)
     torch.cuda.synchronize()
+    setup_s = time.monotonic() - t
+    where = "on the host"
+    if on_card:
+        # the card's build of a scale-16 graph against the CPU's, array for array
+        small = rmat_graph(2**16, 2**20, seed=SEED)
+        pairs = ((small, rmat_graph(2**16, 2**20, seed=SEED, **on_card)),
+                 (hub_sort(small).graph, hub_sort(small, **on_card).graph))
+        check(all(np.array_equal(getattr(a, k), getattr(b, k)) for a, b in pairs
+                  for k in ("indptr", "indices", "weights")),
+              "the card's RMAT graph or hub sort differs from the CPU's at scale 16")
+        where = "levels and sorts on the card; its scale-16 graph and hub sort == the CPU's"
     log(f"graph: RMAT scale {scale}: {hs.graph.n_nodes:,} vertices, {hs.graph.n_edges:,} edges, "
         f"hub-sorted, 64 partitions, block {rt.parts.block_size:,} edges; set-up "
-        f"{time.monotonic() - t:.1f} s")
+        f"{setup_s:.1f} s ({where})")
     return cfg, hs, int(hs.perm[0]), rt
 
 
@@ -6135,6 +6492,14 @@ def main() -> int:
         f"{train_launches} [{smi}]")
     gc.collect()
     torch.cuda.empty_cache()
+    blocked = phase_train_blocked(torch, dev, SEED, smi)
+    blocked_launches = blocked.pop("launches")
+    launches.update(blocked_launches)
+    train_launches.update(blocked_launches)
+    log(f"phase 19 (training past 2048² scores and over a model mesh) took "
+        f"{blocked['phase_s']:.1f} s; launches by leg {blocked_launches} [{smi}]")
+    gc.collect()
+    torch.cuda.empty_cache()
     dlrm = phase_dlrm(torch, dev, SEED, smi)
 
     kernels = []
@@ -6168,6 +6533,7 @@ def main() -> int:
     kernels[0]["sharded"] = sharded
     kernels[0]["stream_sharded"] = mesh_stream
     kernels[0]["training"] = train
+    kernels[0]["training_blocked_mesh"] = blocked
     for key, row in (("sum_d2", "segment_spmm_sum"), ("last_partition", "segment_spmm_last"),
                      ("sum_d2_last_partition", "segment_spmm_sum_last")):
         kernels[0][key] = {k: rows[row][k] for k in ("shape", "ms", "cold_ms", "call_ms",

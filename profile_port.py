@@ -8,6 +8,7 @@
     python3 profile_port.py --mesh       # the sharded sweep over every card, both layouts
     python3 profile_port.py --mesh --lm-only   # kimi-k2 (2 layers) over every card alone
     python3 profile_port.py --train      # internlm2-1.8b's train step, as chip_smoke.py leg (a)
+    python3 profile_port.py --train-mesh # that step at 4096 positions on (2, 2) and (1, 4) meshes
 
 For SSSP (K=8) and Δ-PageRank, each through the kernels and through the
 plain engines (``use_kernels=False``):
@@ -78,6 +79,17 @@ must equal its one-card run's (bit for bit, or the logits within
 ``chip_smoke.MOE_LAYER_TOL``).  It prints the exchanges' MB and device ms
 by kind (NVLink), prefill seconds, decode ms a step and each rank's peak.
 
+With ``--train-mesh`` (four cards) it trains internlm2-1.8b as
+``chip_smoke.py`` phase 19 leg (b) does (full width and depth, float32
+parameters, bf16 activations, remat, 2 microbatches; here 4 rows of 4096
+positions a step) on the one card 0, then on (2, 2) and (1, 4) NCCL meshes
+of DTensor placements (``dist.sharding``), one rank a card: 3 steps timed
+and one more, on rank 0 under the profiler (device busy, the NCCL
+kernels' device time and share of it), each rank's peak, every rank's
+losses equal and within
+``chip_smoke.TRAIN_MB_TOL`` relative of the single device's (bf16
+activations sum in another order on a mesh).
+
 A diagnostic: it checks nothing that ``chip_smoke.py`` does not check.
 The last line is one JSON object of the turns and profile numbers.
 """
@@ -144,8 +156,11 @@ def profile_run(torch, fn, top: int = 6) -> dict:
                     key=lambda e: -e.self_device_time_total)[:top]
     host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:top]
+    nccl = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower())
     return dict(
         wall_s=wall, span_s=span, busy_s=busy, busy_share=busy / span if span else None,
+        nccl_s=nccl / 1e6,
         top_device=[(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in device],
         top_host=[(e.key[:60], e.count, e.self_cpu_time_total / 1e3) for e in host])
 
@@ -696,6 +711,138 @@ def train_main(torch, smi: str) -> dict:
     return out
 
 
+TRAIN_MESH_SHAPES = ((2, 2), (1, 4))
+TRAIN_MESH_ROWS = 4     # 2 microbatches of 2 rows: a row a data rank at (2, 2)
+TRAIN_MESH_STEPS = 3    # a warm-up, then 2 timed; then one more under the profiler
+
+
+def train_mesh_run(torch, dev, seed: int, mesh=None, profiled: bool = False) -> dict:
+    """``--train-mesh``'s run on ``dev``: internlm2-1.8b as ``chip_smoke.py``
+    phase 19 leg (b) trains it, on ``TRAIN_MESH_ROWS`` rows of 4096
+    positions a step, on ``mesh`` (a ``ModelMesh``) placed by ``lm_rule``
+    and ``lm_batch_spec``, or on the one device: ``TRAIN_MESH_STEPS`` steps
+    timed and one more, under the profiler when ``profiled``; the losses,
+    seconds, profile and peak."""
+    import gc
+
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs.internlm2_1p8b import CONFIG, OPT
+    from repro_torch.data.pipeline import LMBatches
+    from repro_torch.dist.sharding import (distribute, lm_batch_spec, lm_rule, placements,
+                                           tree_shardings)
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models.transformer import init_transformer, lm_loss
+    from repro_torch.train import train_step as ts
+
+    card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    cfg = CONFIG.replace(param_dtype="float32", dtype="bfloat16", remat=True)
+    opt = OPT.replace(warmup_steps=smoke.TRAIN_LM_WARMUP, total_steps=TRAIN_MESH_STEPS + 1)
+    pipe = LMBatches(vocab=cfg.vocab, batch=TRAIN_MESH_ROWS, seq_len=smoke.BLOCKED_SEQ + 1,
+                     seed=seed)
+    batches = [torch.from_numpy(pipe.make(i)["tokens"]).to(dev)
+               for i in range(TRAIN_MESH_STEPS + 1)]
+    if card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    model = init_transformer(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    state = {"s": ts.init_train_state(model, opt, device=dev)}
+    if mesh is not None:
+        dm = device_mesh(mesh)
+        state["s"] = distribute(state["s"], dm, tree_shardings(state["s"], mesh, lm_rule(mesh)))
+        batches = [distribute_tensor(b, dm, placements(lm_batch_spec(mesh), 2, dm),
+                                     src_data_rank=None) for b in batches]
+    step_fn = ts.make_train_step(lambda m, b: lm_loss(m, b, mesh=mesh), opt,
+                                 microbatches=smoke.TRAIN_LM_MICROBATCHES)
+
+    def step(i):
+        state["s"], m = step_fn(state["s"], batches[i])
+        return float(m["loss"])
+
+    out = {"losses": [], "secs": []}
+    for i in range(TRAIN_MESH_STEPS):
+        sync()
+        t = time.monotonic()
+        out["losses"].append(step(i))
+        sync()
+        out["secs"].append(time.monotonic() - t)
+    if profiled:
+        out["profile"] = profile_run(torch, lambda: out["losses"].append(
+            step(TRAIN_MESH_STEPS)), top=8)
+    else:
+        out["losses"].append(step(TRAIN_MESH_STEPS))
+    if card:
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del state, model, batches
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_mesh_rank(group, shape: tuple, seed: int, device_type: str) -> dict:
+    """One rank of ``--train-mesh`` on its own card (``device_type``
+    ``cuda``; ``cpu`` to rehearse on gloo ranks): the run on a ``shape``
+    (data, model) mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    warnings.filterwarnings("ignore")
+    if device_type == "cuda":
+        dev = torch.device(f"cuda:{dist.get_rank() % torch.cuda.device_count()}")
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False   # as chip_smoke.setup states it
+    else:
+        dev = torch.device("cpu")
+    mesh = make_debug_mesh(*shape, device=dev)
+    # rank 0 alone under the profiler: the others run the same step
+    return {"rank": mesh.rank, **train_mesh_run(torch, dev, seed, mesh,
+                                                profiled=device_type == "cuda" and mesh.rank == 0)}
+
+
+def train_mesh_main(torch, n_cards: int, smi: str, device_type: str = "cuda") -> dict:
+    """internlm2-1.8b's train step at full depth on (2, 2) and (1, 4) NCCL
+    meshes, one rank a card, against the single-device step on card 0:
+    seconds a step, the collectives' share of a profiled step's device
+    time, each rank's peak, the losses."""
+    from repro_torch.launch.mesh import RankPool
+
+    card = device_type == "cuda"
+    dev = torch.device("cuda:0" if card else "cpu")
+    single = train_mesh_run(torch, dev, smoke.SEED)
+    out = {"card": smi, "cards": n_cards, "single": single}
+    log(f"train mesh: single device: losses {[round(x, 5) for x in single['losses']]}, steps "
+        f"{[round(x, 3) for x in single['secs']]} s" + (
+            f", peak {single['peak_gb']:.1f} GB" if card else ""))
+    with RankPool(n_cards, backend="nccl" if card else "gloo", timeout_s=900.0) as pool:
+        for shape in TRAIN_MESH_SHAPES:
+            ranks = pool.run(train_mesh_rank, shape, smoke.SEED, device_type)
+            name = f"{shape[0]}x{shape[1]}"
+            rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
+                                                          single["losses"]))
+            smoke.check(all(r["losses"] == ranks[0]["losses"] for r in ranks),
+                        f"--train-mesh {name}: the ranks' losses differ")
+            smoke.check(rel <= smoke.TRAIN_MB_TOL, f"--train-mesh {name}: losses "
+                        f"{ranks[0]['losses']} against the single device's {single['losses']}")
+            for r in ranks:
+                prof = r.get("profile")
+                share = (f"; a profiled step: device busy {prof['busy_s']:.3f} s of a "
+                         f"{prof['span_s']:.3f} s span, NCCL {prof['nccl_s']:.3f} s = "
+                         f"{prof['nccl_s'] / prof['busy_s']:.1%} of busy"
+                         if prof and prof["busy_s"] else "")
+                if card:
+                    share += f"; peak {r['peak_gb']:.1f} GB"
+                if prof:
+                    log_profile(f"train mesh {name} rank {r['rank']}", prof)
+                log(f"train mesh {name} rank {r['rank']}: losses "
+                    f"{[round(x, 5) for x in r['losses']]} (within {rel:.2e} relative of the "
+                    f"single device's), steps {[round(x, 3) for x in r['secs']]} s{share} [{smi}]")
+            out[name] = {f"rank{r['rank']}": r for r in ranks}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22,
@@ -710,6 +857,9 @@ def main() -> int:
                     help="with --mesh: the kimi leg alone, no graph")
     ap.add_argument("--train", action="store_true",
                     help="internlm2-1.8b's train step (chip_smoke.py phase 18 leg (a))")
+    ap.add_argument("--train-mesh", action="store_true",
+                    help="internlm2-1.8b's train step at 4096 positions on (2, 2) and (1, 4) "
+                         "NCCL meshes over four cards")
     ap.add_argument("--worker", help=argparse.SUPPRESS)       # a tree's src, for --against
     ap.add_argument("--graph-file", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -728,6 +878,15 @@ def main() -> int:
         return 0
     if args.train:
         print(json.dumps(train_main(torch, smi), default=str))
+        return 0
+    if args.train_mesh:
+        sys.path.insert(0, str(smoke.ROOT / "src"))
+        n_cards = torch.cuda.device_count()
+        if n_cards < 4:
+            print(f"profile_port: --train-mesh needs four cards, found {n_cards}",
+                  file=sys.stderr)
+            return 1
+        print(json.dumps(train_mesh_main(torch, 4, smi), default=str))
         return 0
     if args.against:
         print(json.dumps(ab_main(args, smi)))

@@ -72,11 +72,16 @@ class CSRGraph:
             w = np.concatenate([self.weights, self.weights])
         return csr_from_edges(self.n_nodes, s, d, w, dedup=True)
 
-    def permute(self, perm: np.ndarray) -> "CSRGraph":
-        """Relabel vertices: new id of old vertex v is ``perm[v]``."""
-        src = perm[self.edge_sources().astype(np.int64)]
-        dst = perm[self.indices.astype(np.int64)]
-        return csr_from_edges(self.n_nodes, src, dst, self.weights)
+    def permute(self, perm: np.ndarray, device=None) -> "CSRGraph":
+        """Relabel vertices: new id of old vertex v is ``perm[v]``.  The
+        relabelling and its sort run in torch on ``device`` (the CPU by
+        default), as :func:`csr_from_edges` does."""
+        dev = torch.device("cpu" if device is None else device)
+        p = torch.from_numpy(np.asarray(perm, dtype=np.int64)).to(dev)
+        deg = torch.from_numpy(self.out_degrees).to(dev)
+        src = torch.repeat_interleave(torch.arange(self.n_nodes, device=dev), deg)
+        dst = torch.from_numpy(self.indices).to(dev, torch.int64)
+        return csr_from_edges(self.n_nodes, p[src], p[dst], self.weights, device=dev)
 
     def validate(self) -> None:
         if self.indptr[0] != 0 or self.indptr[-1] != len(self.indices):
@@ -92,28 +97,46 @@ class CSRGraph:
 
 def csr_from_edges(
     n_nodes: int,
-    src: np.ndarray,
-    dst: np.ndarray,
-    weights: np.ndarray | None = None,
+    src: np.ndarray | torch.Tensor,
+    dst: np.ndarray | torch.Tensor,
+    weights: np.ndarray | torch.Tensor | None = None,
     dedup: bool = False,
+    device: str | torch.device | None = None,
 ) -> CSRGraph:
-    """Build a CSR graph from COO edge lists (host-side, O(m log m))."""
-    src = np.asarray(src, dtype=np.int64)
-    dst = np.asarray(dst, dtype=np.int64)
+    """Build a CSR graph from COO edge lists, O(m log m).
+
+    The edges are put in order by a stable sort of the key
+    ``src * n_nodes + dst``, which orders them as ``np.lexsort((dst, src))``
+    does (parallel edges keep their input order), in torch on ``device``:
+    the CPU by default, a card when the caller has one (a 67M-edge graph
+    sorts in well under a second there).  The graph is the same on every
+    device.  With ``dedup``, the first of each set of parallel edges is
+    kept, as ``np.unique(..., return_index=True)`` keeps it."""
+    dev = torch.device("cpu" if device is None else device)
+    s, d = _on(src, dev, torch.int64), _on(dst, dev, torch.int64)
+    w = None if weights is None else _on(weights, dev, torch.float32)
+    key, order = torch.sort(s * n_nodes + d, stable=True)
     if dedup:
-        key = src * n_nodes + dst
-        _, uniq_idx = np.unique(key, return_index=True)
-        src, dst = src[uniq_idx], dst[uniq_idx]
-        if weights is not None:
-            weights = np.asarray(weights)[uniq_idx]
-    order = np.lexsort((dst, src))
-    src, dst = src[order], dst[order]
-    if weights is not None:
-        weights = np.asarray(weights, dtype=np.float32)[order]
-    counts = np.bincount(src, minlength=n_nodes)
-    indptr = np.zeros(n_nodes + 1, dtype=np.int64)
-    np.cumsum(counts, out=indptr[1:])
-    return CSRGraph(indptr=indptr, indices=dst.astype(np.int32), weights=weights)
+        # a stable sort puts the first occurrence of a key first in its run
+        first = torch.ones_like(key, dtype=torch.bool)
+        first[1:] = key[1:] != key[:-1]
+        order = order[first]
+    s, d = s[order], d[order]
+    if w is not None:
+        w = w[order]
+    indptr = torch.zeros(n_nodes + 1, dtype=torch.int64, device=dev)
+    indptr[1:] = torch.cumsum(torch.bincount(s, minlength=n_nodes), 0)
+    return CSRGraph(indptr=indptr.cpu().numpy(), indices=d.to(torch.int32).cpu().numpy(),
+                    weights=None if w is None else w.cpu().numpy())
+
+
+def _on(a: np.ndarray | torch.Tensor, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``a`` as a tensor of ``dtype`` on ``dev`` (numpy input cast first, as
+    ``np.asarray(a, dtype)`` casts it)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dev, dtype)
+    np_dtype = np.int64 if dtype == torch.int64 else np.float32
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np_dtype)).to(dev)
 
 
 @dataclass(frozen=True)

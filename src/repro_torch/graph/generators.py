@@ -1,17 +1,18 @@
-"""Synthetic graph generators (host-side numpy).
+"""Synthetic graph generators (host-side CSR graphs).
 
 ``rmat_graph`` follows Chakrabarti et al. [arXiv:cs/0412052 / SIAM'04] with
 the canonical (a,b,c,d) = (0.57, 0.19, 0.19, 0.05) power-law parameters the
 paper's RMAT ladder uses (paper §VII-F).  ``grid_mesh_graph`` builds the
 MeshGraphNet-style simulation mesh; ``batched_molecule_graphs`` builds the
 `molecule` shape cell (128 graphs x 30 nodes x 64 bonds, 128 arcs).  The
-arrays equal ``repro``'s at the same seed (same numpy calls in the same
-order).
+arrays equal ``repro``'s at the same seed (the same numpy draws in the same
+order; ``rmat_graph`` may do its arithmetic and sort on a card).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.graph.csr import CSRGraph, csr_from_edges
 
@@ -25,28 +26,36 @@ def rmat_graph(
     c: float = 0.19,
     weighted: bool = True,
     dedup: bool = False,
+    device: str | torch.device | None = None,
 ) -> CSRGraph:
-    """R-MAT generator, vectorized over all edges and bit-levels at once."""
+    """R-MAT generator, vectorized over all edges, one bit-level at a time.
+
+    Each level draws ``rng.random(n_edges)`` as the 64-bit outputs it is
+    made of (``(x >> 11) * 2**-53``, numpy's own conversion), and the
+    quadrant arithmetic and the CSR sort run in torch on ``device`` (the CPU
+    by default).  The graph is the same on every device and equals the one
+    drawn level by level with ``np.searchsorted``."""
     rng = np.random.default_rng(seed)
     scale = max(1, int(np.ceil(np.log2(max(n_nodes, 2)))))
     d = 1.0 - a - b - c
     if d < 0:
         raise ValueError(f"a + b + c must be <= 1, got {a + b + c}")
-    src = np.zeros(n_edges, dtype=np.int64)
-    dst = np.zeros(n_edges, dtype=np.int64)
+    dev = torch.device("cpu" if device is None else device)
+    src = torch.zeros(n_edges, dtype=torch.int64, device=dev)
+    dst = torch.zeros(n_edges, dtype=torch.int64, device=dev)
     # Quadrant probabilities: [a (0,0), b (0,1), c (1,0), d (1,1)]
     probs = np.cumsum([a, b, c, d])
     for level in range(scale):
-        u = rng.random(n_edges)
-        quadrant = np.searchsorted(probs, u)
-        src_bit = quadrant >= 2
-        dst_bit = (quadrant == 1) | (quadrant == 3)
-        src = (src << 1) | src_bit
-        dst = (dst << 1) | dst_bit
+        raw = torch.from_numpy(rng.bit_generator.random_raw(n_edges).view(np.int64)).to(dev)
+        u = ((raw >> 11) & ((1 << 53) - 1)).to(torch.float64) * 2.0**-53
+        # np.searchsorted(probs, u) counts the probs below u
+        above = [u > float(p) for p in probs]
+        src = (src << 1) | above[1]                                  # quadrant >= 2
+        dst = (dst << 1) | (above[0] ^ above[1] ^ above[2] ^ above[3])  # quadrant 1 or 3
     src %= n_nodes
     dst %= n_nodes
     weights = rng.integers(1, 64, size=n_edges).astype(np.float32) if weighted else None
-    return csr_from_edges(n_nodes, src, dst, weights, dedup=dedup)
+    return csr_from_edges(n_nodes, src, dst, weights, dedup=dedup, device=dev)
 
 
 def uniform_graph(

@@ -44,7 +44,9 @@ def hub_scores(g: CSRGraph) -> np.ndarray:
     return (do * di) / (do_max * di_max)
 
 
-def hub_sort(g: CSRGraph, hub_fraction: float = 0.08) -> HubSortResult:
+def hub_sort(g: CSRGraph, hub_fraction: float = 0.08, device=None) -> HubSortResult:
+    """Relabel ``g`` with its hubs first; the relabelled graph is sorted in
+    torch on ``device`` (the CPU by default, see :meth:`CSRGraph.permute`)."""
     n = g.n_nodes
     n_hubs = int(np.ceil(hub_fraction * n))
     h = hub_scores(g)
@@ -58,4 +60,5 @@ def hub_sort(g: CSRGraph, hub_fraction: float = 0.08) -> HubSortResult:
     inv_perm = np.concatenate([hubs, non_hubs]).astype(np.int64)
     perm = np.empty(n, dtype=np.int64)
     perm[inv_perm] = np.arange(n)
-    return HubSortResult(graph=g.permute(perm), perm=perm, inv_perm=inv_perm, n_hubs=n_hubs)
+    return HubSortResult(graph=g.permute(perm, device=device), perm=perm, inv_perm=inv_perm,
+                         n_hubs=n_hubs)

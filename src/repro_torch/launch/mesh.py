@@ -285,6 +285,33 @@ def make_debug_mesh(n_data: int = 2, n_model: int = 2, pods: int = 0, ranks=None
                      group=whole, host_group=host, groups=mine, device=resolve_device(device))
 
 
+_DEVICE_MESHES: dict = {}
+
+
+def device_mesh(mesh: ModelMesh):
+    """The ``torch.distributed.device_mesh.DeviceMesh`` of ``mesh`` (its
+    ranks in row-major order, ``mesh_dim_names = mesh.axis_names``, the
+    mesh's device type), for DTensor placements (``dist.sharding``).  It
+    is built from the mesh's own process groups, one an axis
+    (``DeviceMesh.from_group``), so it makes no group and runs no
+    collective; made once a mesh and reused."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    resolve_device(mesh.device)   # a CUDA mesh without a card raises
+    default = dist.group.WORLD
+    if _DEVICE_MESHES.get("world") is not default:   # a new default group
+        _DEVICE_MESHES.clear()
+        _DEVICE_MESHES["world"] = default
+    key = (tuple(dist.get_process_group_ranks(mesh.group)), mesh.shape, mesh.axis_names,
+           mesh.device.type)
+    if key not in _DEVICE_MESHES:
+        grid = torch.tensor(key[0], dtype=torch.int).reshape(mesh.shape)
+        groups = [mesh.group_of(a) for a in mesh.axis_names]
+        _DEVICE_MESHES[key] = DeviceMesh.from_group(
+            groups, mesh.device.type, mesh=grid, mesh_dim_names=mesh.axis_names)
+    return _DEVICE_MESHES[key]
+
+
 # the longest a rank waits at the store for the others to arrive: a spawned
 # rank imports torch first, which on a loaded host can take longer than a
 # short group timeout, and gloo's connection set-up is bounded by the

@@ -7,13 +7,21 @@ an empty cache, ``cache_index == 0``) and ``use_kernels`` is on, attention
 goes through ``kernels.flash_attention``: float32 scores and softmax, and
 in bfloat16 the probabilities rounded to bfloat16 before P.V (as
 FlashAttention-2/3 and SDPA do; the kernel's float32 route, and its plain
-version on the CPU, keep them in float32).  Every other call (decode, a
-prefill after earlier tokens, ``use_kernels=False``) runs the plain
+version on the CPU, keep them in float32).  Outside inference mode
+(training, ``lm_loss``) above 2048 x 2048 score elements (the reference's
+``_FLASH_THRESHOLD``), attention runs blocked with an online softmax and
+float32 probabilities (``_flash_sdpa``: the reference's FlashAttention-2
+``custom_vjp`` as a ``torch.autograd.Function``, plain PyTorch like the
+reference's jnp), skipping block pairs the causal and window masks
+exclude whole.  Every other call (decode, a prefill after earlier
+tokens, ``use_kernels=False``, serving above the threshold) runs the plain
 ``_sdpa``, which casts the probabilities to the value type before P.V as
-the reference's ``_sdpa`` does.  The reference itself takes a blocked
-online softmax with float32 probabilities above 2048 x 2048 score elements
-(its ``_FLASH_THRESHOLD``); in float32 the routes agree to rounding, in
-bfloat16 to bfloat16 rounding of the probabilities.
+the reference's ``_sdpa`` does; the reference serves blocked above the
+threshold, and in float32 the routes agree to rounding, in bfloat16 to
+bfloat16 rounding of the probabilities.
+
+On a mesh (q, k and v DTensors: ``lm_loss(mesh=)``), each rank runs the
+plain or blocked core on its own rows and heads under ``local_map``.
 
 Caches.  The reference's caches are functional; the port writes the new
 keys and values into the cache tensors in place and returns the same dict.
@@ -71,10 +79,14 @@ def attention_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor,
     return mask[None, None]
 
 
-# The reference attends blocked, with an online softmax and its own
-# FlashAttention-2 backward, above this many score elements (q_len x
-# kv_len); the port's training route is the plain ``_sdpa`` below it.
+# Above this many score elements (q_len x kv_len) attention outside
+# inference mode runs blocked, with an online softmax and its own
+# FlashAttention-2 backward (never materializing the S x L matrix).
 _FLASH_THRESHOLD = 2048 * 2048
+_Q_BLOCK = 512
+_KV_BLOCK = 1024
+# a padded key's position: past every query, so it never attends
+_PAD_POS = 2**30
 
 
 def _sdpa(q, k, v, mask, scale):
@@ -84,6 +96,225 @@ def _sdpa(q, k, v, mask, scale):
     scores = torch.where(mask[:, None], scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bkgst,btkd->bskgd", probs, v)
+
+
+def _pad_dim(x: torch.Tensor, dim: int, mult: int, value=0):
+    """``x`` padded with ``value`` along ``dim`` to a multiple of ``mult``,
+    and the length it had."""
+    n = x.shape[dim]
+    pad = (-n) % mult
+    if pad == 0:
+        return x, n
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, x.new_full(shape, value)], dim=dim), n
+
+
+def _block_mask(qpb: torch.Tensor, kpb: torch.Tensor, kv_last: int, w: int) -> torch.Tensor:
+    """(qb, kb) validity from absolute positions."""
+    valid = (qpb[:, None] >= kpb[None, :]) & (kpb[None, :] <= kv_last)
+    if w > 0:
+        valid = valid & (qpb[:, None] - kpb[None, :] < w)
+    return valid
+
+
+def _ranges_meet(qa: int, qb: int, ka: int, kb: int, kv_last: int, w: int) -> bool:
+    """Whether a query in positions [qa, qb] attends a key in [ka, kb]."""
+    kb = min(kb, kv_last)
+    if ka > kb:
+        return False
+    lo = max(qa - kb, 0)          # the least q - k >= 0 over the two ranges
+    return lo <= qb - ka and (w <= 0 or lo < w)
+
+
+def block_plan(q_start: int, S: int, kv_start: int, L: int, kv_last: int,
+               window: int) -> tuple:
+    """For consecutive query positions ``q_start + arange(S)`` and key
+    positions ``kv_start + arange(L)``: per query block, the key blocks
+    that hold at least one valid (query, key) pair, padding included as
+    ``_flash_sdpa`` pads (queries at position 0, keys past every query).
+    A block pair outside the plan is masked whole, and computing it adds
+    exact zeros (``corr`` is 1, or 0 on a row that has seen no key, where
+    ``l`` and ``acc`` are still 0), so skipping it changes no bit."""
+    nq, nk = -(-S // _Q_BLOCK), -(-L // _KV_BLOCK)
+    plan = []
+    for i in range(nq):
+        rows = [(q_start + i * _Q_BLOCK, q_start + min((i + 1) * _Q_BLOCK, S) - 1)]
+        if (i + 1) * _Q_BLOCK > S:
+            rows.append((0, 0))
+        plan.append(tuple(
+            j for j in range(nk)
+            if any(_ranges_meet(qa, qb, kv_start + j * _KV_BLOCK,
+                                kv_start + min((j + 1) * _KV_BLOCK, L) - 1, kv_last, window)
+                   for qa, qb in rows)))
+    return tuple(plan)
+
+
+def _to_blocks(q_pad, k_pad, v_pad, qp_pad, kp_pad):
+    B, Sq, KV, G, dh = q_pad.shape
+    nq, nk = Sq // _Q_BLOCK, k_pad.shape[1] // _KV_BLOCK
+    return (q_pad.reshape(B, nq, _Q_BLOCK, KV, G, dh),
+            k_pad.reshape(B, nk, _KV_BLOCK, KV, dh),
+            v_pad.reshape(B, nk, _KV_BLOCK, KV, v_pad.shape[-1]),
+            qp_pad.reshape(nq, _Q_BLOCK), kp_pad.reshape(nk, _KV_BLOCK))
+
+
+def _pairs(plan, qi: int, nk: int):
+    return range(nk) if plan is None else plan[qi]
+
+
+def _flash_fwd_blocks(q_blocks, k_blocks, v_blocks, qp_blocks, kp_blocks, kv_last: int,
+                      w: int, plan):
+    """Returns out (B, nq*qb, KV, G, dv) and lse (B, KV, G, nq*qb), in the
+    queries' (float32 or wider) dtype."""
+    B, nq, QB, KV, G, _ = q_blocks.shape
+    nk = kp_blocks.shape[0]
+    dv = v_blocks.shape[-1]
+    ct = q_blocks.dtype
+    inf = torch.tensor(float("inf"), dtype=ct, device=q_blocks.device)
+    outs, lses = [], []
+    for qi in range(nq):
+        qb = q_blocks[:, qi]
+        m = torch.full((B, KV, G, QB), float("-inf"), dtype=ct, device=qb.device)
+        l = torch.zeros((B, KV, G, QB), dtype=ct, device=qb.device)
+        acc = torch.zeros((B, KV, G, QB, dv), dtype=ct, device=qb.device)
+        for ki in _pairs(plan, qi, nk):
+            s = torch.einsum("bskgd,btkd->bkgst", qb, k_blocks[:, ki].to(ct))
+            valid = _block_mask(qp_blocks[qi], kp_blocks[ki], kv_last, w)
+            s = torch.where(valid, s, -inf)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.where(torch.isfinite(s), torch.exp(s - m_safe[..., None]), 0.0)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bkgst,btkd->bkgsd", p,
+                                                       v_blocks[:, ki].to(ct))
+            m = m_new
+        outs.append((acc / l.clamp_min(1e-30)[..., None]).permute(0, 3, 1, 2, 4))
+        m_safe = torch.where(torch.isfinite(m), m, 0.0)
+        lses.append(m_safe + torch.log(l.clamp_min(1e-30)))
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=-1)
+
+
+def _flash_bwd_blocks(q_blocks, k_blocks, v_blocks, qp_blocks, kp_blocks, kv_last: int,
+                      w: int, plan, out, lse, dout):
+    """FlashAttention-2 backward: p recomputed per (q, kv) block pair from
+    the saved ``lse``; returns (dq, dk, dv) in the compute dtype, in the
+    padded (B, S, ...) / (B, L, ...) layouts."""
+    B, nq, QB, KV, G, dh = q_blocks.shape
+    nk, KB = kp_blocks.shape
+    dv = v_blocks.shape[-1]
+    ct = q_blocks.dtype
+    inf = torch.tensor(float("inf"), dtype=ct, device=q_blocks.device)
+    dout = dout.to(ct)
+    # D_i = rowsum(dout * out)  (B, KV, G, S)
+    delta = torch.einsum("bskgd,bskgd->bkgs", dout, out)
+    lse_blocks = lse.reshape(B, KV, G, nq, QB)
+    delta_blocks = delta.reshape(B, KV, G, nq, QB)
+    dout_blocks = dout.reshape(B, nq, QB, KV, G, dv)
+    dk = torch.zeros((B, nk, KB, KV, dh), dtype=ct, device=q_blocks.device)
+    dvv = torch.zeros((B, nk, KB, KV, dv), dtype=ct, device=q_blocks.device)
+    dqs = []
+    for qi in range(nq):
+        qb, dob = q_blocks[:, qi], dout_blocks[:, qi]
+        lse_b, delta_b = lse_blocks[:, :, :, qi], delta_blocks[:, :, :, qi]
+        dq_b = torch.zeros((B, QB, KV, G, dh), dtype=ct, device=qb.device)
+        for ki in _pairs(plan, qi, nk):
+            kb, vb = k_blocks[:, ki].to(ct), v_blocks[:, ki].to(ct)
+            s = torch.einsum("bskgd,btkd->bkgst", qb, kb)
+            valid = _block_mask(qp_blocks[qi], kp_blocks[ki], kv_last, w)
+            s = torch.where(valid, s, -inf)
+            p = torch.where(torch.isfinite(s), torch.exp(s - lse_b[..., None]), 0.0)
+            dp = torch.einsum("bskgd,btkd->bkgst", dob, vb)
+            ds = p * (dp - delta_b[..., None])
+            dq_b = dq_b + torch.einsum("bkgst,btkd->bskgd", ds, kb)
+            dk[:, ki] += torch.einsum("bkgst,bskgd->btkd", ds, qb)
+            dvv[:, ki] += torch.einsum("bkgst,bskgd->btkd", p, dob)
+        dqs.append(dq_b)
+    return (torch.cat(dqs, dim=1), dk.reshape(B, nk * KB, KV, dh),
+            dvv.reshape(B, nk * KB, KV, dv))
+
+
+class _FlashCore(torch.autograd.Function):
+    """The blocked core on padded operands (the reference's ``_flash_core``
+    ``custom_vjp``): the forward saves the operands, ``out`` and ``lse``
+    and nothing tile-sized; the backward recomputes ``p`` per block
+    pair."""
+
+    @staticmethod
+    def forward(ctx, q_pad, k_pad, v_pad, qp_pad, kp_pad, kv_last, w, plan):
+        blocks = _to_blocks(q_pad, k_pad, v_pad, qp_pad, kp_pad)
+        out, lse = _flash_fwd_blocks(*blocks, kv_last, w, plan)
+        ctx.save_for_backward(q_pad, k_pad, v_pad, qp_pad, kp_pad, out, lse)
+        ctx.args = (kv_last, w, plan)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q_pad, k_pad, v_pad, qp_pad, kp_pad, out, lse = ctx.saved_tensors
+        blocks = _to_blocks(q_pad, k_pad, v_pad, qp_pad, kp_pad)
+        dq, dk, dv = _flash_bwd_blocks(*blocks, *ctx.args, out, lse, dout)
+        return (dq.to(q_pad.dtype), dk.to(k_pad.dtype), dv.to(v_pad.dtype),
+                None, None, None, None, None)
+
+
+def _flash_sdpa(q, k, v, q_pos, kv_pos, kv_last: int, window: int, scale: float,
+                plan=None):
+    """Blocked attention with an online softmax and the FlashAttention-2
+    backward (the reference's ``_flash_sdpa``), in float32 (float64 stays
+    float64) whatever the operands' dtype; never more than a (qb x kb)
+    tile of scores.  ``plan`` (``block_plan``) lists the block pairs to
+    compute; ``None`` computes every pair, as the reference does.
+
+    q: (B,S,KV,G,dh); k: (B,L,KV,dh); v: (B,L,KV,dv); q_pos (S,) and
+    kv_pos (L,) absolute positions; kv_last the last valid key position;
+    window 0 = global.  Returns (B,S,KV,G,dv) in v's dtype."""
+    ct = torch.promote_types(q.dtype, torch.float32)
+    q_pad, S0 = _pad_dim(q.to(ct) * scale, 1, _Q_BLOCK)
+    qp_pad, _ = _pad_dim(q_pos.to(torch.int32), 0, _Q_BLOCK)
+    k_pad, _ = _pad_dim(k, 1, _KV_BLOCK)
+    v_pad, _ = _pad_dim(v, 1, _KV_BLOCK)
+    kp_pad, _ = _pad_dim(kv_pos.to(torch.int32), 0, _KV_BLOCK, _PAD_POS)
+    out = _FlashCore.apply(q_pad, k_pad, v_pad, qp_pad, kp_pad, int(kv_last), int(window), plan)
+    return out[:, :S0].to(v.dtype)
+
+
+def _on_local_heads(fn, q, k, v, *args):
+    """``fn(q, k, v, *args)``; when ``q``, ``k`` and ``v`` are DTensors
+    (a model on a mesh), each rank runs ``fn`` on its own rows and heads
+    under ``local_map`` and the result is a DTensor of them.  The batch
+    dim is split over the batch axes and the KV-head dim (dim 2) over
+    ``model`` where the head count divides it, else replicated (MQA's one
+    KV head); heads and rows are independent, so this is exact.  ``args``
+    are plain tensors and numbers (positions, masks), the same on every
+    rank."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(q, DTensor):
+        return fn(q, k, v, *args)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dm = q.device_mesh
+    pl = []
+    for i, name in enumerate(dm.mesh_dim_names):
+        if name in ("pod", "data"):
+            pl.append(Shard(0))
+        elif name == "model" and k.shape[2] % dm.size(i) == 0:
+            pl.append(Shard(2))
+        else:
+            pl.append(Replicate())
+    pl = tuple(pl)
+    q, k, v = (t.redistribute(dm, pl) for t in (q, k, v))
+    return local_map(lambda q, k, v: fn(q, k, v, *args), out_placements=(pl,),
+                     in_placements=(pl, pl, pl), device_mesh=dm)(q, k, v)
+
+
+def _blocked(S: int, L: int) -> bool:
+    """The blocked route: above ``_FLASH_THRESHOLD`` score elements and
+    outside inference mode (training, ``lm_loss``); serving keeps its
+    routes."""
+    return S * L > _FLASH_THRESHOLD and not torch.is_inference_mode_enabled()
 
 
 def init_gqa(generator: torch.Generator, d_model: int, n_heads: int, n_kv: int, d_head: int,
@@ -137,8 +368,14 @@ def gqa_attention(p, x: torch.Tensor, positions: torch.Tensor, n_heads: int, n_k
             kv_pos = torch.arange(start + S, device=x.device)
         else:
             k_all, v_all, kv_pos = k, v, positions
-        mask = attention_mask(positions, kv_pos, None, window)
-        out = _sdpa(q.reshape(B, S, n_kv, G, d_head), k_all, v_all, mask, scale)
+        q5 = q.reshape(B, S, n_kv, G, d_head)
+        if _blocked(S, start + S):
+            out = _on_local_heads(_flash_sdpa, q5, k_all, v_all, positions, kv_pos,
+                                  start + S - 1, window, scale,
+                                  block_plan(start, S, 0, start + S, start + S - 1, window))
+        else:
+            mask = attention_mask(positions, kv_pos, None, window)
+            out = _on_local_heads(_sdpa, q5, k_all, v_all, mask, scale)
         out = out.reshape(B, S, n_heads * d_head)
     return out @ p["wo"].to(dt), cache
 
@@ -206,6 +443,13 @@ def mla_attention(p, x: torch.Tensor, positions: torch.Tensor, n_heads: int, mla
         o = flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous(), scale=scale,
                             window=window, causal=True)
         out = o.reshape(B, H, S, dv).transpose(1, 2).reshape(B, S, H * dv)
+    elif _blocked(S, L):
+        # the shared rotary key folded into per-head keys: KV = H, G = 1
+        q_all = torch.cat([q_nope, q_rope], dim=-1)[:, :, :, None, :]
+        k_eff = torch.cat([k_nope, kr_all[:, :, None, :].expand(B, L, H, dr)], dim=-1)
+        out = _on_local_heads(_flash_sdpa, q_all, k_eff, v, positions, kv_pos, L - 1, window,
+                              scale, block_plan(start, S, 0, L, L - 1, window))
+        out = out.reshape(B, S, H * dv)
     else:
         mask = attention_mask(positions, kv_pos, None, window)          # (1, 1, S, L)
         scores = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)

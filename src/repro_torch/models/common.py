@@ -115,13 +115,25 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean token-level cross entropy in float32 (float64 stays float64):
     the log-sum-exp with its max detached, and the label logit from a masked
-    sum over the vocab (the reference's sharding-aware form).  A label outside [0, V) gets a logit
-    of 0 there and does not fail, where ``gather`` would raise.  ``mask``
+    sum over the vocab (the reference's sharding-aware form: on logits
+    split over the vocabulary, a DTensor, the max and the sums reduce over
+    that split and no rank gathers the logits).  A label outside [0, V)
+    gets a logit of 0 there and does not fail, where ``gather`` would
+    raise.  ``mask``
     weights the tokens, divided by ``max(sum(mask), 1)``."""
     logits = at_least_f32(logits)
     m = logits.amax(dim=-1, keepdim=True).detach()
     lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
     vocab = torch.arange(logits.shape[-1], device=logits.device)
+    if hasattr(logits, "device_mesh"):
+        # a DTensor: the iota split over the vocabulary as the logits are,
+        # so that no rank compares its labels with the whole vocabulary
+        from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+        vocab = distribute_tensor(
+            vocab, logits.device_mesh,
+            [Shard(0) if p == Shard(logits.ndim - 1) else Replicate() for p in logits.placements],
+            src_data_rank=None)
     label_logit = torch.where(vocab == labels[..., None], logits, 0.0).sum(dim=-1)
     ll = label_logit - lse
     if mask is None:

@@ -26,11 +26,15 @@ dropped.  Caches are updated in place (the reference's are functional).
 reference computes all and keeps the last.
 
 Training: ``lm_loss`` runs under grad mode through the plain routes (the
-kernels have no backward and refuse a gradient), adds the MoE aux loss,
+kernels have no backward and refuse a gradient; above 2048 x 2048 scores
+attention is blocked, with its own FlashAttention-2 backward, as in the
+reference), adds the MoE aux loss,
 and with ``cfg.remat`` recomputes each layer past the dense prefix in the
 backward (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of
 its scan body).  Nothing on a layer's path draws random numbers, so a
 recomputed MoE layer routes, and drops, as its first pass did.
+``lm_loss(mesh=)`` trains a dense LM whose parameters are DTensors
+(``dist.sharding``).
 
 Over a mesh (``mesh=``, a ``launch.mesh.ModelMesh``; the reference's
 ``forward(mesh=, batch_axes=)``), SPMD: each rank holds B/EP requests
@@ -48,6 +52,7 @@ reference.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import torch
@@ -56,8 +61,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.runtime import resolve_device, resolve_use_kernels
-from repro_torch.models.attention import (_FLASH_THRESHOLD, MLAConfig, gqa_attention, init_gqa,
-                                          init_mla, mla_attention)
+from repro_torch.models.attention import (MLAConfig, gqa_attention, init_gqa, init_mla,
+                                          mla_attention)
 from repro_torch.models.common import (cross_entropy_loss, dense_init, embed_init, frozen,
                                        rms_norm, swiglu)
 from repro_torch.models.moe import (MoEConfig, mesh_shards, moe_draws, moe_ffn, shard_moe_params,
@@ -353,13 +358,53 @@ def forward(model: Transformer, tokens: torch.Tensor, caches: dict | None = None
     return _logits(model, x), caches
 
 
+def _embed_rows(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``embed[tokens]``.  A DTensor table (a model on a mesh) is gathered
+    under ``local_map``: each rank takes the rows of its own slice of the
+    vocabulary (zeros for tokens outside it) and the rows are summed over
+    the vocabulary split, then placed as the tokens are; the table's
+    gradient is each rank's slice, summed over the batch axes.  DTensor's
+    own sharding of ``index_put`` (the gradient of ``embed[tokens]``) and
+    of ``embedding`` over a vocabulary split fail on torch 2.11."""
+    if not hasattr(embed, "device_mesh"):
+        return embed[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dm = embed.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, dm, [Replicate()] * dm.ndim, run_check=False)
+    tok_pl, split = tuple(tokens.placements), []
+    lo = 0
+    for i, p in enumerate(embed.placements):
+        if p == Shard(0):
+            split.append(i)
+            lo = lo * dm.size(i) + dm.get_local_rank(i)
+        elif not isinstance(p, Replicate):
+            raise ValueError(f"an embedding table placed {embed.placements}: rows split or "
+                             "replicated only")
+    lo *= embed.shape[0] // max(1, math.prod(dm.size(i) for i in split))
+    out_pl = tuple(Partial() if i in split else p for i, p in enumerate(tok_pl))
+    grad_pl = tuple(Shard(0) if i in split else Partial() if isinstance(p, Shard) else Replicate()
+                    for i, p in enumerate(tok_pl))
+
+    def gather(tok, table):
+        idx = tok - lo
+        ok = (idx >= 0) & (idx < table.shape[0])
+        return F.embedding(torch.where(ok, idx, 0), table) * ok[..., None].to(table.dtype)
+
+    x = local_map(gather, out_placements=(out_pl,), in_placements=(tok_pl, tuple(embed.placements)),
+                  in_grad_placements=(tok_pl, grad_pl), device_mesh=dm)(tokens, embed)
+    return x.redistribute(dm, tok_pl)
+
+
 def _train_hidden(model: Transformer, tokens: torch.Tensor):
     """(final-normed hidden states (B, S, D), summed MoE aux) through the
     plain routes; with ``cfg.remat`` under grad mode, each layer past the
     dense prefix is recomputed in the backward."""
     cfg = model.cfg
     positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
-    x = model.embed.to(cfg.act_dtype)[tokens]
+    x = _embed_rows(model.embed.to(cfg.act_dtype), tokens)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for i, layer in enumerate(model.layers):
@@ -372,23 +417,32 @@ def _train_hidden(model: Transformer, tokens: torch.Tensor):
     return rms_norm(x, model.final_norm, cfg.norm_eps), aux
 
 
-def lm_loss(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+def lm_loss(model: Transformer, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
     """Next-token cross entropy of ``tokens`` (B, S + 1) int (the float32
     ``cross_entropy_loss`` of the logits of ``tokens[:, :-1]`` against
     ``tokens[:, 1:]``), plus ``aux_loss_weight * aux / max(n_scan_layers,
-    1)`` for a MoE, on one device and through the plain routes; runs under
-    grad mode.  Attention is the plain ``S x S`` one, so an S past the
-    reference's blocked-attention threshold (S * S > 2048 * 2048, where the
-    reference switches to its FlashAttention-2 ``custom_vjp``) raises
-    ``NotImplementedError``."""
-    _check_mesh(model, None, ("data",))
+    1)`` for a MoE, through the plain routes; runs under grad mode.  Above
+    2048 x 2048 attention scores attention runs blocked, with its
+    FlashAttention-2 backward (``attention._flash_sdpa``), as the
+    reference's does.
+
+    Over a mesh (``mesh``, a ``launch.mesh.ModelMesh``), SPMD: the model's
+    parameters are DTensors placed by ``dist.sharding.distribute`` and
+    ``tokens`` a DTensor placed by ``lm_batch_spec``; the loss runs under
+    ``implicit_replication`` (positions, masks and the vocabulary iota are
+    plain tensors, the same on every rank) and is a DTensor.  A MoE on a
+    mesh raises ``NotImplementedError``: its gradients through
+    ``moe_ffn(mesh=)`` are ROADMAP item 17d."""
     cfg = model.cfg
-    S = tokens.shape[1] - 1
-    if S * S > _FLASH_THRESHOLD:
-        raise NotImplementedError(
-            f"lm_loss: {S} x {S} attention scores exceed the plain route's "
-            f"{_FLASH_THRESHOLD:,}; the blocked attention with its backward comes with ROADMAP "
-            "item 17c")
+    if mesh is not None:
+        if cfg.moe is not None:
+            raise NotImplementedError(
+                "lm_loss(mesh=): MoE gradients through moe_ffn(mesh=) are ROADMAP item 17d")
+        from repro_torch.dist.sharding import implicit_replication
+
+        with implicit_replication():
+            return lm_loss(model, tokens)
+    _check_mesh(model, None, ("data",))
     x, aux = _train_hidden(model, tokens[:, :-1])
     loss = cross_entropy_loss(_logits(model, x), tokens[:, 1:])
     if cfg.moe is not None:

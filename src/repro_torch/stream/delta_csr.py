@@ -304,7 +304,7 @@ class DeltaCSR:
         scratch would be given)."""
         s, d, w = self.live_edges()
         return csr_from_edges(self.n_nodes, s.astype(np.int64),
-                              d.astype(np.int64), w)
+                              d.astype(np.int64), w, device=self.device)
 
     def _out_edges(self, u: int, extra=None) -> tuple[np.ndarray, np.ndarray]:
         p = int(self.vertex_part[u])
@@ -438,7 +438,7 @@ class DeltaCSR:
                 s = np.concatenate([s.astype(np.int64), es])
                 d = np.concatenate([d.astype(np.int64), ed])
                 w = np.concatenate([w, ew])
-            self._build_layout(csr_from_edges(self.n_nodes, s, d, w))
+            self._build_layout(csr_from_edges(self.n_nodes, s, d, w, device=self.device))
             self.layout_version += 1
             self.dirty = set()
             dirty = set(range(self.n_partitions))

@@ -74,20 +74,38 @@ def _flatten(tree, prefix: str = "") -> list:
 
 def _snapshot(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().to("cpu", copy=True)
+        t = leaf.detach()
+        if hasattr(t, "full_tensor"):   # a DTensor: its whole value, a collective
+            t = t.full_tensor()
+        t = t.to("cpu", copy=True)
         return t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
     return np.asarray(leaf)
 
 
 def save_checkpoint(directory: str, step: int, tree: Any, async_write: bool = False,
-                    keep: int = 3) -> threading.Thread | None:
+                    keep: int = 3, mesh=None) -> threading.Thread | None:
     """Write ``tree`` as step ``step`` under ``directory``, keeping the
     ``keep`` newest steps; with ``async_write``, return the writer thread
-    (join it before reading the step back)."""
+    (join it before reading the step back).
+
+    On a mesh (``mesh``, a ``launch.mesh.ModelMesh``; SPMD, every rank
+    calls it with the same tree), each DTensor is gathered whole on every
+    rank (``full_tensor``, a collective at the same point everywhere), the
+    mesh's rank 0 alone writes, synchronously, and every rank then passes
+    ``mesh_barrier``, so the step is committed when any rank returns."""
+    if mesh is not None:
+        from repro_torch.launch.mesh import mesh_barrier
+
+        if mesh.rank == 0:
+            save_checkpoint(directory, step, tree, keep=keep)
+        else:
+            _flatten_snapshot(tree)
+        mesh_barrier(mesh)
+        return None
     os.makedirs(directory, exist_ok=True)
     leaves = _flatten(tree)
     # snapshot synchronously (device -> host, copied) so training can mutate state
-    snapshot = {key: _snapshot(leaf) for key, leaf in leaves}
+    snapshot = _flatten_snapshot(tree)
     dtypes = {key: (str(leaf.dtype).removeprefix("torch.") if isinstance(leaf, torch.Tensor)
                     else str(snapshot[key].dtype)) for key, leaf in leaves}
 
@@ -120,6 +138,10 @@ def save_checkpoint(directory: str, step: int, tree: Any, async_write: bool = Fa
     return None
 
 
+def _flatten_snapshot(tree) -> dict:
+    return {key: _snapshot(leaf) for key, leaf in _flatten(tree)}
+
+
 def _cleanup(directory: str, keep: int) -> None:
     steps = sorted(latest_steps(directory))
     for s in steps[:-keep] if keep > 0 else []:
@@ -142,7 +164,10 @@ def latest_steps(directory: str) -> list[int]:
 
 
 @torch.no_grad()
-def _restore(tree, prefix: str, loaded: dict, dtypes: dict):
+def _restore(tree, prefix: str, loaded: dict, dtypes: dict, fresh: bool = False):
+    """``fresh``: each tensor a new plain tensor on the target's device (a
+    module's parameters replaced), for placing anew; else copied in
+    place."""
     kids = _children(tree)
     if kids is None:
         if tree is None:
@@ -157,12 +182,19 @@ def _restore(tree, prefix: str, loaded: dict, dtypes: dict):
             if tuple(t.shape) != tuple(tree.shape):
                 raise ValueError(f"checkpoint leaf {prefix}: shape {tuple(t.shape)}, target "
                                  f"{tuple(tree.shape)}")
+            if fresh:
+                return t.to(tree.device, copy=True)
             tree.copy_(t)
             return tree
         return type(tree)(a.item())
-    new = {key: _restore(child, f"{prefix}.{key}" if prefix else key, loaded, dtypes)
+    new = {key: _restore(child, f"{prefix}.{key}" if prefix else key, loaded, dtypes, fresh)
            for key, child in kids}
     if isinstance(tree, nn.Module):
+        if fresh:
+            from repro_torch.dist.sharding import set_parameter
+
+            for name, p in kids:
+                set_parameter(tree, name, nn.Parameter(new[name], requires_grad=p.requires_grad))
         return tree
     if dataclasses.is_dataclass(tree):
         return dataclasses.replace(tree, **new)
@@ -171,10 +203,19 @@ def _restore(tree, prefix: str, loaded: dict, dtypes: dict):
     return type(tree)(new[str(i)] for i in range(len(tree)))
 
 
-def restore_checkpoint(directory: str, target_tree: Any, step: int | None = None):
+def restore_checkpoint(directory: str, target_tree: Any, step: int | None = None,
+                       shardings=None, device_mesh=None):
     """(step, tree): the newest step (or ``step``) restored into the
     structure of ``target_tree``, its tensors copied in place into the
-    target's tensors (on their devices)."""
+    target's tensors (on their devices).
+
+    The elastic restart: with ``shardings`` (a same-structure tree of
+    specs, ``dist.sharding.tree_shardings`` on the new mesh) and
+    ``device_mesh`` (the new mesh's ``DeviceMesh``), each leaf is read
+    whole and placed by its spec on ``device_mesh`` (``distribute``),
+    whatever mesh the target's tensors were on; a module's parameters are
+    replaced by the placed ones.  SPMD: every rank of the new mesh calls
+    it."""
     steps = latest_steps(directory)
     if not steps:
         raise FileNotFoundError(f"no checkpoints under {directory}")
@@ -184,4 +225,9 @@ def restore_checkpoint(directory: str, target_tree: Any, step: int | None = None
         loaded = {k: data[k] for k in data.files}
     with open(os.path.join(path, "manifest.json")) as f:
         dtypes = {k: v["dtype"] for k, v in json.load(f)["leaves"].items()}
-    return step, _restore(target_tree, "", loaded, dtypes)
+    if shardings is None:
+        return step, _restore(target_tree, "", loaded, dtypes)
+    from repro_torch.dist.sharding import distribute
+
+    tree = _restore(target_tree, "", loaded, dtypes, fresh=True)
+    return step, distribute(tree, device_mesh, shardings)

@@ -68,6 +68,31 @@ def test_csr_from_edges_equal_reference():
                   tcsr.csr_from_edges(300, src, dst, w, dedup=dedup))
 
 
+@pytest.mark.parametrize("n,m,seed", [(1, 50, 0), (5, 400, 1), (300, 0, 2), (2**12, 3000, 3)])
+def test_csr_from_edges_parallel_edges_equal_reference(n, m, seed):
+    """Parallel edges with distinct weights keep their input order (the
+    stable key sort against ``np.lexsort``), and ``dedup`` keeps the first
+    of them; isolated and empty graphs too."""
+    rng = np.random.default_rng(seed)
+    src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
+    w = rng.random(m).astype(np.float32)
+    for dedup in (False, True):
+        _same_csr(jcsr.csr_from_edges(n, src, dst, w, dedup=dedup),
+                  tcsr.csr_from_edges(n, src, dst, w, dedup=dedup))
+        _same_csr(jcsr.csr_from_edges(n, src, dst, None, dedup=dedup),
+                  tcsr.csr_from_edges(n, torch.from_numpy(src), torch.from_numpy(dst),
+                                      None, dedup=dedup))
+
+
+@pytest.mark.parametrize("n,m,kw", [(2**11, 30_000, dict(seed=0)), (3000, 20_000, dict(seed=9)),
+                                    (1000, 9000, dict(seed=2, a=0.45, b=0.25, c=0.15))])
+def test_rmat_graph_levels_equal_reference(n, m, kw):
+    """The raw-draw level arithmetic equals the reference's searchsorted
+    levels, power-of-two or not, and the weights come after every level's
+    draws, as in the reference."""
+    _same_csr(jgen.rmat_graph(n, m, **kw), tgen.rmat_graph(n, m, **kw))
+
+
 @pytest.mark.parametrize("frac", [0.08, 0.3])
 def test_hub_sort_equal_reference(frac):
     g = jgen.rmat_graph(900, 8000, seed=4)

@@ -86,6 +86,7 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.launch import train
     from repro_torch.train.optimizer import OptimizerConfig
     from repro_torch.train.train_step import init_train_state
+    from repro_torch.launch.mesh import ModelMesh, device_mesh, make_debug_mesh
 
     twins = [_example(path) for path in EXAMPLES]
     assert [t.__name__ for t in twins] == [f"_example_torch_{n}" for n in
@@ -111,6 +112,10 @@ def test_entry_points_raise_without_a_card():
                  lambda: calibrate.main(["--dry-run"]),
                  lambda: init_train_state({"w": torch.ones(3)}, OptimizerConfig()),
                  lambda: train.main(["--arch", "internlm2-1.8b", "--steps", "1"]),
+                 lambda: make_debug_mesh(1, 1),
+                 lambda: device_mesh(ModelMesh(
+                     axis_names=("data", "model"), shape=(1, 1), coords=(0, 0), rank=0,
+                     group=None, host_group=None, groups={}, device=torch.device("cuda"))),
                  *[lambda twin=twin: twin.main([]) for twin in twins]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -878,3 +878,27 @@ def test_owner_layout_at_world_size_one_on_nccl():
             else:
                 np.testing.assert_allclose(res.values + res.delta, rep.values + rep.delta,
                                            rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_graph_build_on_card_equals_cpu():
+    """``rmat_graph``, ``hub_sort`` and ``csr_from_edges`` (with dedup) give
+    the same graph when their arithmetic and sorts run on the card."""
+    from repro_torch.graph.csr import csr_from_edges
+    from repro_torch.graph.generators import rmat_graph
+    from repro_torch.graph.hub_sort import hub_sort
+
+    dev = _cuda()
+    g = rmat_graph(2**14, 2**18, seed=5)
+    card = rmat_graph(2**14, 2**18, seed=5, device=dev)
+    src, dst = g.edge_sources(), g.indices
+    both = (np.concatenate([src, dst]), np.concatenate([dst, src]),
+            np.concatenate([g.weights, g.weights]))
+    for a, b in ((g, card), (hub_sort(g).graph, hub_sort(g, device=dev).graph),
+                 (g.symmetrize(), csr_from_edges(g.n_nodes, *both, dedup=True, device=dev))):
+        np.testing.assert_array_equal(a.indptr, b.indptr)
+        np.testing.assert_array_equal(a.indices, b.indices)
+        np.testing.assert_array_equal(a.weights, b.weights)
+    np.testing.assert_array_equal(hub_sort(g).perm, hub_sort(g, device=dev).perm)
+    empty = csr_from_edges(7, np.zeros(0, np.int64), np.zeros(0, np.int64), device=dev)
+    np.testing.assert_array_equal(empty.indptr, np.zeros(8, np.int64))

@@ -46,7 +46,7 @@ from repro.train import compression as jcomp
 from repro_torch import convert
 from repro_torch.configs import get_arch
 from repro_torch.configs.common import reduce_dlrm_config, reduce_lm_config
-from repro_torch.models import common, dlrm, gnn, transformer
+from repro_torch.models import attention, common, dlrm, gnn, transformer
 from repro_torch.train import compression as tcomp
 from repro_torch.train.train_step import named_params, param_leaves
 
@@ -144,13 +144,28 @@ def test_lm_loss_moe_aux_is_in_the_loss():
     assert abs(got - want) <= F32 * abs(want)
 
 
-def test_lm_loss_above_the_plain_threshold_raises():
-    """Above 2048 x 2048 scores the reference attends blocked with its own
-    FlashAttention-2 backward; the port refuses, naming item 17c."""
+def test_lm_loss_above_the_plain_threshold_raises(monkeypatch):
+    """Above 2048 x 2048 scores ``lm_loss`` attends blocked with its own
+    FlashAttention-2 backward, as the reference does (item 17c): at 2049
+    positions its loss and every gradient agree with the plain ``S x S``
+    route's within 1e-5.  What still raises is a MoE on a mesh, naming
+    item 17d."""
     cfg, tree = _lm_case("dense", "float32")
-    model = _port_model(cfg, tree)
-    with pytest.raises(NotImplementedError, match="17c"):
-        transformer.lm_loss(model, torch.zeros((1, 2050), dtype=torch.int32))
+    tokens = torch.from_numpy(
+        np.random.default_rng(12).integers(0, cfg.vocab, (1, 2050)).astype(np.int32))
+    runs = {}
+    for route, threshold in (("blocked", jax_attention._FLASH_THRESHOLD), ("plain", 10**18)):
+        monkeypatch.setattr(attention, "_FLASH_THRESHOLD", threshold)
+        model = _port_model(cfg, tree)
+        loss = transformer.lm_loss(model, tokens)
+        loss.backward()
+        runs[route] = (float(loss), _port_grads_by_leaf(model))
+    assert abs(runs["blocked"][0] - runs["plain"][0]) <= F32 * abs(runs["plain"][0])
+    for name, g in runs["blocked"][1].items():
+        _leaf_close(g, runs["plain"][1][name], F32, name)
+    moe_cfg, moe_tree = _lm_case("moe", "float32")
+    with pytest.raises(NotImplementedError, match="17d"):
+        transformer.lm_loss(_port_model(moe_cfg, moe_tree), tokens[:, :9], mesh=object())
 
 
 def test_remat_recomputes_the_same_routes_hazard_h():
