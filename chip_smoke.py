@@ -264,7 +264,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
    the plain core's.  Leg (b): internlm2-1.8b at full width and depth,
    ``lm_loss`` at 4096 positions (train_4k's sequence; its 256 rows cut to
    2), its AdamW ``OPT`` with 2 microbatches and remat: seconds a step
-   (median of 3 after a warm-up), tokens/s, 6*N*tokens plus the blocked
+   (median of 2 after a warm-up), tokens/s, 6*N*tokens plus the blocked
    attention's products against 989 TF/s, peak memory, the blocked core's
    calls, and the first batch's loss falling.  Leg (c): internlm2-1.8b at
    full width cut to 2 layers, float32, two steps of the train step on
@@ -273,7 +273,16 @@ Phases, in order; any failure exits nonzero and prints no result line:
    parameters after the first step within 1e-5 of each leaf's largest;
    two gloo ranks sharing the card crash on DTensor's collectives, so the
    two- and four-rank meshes run across cards, ``profile_port.py
-   --train-mesh``);
+   --train-mesh``).  Leg (d): phase 18 leg (c)'s run (deepseek-v2-lite-16b
+   at full width, its dense layer and one MoE layer, float32, the same
+   seed and batches) on a (1, 1) NCCL mesh, its MoE layer through
+   ``moe.moe_ffn_placed`` and the exchanges' adjoints: the losses, grad
+   norms and final parameters bit-equal to leg (c)'s (``MOE_REFERENCE``),
+   seconds a step, the peak, the exchanges' device ms (``ExchangeTimer``),
+   and the dry run's prediction of the same step on a fake (1, 1) mesh
+   (``launch.dryrun``, a CPU subprocess running beside phase 19's legs): its
+   argument bytes equal to the leg's state and batch bytes on the card,
+   its peak beside the card's;
 6. LM serving: the reduced gemma3-12b config on the card against the CPU
    (float32, logits within 1e-4, greedy tokens equal), then gemma3-12b at
    full width (11.8B parameters in bf16, random weights from the seed):
@@ -344,6 +353,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import functools
 import gc
 import inspect
 import itertools
@@ -4446,7 +4456,7 @@ def forced_logits(torch, model, prompts, tokens, mesh):
 def kimi_config():
     from repro_torch.configs import get_arch
 
-    cfg = get_arch(KIMI_ARCH)
+    cfg = get_arch(KIMI_ARCH).model_config
     return cfg.replace(n_layers=KIMI_LAYERS, remat=False, param_dtype=cfg.dtype)
 
 
@@ -5037,7 +5047,7 @@ def phase_gnn(torch, dev, seed: int, smi: str) -> dict:
                                         init_gnn, output_loss)
 
     t_phase = time.monotonic()
-    cells = {name: gnn_cells(get_arch(name)) for name in GNN_ARCHS}
+    cells = {name: gnn_cells(get_arch(name).model_config) for name in GNN_ARCHS}
     gen = torch.Generator(device=dev)
     rows = {name: {} for name in GNN_ARCHS}
 
@@ -5255,6 +5265,9 @@ TRAIN_UPDATE_STEP = 5        # the step the update is applied at (the schedule i
 TRAIN_MOE_LAYERS = 2         # leg (c): deepseek-v2-lite's dense layer and one MoE layer
 TRAIN_MOE_STEPS = 3
 TRAIN_MOE_BATCH, TRAIN_MOE_SEQ = 2, 513
+# leg (c)'s losses, grad norms and final parameters (on the host), which
+# phase 19 leg (d) holds its (1, 1) mesh run to
+MOE_REFERENCE: dict = {}
 TRAIN_GNN_STEPS = 40         # leg (d): the torch_train_gnn twin, a fault at step 20
 TRAIN_GNN_GRAPH = (50_000, 1_000_000)   # the twin's default RMAT graph
 TRAIN_DLRM_BATCH = 2048      # leg (e): reduced dlrm-mlperf on RecSysBatches
@@ -5546,7 +5559,7 @@ def train_leg_moe(torch, dev, seed: int, smi: str) -> dict:
     step_fn = ts.make_train_step(lambda m, b: lm_loss(m, b), opt)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    losses, secs = [], []
+    losses, norms, secs = [], [], []
     first = torch.from_numpy(pipe.make(0)["tokens"]).to(dev)
     for s in range(TRAIN_MOE_STEPS):
         b = torch.from_numpy(pipe.make(s)["tokens"]).to(dev)
@@ -5554,7 +5567,12 @@ def train_leg_moe(torch, dev, seed: int, smi: str) -> dict:
         t = time.monotonic()
         state, m = step_fn(state, b)
         losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
         secs.append(time.monotonic() - t)
+    # phase 19 leg (d) runs these steps on a (1, 1) mesh and holds them to these
+    MOE_REFERENCE.update(losses=list(losses), norms=list(norms), secs=list(secs),
+                         params={n: p.detach().to("cpu", copy=True)
+                                 for n, p in model.named_parameters()})
     with torch.no_grad():
         # the first batch again after the steps: its loss must have fallen
         after = float(lm_loss(model, first))
@@ -5575,8 +5593,8 @@ def train_leg_moe(torch, dev, seed: int, smi: str) -> dict:
         f"peak allocated {peak / 1e9:.2f} GB; grouped_matmul launched "
         f"{launches['grouped_matmul']} times, no kernel launched [{smi}]")
     del state, model, step_fn
-    return {"losses": losses, "first_after": after, "aux": float(aux), "step_secs": secs,
-            "peak_gb": peak / 1e9,
+    return {"losses": losses, "norms": norms, "first_after": after, "aux": float(aux),
+            "step_secs": secs, "peak_gb": peak / 1e9,
             "n_params": n_params, "launches": launches}
 
 
@@ -5592,7 +5610,7 @@ def train_leg_gnn(torch, dev, seed: int, smi: str) -> dict:
     from repro_torch.train import train_step as ts
 
     gen = torch.Generator(device=dev)
-    cells = {name: gnn_cells(get_arch(name)) for name in GNN_ARCHS}
+    cells = {name: gnn_cells(get_arch(name).model_config) for name in GNN_ARCHS}
     sm, mo = cells["pna"]["full_graph_sm"], cells["pna"]["molecule"]
     graphs = {"full_graph_sm": (rmat_graph(sm["n_nodes"], sm["n_edges"], seed=seed), {}),
               "molecule": (batched_molecule_graphs(mo["n_graphs"], 30, 128, seed=seed),
@@ -5678,7 +5696,7 @@ def train_leg_dlrm(torch, dev, seed: int, smi: str) -> dict:
     from repro_torch.models.dlrm import dlrm_loss, init_dlrm
     from repro_torch.train import train_step as ts
 
-    cfg = reduce_dlrm_config(get_arch("dlrm-mlperf"))
+    cfg = reduce_dlrm_config(get_arch("dlrm-mlperf").model_config)
     opt = OPT.replace(warmup_steps=2, total_steps=TRAIN_DLRM_STEPS)
     model = init_dlrm(cfg, torch.Generator(device=dev).manual_seed(seed + 3), dev)
     state = ts.init_train_state(model, opt, device=dev)
@@ -5857,7 +5875,7 @@ BLOCKED_REPS = 3              # timed fwd+bwd calls a leg (a) row, after 3 warm-
 # each output and gradient (2^-8 of a value at most)
 BLOCKED_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 TRAIN4K_ROWS = 2              # leg (b): train_4k's 256 rows cut to 2
-TRAIN4K_STEPS = 4             # a warm-up, then 3 timed
+TRAIN4K_STEPS = 3             # a warm-up, then 2 timed
 MESH_TRAIN_LAYERS = 2         # leg (c): internlm2-1.8b's 24 layers cut to 2
 MESH_TRAIN_ROWS = 4
 MESH_TRAIN_SEQ = 1025         # 1024 next-token positions a row
@@ -6137,13 +6155,166 @@ def mesh_train_leg(torch, dev, seed: int, smi: str) -> dict:
     return out
 
 
+# leg (d): the dry run of leg (c)'s step on a fake (1, 1) mesh, in a CPU
+# subprocess (the fake process group cannot share a process with NCCL)
+MOE_DRYRUN = """
+import json, sys
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch.configs.common import lm_train_cell
+from repro_torch.configs.deepseek_v2_lite_16b import CONFIG, OPT
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import device_mesh, make_debug_mesh
+
+spec = json.loads(sys.argv[1])
+cfg = CONFIG.replace(n_layers=spec["layers"], dtype="float32", param_dtype="float32")
+opt = OPT.replace(warmup_steps=1, total_steps=spec["steps"])
+dryrun.fake_process_group(1)
+mesh = make_debug_mesh(1, 1, device="cpu")
+dm = device_mesh(mesh)
+build = lm_train_cell(cfg, opt, spec["batch"], spec["seq"])(mesh)
+with FakeTensorMode(allow_non_fake_inputs=True):
+    rec = dryrun.measure(build, dm)
+print(json.dumps(rec))
+"""
+MOE_MESH_TOL = 1e-6           # relative, if leg (d) is not bit-equal to leg (c)
+MOE_DRYRUN_TIMEOUT_S = 240.0
+
+
+def start_moe_dryrun() -> tuple:
+    """Leg (d)'s dry run, started in a CPU subprocess (at the start of phase
+    19, so that it runs beside legs (a)-(c)): (the process, its start)."""
+    spec = {"layers": TRAIN_MOE_LAYERS, "steps": TRAIN_MOE_STEPS, "batch": TRAIN_MOE_BATCH,
+            "seq": TRAIN_MOE_SEQ}
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+           "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), os.environ.get("PYTHONPATH", "")])}
+    return (subprocess.Popen([sys.executable, "-c", MOE_DRYRUN, json.dumps(spec)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env),
+            time.monotonic())
+
+
+def mesh_moe_leg(torch, dev, seed: int, smi: str, dryrun: tuple | None = None) -> dict:
+    """Leg (d): phase 18 leg (c)'s deepseek-v2-lite run on a (1, 1) NCCL
+    mesh in this process through ``lm_loss(mesh=)``, held bit-equal to leg
+    (c)'s losses, grad norms and final parameters (``MOE_REFERENCE``), or
+    within ``MOE_MESH_TOL`` relative with the first differing value named;
+    the exchanges timed; the dry run's prediction (``dryrun``, from
+    ``start_moe_dryrun``; started here if not given) read beside it."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs.deepseek_v2_lite_16b import CONFIG, OPT
+    from repro_torch.data.pipeline import LMBatches
+    from repro_torch.dist.sharding import (distribute, lm_batch_spec, lm_rule, placements,
+                                           tree_shardings)
+    from repro_torch.launch.dryrun import local_leaves, storage_bytes
+    from repro_torch.launch.mesh import RankPool, device_mesh, make_debug_mesh
+    from repro_torch.models.moe import ExchangeTimer
+    from repro_torch.models.transformer import init_transformer, lm_loss
+    from repro_torch.train import train_step as ts
+
+    ref = dict(MOE_REFERENCE)
+    MOE_REFERENCE.clear()
+    check(bool(ref), "train 4k (d): phase 18 leg (c) left no reference")
+    dry, t_dry = dryrun or start_moe_dryrun()
+    try:
+        cfg = CONFIG.replace(n_layers=TRAIN_MOE_LAYERS, dtype="float32", param_dtype="float32")
+        opt = OPT.replace(warmup_steps=1, total_steps=TRAIN_MOE_STEPS)
+        reset_launch_counts()
+        with RankPool(1, backend="nccl", timeout_s=MESH_TRAIN_TIMEOUT_S):
+            mesh = make_debug_mesh(1, 1, device=dev)
+            dm = device_mesh(mesh)
+            model = init_transformer(cfg, torch.Generator(device=dev).manual_seed(seed + 2), dev)
+            state = ts.init_train_state(model, opt, device=dev)
+            state = distribute(state, dm, tree_shardings(state, mesh, lm_rule(mesh)))
+            del model
+            pipe = LMBatches(vocab=cfg.vocab, batch=TRAIN_MOE_BATCH, seq_len=TRAIN_MOE_SEQ,
+                             seed=seed)
+            batches = [distribute_tensor(torch.from_numpy(pipe.make(s)["tokens"]).to(dev), dm,
+                                         placements(lm_batch_spec(mesh), 2, dm),
+                                         src_data_rank=None) for s in range(TRAIN_MOE_STEPS)]
+            state_bytes = storage_bytes(local_leaves(state))[0]
+            batch_bytes = storage_bytes(local_leaves(batches[0]))[0]
+            step_fn = ts.make_train_step(lambda m, b: lm_loss(m, b, mesh=mesh), opt)
+            torch.cuda.reset_peak_memory_stats()
+            losses, norms, secs = [], [], []
+            timer = ExchangeTimer()
+            for i, b in enumerate(batches):
+                # the first step (NCCL's set-up) untimed by the exchange timer
+                with timer if i else contextlib.nullcontext():
+                    torch.cuda.synchronize()
+                    t = time.monotonic()
+                    state, m = step_fn(state, b)
+                    losses.append(float(m["loss"]))
+                    norms.append(float(m["grad_norm"]))
+                    secs.append(time.monotonic() - t)
+            exchanges = timer.summary()
+            peak = torch.cuda.max_memory_allocated()
+            params = {n: p.full_tensor().detach().to("cpu")
+                      for n, p in state.params.named_parameters()}
+            del state, batches, step_fn
+        launches = read_launch_counts()
+        out, err = dry.communicate(timeout=max(1.0, MOE_DRYRUN_TIMEOUT_S
+                                               - (time.monotonic() - t_dry)))
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
+    check(dry.returncode == 0, f"train 4k (d): the dry run failed:\n{err[-3000:]}")
+    pred = json.loads(out.strip().splitlines()[-1])
+    dry_s = time.monotonic() - t_dry
+    equal = (losses == ref["losses"] and norms == ref["norms"]
+             and all(torch.equal(params[n], ref["params"][n]) for n in ref["params"]))
+    worst, where = 0.0, "none"
+    for n, want in ref["params"].items():
+        e = float((params[n].double() - want.double()).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+        if e > worst:
+            worst, where = e, n
+    metric_err = max(abs(a - b) / abs(b) for a, b in zip(losses + norms,
+                                                        ref["losses"] + ref["norms"]))
+    del ref["params"], params
+    check(launches == counts_zero(), f"train 4k (d): launched {launches}")
+    check(equal or (metric_err <= MOE_MESH_TOL and worst <= MOE_MESH_TOL),
+          f"train 4k (d): the (1, 1) mesh run is off leg (c)'s: losses {losses} vs "
+          f"{ref['losses']}, norms {norms} vs {ref['norms']}, parameters {worst:.2e} ({where})")
+    arg_bytes = state_bytes + batch_bytes
+    mem = pred["memory"]
+    check(mem["argument_bytes"] == arg_bytes,
+          f"train 4k (d): the dry run's argument bytes {mem['argument_bytes']:,} != the card's "
+          f"state and batch {arg_bytes:,}")
+    step_s = float(np.median(secs[1:]))
+    ms = {k: round(v["ms"], 3) for k, v in exchanges.items()}
+    log(f"train 4k (d) (1, 1) mesh, MoE: {cfg.name} at full width, {cfg.n_layers} layers, "
+        f"float32, phase 18 leg (c)'s {TRAIN_MOE_STEPS} steps through moe_ffn_placed: "
+        f"{'bit-equal to' if equal else f'within {max(metric_err, worst):.2e} of'} leg (c)'s "
+        f"losses {losses}, grad norms {[round(x, 6) for x in norms]} and parameters; "
+        f"{step_s:.4f} s a step (median of steps 2-{TRAIN_MOE_STEPS}; each "
+        f"{[round(x, 4) for x in secs]}; leg (c)'s one device "
+        f"{[round(x, 4) for x in ref.get('secs', [])]}), peak allocated {peak / 1e9:.2f} GB; "
+        f"exchanges' device ms by kind over steps 2-{TRAIN_MOE_STEPS} {ms} (calls "
+        f"{ {k: v['calls'] for k, v in exchanges.items()} }); the dry run (fake (1, 1) mesh, a "
+        f"CPU subprocess started {dry_s:.1f} s before its reading): argument bytes {mem['argument_bytes']:,} = the "
+        f"card's state {state_bytes:,} + batch {batch_bytes:,}, peak "
+        f"{mem['peak_device_bytes'] / 1e9:.2f} GB against the card's {peak / 1e9:.2f} GB, "
+        f"{pred['cost']['flops'] / 1e12:.2f} TFLOP, collectives "
+        f"{ {k: v['count'] for k, v in pred['collectives'].items()} }; no kernel launched [{smi}]")
+    return {"losses": losses, "norms": norms, "bit_equal": equal, "metric_err": metric_err,
+            "param_err": worst, "param_leaf": where, "step_secs": secs, "step_s": step_s,
+            "peak_gb": peak / 1e9, "exchanges": exchanges, "state_bytes": state_bytes,
+            "batch_bytes": batch_bytes, "dryrun": {"memory": mem, "cost": pred["cost"],
+                                                   "collectives": pred["collectives"],
+                                                   "run_s": pred["run_s"], "wall_s": dry_s},
+            "launches": launches}
+
+
 def phase_train_blocked(torch, dev, seed: int, smi: str) -> dict:
     """Phase 19: training past 2048² attention scores and over a model mesh,
-    legs (a)-(c); everything the phase allocates is freed before it
+    legs (a)-(d); everything the phase allocates is freed before it
     returns."""
     t_phase = time.monotonic()
     legs = {}
-    for key, fn in (("a", blocked_core_leg), ("b", train4k_leg), ("c", mesh_train_leg)):
+    moe_dryrun = start_moe_dryrun()
+    for key, fn in (("a", blocked_core_leg), ("b", train4k_leg), ("c", mesh_train_leg),
+                    ("d", functools.partial(mesh_moe_leg, dryrun=moe_dryrun))):
         t = time.monotonic()
         legs[key] = fn(torch, dev, seed, smi)
         legs[key]["seconds"] = time.monotonic() - t

@@ -9,6 +9,7 @@
     python3 profile_port.py --mesh --lm-only   # kimi-k2 (2 layers) over every card alone
     python3 profile_port.py --train      # internlm2-1.8b's train step, as chip_smoke.py leg (a)
     python3 profile_port.py --train-mesh # that step at 4096 positions on (2, 2) and (1, 4) meshes
+    python3 profile_port.py --train-mesh --moe  # deepseek-v2-lite's on (4, 1) and (2, 2)
 
 For SSSP (K=8) and Δ-PageRank, each through the kernels and through the
 plain engines (``use_kernels=False``):
@@ -88,7 +89,13 @@ and one more, on rank 0 under the profiler (device busy, the NCCL
 kernels' device time and share of it), each rank's peak, every rank's
 losses equal and within
 ``chip_smoke.TRAIN_MB_TOL`` relative of the single device's (bf16
-activations sum in another order on a mesh).
+activations sum in another order on a mesh).  With ``--moe`` it trains
+deepseek-v2-lite-16b at full width cut to ``MOE_MESH_LAYERS`` layers
+(float32, 4 rows of 1024 positions, the MoE chunked a row so that each row
+routes with its own capacity on one card and on every mesh) on (4, 1)
+(EP 4) and (2, 2) (EP 2, TP 2): the same numbers, the exchanges' device ms
+by kind, every rank's losses within ``MOE_MESH_LOSS_TOL`` of one card's and
+its first two grad norms within ``MOE_MESH_NORM_TOL``.
 
 A diagnostic: it checks nothing that ``chip_smoke.py`` does not check.
 The last line is one JSON object of the turns and profile numbers.
@@ -98,6 +105,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -714,33 +722,64 @@ def train_main(torch, smi: str) -> dict:
 TRAIN_MESH_SHAPES = ((2, 2), (1, 4))
 TRAIN_MESH_ROWS = 4     # 2 microbatches of 2 rows: a row a data rank at (2, 2)
 TRAIN_MESH_STEPS = 3    # a warm-up, then 2 timed; then one more under the profiler
+# --moe: deepseek-v2-lite-16b at full width, float32, its dense layer and
+# MOE_MESH_LAYERS - 1 MoE layers: 419M embedding and unembedding, 81M dense
+# layer, 585M a MoE layer (554M of it experts) -> 2.84B parameters at 5
+# layers, 45.4 GB of float32 parameters, gradients and AdamW moments on the
+# one card, about 8 GB of activations at 4 x 1024 tokens beside them:
+# within 64 GB, 80 GB less 20%, where a sixth layer (55.8 GB + 8) is not
+MOE_MESH_LAYERS = 5
+MOE_MESH_SHAPES = ((4, 1), (2, 2))   # EP 4; EP 2 with TP 2
+MOE_MESH_SEQ = 1024     # a row's next-token positions, and the MoE's chunk: each
+#                         row routes with its own capacity on every layout
+# relative to one card's: the grad norms of the first two steps (the same
+# parameters: the schedule is 0 at step 0) hold float32 sums in another
+# order; the losses after AdamW's first update also hold its sign-like
+# steps, where a gradient within rounding of 0 may point the other way
+MOE_MESH_NORM_TOL = 1e-5
+MOE_MESH_LOSS_TOL = 1e-3
 
 
-def train_mesh_run(torch, dev, seed: int, mesh=None, profiled: bool = False) -> dict:
+def train_mesh_run(torch, dev, seed: int, mesh=None, profiled: bool = False,
+                   moe: bool = False, layers: int = MOE_MESH_LAYERS) -> dict:
     """``--train-mesh``'s run on ``dev``: internlm2-1.8b as ``chip_smoke.py``
     phase 19 leg (b) trains it, on ``TRAIN_MESH_ROWS`` rows of 4096
-    positions a step, on ``mesh`` (a ``ModelMesh``) placed by ``lm_rule``
-    and ``lm_batch_spec``, or on the one device: ``TRAIN_MESH_STEPS`` steps
-    timed and one more, under the profiler when ``profiled``; the losses,
-    seconds, profile and peak."""
+    positions a step, or with ``moe`` deepseek-v2-lite (``layers`` layers,
+    float32, one microbatch, ``TRAIN_MESH_ROWS`` rows of ``MOE_MESH_SEQ``
+    positions, its MoE chunked a row: each row's capacity from its own
+    tokens, on one card and on every mesh alike), on ``mesh`` (a
+    ``ModelMesh``) placed by ``lm_rule`` and ``lm_batch_spec``, or on the
+    one device: ``TRAIN_MESH_STEPS`` steps timed and one more, under the
+    profiler when ``profiled``; the losses, seconds, profile, peak and (on a
+    mesh) the MoE exchanges' device ms."""
     import gc
 
     from torch.distributed.tensor import distribute_tensor
 
-    from repro_torch.configs.internlm2_1p8b import CONFIG, OPT
     from repro_torch.data.pipeline import LMBatches
     from repro_torch.dist.sharding import (distribute, lm_batch_spec, lm_rule, placements,
                                            tree_shardings)
     from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models.moe import ExchangeTimer
     from repro_torch.models.transformer import init_transformer, lm_loss
     from repro_torch.train import train_step as ts
 
     card = dev.type == "cuda"
     sync = torch.cuda.synchronize if card else (lambda: None)
-    cfg = CONFIG.replace(param_dtype="float32", dtype="bfloat16", remat=True)
-    opt = OPT.replace(warmup_steps=smoke.TRAIN_LM_WARMUP, total_steps=TRAIN_MESH_STEPS + 1)
-    pipe = LMBatches(vocab=cfg.vocab, batch=TRAIN_MESH_ROWS, seq_len=smoke.BLOCKED_SEQ + 1,
-                     seed=seed)
+    if moe:
+        from repro_torch.configs.deepseek_v2_lite_16b import CONFIG, OPT
+
+        cfg = CONFIG.replace(n_layers=layers, dtype="float32", param_dtype="float32",
+                             moe=CONFIG.moe.replace(chunk_tokens=MOE_MESH_SEQ))
+        opt = OPT.replace(warmup_steps=1, total_steps=TRAIN_MESH_STEPS + 1)
+        seq, microbatches = MOE_MESH_SEQ + 1, 1
+    else:
+        from repro_torch.configs.internlm2_1p8b import CONFIG, OPT
+
+        cfg = CONFIG.replace(param_dtype="float32", dtype="bfloat16", remat=True)
+        opt = OPT.replace(warmup_steps=smoke.TRAIN_LM_WARMUP, total_steps=TRAIN_MESH_STEPS + 1)
+        seq, microbatches = smoke.BLOCKED_SEQ + 1, smoke.TRAIN_LM_MICROBATCHES
+    pipe = LMBatches(vocab=cfg.vocab, batch=TRAIN_MESH_ROWS, seq_len=seq, seed=seed)
     batches = [torch.from_numpy(pipe.make(i)["tokens"]).to(dev)
                for i in range(TRAIN_MESH_STEPS + 1)]
     if card:
@@ -753,19 +792,26 @@ def train_mesh_run(torch, dev, seed: int, mesh=None, profiled: bool = False) -> 
         batches = [distribute_tensor(b, dm, placements(lm_batch_spec(mesh), 2, dm),
                                      src_data_rank=None) for b in batches]
     step_fn = ts.make_train_step(lambda m, b: lm_loss(m, b, mesh=mesh), opt,
-                                 microbatches=smoke.TRAIN_LM_MICROBATCHES)
+                                 microbatches=microbatches)
+
+    out = {"losses": [], "norms": [], "secs": []}
 
     def step(i):
         state["s"], m = step_fn(state["s"], batches[i])
+        out["norms"].append(float(m["grad_norm"]))
         return float(m["loss"])
 
-    out = {"losses": [], "secs": []}
+    timer = ExchangeTimer()
     for i in range(TRAIN_MESH_STEPS):
-        sync()
-        t = time.monotonic()
-        out["losses"].append(step(i))
-        sync()
-        out["secs"].append(time.monotonic() - t)
+        # the first step (NCCL's set-up) untimed by the exchange timer
+        with timer if i else contextlib.nullcontext():
+            sync()
+            t = time.monotonic()
+            out["losses"].append(step(i))
+            sync()
+            out["secs"].append(time.monotonic() - t)
+    if moe and mesh is not None:
+        out["exchanges"] = timer.summary()
     if profiled:
         out["profile"] = profile_run(torch, lambda: out["losses"].append(
             step(TRAIN_MESH_STEPS)), top=8)
@@ -780,7 +826,8 @@ def train_mesh_run(torch, dev, seed: int, mesh=None, profiled: bool = False) -> 
     return out
 
 
-def train_mesh_rank(group, shape: tuple, seed: int, device_type: str) -> dict:
+def train_mesh_rank(group, shape: tuple, seed: int, device_type: str, moe: bool = False,
+                    layers: int = MOE_MESH_LAYERS) -> dict:
     """One rank of ``--train-mesh`` on its own card (``device_type``
     ``cuda``; ``cpu`` to rehearse on gloo ranks): the run on a ``shape``
     (data, model) mesh."""
@@ -798,34 +845,45 @@ def train_mesh_rank(group, shape: tuple, seed: int, device_type: str) -> dict:
         dev = torch.device("cpu")
     mesh = make_debug_mesh(*shape, device=dev)
     # rank 0 alone under the profiler: the others run the same step
-    return {"rank": mesh.rank, **train_mesh_run(torch, dev, seed, mesh,
-                                                profiled=device_type == "cuda" and mesh.rank == 0)}
+    return {"rank": mesh.rank, **train_mesh_run(
+        torch, dev, seed, mesh, profiled=device_type == "cuda" and mesh.rank == 0, moe=moe,
+        layers=layers)}
 
 
-def train_mesh_main(torch, n_cards: int, smi: str, device_type: str = "cuda") -> dict:
+def train_mesh_main(torch, n_cards: int, smi: str, device_type: str = "cuda",
+                    moe: bool = False, layers: int = MOE_MESH_LAYERS) -> dict:
     """internlm2-1.8b's train step at full depth on (2, 2) and (1, 4) NCCL
-    meshes, one rank a card, against the single-device step on card 0:
-    seconds a step, the collectives' share of a profiled step's device
-    time, each rank's peak, the losses."""
+    meshes, one rank a card, against the single-device step on card 0, or
+    with ``moe`` deepseek-v2-lite's on (4, 1) and (2, 2): seconds a step,
+    the collectives' share of a profiled step's device time, each rank's
+    peak, the losses (every rank's equal, and within a tolerance of one
+    card's: ``TRAIN_MB_TOL`` for internlm2's bf16, ``MOE_MESH_LOSS_TOL``
+    and ``MOE_MESH_NORM_TOL`` for the float32 MoE)."""
     from repro_torch.launch.mesh import RankPool
 
     card = device_type == "cuda"
     dev = torch.device("cuda:0" if card else "cpu")
-    single = train_mesh_run(torch, dev, smoke.SEED)
-    out = {"card": smi, "cards": n_cards, "single": single}
+    single = train_mesh_run(torch, dev, smoke.SEED, moe=moe, layers=layers)
+    out = {"card": smi, "cards": n_cards, "model": "deepseek-v2-lite-16b" if moe
+           else "internlm2-1.8b", "single": single}
     log(f"train mesh: single device: losses {[round(x, 5) for x in single['losses']]}, steps "
         f"{[round(x, 3) for x in single['secs']]} s" + (
             f", peak {single['peak_gb']:.1f} GB" if card else ""))
+    tol = MOE_MESH_LOSS_TOL if moe else smoke.TRAIN_MB_TOL
+    norm_tol = MOE_MESH_NORM_TOL if moe else smoke.TRAIN_MB_TOL
     with RankPool(n_cards, backend="nccl" if card else "gloo", timeout_s=900.0) as pool:
-        for shape in TRAIN_MESH_SHAPES:
-            ranks = pool.run(train_mesh_rank, shape, smoke.SEED, device_type)
+        for shape in MOE_MESH_SHAPES if moe else TRAIN_MESH_SHAPES:
+            ranks = pool.run(train_mesh_rank, shape, smoke.SEED, device_type, moe, layers)
             name = f"{shape[0]}x{shape[1]}"
             rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
                                                           single["losses"]))
             smoke.check(all(r["losses"] == ranks[0]["losses"] for r in ranks),
                         f"--train-mesh {name}: the ranks' losses differ")
-            smoke.check(rel <= smoke.TRAIN_MB_TOL, f"--train-mesh {name}: losses "
-                        f"{ranks[0]['losses']} against the single device's {single['losses']}")
+            norm_rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["norms"][:2],
+                                                               single["norms"][:2]))
+            smoke.check(rel <= tol and norm_rel <= norm_tol, f"--train-mesh {name}: losses "
+                        f"{ranks[0]['losses']} and grad norms {ranks[0]['norms']} against the "
+                        f"single device's {single['losses']} and {single['norms']}")
             for r in ranks:
                 prof = r.get("profile")
                 share = (f"; a profiled step: device busy {prof['busy_s']:.3f} s of a "
@@ -834,11 +892,17 @@ def train_mesh_main(torch, n_cards: int, smi: str, device_type: str = "cuda") ->
                          if prof and prof["busy_s"] else "")
                 if card:
                     share += f"; peak {r['peak_gb']:.1f} GB"
+                if "exchanges" in r:
+                    share += f"; the MoE exchanges over steps 2-{TRAIN_MESH_STEPS}: " + ", ".join(
+                        f"{k} {v['calls']} calls {v['bytes'] / 1e6:.1f} MB"
+                        + (f" {v['ms']:.2f} ms" if v["ms"] is not None else "")
+                        for k, v in r["exchanges"].items())
                 if prof:
                     log_profile(f"train mesh {name} rank {r['rank']}", prof)
                 log(f"train mesh {name} rank {r['rank']}: losses "
                     f"{[round(x, 5) for x in r['losses']]} (within {rel:.2e} relative of the "
-                    f"single device's), steps {[round(x, 3) for x in r['secs']]} s{share} [{smi}]")
+                    f"single device's), the first two grad norms within {norm_rel:.2e}, steps "
+                    f"{[round(x, 3) for x in r['secs']]} s{share} [{smi}]")
             out[name] = {f"rank{r['rank']}": r for r in ranks}
     return out
 
@@ -860,6 +924,9 @@ def main() -> int:
     ap.add_argument("--train-mesh", action="store_true",
                     help="internlm2-1.8b's train step at 4096 positions on (2, 2) and (1, 4) "
                          "NCCL meshes over four cards")
+    ap.add_argument("--moe", action="store_true",
+                    help="with --train-mesh: deepseek-v2-lite-16b's (5 layers, float32) on "
+                         "(4, 1) and (2, 2)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)       # a tree's src, for --against
     ap.add_argument("--graph-file", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -886,7 +953,7 @@ def main() -> int:
             print(f"profile_port: --train-mesh needs four cards, found {n_cards}",
                   file=sys.stderr)
             return 1
-        print(json.dumps(train_mesh_main(torch, 4, smi), default=str))
+        print(json.dumps(train_mesh_main(torch, 4, smi, moe=args.moe), default=str))
         return 0
     if args.against:
         print(json.dumps(ab_main(args, smi)))

@@ -6,6 +6,7 @@ MoE: 64 routed experts d_ff=1408 top-6 + 2 shared, first layer dense
 so one 80 GB card serves it whole.
 """
 
+from repro_torch.configs.common import standard_lm_arch
 from repro_torch.models.attention import MLAConfig
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import TransformerConfig
@@ -32,3 +33,5 @@ CONFIG = TransformerConfig(
 )
 
 OPT = OptimizerConfig(name="adamw", learning_rate=3e-4, warmup_steps=2000)
+
+ARCH = standard_lm_arch("deepseek-v2-lite-16b", CONFIG, OPT, microbatches=4)

@@ -6,6 +6,8 @@ padded (96.14 GB in float32): more than one card holds, so the card runs
 ``one_card_config()``, capped at 25M rows a table (66.08 GB).
 """
 
+from repro_torch.configs.common import (ArchSpec, dlrm_retrieval_cell, dlrm_serve_cell,
+                                       dlrm_train_cell)
 from repro_torch.models.dlrm import MLPERF_VOCAB_SIZES, DLRMConfig
 from repro_torch.train.optimizer import OptimizerConfig
 
@@ -19,13 +21,25 @@ CONFIG = DLRMConfig(vocab_sizes=_PADDED_VOCABS)
 
 OPT = OptimizerConfig(name="adamw", learning_rate=1e-3, warmup_steps=100)
 
-# The serving cells of the reference's ArchSpec (its train_batch cell comes
-# with training): the batch of a forward, or one query against N candidates.
+# The serving cells' sizes, which the card's runs read too: the batch of a
+# forward, or one query against N candidates.
 CELLS = {
     "serve_p99": {"batch": 512},
     "serve_bulk": {"batch": 262_144},
     "retrieval_cand": {"batch": 1, "n_candidates": 1_000_000, "top_k": 100},
 }
+
+ARCH = ArchSpec(
+    name="dlrm-mlperf",
+    family="recsys",
+    cells={
+        "train_batch": dlrm_train_cell(CONFIG, OPT, 65536),
+        "serve_p99": dlrm_serve_cell(CONFIG, CELLS["serve_p99"]["batch"]),
+        "serve_bulk": dlrm_serve_cell(CONFIG, CELLS["serve_bulk"]["batch"]),
+        "retrieval_cand": dlrm_retrieval_cell(CONFIG, **CELLS["retrieval_cand"]),
+    },
+    model_config=CONFIG,
+)
 
 ONE_CARD_MAX_ROWS = 25_000_000
 

@@ -1,7 +1,8 @@
 """gatedgcn [arXiv:2003.00982; paper] — 16L d_hidden=70, gated edge
 aggregation (Bresson & Laurent residual gated graph convnets).
-Its cells: ``configs.common.gnn_cells``."""
+Its cells: ``ARCH``."""
 
+from repro_torch.configs.common import standard_gnn_arch
 from repro_torch.models.gnn import GNNConfig
 from repro_torch.train.optimizer import OptimizerConfig
 
@@ -16,3 +17,5 @@ CONFIG = GNNConfig(
 )
 
 OPT = OptimizerConfig(name="adamw", learning_rate=1e-3, warmup_steps=100)
+
+ARCH = standard_gnn_arch("gatedgcn", CONFIG, OPT)

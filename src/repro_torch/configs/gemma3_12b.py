@@ -4,6 +4,7 @@
 Sliding window 1024 on local layers; every 6th layer global.
 """
 
+from repro_torch.configs.common import standard_lm_arch
 from repro_torch.models.transformer import TransformerConfig
 from repro_torch.train.optimizer import OptimizerConfig
 
@@ -22,3 +23,5 @@ CONFIG = TransformerConfig(
 )
 
 OPT = OptimizerConfig(name="adamw", learning_rate=2e-4, warmup_steps=2000)
+
+ARCH = standard_lm_arch("gemma3-12b", CONFIG, OPT, microbatches=8)

@@ -5,6 +5,7 @@ non-gated GELU MLP (a gated SwiGLU at these dims would be ~27B params,
 not 20B).
 """
 
+from repro_torch.configs.common import standard_lm_arch
 from repro_torch.models.transformer import TransformerConfig
 from repro_torch.train.optimizer import OptimizerConfig
 
@@ -22,3 +23,5 @@ CONFIG = TransformerConfig(
 )
 
 OPT = OptimizerConfig(name="adamw", learning_rate=2e-4, warmup_steps=2000)
+
+ARCH = standard_lm_arch("granite-20b", CONFIG, OPT, microbatches=8)

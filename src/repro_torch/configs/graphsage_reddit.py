@@ -1,7 +1,8 @@
 """graphsage-reddit [arXiv:1706.02216; paper] — 2L d_hidden=128 mean
 aggregator, sample_sizes 25-10 (training estimator; the `minibatch_lg`
-cell uses the assigned 15-10 fanout).  Its cells: ``configs.common.gnn_cells``."""
+cell uses the assigned 15-10 fanout).  Its cells: ``ARCH``."""
 
+from repro_torch.configs.common import standard_gnn_arch
 from repro_torch.models.gnn import GNNConfig
 from repro_torch.train.optimizer import OptimizerConfig
 
@@ -17,3 +18,5 @@ CONFIG = GNNConfig(
 )
 
 OPT = OptimizerConfig(name="adamw", learning_rate=1e-3, warmup_steps=100)
+
+ARCH = standard_gnn_arch("graphsage-reddit", CONFIG, OPT)

@@ -3,12 +3,13 @@
 
 Not one of the assigned model cells: ``--arch hytgraph`` names the
 reproduction itself (SSSP / BFS / CC / PageRank over RMAT), driven by
-``examples/torch_quickstart.py`` and ``chip_smoke.py``.  The reference's
-``ArchSpec`` (with no cells) comes with the arch specs.
+``examples/torch_quickstart.py`` and ``chip_smoke.py``; its ``ArchSpec``
+has no cells (the dry run skips it).
 """
 
 from dataclasses import dataclass
 
+from repro_torch.configs.common import ArchSpec
 from repro_torch.core.hytm import HyTMConfig
 
 
@@ -22,3 +23,10 @@ class HyTGraphWorkload:
 
 
 CONFIG = HyTGraphWorkload()
+
+ARCH = ArchSpec(
+    name="hytgraph",
+    family="graph",
+    cells={},  # driven by examples/torch_quickstart.py and chip_smoke.py, not the dry run
+    model_config=CONFIG,
+)

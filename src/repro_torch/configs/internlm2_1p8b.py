@@ -3,6 +3,7 @@
 24L d_model=2048 16H (kv=8) d_ff=8192 vocab=92544.
 """
 
+from repro_torch.configs.common import standard_lm_arch
 from repro_torch.models.transformer import TransformerConfig
 from repro_torch.train.optimizer import OptimizerConfig
 
@@ -20,3 +21,5 @@ CONFIG = TransformerConfig(
 )
 
 OPT = OptimizerConfig(name="adamw", learning_rate=3e-4, warmup_steps=2000)
+
+ARCH = standard_lm_arch("internlm2-1.8b", CONFIG, OPT, microbatches=2)

@@ -7,6 +7,7 @@ bf16 weights, which no single card holds (``launch/serve.py`` raises
 without ``--reduced``; queue 1 item 11 brings the multi-GPU layout).
 """
 
+from repro_torch.configs.common import standard_lm_arch
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import TransformerConfig
 from repro_torch.train.optimizer import OptimizerConfig
@@ -31,3 +32,6 @@ CONFIG = TransformerConfig(
 )
 
 OPT = OptimizerConfig(name="adafactor", learning_rate=2e-4, warmup_steps=2000)
+
+ARCH = standard_lm_arch("kimi-k2-1t-a32b", CONFIG, OPT, microbatches=8,
+                        grad_accum_dtype="bfloat16")

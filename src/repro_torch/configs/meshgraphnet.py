@@ -1,8 +1,9 @@
 """meshgraphnet [arXiv:2010.03409; unverified] — 15 message-passing steps,
 d_hidden=128, sum aggregator, 2-layer MLPs, encode-process-decode.
 Regression head (per-node dynamics), mesh-edge features.
-Its cells: ``configs.common.gnn_cells``."""
+Its cells: ``ARCH``."""
 
+from repro_torch.configs.common import standard_gnn_arch
 from repro_torch.models.gnn import GNNConfig
 from repro_torch.train.optimizer import OptimizerConfig
 
@@ -20,3 +21,5 @@ CONFIG = GNNConfig(
 )
 
 OPT = OptimizerConfig(name="adamw", learning_rate=1e-3, warmup_steps=100)
+
+ARCH = standard_gnn_arch("meshgraphnet", CONFIG, OPT)

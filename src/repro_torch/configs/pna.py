@@ -1,7 +1,8 @@
 """pna [arXiv:2004.05718; paper] — 4L d_hidden=75,
 aggregators mean-max-min-std x scalers id-amp-atten (12 combinations).
-Its cells: ``configs.common.gnn_cells``."""
+Its cells: ``ARCH``."""
 
+from repro_torch.configs.common import standard_gnn_arch
 from repro_torch.models.gnn import GNNConfig
 from repro_torch.train.optimizer import OptimizerConfig
 
@@ -15,3 +16,5 @@ CONFIG = GNNConfig(
 )
 
 OPT = OptimizerConfig(name="adamw", learning_rate=1e-3, warmup_steps=100)
+
+ARCH = standard_gnn_arch("pna", CONFIG, OPT)

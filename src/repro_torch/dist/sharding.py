@@ -211,19 +211,28 @@ def set_parameter(module: nn.Module, name: str, value: nn.Parameter) -> None:
     (module.get_submodule(owner) if owner else module)._parameters[leaf] = value
 
 
-def distribute(tree: Any, device_mesh, specs):
+def distribute(tree: Any, device_mesh, specs, make_local=None):
     """``tree`` with every tensor placed on ``device_mesh`` by its spec in
     ``specs`` (``tree_shardings``'s tree): ``distribute_tensor`` from each
     rank's own copy (``src_data_rank=None``: no collective; every rank
     must hold the same values; a shard is a copy, so the whole tensor can
-    be freed).  A module's parameters are replaced in
+    be freed), or, with ``make_local`` (``(tensor, local shape) -> this rank's
+    shard``), a DTensor of the shard it makes (the dry run's, which makes
+    an empty one).  A module's parameters are replaced in
     place by DTensor parameters (``requires_grad`` kept) and the module
     returned; dataclasses are replaced field by field, dicts and sequences
     rebuilt."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 
     def place(t: torch.Tensor, spec) -> torch.Tensor:
         pl = placements(spec, t.ndim, device_mesh)
+        if make_local is not None:
+            shape = list(t.shape)   # rank 0's shard: the first, largest chunk
+            for i, p in enumerate(pl):
+                if isinstance(p, Shard):
+                    shape[p.dim] = -(-shape[p.dim] // device_mesh.size(i))
+            return DTensor.from_local(make_local(t, tuple(shape)), device_mesh, pl, run_check=False,
+                                      shape=t.shape, stride=t.stride())
         if isinstance(t, DTensor):
             return t.redistribute(device_mesh, pl)
         d = distribute_tensor(t.detach(), device_mesh, pl, src_data_rank=None)

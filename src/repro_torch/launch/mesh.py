@@ -24,6 +24,9 @@ m`` sits at ``(p, d, m)``).  It holds one process group for each axis set
 that a collective runs over (each axis alone, and ``("pod", "data")``), so
 an MoE layer can exchange over its expert axes and reduce over
 ``model``, and a gloo group of the whole mesh for host-side checks.
+``make_production_mesh`` is the reference's 16 x 16 (or 2 x 16 x 16) mesh
+over whatever default group exists (the dry run's fake one), and
+``device_mesh`` a mesh's ``DeviceMesh`` for DTensor placements.
 """
 
 from __future__ import annotations
@@ -270,7 +273,8 @@ def make_debug_mesh(n_data: int = 2, n_model: int = 2, pods: int = 0, ranks=None
                 groups[(axes, tuple(row))] = whole if len(row) == len(ranks) else make(row)
         host = None
         if len(ranks) > 1:
-            host = whole if dist.get_backend() == "gloo" else dist.new_group(
+            # the dry run's fake group answers host checks itself
+            host = whole if dist.get_backend() in ("gloo", "fake") else dist.new_group(
                 list(ranks), timeout=timeout, backend="gloo")
         _MESHES[key] = (grid, whole, groups, host)
     grid, whole, groups, host = _MESHES[key]
@@ -285,7 +289,33 @@ def make_debug_mesh(n_data: int = 2, n_model: int = 2, pods: int = 0, ranks=None
                      group=whole, host_group=host, groups=mine, device=resolve_device(device))
 
 
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: str | torch.device | None = None) -> ModelMesh | None:
+    """The reference's production mesh (``repro/launch/mesh.py:27-31``):
+    16 x 16 = 256 ranks on (``data``, ``model``), or 2 x 16 x 16 = 512 on
+    (``pod``, ``data``, ``model``), over the default process group, which
+    must have that many ranks (the dry run's fake group has)."""
+    return make_debug_mesh(16, 16, pods=2 if multi_pod else 0, device=device)
+
+
 _DEVICE_MESHES: dict = {}
+
+
+def _forget_sharding_decisions() -> None:
+    """Clear DTensor's caches of sharding decisions.  They are keyed by a
+    mesh's value (ranks, shape, names, device type), not its process
+    groups, so a mesh of a new default group equal to one of an old group
+    would reuse the old decisions and with them the old mesh, whose groups
+    are destroyed: its next collective waits forever."""
+    from torch.distributed.tensor import debug
+
+    clear = getattr(debug, "_clear_sharding_prop_cache", None)
+    if clear is not None:
+        clear()
+        return
+    from torch.distributed.tensor import DTensor
+
+    DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding.cache_clear()
 
 
 def device_mesh(mesh: ModelMesh):
@@ -302,6 +332,7 @@ def device_mesh(mesh: ModelMesh):
     if _DEVICE_MESHES.get("world") is not default:   # a new default group
         _DEVICE_MESHES.clear()
         _DEVICE_MESHES["world"] = default
+        _forget_sharding_decisions()
     key = (tuple(dist.get_process_group_ranks(mesh.group)), mesh.shape, mesh.axis_names,
            mesh.device.type)
     if key not in _DEVICE_MESHES:

@@ -65,7 +65,7 @@ def serve_config(arch: str, reduced: bool, mesh=None, batch_axes=("data",)) -> T
     whose weights on one rank exceed one card: all of them without
     ``mesh``, else the replicated part plus the rank's 1/EP of the experts
     (1/TP of their width)."""
-    cfg = get_arch(arch)
+    cfg = get_arch(arch).model_config
     if reduced:
         return reduce_lm_config(cfg).replace(remat=False)
     cfg = cfg.replace(remat=False, param_dtype=cfg.dtype)
@@ -147,7 +147,7 @@ def _lm_launches() -> dict:
 def dlrm_serve_config(reduced: bool) -> DLRMConfig:
     """dlrm-mlperf's served configuration: the reduced smoke config, or the
     full one with the one-card row cap."""
-    cfg = get_arch("dlrm-mlperf")
+    cfg = get_arch("dlrm-mlperf").model_config
     return reduce_dlrm_config(cfg) if reduced else one_card_config(cfg)
 
 

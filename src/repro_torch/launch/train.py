@@ -52,7 +52,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    arch = get_arch(args.arch)
+    arch = get_arch(args.arch).model_config
     family = _family(arch)
     if family != "lm":
         raise SystemExit(

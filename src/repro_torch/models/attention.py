@@ -332,6 +332,59 @@ def attention_scale(d_head: int) -> float:
     return float(np.float32(1.0) / np.sqrt(np.float32(d_head)))
 
 
+class _GradPlacedAsValue(torch.autograd.Function):
+    """The identity on a DTensor whose adjoint places the gradient as the
+    value is placed, its local shard contiguous: DTensor's own choice for
+    a projection's gradient (a split of the sequence over ``model``, which
+    a flattened batch turns into a strided split) can give the weight's
+    gradient product a layout it cannot place (train_4k at 16 x 16)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        from torch.distributed.tensor import Partial, Replicate
+
+        # a partial sum's gradient is the whole gradient on every rank
+        ctx.dm = t.device_mesh
+        ctx.pl = tuple(Replicate() if isinstance(p, Partial) else p for p in t.placements)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor
+
+        if tuple(grad.placements) != ctx.pl:
+            grad = grad.redistribute(ctx.dm, ctx.pl)
+        return DTensor.from_local(grad.to_local().contiguous(), ctx.dm, ctx.pl,
+                                  run_check=False, shape=grad.shape, stride=grad.stride())
+
+
+def _grad_placed(t: torch.Tensor) -> torch.Tensor:
+    """``t``; a DTensor's gradient placed as ``t`` (``_GradPlacedAsValue``)."""
+    return _GradPlacedAsValue.apply(t) if hasattr(t, "placements") else t
+
+
+def _gather_unsplit(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``t``, a DTensor whose ``dim`` is split over a mesh dim whose size
+    does not divide ``n`` (the heads or KV groups that dim is about to be
+    cut into: 8 KV heads, or MQA's one, over a ``model`` axis of 16),
+    gathered on that mesh dim first: DTensor cannot split a head across
+    ranks.  A plain tensor as it is."""
+    if not hasattr(t, "placements"):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    dm, dim = t.device_mesh, dim % t.ndim
+    pl = [Replicate() if isinstance(q, Shard) and q.dim == dim and n % dm.size(i) else q
+          for i, q in enumerate(t.placements)]
+    return t.redistribute(dm, pl) if pl != list(t.placements) else t
+
+
+def _split_heads(t: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+    """A projection (B, S, n * dh) -> (B, S, n, dh), gathering what DTensor
+    cannot cut, its gradient placed as the projection."""
+    return _gather_unsplit(_grad_placed(t), -1, n).reshape(*t.shape[:-1], n, dh)
+
+
 def gqa_attention(p, x: torch.Tensor, positions: torch.Tensor, n_heads: int, n_kv: int,
                   d_head: int, rope_theta: float, window: int = 0, cache: dict | None = None,
                   cache_index: int | None = None, use_kernels: bool = False):
@@ -342,9 +395,9 @@ def gqa_attention(p, x: torch.Tensor, positions: torch.Tensor, n_heads: int, n_k
     G = n_heads // n_kv
     dt = x.dtype
 
-    q = (x @ p["wq"].to(dt)).reshape(B, S, n_heads, d_head)
-    k = (x @ p["wk"].to(dt)).reshape(B, S, n_kv, d_head)
-    v = (x @ p["wv"].to(dt)).reshape(B, S, n_kv, d_head)
+    q = _split_heads(x @ p["wq"].to(dt), n_heads, d_head)
+    k = _split_heads(x @ p["wk"].to(dt), n_kv, d_head)
+    v = _split_heads(x @ p["wv"].to(dt), n_kv, d_head)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
     scale = attention_scale(d_head)
@@ -368,7 +421,7 @@ def gqa_attention(p, x: torch.Tensor, positions: torch.Tensor, n_heads: int, n_k
             kv_pos = torch.arange(start + S, device=x.device)
         else:
             k_all, v_all, kv_pos = k, v, positions
-        q5 = q.reshape(B, S, n_kv, G, d_head)
+        q5 = _gather_unsplit(q, 2, n_kv).reshape(B, S, n_kv, G, d_head)
         if _blocked(S, start + S):
             out = _on_local_heads(_flash_sdpa, q5, k_all, v_all, positions, kv_pos,
                                   start + S - 1, window, scale,
@@ -413,12 +466,13 @@ def mla_attention(p, x: torch.Tensor, positions: torch.Tensor, n_heads: int, mla
 
     if mla.q_lora:
         cq = rms_norm(x @ p["w_dq"].to(dt), p["q_norm"])
-        q = (cq @ p["w_uq"].to(dt)).reshape(B, S, H, dn + dr)
+        q = _split_heads(cq @ p["w_uq"].to(dt), H, dn + dr)
     else:
-        q = (x @ p["wq"].to(dt)).reshape(B, S, H, dn + dr)
+        q = _split_heads(x @ p["wq"].to(dt), H, dn + dr)
     q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], positions, rope_theta)
-    c_kv = rms_norm(x @ p["w_dkv"].to(dt), p["kv_norm"])                  # (B, S, kv_lora)
-    k_rope = apply_rope((x @ p["w_kr"].to(dt))[:, :, None, :], positions, rope_theta)[:, :, 0]
+    c_kv = rms_norm(_grad_placed(x @ p["w_dkv"].to(dt)), p["kv_norm"])    # (B, S, kv_lora)
+    k_rope = apply_rope(_grad_placed(x @ p["w_kr"].to(dt))[:, :, None, :], positions,
+                        rope_theta)[:, :, 0]
 
     start = 0
     if cache is not None:
@@ -430,8 +484,8 @@ def mla_attention(p, x: torch.Tensor, positions: torch.Tensor, n_heads: int, mla
     else:
         ckv_all, kr_all, kv_pos = c_kv, k_rope, positions
     L = ckv_all.shape[1]
-    k_nope = (ckv_all @ p["w_uk"].to(dt)).reshape(B, L, H, dn)
-    v = (ckv_all @ p["w_uv"].to(dt)).reshape(B, L, H, dv)
+    k_nope = _split_heads(ckv_all @ p["w_uk"].to(dt), H, dn)
+    v = _split_heads(ckv_all @ p["w_uv"].to(dt), H, dv)
     scale = attention_scale(dn + dr)
 
     if use_kernels and start == 0:
@@ -452,10 +506,46 @@ def mla_attention(p, x: torch.Tensor, positions: torch.Tensor, n_heads: int, mla
         out = out.reshape(B, S, H * dv)
     else:
         mask = attention_mask(positions, kv_pos, None, window)          # (1, 1, S, L)
-        scores = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
-                  + torch.einsum("bshd,btd->bhst", q_rope, kr_all))
-        scores = at_least_f32(scores) * scale
-        scores = torch.where(mask, scores, -1e30)
-        probs = torch.softmax(scores, dim=-1).to(dt)
-        out = torch.einsum("bhst,bthd->bshd", probs, v).reshape(B, S, H * dv)
+        out = _mla_on_local_heads(q_nope, q_rope, k_nope, kr_all, v, mask, scale)
+        out = out.reshape(B, S, H * dv)
     return out @ p["wo"].to(dt), cache
+
+
+def _mla_plain(q_nope, q_rope, k_nope, kr_all, v, mask, scale):
+    """MLA's plain core: the reference's two-einsum score (the shared
+    rotary key kept apart) -> (B, S, H, dv)."""
+    scores = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
+              + torch.einsum("bshd,btd->bhst", q_rope, kr_all))
+    scores = at_least_f32(scores) * scale
+    scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhst,bthd->bshd", probs, v)
+
+
+def _mla_on_local_heads(q_nope, q_rope, k_nope, kr_all, v, mask, scale):
+    """``_mla_plain``; on DTensors each rank runs it on its own rows and
+    heads under ``local_map`` (the heads split over ``model`` where their
+    count divides it, the shared rotary key whole on every model rank), so
+    a rank computes what one device computes for those heads.  The shared
+    key's gradient from a rank is its heads' share: a ``Partial`` sum over
+    the head split."""
+    if not hasattr(q_nope, "placements"):
+        return _mla_plain(q_nope, q_rope, k_nope, kr_all, v, mask, scale)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dm = q_nope.device_mesh
+    heads, shared, shared_grad = [], [], []
+    for i, name in enumerate(dm.mesh_dim_names):
+        batch = name in ("pod", "data")
+        split = not batch and name == "model" and q_nope.shape[2] % dm.size(i) == 0
+        heads.append(Shard(0) if batch else Shard(2) if split else Replicate())
+        shared.append(Shard(0) if batch else Replicate())
+        shared_grad.append(Shard(0) if batch else Partial() if split else Replicate())
+    heads, shared = tuple(heads), tuple(shared)
+    args = [t.redistribute(dm, pl) for t, pl in ((q_nope, heads), (q_rope, heads),
+                                                 (k_nope, heads), (kr_all, shared), (v, heads))]
+    return local_map(lambda qn, qr, kn, kr, vv: _mla_plain(qn, qr, kn, kr, vv, mask, scale),
+                     out_placements=(heads,), in_placements=(heads, heads, heads, shared, heads),
+                     in_grad_placements=(heads, heads, heads, tuple(shared_grad), heads),
+                     device_mesh=dm)(*args)

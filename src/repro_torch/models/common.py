@@ -115,28 +115,95 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean token-level cross entropy in float32 (float64 stays float64):
     the log-sum-exp with its max detached, and the label logit from a masked
-    sum over the vocab (the reference's sharding-aware form: on logits
-    split over the vocabulary, a DTensor, the max and the sums reduce over
-    that split and no rank gathers the logits).  A label outside [0, V)
-    gets a logit of 0 there and does not fail, where ``gather`` would
-    raise.  ``mask``
-    weights the tokens, divided by ``max(sum(mask), 1)``."""
-    logits = at_least_f32(logits)
-    m = logits.amax(dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
-    vocab = torch.arange(logits.shape[-1], device=logits.device)
-    if hasattr(logits, "device_mesh"):
-        # a DTensor: the iota split over the vocabulary as the logits are,
-        # so that no rank compares its labels with the whole vocabulary
-        from torch.distributed.tensor import Replicate, Shard, distribute_tensor
-
-        vocab = distribute_tensor(
-            vocab, logits.device_mesh,
-            [Shard(0) if p == Shard(logits.ndim - 1) else Replicate() for p in logits.placements],
-            src_data_rank=None)
-    label_logit = torch.where(vocab == labels[..., None], logits, 0.0).sum(dim=-1)
-    ll = label_logit - lse
+    sum over the vocab (the reference's sharding-aware form).  A label
+    outside [0, V) gets a logit of 0 there and does not fail, where
+    ``gather`` would raise.  ``mask`` weights the tokens, divided by
+    ``max(sum(mask), 1)``.  Logits split over the vocabulary (a DTensor)
+    take ``_vocab_parallel_ll``: no rank gathers the logits."""
+    if hasattr(logits, "device_mesh") and _vocab_split(logits):
+        ll = _vocab_parallel_ll(logits, labels)
+    else:
+        logits = at_least_f32(logits)
+        m = logits.amax(dim=-1, keepdim=True).detach()
+        lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        label_logit = torch.where(vocab == labels[..., None], logits, 0.0).sum(dim=-1)
+        ll = label_logit - lse
     if mask is None:
         return -ll.mean()
     mask = mask.to(ll.dtype)
     return -(ll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+class _VocabParallelLL(torch.autograd.Function):
+    """Each token's log-likelihood from this rank's slice of the vocabulary
+    (local logits (..., V/n), the slice starting at ``lo``) and the ranks'
+    sums over ``groups`` (the vocabulary split): the max, the sum of
+    exponentials and the label's logit each all-reduced.  The gradient is
+    the local slice of ``onehot(label) - softmax``, exact, with no collective
+    (the ranks' token gradients are their own slices)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo, groups):
+        import torch.distributed as dist
+
+        x = at_least_f32(logits)
+        m = x.amax(dim=-1, keepdim=True)
+        for g in groups:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+        e = torch.exp(x - m)
+        total = e.sum(dim=-1, keepdim=True)
+        idx = labels.long() - lo
+        ok = (idx >= 0) & (idx < x.shape[-1])
+        pick = torch.where(ok, x.gather(-1, torch.where(ok, idx, 0)[..., None])[..., 0], 0.0)
+        for g in groups:
+            dist.all_reduce(total, group=g)
+            dist.all_reduce(pick, group=g)
+        lse = torch.log(total) + m
+        ctx.save_for_backward(e, total, idx, ok)
+        ctx.dtype = logits.dtype
+        return pick - lse[..., 0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        e, total, idx, ok = ctx.saved_tensors
+        g = -(e / total)
+        g.scatter_add_(-1, torch.where(ok, idx, 0)[..., None], ok.to(g.dtype)[..., None])
+        return (g * grad[..., None]).to(ctx.dtype), None, None, None
+
+
+def _vocab_split(logits) -> list:
+    """The mesh dims of more than one rank that split DTensor ``logits``'
+    vocabulary (its last dim)."""
+    last = logits.ndim - 1
+    return [i for i, p in enumerate(logits.placements)
+            if getattr(p, "dim", None) in (-1, last) and logits.device_mesh.size(i) > 1]
+
+
+def _vocab_parallel_ll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each token's log-likelihood of DTensor ``logits`` split over the
+    vocabulary (and over the batch as ``labels``), under ``local_map`` with
+    explicit collectives (Megatron's vocabulary-parallel cross entropy).
+    DTensor's own propagation through the reductions gives wrong gradients
+    on torch 2.11 when the vocabulary is split; this form needs none."""
+    import math
+
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    dm = logits.device_mesh
+    split = _vocab_split(logits)
+    lo = 0
+    for i in split:
+        lo = lo * dm.size(i) + dm.get_local_rank(i)
+    lo *= logits.shape[-1] // math.prod(dm.size(i) for i in split)
+    pl = tuple(logits.placements)
+    last = logits.ndim - 1
+    tok_pl = tuple(Replicate() if getattr(p, "dim", None) in (-1, last) else p for p in pl)
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, dm, [Replicate()] * dm.ndim, run_check=False)
+    groups = [dm.get_group(i) for i in split]
+    return local_map(lambda x, y: _VocabParallelLL.apply(x, y, lo, groups),
+                     out_placements=(tok_pl,), in_placements=(pl, tok_pl),
+                     in_grad_placements=(pl, tok_pl), device_mesh=dm)(
+        logits, labels.redistribute(dm, tok_pl))

@@ -118,6 +118,12 @@ def init_dlrm(cfg: DLRMConfig, generator: torch.Generator,
     return model
 
 
+def abstract_dlrm_params(cfg: DLRMConfig) -> DLRM:
+    """The model's parameters on the meta device: shapes and dtypes, no
+    storage (the reference's ``jax.eval_shape`` of ``init_dlrm``)."""
+    return DLRM(cfg, torch.device("meta"))
+
+
 def _dot_interaction(z: torch.Tensor) -> torch.Tensor:
     """z: (B, F, D) -> upper-triangle pairwise dots (B, F*(F-1)/2)."""
     F_ = z.shape[1]
@@ -126,13 +132,22 @@ def _dot_interaction(z: torch.Tensor) -> torch.Tensor:
     return zz[:, iu, ju]
 
 
-@torch.inference_mode()
 def dlrm_forward(model: DLRM, dense: torch.Tensor, sparse: torch.Tensor,
                  cfg: DLRMConfig | None = None,
                  use_kernels: bool | str = "auto") -> torch.Tensor:
     """dense: (B, 13) float32; sparse: (B, 26) or (B, 26, L) int ->
-    (B,) logits.  ``cfg`` (default ``model.cfg``) gives the table engine."""
-    return _forward(model, dense, sparse, cfg, use_kernels)
+    (B,) logits.  ``cfg`` (default ``model.cfg``) gives the table engine.
+    Runs under ``torch.inference_mode``, or on DTensors under ``no_grad``
+    (made outside inference mode, their views cannot enter it) and
+    ``implicit_replication`` (the interaction's triangle indices are plain
+    tensors, the same on every rank)."""
+    if not hasattr(dense, "placements"):
+        with torch.inference_mode():
+            return _forward(model, dense, sparse, cfg, use_kernels)
+    from repro_torch.dist.sharding import implicit_replication
+
+    with torch.no_grad(), implicit_replication():
+        return _forward(model, dense, sparse, cfg, use_kernels)
 
 
 def _forward(model: DLRM, dense, sparse, cfg, use_kernels) -> torch.Tensor:
@@ -169,4 +184,9 @@ def retrieval_score(model: DLRM, dense_query: torch.Tensor, cand_embs: torch.Ten
     (B, top_k), scores descending."""
     q = mlp_apply(model.bot, dense_query, act=F.relu, final_act=F.relu)   # (B, D)
     scores = q @ cand_embs.T                                              # (B, N)
+    if hasattr(scores, "placements"):
+        # DTensor has no top-k over a split dim: the scores are gathered
+        from torch.distributed.tensor import Replicate
+
+        scores = scores.redistribute(scores.device_mesh, [Replicate()] * scores.device_mesh.ndim)
     return torch.topk(scores, top_k, dim=-1)

@@ -48,9 +48,55 @@ def select_row_engine(vocab: int, n_lookups: int, expected_unique: float | None 
     return "gather"
 
 
+def placed_bag(table: torch.Tensor, indices: torch.Tensor, mode: str = "sum") -> torch.Tensor:
+    """``embedding_bag`` of a DTensor table (rows split over some mesh dims,
+    ``dist.sharding.dlrm_rule``) with DTensor ids (rows split over the batch
+    axes), under ``local_map``: each rank gathers the rows of its own slice
+    of the table (zeros for ids outside it) and reduces its bags, and the
+    bags are summed over the table's split (a ``Partial`` output), exact for
+    ``sum`` and ``mean``; the table's gradient is each rank's slice, summed
+    over the ids' split.  DTensor has no sharding of a gather by ids from a
+    split table."""
+    import math
+
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"placed_bag: mode {mode!r} has no partial sum over a split table")
+    dm = table.device_mesh
+    if not isinstance(indices, DTensor):
+        indices = DTensor.from_local(indices, dm, [Replicate()] * dm.ndim, run_check=False)
+    split, lo = [], 0
+    for i, p in enumerate(table.placements):
+        if p == Shard(0):
+            split.append(i)
+            lo = lo * dm.size(i) + dm.get_local_rank(i)
+        elif not isinstance(p, Replicate):
+            raise ValueError(f"a table placed {table.placements}: rows split or replicated only")
+    lo *= table.shape[0] // max(1, math.prod(dm.size(i) for i in split))
+    ids_pl = tuple(indices.placements)
+    out_pl = tuple(Partial() if i in split else p for i, p in enumerate(ids_pl))
+    grad_pl = tuple(Shard(0) if i in split else Partial() if isinstance(p, Shard) else Replicate()
+                    for i, p in enumerate(ids_pl))
+
+    def bag(ids, rows):
+        idx = ids.long() - lo
+        ok = (idx >= 0) & (idx < rows.shape[0])
+        got = F.embedding(torch.where(ok, idx, 0), rows) * ok[..., None].to(rows.dtype)
+        return got.sum(dim=1) if mode == "sum" else got.mean(dim=1)
+
+    return local_map(bag, out_placements=(out_pl,), in_placements=(ids_pl, tuple(table.placements)),
+                     in_grad_placements=(ids_pl, grad_pl), device_mesh=dm)(indices, table)
+
+
 def embedding_bag(table: torch.Tensor, indices: torch.Tensor, mode: str = "sum",
                   engine: str = "auto", use_kernels: bool | str = "auto") -> torch.Tensor:
-    """(V, D) table x (B, L) ids -> (B, D) reduced embeddings."""
+    """(V, D) table x (B, L) ids -> (B, D) reduced embeddings.  A DTensor
+    table takes ``placed_bag``."""
+    if hasattr(table, "placements"):
+        return placed_bag(table, indices, mode)
     B, L = indices.shape
     V = table.shape[0]
     if engine == "auto":

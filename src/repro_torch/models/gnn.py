@@ -29,6 +29,7 @@ the excluded fill would count as one more tie.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import torch
@@ -60,10 +61,85 @@ class GNNConfig:
 
 # ------------------------------------------------------------ aggregation
 
+def gather_rows(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``h[idx]``.  On DTensors (a graph placed by ``dist.sharding``'s
+    ``gnn_data_spec``, rows split over the batch axes) DTensor has no
+    sharding of an index by a split index, so ``h`` is gathered whole over
+    its row split first (an all-gather, in code that says so) and each rank
+    takes the rows of its own indices under ``local_map``: the result is
+    placed as ``idx`` on its rows and as ``h`` on its features; ``h``'s
+    gradient is each rank's sum of its rows' gradients, a ``Partial`` over
+    ``idx``'s split."""
+    if not hasattr(h, "placements"):
+        return h[idx]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dm = h.device_mesh
+    if not isinstance(idx, DTensor):
+        idx = DTensor.from_local(idx, dm, [Replicate()] * dm.ndim, run_check=False)
+    h_pl = [Replicate() if isinstance(p, Partial) or p == Shard(0) else p
+            for p in h.placements]
+    idx_pl = list(idx.placements)
+    out_pl = [q if isinstance(q, Shard) else p for p, q in zip(h_pl, idx_pl)]
+    grad_pl = [Partial() if isinstance(q, Shard) else p for p, q in zip(h_pl, idx_pl)]
+    return local_map(lambda t, i: t[i.long()], out_placements=(out_pl,),
+                     in_placements=(h_pl, idx_pl), in_grad_placements=(grad_pl, idx_pl),
+                     device_mesh=dm)(h.redistribute(dm, h_pl), idx)
+
+
+def _placed_aggregate(messages: torch.Tensor, dst: torch.Tensor, n: int,
+                      how: str) -> torch.Tensor:
+    """``aggregate`` on DTensors: messages and ``dst`` split by edge over
+    the batch axes.  A sum (and so a mean's sum and count) is each rank's
+    scatter of its own edges into all ``n`` rows under ``local_map``, a
+    ``Partial`` sum over the edge split, exact (DTensor has no sharding of
+    ``index_add_``), reduce-scattered onto the node rows' split.  Max and
+    min have no such partial form here: their messages and destinations
+    are gathered whole first (all-gathers, in code that says so) and every
+    rank combines them all."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dm = (messages if isinstance(messages, DTensor) else dst).device_mesh
+    if not isinstance(messages, DTensor):
+        messages = DTensor.from_local(messages, dm, [Replicate()] * dm.ndim, run_check=False)
+    m_pl = [Replicate() if isinstance(p, Partial) else p for p in messages.placements]
+    if how in ("max", "min"):
+        m_pl = [Replicate() if p == Shard(0) else p for p in m_pl]
+    rows = [p == Shard(0) for p in m_pl]
+    d_pl = [Shard(0) if r else Replicate() for r in rows]
+    if how == "std":
+        mean = _placed_aggregate(messages, dst, n, "mean")
+        sq = _placed_aggregate(messages.square(), dst, n, "mean")
+        return torch.sqrt(torch.maximum(sq - mean.square(), sq.new_zeros(())) + 1e-6)
+    if how == "mean":
+        s = _placed_aggregate(messages, dst, n, "sum")
+        ones = torch.ones_like(dst, dtype=messages.dtype)[:, None]
+        c = _placed_aggregate(ones, dst, n, "sum")
+        return s / c.clamp_min(1.0)
+    out_pl = [Partial() if r else p for r, p in zip(rows, m_pl)]
+    messages = messages.redistribute(dm, m_pl)
+    if not isinstance(dst, DTensor):
+        dst = DTensor.from_local(dst, dm, [Replicate()] * dm.ndim, run_check=False)
+    out = local_map(lambda m, d: aggregate(m, d, n, how), out_placements=(out_pl,),
+                    in_placements=(m_pl, d_pl), in_grad_placements=(m_pl, d_pl),
+                    device_mesh=dm)(messages, dst.redistribute(dm, d_pl))
+    # the partial sums reduce-scattered onto the node rows' split (whole where
+    # the rows do not split), so that they meet the node features as those do
+    split = math.prod(dm.size(i) for i, p in enumerate(out_pl) if isinstance(p, Partial))
+    rows_pl = [(Shard(0) if n % split == 0 else Replicate()) if isinstance(p, Partial) else p
+               for p in out_pl]
+    return out.redistribute(dm, rows_pl)
+
+
 def aggregate(messages: torch.Tensor, dst: torch.Tensor, n: int, how: str) -> torch.Tensor:
     """The message-passing primitive (scatter-combine by destination).  A
     destination with no edge gets 0 from every combine; max and min also
-    turn a combined ±inf into 0, as the reference does."""
+    turn a combined ±inf into 0, as the reference does.  DTensors take
+    ``_placed_aggregate``."""
+    if hasattr(messages, "placements") or hasattr(dst, "placements"):
+        return _placed_aggregate(messages, dst, n, how)
     if how == "sum":
         return messages.new_zeros((n, *messages.shape[1:])).index_add_(0, dst, messages)
     if how == "mean":
@@ -233,7 +309,7 @@ def graphsage_forward(model: GNN, feats: torch.Tensor, edge_src: torch.Tensor,
     h = feats
     n = feats.shape[0]
     for lp in model.layers:
-        h_n = aggregate(h[edge_src], edge_dst, n, cfg.aggregator)
+        h_n = aggregate(gather_rows(h, edge_src), edge_dst, n, cfg.aggregator)
         h = _unit_rows(F.relu(h @ lp.w_self + h_n @ lp.w_nbr + lp.b))
     return h @ model.out
 
@@ -268,8 +344,7 @@ def pna_forward(model: GNN, feats: torch.Tensor, edge_src: torch.Tensor,
                 edge_dst: torch.Tensor, cfg: GNNConfig) -> torch.Tensor:
     h = feats
     n = feats.shape[0]
-    deg = aggregate(torch.ones(edge_dst.shape[0], dtype=h.dtype, device=h.device),
-                    edge_dst, n, "sum")
+    deg = aggregate(torch.ones_like(edge_dst, dtype=h.dtype), edge_dst, n, "sum")
     log_deg = torch.log(deg + 1.0)[:, None]
     delta = model.avg_log_deg.clamp_min(1e-3)
     scalers = (
@@ -278,7 +353,8 @@ def pna_forward(model: GNN, feats: torch.Tensor, edge_src: torch.Tensor,
         delta / log_deg.clamp_min(1e-3),    # attenuation
     )
     for lp in model.layers:
-        msg = F.relu(torch.cat([h[edge_src], h[edge_dst]], dim=-1) @ lp.w_msg)
+        msg = F.relu(torch.cat([gather_rows(h, edge_src), gather_rows(h, edge_dst)], dim=-1)
+                     @ lp.w_msg)
         aggs = [aggregate(msg, edge_dst, n, a) for a in PNA_AGGREGATORS]
         scaled = [a * s for a in aggs for s in scalers]  # 4 x 3 = 12, aggregator-major
         del msg, aggs
@@ -295,8 +371,8 @@ def gatedgcn_forward(model: GNN, feats: torch.Tensor, edge_src: torch.Tensor,
     h = feats @ model.embed_h
     e = edge_feats @ model.embed_e
     for lp in model.layers:
-        h_src = h[edge_src]
-        e_new = h_src @ lp.A + h[edge_dst] @ lp.B + e @ lp.C
+        h_src = gather_rows(h, edge_src)
+        e_new = h_src @ lp.A + gather_rows(h, edge_dst) @ lp.B + e @ lp.C
         eta = torch.sigmoid(e_new)
         num = aggregate(eta * (h_src @ lp.V), edge_dst, n, "sum")
         den = aggregate(eta, edge_dst, n, "sum")
@@ -315,7 +391,7 @@ def meshgraphnet_forward(model: GNN, feats: torch.Tensor, edge_src: torch.Tensor
     h = mlp_apply(model.enc_node, feats)
     e = mlp_apply(model.enc_edge, edge_feats)
     for lp in model.processor:
-        e_in = torch.cat([e, h[edge_src], h[edge_dst]], dim=-1)
+        e_in = torch.cat([e, gather_rows(h, edge_src), gather_rows(h, edge_dst)], dim=-1)
         e = e + layer_norm(mlp_apply(lp.edge_mlp, e_in), lp.ln_e, lp.ln_e_b)
         del e_in
         agg = aggregate(e, edge_dst, n, "sum")

@@ -1,5 +1,5 @@
 """Mixture-of-Experts FFN with the reference's three dispatch engines, on
-one device, for inference (port of ``repro.models.moe``).
+one device or over a mesh (port of ``repro.models.moe``).
 
 * ``dense``: every expert runs every token and the top-k weights mask the
   combine (plain PyTorch on both routes, as in the reference).
@@ -52,6 +52,13 @@ and the shared experts' partial output together (the reference's fused
 is the single-device one.  aux is the mean over every rank of the mesh.
 Shapes are fixed, so nothing is read back to the host; the ranks' token
 counts are compared on the host (a gloo group) before any exchange.
+
+Gradients over a mesh (the plain route): each exchange's adjoint is the
+reverse exchange, the sum over ``model`` passes its gradient through
+(Megatron's ``g``), the tokens entering the model-split experts sum their
+partial gradients over ``model`` (Megatron's ``f``), and aux's mean hands
+each rank its share of the batch ranks' mean.  ``moe_ffn_placed`` runs the
+layer on DTensor parameters, as ``transformer.lm_loss(mesh=)`` trains it.
 """
 
 from __future__ import annotations
@@ -291,14 +298,19 @@ def _shared_ffn(params: dict, x: torch.Tensor) -> torch.Tensor:
 class ExchangeTimer:
     """While entered, records every collective of ``moe_ffn(mesh=)`` in this
     process: its kind (``dispatch``, ``counts``, ``tp_reduce``,
-    ``return``), bytes sent, and on a CUDA device a pair of events around
-    it on the current stream.  :meth:`summary` waits for the device and
-    sums them by kind."""
+    ``return``, and in a backward ``dispatch_bwd``, ``return_bwd`` and
+    ``tp_enter_bwd``), bytes sent, and on a CUDA device a pair of events
+    around it on the current stream.  It may be entered more than once; the
+    records add up.  :meth:`summary` waits for the device and sums them by
+    kind."""
 
     active = None
 
+    def __init__(self):
+        self.records = []
+
     def __enter__(self) -> "ExchangeTimer":
-        self.prior, self.records = ExchangeTimer.active, []
+        self.prior = ExchangeTimer.active
         ExchangeTimer.active = self
         return self
 
@@ -337,6 +349,75 @@ def _all_to_all(kind: str, out: torch.Tensor, inp: torch.Tensor, group) -> torch
     """Equal-split ``all_to_all_single`` on dim 0 (block r to rank r)."""
     _collective(kind, lambda: dist.all_to_all_single(out, inp, group=group), inp)
     return out
+
+
+class _Exchange(torch.autograd.Function):
+    """The expert exchange: block r of dim 0 to rank r of ``group``.  Its
+    adjoint is the reverse exchange, the same all-to-all of the gradient
+    (kind ``<kind>_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, inp, kind, group):
+        ctx.kind, ctx.group = kind, group
+        return _all_to_all(kind, torch.empty_like(inp), inp.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        return _all_to_all(ctx.kind + "_bwd", torch.empty_like(grad), grad, ctx.group), None, None
+
+
+class _TPReduce(torch.autograd.Function):
+    """Megatron's ``g``: the model ranks' partial outputs summed into one
+    value that each of them holds; the adjoint is the identity (each rank's
+    partial gets the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.mark_dirty(t)   # summed in place: ``t`` is the caller's fresh concatenation
+        _collective("tp_reduce", lambda: dist.all_reduce(t, group=group), t)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _TPEnter(torch.autograd.Function):
+    """Megatron's ``f``: the tokens entering the model-split experts.  The
+    identity forward; the adjoint sums the model ranks' partial gradients
+    (kind ``tp_enter_bwd``), so the tokens' gradient is whole on every
+    model rank, as the router's path already makes it."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = grad.clone()
+        _collective("tp_enter_bwd", lambda: dist.all_reduce(out, group=ctx.group), out)
+        return out, None
+
+
+class _BatchMean(torch.autograd.Function):
+    """aux averaged over every rank of the mesh.  Its value is the same on
+    the ranks that share batch coordinates (they route the same tokens), so
+    the mean is the mean over the ``n_batch`` batch ranks' values and its
+    adjoint hands each rank ``grad / n_batch``: the router's gradient is a
+    sum over the batch ranks, one copy per model rank."""
+
+    @staticmethod
+    def forward(ctx, aux, group, size, n_batch):
+        ctx.n_batch = n_batch
+        out = aux.reshape(1).clone()
+        dist.all_reduce(out, group=group)
+        return out[0] / size
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.n_batch, None, None, None
 
 
 @dataclass(frozen=True)
@@ -383,11 +464,12 @@ def _exchange_ffn(params: dict, x: torch.Tensor, flat_e: torch.Tensor, tok: torc
     them), both summed over ``model``."""
     E, D, dt = cfg.n_experts, x.shape[1], x.dtype
     EP, El = axes.ep, cfg.n_experts // axes.ep
+    if axes.tp > 1:
+        x = _TPEnter.apply(x, axes.tp_group)
     e, s = flat_e.long(), torch.where(keep, slot, C - 1)
     buf = torch.zeros((E, C, D), dtype=dt, device=x.device)
     buf.index_put_((e, s), torch.where(keep[:, None], x[tok], 0.0), accumulate=True)
-    recv = _all_to_all("dispatch", torch.empty_like(buf).view(EP, El, C, D),
-                       buf.view(EP, El, C, D), axes.ep_group)
+    recv = _Exchange.apply(buf.view(EP, El, C, D), "dispatch", axes.ep_group)
     if use_kernels:
         cnt = torch.zeros(E, dtype=torch.int32, device=x.device).index_add_(
             0, e, torch.ones(e.numel(), dtype=torch.int32, device=x.device)).clamp_(max=C)
@@ -400,12 +482,11 @@ def _exchange_ffn(params: dict, x: torch.Tensor, flat_e: torch.Tensor, tok: torc
     shared = _shared_ffn(params, x) if cfg.n_shared > 0 else None
     if axes.tp > 1:
         parts = [y.reshape(-1)] + ([] if shared is None else [shared.reshape(-1)])
-        flat = torch.cat(parts)
-        _collective("tp_reduce", lambda: dist.all_reduce(flat, group=axes.tp_group), flat)
+        flat = _TPReduce.apply(torch.cat(parts), axes.tp_group)
         y = flat[:y.numel()].view(y.shape)
         if shared is not None:
             shared = flat[y.numel():].view(shared.shape)
-    back = _all_to_all("return", torch.empty_like(y), y, axes.ep_group)
+    back = _Exchange.apply(y, "return", axes.ep_group)
     return back.view(E, C, D)[e, s], shared
 
 
@@ -469,10 +550,14 @@ def _same_token_count(mesh, T: int) -> None:
     tokens (one host all-reduce on the mesh's gloo group)."""
     if mesh.host_group is None:
         return
-    t = torch.tensor([T, -T], dtype=torch.int64)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.host_group)
-    if int(t[0]) != T or int(-t[1]) != T:
-        raise ValueError(f"moe_ffn: the ranks hold from {int(-t[1])} to {int(t[0])} tokens; "
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with unset_fake_temporarily():   # a host value, real under the dry run's fake tensors too
+        t = torch.tensor([T, -T], dtype=torch.int64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.host_group)
+        hi, lo = int(t[0]), int(-t[1])
+    if hi != T or lo != T:
+        raise ValueError(f"moe_ffn: the ranks hold from {lo} to {hi} tokens; "
                          "every rank must hold the same count")
 
 
@@ -507,7 +592,46 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, mesh=None,
                      tp_group=mesh.group_of(tp_axis), tp=tp)
     y, aux = _moe_core(x, params, cfg, engine, use_kernels, axes)
     if mesh.size > 1:
-        aux = aux.reshape(1).clone()
-        dist.all_reduce(aux, group=mesh.group)
-        aux = aux[0] / mesh.size
+        aux = _BatchMean.apply(aux, mesh.group, mesh.size, mesh.axis_size(batch_axes))
     return y, aux
+
+
+def moe_ffn_placed(params: dict, x: torch.Tensor, cfg: MoEConfig, mesh):
+    """``moe_ffn(mesh=)`` on DTensors: ``params`` placed by
+    ``dist.sharding.lm_rule`` (E over the batch axes, the width over
+    ``model``, the router replicated) and tokens ``x`` (..., D) split over
+    the batch axes on dim 0, on ``launch.mesh.device_mesh(mesh)``.  Each
+    rank runs ``moe_ffn(mesh=)`` on its local tokens and shards under
+    ``local_map``, so C comes from its local token count, as in the
+    reference.  Returns (y placed as the tokens, aux replicated).
+
+    Gradients: an expert shard's is whole on its rank; a parameter
+    replicated over a batch axis (the router, the shared experts) gets a
+    sum over the batch ranks (``Partial``), one copy per model rank, since
+    the tokens' path into the model-split experts sums its partial
+    gradients (``_TPEnter``) and aux's mean hands each rank its share of
+    the batch ranks' mean (``_BatchMean``); the tokens' gradient is placed
+    as the tokens."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.dist.sharding import batch_axes as mesh_batch_axes
+
+    keys = list(params)
+    dm = params[keys[0]].device_mesh
+    names = dm.mesh_dim_names
+    ba = mesh_batch_axes(mesh)
+    tok_pl = tuple(Shard(0) if a in ba else Replicate() for a in names)
+    x = x.redistribute(dm, tok_pl)
+    par_pl = tuple(tuple(params[k].placements) for k in keys)
+    grad_pl = tuple(tuple(p if isinstance(p, Shard) else Partial() if names[i] in ba
+                          else Replicate() for i, p in enumerate(pl)) for pl in par_pl)
+
+    def local(xl, *shards):
+        y, aux = moe_ffn(dict(zip(keys, shards)), xl.reshape(-1, xl.shape[-1]), cfg, mesh=mesh,
+                         batch_axes=ba)
+        return y.reshape(xl.shape), aux
+
+    return local_map(local, out_placements=(tok_pl, (Replicate(),) * len(names)),
+                     in_placements=(tok_pl, *par_pl), in_grad_placements=(tok_pl, *grad_pl),
+                     device_mesh=dm)(x, *(params[k] for k in keys))

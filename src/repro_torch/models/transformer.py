@@ -33,8 +33,8 @@ and with ``cfg.remat`` recomputes each layer past the dense prefix in the
 backward (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of
 its scan body).  Nothing on a layer's path draws random numbers, so a
 recomputed MoE layer routes, and drops, as its first pass did.
-``lm_loss(mesh=)`` trains a dense LM whose parameters are DTensors
-(``dist.sharding``).
+``lm_loss(mesh=)`` trains an LM whose parameters are DTensors
+(``dist.sharding``), a MoE through ``moe.moe_ffn_placed``.
 
 Over a mesh (``mesh=``, a ``launch.mesh.ModelMesh``; the reference's
 ``forward(mesh=, batch_axes=)``), SPMD: each rank holds B/EP requests
@@ -65,8 +65,8 @@ from repro_torch.models.attention import (MLAConfig, gqa_attention, init_gqa, in
                                           mla_attention)
 from repro_torch.models.common import (cross_entropy_loss, dense_init, embed_init, frozen,
                                        rms_norm, swiglu)
-from repro_torch.models.moe import (MoEConfig, mesh_shards, moe_draws, moe_ffn, shard_moe_params,
-                                   shard_shapes)
+from repro_torch.models.moe import (MoEConfig, mesh_shards, moe_draws, moe_ffn, moe_ffn_placed,
+                                   shard_moe_params, shard_shapes)
 
 
 @dataclass(frozen=True)
@@ -192,14 +192,31 @@ class DecoderLayer(nn.Module):
                 self.attn, h, positions, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
                 cfg.rope_theta, window=self.window, cache=cache, cache_index=cache_index,
                 use_kernels=use_kernels)
-        x = x + attn_out
+        x = _summed(x + attn_out)
         h = rms_norm(x, self.ln2, cfg.norm_eps)
         if self.moe is not None:
+            if hasattr(self.moe["router"], "device_mesh"):   # DTensors: lm_loss(mesh=)
+                y, aux = moe_ffn_placed(dict(self.moe), h, cfg.moe, mesh)
+                return _summed(x + y), cache, aux
             B, S, D = h.shape
             y, aux = moe_ffn(self.moe, h.reshape(B * S, D), cfg.moe, mesh=mesh,
                              batch_axes=batch_axes, use_kernels=use_kernels)
             return x + y.reshape(B, S, D), cache, aux
-        return x + _ffn_apply(self.ffn, h), cache, None
+        return _summed(x + _ffn_apply(self.ffn, h)), cache, None
+
+
+def _summed(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream whole on every model rank (Megatron's ``g``): a
+    DTensor's ``Partial`` placements (the row-parallel ``wo`` and
+    ``w_down`` products' partial sums) are reduced to ``Replicate``, so
+    DTensor does not reduce-scatter them onto the sequence, a layout its
+    next products cannot take.  A plain tensor as it is."""
+    if not hasattr(x, "placements"):
+        return x
+    from torch.distributed.tensor import Partial, Replicate
+
+    pl = [Replicate() if isinstance(p, Partial) else p for p in x.placements]
+    return x.redistribute(x.device_mesh, pl) if pl != list(x.placements) else x
 
 
 def _ffn_apply(p, x: torch.Tensor) -> torch.Tensor:
@@ -398,10 +415,11 @@ def _embed_rows(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return x.redistribute(dm, tok_pl)
 
 
-def _train_hidden(model: Transformer, tokens: torch.Tensor):
+def _train_hidden(model: Transformer, tokens: torch.Tensor, mesh=None):
     """(final-normed hidden states (B, S, D), summed MoE aux) through the
     plain routes; with ``cfg.remat`` under grad mode, each layer past the
-    dense prefix is recomputed in the backward."""
+    dense prefix is recomputed in the backward (a MoE layer on a mesh
+    repeats its exchanges then)."""
     cfg = model.cfg
     positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
     x = _embed_rows(model.embed.to(cfg.act_dtype), tokens)
@@ -409,9 +427,9 @@ def _train_hidden(model: Transformer, tokens: torch.Tensor):
     remat = cfg.remat and torch.is_grad_enabled()
     for i, layer in enumerate(model.layers):
         if remat and i >= cfg.n_prefix_layers:
-            x, _, a = checkpoint(layer, x, positions, use_reentrant=False)
+            x, _, a = checkpoint(layer, x, positions, mesh=mesh, use_reentrant=False)
         else:
-            x, _, a = layer(x, positions)
+            x, _, a = layer(x, positions, mesh=mesh)
         if a is not None:
             aux = aux + a
     return rms_norm(x, model.final_norm, cfg.norm_eps), aux
@@ -430,20 +448,23 @@ def lm_loss(model: Transformer, tokens: torch.Tensor, mesh=None) -> torch.Tensor
     parameters are DTensors placed by ``dist.sharding.distribute`` and
     ``tokens`` a DTensor placed by ``lm_batch_spec``; the loss runs under
     ``implicit_replication`` (positions, masks and the vocabulary iota are
-    plain tensors, the same on every rank) and is a DTensor.  A MoE on a
-    mesh raises ``NotImplementedError``: its gradients through
-    ``moe_ffn(mesh=)`` are ROADMAP item 17d."""
+    plain tensors, the same on every rank) and is a DTensor.  A MoE layer
+    runs ``moe.moe_ffn_placed``: its experts exchanged over the batch axes
+    and summed over ``model`` by ``moe_ffn(mesh=)`` on each rank's shards,
+    with its collectives' adjoints."""
     cfg = model.cfg
     if mesh is not None:
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                "lm_loss(mesh=): MoE gradients through moe_ffn(mesh=) are ROADMAP item 17d")
         from repro_torch.dist.sharding import implicit_replication
 
         with implicit_replication():
-            return lm_loss(model, tokens)
+            return _loss(model, tokens, mesh)
+    return _loss(model, tokens, None)
+
+
+def _loss(model: Transformer, tokens: torch.Tensor, mesh) -> torch.Tensor:
+    cfg = model.cfg
     _check_mesh(model, None, ("data",))
-    x, aux = _train_hidden(model, tokens[:, :-1])
+    x, aux = _train_hidden(model, tokens[:, :-1], mesh)
     loss = cross_entropy_loss(_logits(model, x), tokens[:, 1:])
     if cfg.moe is not None:
         n = torch.full((), float(max(cfg.n_scan_layers, 1)), device=aux.device)

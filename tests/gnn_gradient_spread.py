@@ -54,7 +54,7 @@ def _worst(pairs) -> float:
 
 def main() -> None:
     for name in ("pna", "meshgraphnet"):
-        cells = gnn_cells(get_arch(name))
+        cells = gnn_cells(get_arch(name).model_config)
         for cell_name in ("full_graph_sm", "molecule"):
             cell = cells[cell_name]
             if cell_name == "molecule":

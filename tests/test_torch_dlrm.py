@@ -160,9 +160,9 @@ def test_mlp_init_is_seeded_and_scaled():
 
 # ------------------------------------------------------------ whole models
 
-REDUCED = reduce_dlrm_config(get_arch("dlrm-mlperf"))
+REDUCED = reduce_dlrm_config(get_arch("dlrm-mlperf").model_config)
 # the published towers and 26 fields, vocabularies cut to at most 1,000 rows
-PUBLISHED_WIDTHS = get_arch("dlrm-mlperf").replace(
+PUBLISHED_WIDTHS = get_arch("dlrm-mlperf").model_config.replace(
     vocab_sizes=tuple(min(v, 1000) for v in jax_dlrm.MLPERF_VOCAB_SIZES))
 CONFIGS = {"reduced": REDUCED, "published_widths": PUBLISHED_WIDTHS}
 
@@ -266,7 +266,7 @@ def test_init_dlrm_is_seeded_and_scaled():
 
 def test_get_arch_matches_the_reference_and_the_cap():
     ref = jax_get_arch("dlrm-mlperf")
-    cfg = get_arch("dlrm-mlperf")
+    cfg = get_arch("dlrm-mlperf").model_config
     assert dataclasses.asdict(cfg) == dataclasses.asdict(ref.model_config)
     assert sum(cfg.vocab_sizes) == 187_770_880
     capped = one_card_config()

@@ -151,7 +151,7 @@ def small_blocks(monkeypatch):
 
 
 def _lm(arch: str, dtype: str):
-    cfg = reduce_lm_config(get_arch(arch)).replace(n_layers=2, dtype=dtype)
+    cfg = reduce_lm_config(get_arch(arch).model_config).replace(n_layers=2, dtype=dtype)
     tree = jax.tree.map(np.asarray, jax_tf.init_transformer(jax.random.PRNGKey(11),
                                                             _jax_cfg(cfg)))
     return cfg, tree

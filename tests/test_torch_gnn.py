@@ -73,7 +73,7 @@ def graph():
 
 
 def _smoke(name: str, **kw) -> gnn.GNNConfig:
-    base = get_arch(name)
+    base = get_arch(name).model_config
     cfg = base.replace(n_layers=min(base.n_layers, 3), d_hidden=24, d_in=12,
                        d_out=5 if base.task != "regression" else 3)
     return cfg.replace(**kw)
@@ -369,8 +369,8 @@ def test_batched_molecule_graphs_bit_equal(args):
 @pytest.mark.parametrize("name", GNN_ARCHS)
 def test_gnn_configs_match_the_reference(name):
     ref = jax_get_arch(name).model_config
-    assert dataclasses.asdict(get_arch(name)) == dataclasses.asdict(ref)
-    assert isinstance(get_arch(name), gnn.GNNConfig)
+    assert dataclasses.asdict(get_arch(name).model_config) == dataclasses.asdict(ref)
+    assert isinstance(get_arch(name).model_config, gnn.GNNConfig)
 
 
 def test_gnn_shapes_and_helpers_match():
@@ -379,7 +379,7 @@ def test_gnn_shapes_and_helpers_match():
         for m in (1, 7, 512):
             assert cfg_common._pad_to(n, m) == jax_cfg_common._pad_to(n, m)
     for name in GNN_ARCHS:
-        for cell in cfg_common.gnn_cells(get_arch(name)).values():
+        for cell in cfg_common.gnn_cells(get_arch(name).model_config).values():
             cfg = cell["cfg"]
             jcfg = _jax_cfg(cfg)
             assert cfg_common.gnn_flops_per_edge(cfg) == jax_cfg_common.gnn_flops_per_edge(jcfg)
@@ -393,7 +393,7 @@ def test_gnn_cells_match_the_reference(name):
     says."""
     spec = jax_get_arch(name)
     mesh = jax.make_mesh((1, 1), ("data", "model"))
-    cells = cfg_common.gnn_cells(get_arch(name))
+    cells = cfg_common.gnn_cells(get_arch(name).model_config)
     assert set(cells) == set(spec.cells)
     for cell, build in spec.cells.items():
         ref = dict(zip(build.__code__.co_freevars, (c.cell_contents for c in build.__closure__)))

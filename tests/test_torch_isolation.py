@@ -94,8 +94,8 @@ def test_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry points run on it")
     g = uniform_graph(40, 200, seed=0)
-    lm = reduce_lm_config(get_arch("gemma3-12b"))
-    sage = get_arch("graphsage-reddit").replace(d_in=8, d_hidden=16)
+    lm = reduce_lm_config(get_arch("gemma3-12b").model_config)
+    sage = get_arch("graphsage-reddit").model_config.replace(d_in=8, d_hidden=16)
     csr = (torch.from_numpy(g.indptr), torch.from_numpy(g.indices))
     seeds = torch.arange(4)
     for call in (lambda: run_hytm(g, SSSP),

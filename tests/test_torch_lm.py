@@ -60,13 +60,13 @@ def _port_config(jax_cfg) -> TransformerConfig:
 @pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_configs_match_the_reference(arch):
     ref = jax_get_arch(arch).model_config
-    assert get_arch(arch) == _port_config(ref)
-    assert reduce_lm_config(get_arch(arch)) == _port_config(jax_reduce(ref))
-    assert get_arch(arch).windows() == [int(w) for w in ref.windows()]
+    assert get_arch(arch).model_config == _port_config(ref)
+    assert reduce_lm_config(get_arch(arch).model_config) == _port_config(jax_reduce(ref))
+    assert get_arch(arch).model_config.windows() == [int(w) for w in ref.windows()]
 
 
 def test_gemma_windows_are_five_local_to_one_global():
-    w = get_arch("gemma3-12b").windows()
+    w = get_arch("gemma3-12b").model_config.windows()
     assert [i for i, x in enumerate(w) if x == 0] == list(range(5, 48, 6))
     assert w.count(1024) == 40
 
@@ -78,7 +78,7 @@ def test_unported_archs_raise(arch):
     HyTMConfig field by field too (the link model as its fields); an
     unknown arch still raises."""
     ref = jax_get_arch(arch).model_config
-    got = get_arch(arch)
+    got = get_arch(arch).model_config
     if arch == "pna":
         assert dataclasses.asdict(got) == dataclasses.asdict(ref)
     else:
@@ -96,7 +96,7 @@ def test_unported_archs_raise(arch):
             else:
                 assert have == want, name
     with pytest.raises(KeyError):
-        get_arch("no-such-arch")
+        get_arch("no-such-arch").model_config
 
 
 # ------------------------------------------------------------ modules
@@ -260,7 +260,7 @@ TINY = TransformerConfig(
     d_ff=128, vocab=101, window_pattern=(8, 8, 0), dtype="float32",
     param_dtype="float32",
 )
-CONFIGS = {"tiny": TINY, **{a: reduce_lm_config(get_arch(a)) for a in ARCHS}}
+CONFIGS = {"tiny": TINY, **{a: reduce_lm_config(get_arch(a).model_config) for a in ARCHS}}
 
 
 def _weights(cfg: TransformerConfig, seed: int):

@@ -1,6 +1,7 @@
 """The rank pool's failure path: a timed-out ``mesh_barrier`` names the rank
 that had not arrived, and ``PoolKeeper`` hands the next case a working pool
-after a run that broke the last one (two gloo ranks on the CPU)."""
+after a run that broke the last one; and a new pool's DTensor mesh takes
+none of an old pool's cached sharding (two gloo ranks on the CPU)."""
 
 import pytest
 import torch
@@ -50,3 +51,34 @@ def test_late_rank_is_named_and_the_next_case_gets_a_fresh_pool():
         assert keeper.get().run(_healthy) == [2.0, 2.0]
         assert keeper.get().run(_healthy) == [2.0, 2.0]
         assert keeper.started == 2
+
+
+def _placed_sum(group, first: bool):
+    """A DTensor reduction on a (2, 1) mesh of ranks 0 and 1 (a subgroup
+    of the pool's three; rank 2 makes the groups too and returns None): the
+    whole sum of ``arange(8)`` split over ``data``.  ``first``: a (1, 2)
+    mesh's groups are made before, so that the two pools' groups of the
+    (2, 1) mesh differ in name."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import device_mesh, make_debug_mesh
+
+    if first:
+        make_debug_mesh(1, 2, ranks=(0, 1), device="cpu")
+    mesh = make_debug_mesh(2, 1, ranks=(0, 1), device="cpu")
+    if mesh is None:
+        return None
+    dm = device_mesh(mesh)
+    x = distribute_tensor(torch.arange(8.0), dm, [Shard(0), Shard(0)], src_data_rank=None)
+    return float(x.sum().full_tensor())
+
+
+def test_a_new_pool_does_not_reuse_an_old_meshs_sharding():
+    """Two pools in turn, each with a (2, 1) mesh on a subgroup equal by
+    value to the other's: DTensor caches its sharding decisions by a mesh's
+    value, so the second pool's step would take the first's mesh and wait
+    on its destroyed groups unless ``device_mesh`` clears them for a new
+    default group.  A short timeout turns that wait into a failure."""
+    for first in (True, False):
+        with PoolKeeper(3, threads=1, timeout_s=10.0) as keeper:
+            assert keeper.get().run(_placed_sum, first) == [28.0, 28.0, None]

@@ -189,7 +189,7 @@ def test_deepseek_first_dense_layer_is_10944_wide():
     """The full config, built on the meta device: the dense first layer's
     FFN is d_ff_dense = 10,944 wide, the 26 MoE layers hold 64 experts of
     1408 and two shared ones, and the whole is 15,706,484,224 parameters."""
-    cfg = get_arch("deepseek-v2-lite-16b")
+    cfg = get_arch("deepseek-v2-lite-16b").model_config
     model = transformer.Transformer(cfg, torch.device("meta"))
     first = model.layers[0]
     assert first.moe is None and first.ffn["w_gate"].shape == (2048, 10944)
@@ -212,7 +212,7 @@ def test_serve_config_refuses_what_one_card_cannot_hold():
 
 # ------------------------------------------------------------ whole models
 
-CONFIGS = {a: reduce_lm_config(get_arch(a)) for a in MOE_ARCHS}
+CONFIGS = {a: reduce_lm_config(get_arch(a).model_config) for a in MOE_ARCHS}
 
 
 def _weights(cfg, seed: int):

@@ -213,7 +213,7 @@ def test_router_stays_float32_under_bfloat16():
     assert jp["router"].dtype == jnp.float32 and set(jp) == set(p)
 
     # convert of an MoE model's tree, asked for bf16
-    cfg = reduce_lm_config(get_arch("deepseek-v2-lite-16b"))
+    cfg = reduce_lm_config(get_arch("deepseek-v2-lite-16b").model_config)
     jcfg = jax_tf.TransformerConfig(**{
         **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)},
         "mla": jax_attention.MLAConfig(**dataclasses.asdict(cfg.mla)), "moe": _jcfg(cfg.moe)})

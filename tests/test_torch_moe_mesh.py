@@ -122,8 +122,8 @@ def jax_config(cfg):
     return jax_tf.TransformerConfig(**kw)
 
 
-LM_CFG = reduce_lm_config(get_arch("deepseek-v2-lite-16b")).replace(
-    moe=reduce_lm_config(get_arch("deepseek-v2-lite-16b")).moe.replace(capacity_factor=1.25))
+LM_CFG = reduce_lm_config(get_arch("deepseek-v2-lite-16b").model_config).replace(
+    moe=reduce_lm_config(get_arch("deepseek-v2-lite-16b").model_config).moe.replace(capacity_factor=1.25))
 
 
 def _lm_tree() -> dict:
@@ -501,7 +501,7 @@ def test_guards_fire_with_assertions_disabled(tmp_path):
                              group=None, host_group=None, groups={{}},
                              device=torch.device("cpu"))
             expect(lambda: transformer.batch_shard(torch.zeros(6, 3), wide))   # B % EP
-            lm = reduce_lm_config(get_arch("deepseek-v2-lite-16b"))
+            lm = reduce_lm_config(get_arch("deepseek-v2-lite-16b").model_config)
             model = transformer.init_transformer(lm, torch.Generator(), "cpu")
             expect(lambda: transformer.Transformer(lm, torch.device("meta"), wide,
                                                    batch_axes=("pod",)))

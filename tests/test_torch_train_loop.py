@@ -50,7 +50,7 @@ def _torch_batch(step):
 
 
 def _tiny_lm():
-    cfg = reduce_lm_config(get_arch("kimi-k2-1t-a32b"))
+    cfg = reduce_lm_config(get_arch("kimi-k2-1t-a32b").model_config)
     return cfg, init_transformer(cfg, torch.Generator().manual_seed(0), "cpu")
 
 

@@ -37,6 +37,8 @@ from repro_torch.launch.mesh import PoolKeeper, device_mesh, make_debug_mesh
 from repro_torch.models import attention
 from test_torch_train_models import _get, _jax_cfg
 
+from repro_torch.configs import get_arch
+from repro_torch.configs.common import reduce_lm_config
 from repro_torch.models.transformer import TransformerConfig
 
 LOSS_TOL = 1e-5
@@ -51,8 +53,100 @@ OPT = dict(name="adamw", learning_rate=1e-3, warmup_steps=0, schedule="constant"
 MESH_SHAPES = {"2x2": (2, 2), "1x4": (1, 4), "4x1": (4, 1)}
 
 
+# reduced deepseek-v2-lite (MLA, a dense first layer, then MoE layers of 8
+# experts, top 2, at the reduction's capacity 4): its train step on a mesh
+# against the reference's jitted step on the same forced mesh
+MOE_CFG = reduce_lm_config(get_arch("deepseek-v2-lite-16b").model_config)
+MOE_MESHES = {"2x2": (2, 2), "4x1": (4, 1)}
+
+_MOE_REFERENCE = """
+    import dataclasses, json, sys
+    import jax, jax.numpy as jnp
+    import numpy as np
+    assert len(jax.devices()) == 4
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from repro.launch.mesh import make_debug_mesh
+    from repro.models import transformer as tf
+    from repro.models.attention import MLAConfig
+    from repro.models.moe import MoEConfig
+    from repro.dist.sharding import lm_rule, tree_shardings, batch_axes
+    from repro.train.optimizer import OptimizerConfig
+    from repro.train.train_step import init_train_state, make_train_step
+
+    spec = json.loads(sys.argv[1])
+    kw = dict(spec["cfg"])
+    kw["mla"], kw["moe"] = MLAConfig(**kw["mla"]), MoEConfig(**kw["moe"])
+    kw["window_pattern"] = tuple(kw["window_pattern"])
+    cfg = tf.TransformerConfig(**kw)
+    oc = OptimizerConfig(**spec["opt"])
+    params = tf.init_transformer(jax.random.PRNGKey(0), cfg)
+    toks = jnp.asarray(np.load(sys.argv[2]))
+    out = {}
+    for name, shape in spec["meshes"].items():
+        mesh = make_debug_mesh(*shape)
+        ba = batch_axes(mesh)
+        step = make_train_step(
+            lambda p, b: tf.lm_loss(p, b["tokens"], cfg, mesh=mesh, batch_axes=ba), oc)
+        state = init_train_state(params, oc)
+        st_sh = tree_shardings(state, mesh, lm_rule(mesh))
+        b_sh = {"tokens": NamedSharding(mesh, P(ba, None))}
+        with mesh:
+            new_state, metrics = jax.jit(step, in_shardings=(st_sh, b_sh))(
+                state, {"tokens": toks})
+        out[name + "/loss"] = np.asarray(metrics["loss"])
+        out[name + "/grad_norm"] = np.asarray(metrics["grad_norm"])
+        for i, leaf in enumerate(jax.tree.leaves(new_state.params)):
+            out[f"{name}/{i}"] = np.asarray(leaf)
+    np.savez(sys.argv[3], **out)
+"""
+
+
+def _moe_tree_and_tokens():
+    tree = jax.tree.map(np.asarray, jax_tf.init_transformer(jax.random.PRNGKey(0),
+                                                            _jax_cfg(MOE_CFG)))
+    tokens = np.random.default_rng(2).integers(0, MOE_CFG.vocab, (8, 17)).astype(np.int32)
+    return tree, tokens
+
+
 @pytest.fixture(scope="module")
-def pools():
+def moe_reference(tmp_path_factory):
+    """The reference's mesh steps, one forced-4-device subprocess started
+    with the module's pool; ``get()`` waits for it."""
+    import dataclasses
+    import json
+    import subprocess
+    import sys
+    import textwrap
+
+    from repro.launch.mesh import forced_host_device_env
+
+    tmp = tmp_path_factory.mktemp("moe_train_mesh")
+    _, tokens = _moe_tree_and_tokens()
+    np.save(tmp / "tokens.npy", tokens)
+    spec = {"cfg": dataclasses.asdict(MOE_CFG), "opt": OPT, "meshes": MOE_MESHES}
+    proc = subprocess.Popen(
+        [sys.executable, "-c", textwrap.dedent(_MOE_REFERENCE), json.dumps(spec),
+         str(tmp / "tokens.npy"), str(tmp / "out.npz")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=forced_host_device_env(4))
+    data = {}
+
+    def get():
+        if not data:
+            out, err = proc.communicate(timeout=500)
+            assert proc.returncode == 0, f"stdout:\n{out}\nstderr:\n{err[-4000:]}"
+            with np.load(tmp / "out.npz") as z:
+                data.update(z)
+        return data
+
+    yield get
+    if proc.poll() is None:
+        proc.kill()
+    proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def pools(moe_reference):
     with PoolKeeper(4, threads=1, timeout_s=60.0) as keeper:
         yield keeper
 
@@ -163,6 +257,63 @@ def test_train_step_on_a_mesh_matches_the_reference(pool, mesh_name, route, monk
         assert "Shard(dim=0)" in placed["embed"]
 
 
+def _moe_step_rank(group, shape, tree, tokens):
+    """One step of ``make_train_step`` of reduced deepseek on a (data,
+    model) mesh: (loss, grad_norm, each reference leaf's updated value)."""
+    _quiet()
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.dist.sharding import (distribute, lm_batch_spec, lm_rule, placements,
+                                           tree_shardings)
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train import train_step as ts
+
+    _set_blocks("plain")   # a spawned rank keeps an earlier case's blocked route
+    mesh = make_debug_mesh(*shape, device="cpu")
+    dm = device_mesh(mesh)
+    opt = OptimizerConfig(**OPT)
+    model = convert.transformer_params(tree, MOE_CFG, device="cpu")
+    state = ts.init_train_state(model, opt, device="cpu")
+    state = distribute(state, dm, tree_shardings(state, mesh, lm_rule(mesh)))
+    batch = distribute_tensor(torch.from_numpy(tokens).long(), dm,
+                              placements(lm_batch_spec(mesh), 2, dm), src_data_rank=None)
+    step = ts.make_train_step(lambda m, b: lm_loss(m, b, mesh=mesh), opt)
+    state, metrics = step(state, batch)
+    named = dict(state.params.named_parameters())
+    out = {}
+    for lf in state.leaves:
+        parts = [named[m].full_tensor().detach().numpy() for m in lf.members]
+        out[lf.name] = np.stack(parts) if lf.stacked else parts[0]
+    return float(metrics["loss"]), float(metrics["grad_norm"]), out
+
+
+@pytest.mark.parametrize("mesh_name", sorted(MOE_MESHES))
+def test_moe_train_step_on_a_mesh_matches_the_reference(pool, moe_reference, mesh_name):
+    """Reduced deepseek-v2-lite's train step (AdamW, remat) on a (2, 2) mesh
+    (EP 2, TP 2) and a (4, 1) mesh (EP 4): the loss, the grad norm and every
+    updated parameter against the reference's jitted step on the same
+    forced mesh (each shard sizing its own capacity, aux the shards'
+    mean); every rank returns the same values."""
+    tree, tokens = _moe_tree_and_tokens()
+    results = pool.run(_moe_step_rank, MOE_MESHES[mesh_name], tree, tokens)
+    loss, norm, got = results[0]
+    for other in results[1:]:
+        assert other[0] == loss and other[1] == norm
+    ref = moe_reference()
+    want_loss = float(ref[mesh_name + "/loss"])
+    want_norm = float(ref[mesh_name + "/grad_norm"])
+    assert abs(loss - want_loss) <= LOSS_TOL * abs(want_loss), (loss, want_loss)
+    assert abs(norm - want_norm) <= LOSS_TOL * abs(want_norm), (norm, want_norm)
+    leaves, treedef = jax.tree.flatten(tree)
+    want = jax.tree.unflatten(treedef, [ref[f"{mesh_name}/{i}"] for i in range(len(leaves))])
+    for name, a in got.items():
+        ref_leaf = np.asarray(_get(want, name))
+        bound = PARAM_TOL * float(np.abs(ref_leaf).max())
+        err = float(np.abs(a - ref_leaf).max())
+        assert err <= bound, (mesh_name, name, err, bound)
+
+
 def _ce_rank(group, logits, labels):
     _quiet()
     from torch.distributed.tensor import distribute_tensor
@@ -201,6 +352,50 @@ def test_sharded_cross_entropy_matches_unsharded(pool):
         assert abs(base - plain) < CE_TOL and abs(base - sharded) < CE_TOL, (base, plain, sharded)
         # the max and the sums reduce; nothing gathers the (16, 64) logits
         assert kinds and not any("gather" in k for k in kinds), kinds
+
+
+def _ce_grad_rank(group, logits, labels, mask):
+    _quiet()
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.dist.sharding import P, implicit_replication, placements
+    from repro_torch.models.common import cross_entropy_loss
+
+    mesh = make_debug_mesh(2, 2, device="cpu")
+    dm = device_mesh(mesh)
+    lg = distribute_tensor(torch.from_numpy(logits), dm, placements(P("data", "model"), 2, dm),
+                           src_data_rank=None).requires_grad_(True)
+    lb = distribute_tensor(torch.from_numpy(labels), dm, placements(P("data"), 1, dm),
+                           src_data_rank=None)
+    mk = None if mask is None else distribute_tensor(
+        torch.from_numpy(mask), dm, placements(P("data"), 1, dm), src_data_rank=None)
+    with implicit_replication():
+        loss = cross_entropy_loss(lg, lb, mk)
+        loss.backward()
+    return float(loss.full_tensor()), lg.grad.full_tensor().numpy()
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["mean", "masked"])
+def test_sharded_cross_entropy_gradients_match_unsharded(pool, masked):
+    """The gradient of the loss of logits split over the vocabulary (the
+    local ``onehot - softmax`` of ``models.common._VocabParallelLL``)
+    against the unsharded loss's, within 1e-5 of its largest; a label
+    outside the vocabulary contributes no logit."""
+    from repro_torch.models.common import cross_entropy_loss
+
+    rng = np.random.default_rng(2)
+    logits = rng.standard_normal((16, 64)).astype(np.float32)
+    labels = rng.integers(0, 64, 16).astype(np.int64)
+    labels[3] = 70
+    mask = (rng.random(16) < 0.7).astype(np.float32) if masked else None
+    x = torch.from_numpy(logits).requires_grad_(True)
+    want = cross_entropy_loss(x, torch.from_numpy(labels),
+                              None if mask is None else torch.from_numpy(mask))
+    want.backward()
+    for loss, grad in pool.run(_ce_grad_rank, logits, labels, mask):
+        assert abs(loss - float(want)) <= CE_TOL, (loss, float(want))
+        bound = CE_TOL * float(x.grad.abs().max())
+        assert float(np.abs(grad - x.grad.numpy()).max()) <= bound
 
 
 def _elastic_rank(group, tree, directory):
