@@ -1794,14 +1794,54 @@ SERVE_KERNELS = ALL_KERNELS + ("segment_spmm_lanes", "frontier_compact_lanes")
 SOLO_ONLY = ("segment_spmm", "frontier_compact")   # no lane leg may launch these
 
 
+def lane_inputs(torch, dcsr, seed: int):
+    """The lane entries' inputs at the serving phase's shapes: 8 lanes,
+    lane l on partition 8l of the DeltaCSR (its own edges, packed lane
+    after lane), 30% of the edges active; min's messages (+inf where
+    inactive), sum's (value, activity) pairs, and each edge's flat index
+    into (L * n) for the library calls."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.engines import packed_ranges
+
+    dev, n = dcsr.device, dcsr.n_nodes
+    _, edge_start, part_edges = dcsr.parts.host
+    parts = [8 * l for l in range(SERVE_LANES)]
+    lengths = [part_edges[p] for p in parts]
+    M = sum(lengths)
+    offsets = torch.tensor([0, *np.cumsum(lengths)], dtype=torch.int64, device=dev)
+    starts = torch.tensor([edge_start[p] for p in parts], dtype=torch.int64, device=dev)
+    lane, idx = packed_ranges(starts, offsets, M)
+    dst = dcsr.csr.edge_dst[idx]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    active = torch.rand(M, device=dev, generator=gen) < 0.3
+    msg = torch.where(active, torch.rand(M, device=dev, generator=gen) * 100.0 + 1.0,
+                      float("inf"))
+    pmsg = torch.where(active, torch.rand(M, device=dev, generator=gen) * 1e-3, 0.0)
+    return SimpleNamespace(
+        n=n, L=len(parts), parts=parts, lengths=lengths, M=M, edge_start=edge_start,
+        offsets=offsets, src=dcsr.csr.edge_src[idx], dst=dst,
+        w=dcsr.csr.edge_weight[idx], active=active, msg=msg,
+        packed=torch.stack([pmsg, active.to(torch.float32)], dim=-1),
+        flat=lane * n + dst.long(),
+        shape=f"L={len(parts)} lanes (partitions {parts[0]}..{parts[-1]} step 8) M={M} "
+              f"packed edges n={n}")
+
+
+def lane_spmm_bytes(x) -> dict:
+    """The bytes bound of ``segment_spmm_lanes`` on ``lane_inputs``: messages
+    and ids read once, the offsets, every lane's row written once."""
+    return {"min": x.M * 4 + x.M * 4 + (x.L + 1) * 8 + x.L * x.n * 4,
+            "sum_d2": x.M * 8 + x.M * 4 + (x.L + 1) * 8 + x.L * x.n * 8}
+
+
 def lane_kernel_rows(torch, dcsr, seed: int) -> dict:
     """Each lane entry against its plain version (a loop of single-lane
-    plain versions) at the serving phase's shapes: 8 lanes, lane l on
-    partition 8l of the DeltaCSR (its own edges, packed lane after lane),
-    30% of the edges active.  Warm and cold-L2 device ms, the plain
-    version's ms (one call: it reads the lane bounds back to the host) and
-    one library call's where there is one, against the bytes bound."""
-    from repro_torch.core.engines import packed_ranges
+    plain versions) on ``lane_inputs``.  Warm and cold-L2 device ms, the
+    plain version's ms (one call: it reads the lane bounds back to the
+    host) and one library call's where there is one, against the bytes
+    bound."""
     from repro_torch.kernels.frontier_compact.ops import frontier_compact_lanes
     from repro_torch.kernels.frontier_compact.ref import frontier_compact_lanes_ref
     from repro_torch.kernels.hyb_gather.ops import PAD, hyb_gather
@@ -1809,25 +1849,11 @@ def lane_kernel_rows(torch, dcsr, seed: int) -> dict:
     from repro_torch.kernels.segment_spmm.ops import segment_spmm_lanes
     from repro_torch.kernels.segment_spmm.ref import segment_spmm_lanes_ref
 
-    dev, n = dcsr.device, dcsr.n_nodes
-    _, edge_start, part_edges = dcsr.parts.host
-    parts = [8 * l for l in range(SERVE_LANES)]
-    L = len(parts)
-    lengths = [part_edges[p] for p in parts]
-    M = sum(lengths)
-    offsets = torch.tensor([0, *np.cumsum(lengths)], dtype=torch.int64, device=dev)
-    starts = torch.tensor([edge_start[p] for p in parts], dtype=torch.int64, device=dev)
-    lane, idx = packed_ranges(starts, offsets, M)
-    src, dst = dcsr.csr.edge_src[idx], dcsr.csr.edge_dst[idx]
-    w = dcsr.csr.edge_weight[idx]
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    active = torch.rand(M, device=dev, generator=gen) < 0.3
-    msg = torch.where(active, torch.rand(M, device=dev, generator=gen) * 100.0 + 1.0,
-                      float("inf"))
-    flat = lane * n + dst.long()
-    shape = (f"L={L} lanes (partitions {parts[0]}..{parts[-1]} step 8) M={M} packed edges "
-             f"n={n}")
+    x = lane_inputs(torch, dcsr, seed)
+    dev, n, L, M, lengths, parts = dcsr.device, x.n, x.L, x.M, x.lengths, x.parts
+    edge_start, offsets, src, dst, w = x.edge_start, x.offsets, x.src, x.dst, x.w
+    active, msg, flat, shape, packed = x.active, x.msg, x.flat, x.shape, x.packed
+    spmm_bytes = lane_spmm_bytes(x)
     rows = {}
 
     def timed(kernel, plain, library, make_args, set_bytes, **row):
@@ -1840,31 +1866,29 @@ def lane_kernel_rows(torch, dcsr, seed: int) -> dict:
         return row
 
     # -- segment_spmm_lanes: min (SSSP's FILTER) and sum with the activity column
-    k = segment_spmm_lanes(msg, dst, offsets, n, "min")
+    k = segment_spmm_lanes(msg, dst, offsets, n, "min", lengths)
     p = segment_spmm_lanes_ref(msg, dst, offsets, n, "min")
     check(torch.equal(k.view(torch.int32), p.view(torch.int32)),
           "segment_spmm_lanes min differs from its plain version")
     rows["segment_spmm"] = timed(
-        lambda m_, d_, f_: segment_spmm_lanes(m_, d_, offsets, n, "min"),
+        lambda m_, d_, f_: segment_spmm_lanes(m_, d_, offsets, n, "min", lengths),
         lambda m_, d_, f_: segment_spmm_lanes_ref(m_, d_, offsets, n, "min"),
         lambda m_, d_, f_: torch.full((L * n,), float("inf"), device=dev).scatter_reduce_(
             0, f_, m_, "amin"),
-        lambda: (msg.clone(), dst.clone(), flat), M * 4 + M * 4 + (L + 1) * 8 + L * n * 4,
+        lambda: (msg.clone(), dst.clone(), flat), spmm_bytes["min"],
         max_abs_err=0.0, shape="min d=1 " + shape,
         source="src/repro_torch/kernels/segment_spmm/csrc/segment_spmm.cu "
                "(segment_spmm_lanes_launch)")
-    pmsg = torch.where(active, torch.rand(M, device=dev, generator=gen) * 1e-3, 0.0)
-    packed = torch.stack([pmsg, active.to(torch.float32)], dim=-1)
-    k = segment_spmm_lanes(packed, dst, offsets, n)
+    k = segment_spmm_lanes(packed, dst, offsets, n, "sum", lengths)
     p = segment_spmm_lanes_ref(packed, dst, offsets, n)
     check(torch.equal(k[..., 1], p[..., 1])
           and torch.allclose(k[..., 0], p[..., 0], rtol=1e-4, atol=1e-9),
           "segment_spmm_lanes sum differs from its plain version")
     rows["segment_spmm"]["sum_d2"] = timed(
-        lambda m_, d_, f_: segment_spmm_lanes(m_, d_, offsets, n),
+        lambda m_, d_, f_: segment_spmm_lanes(m_, d_, offsets, n, "sum", lengths),
         lambda m_, d_, f_: segment_spmm_lanes_ref(m_, d_, offsets, n),
         lambda m_, d_, f_: torch.zeros((L * n, 2), device=dev).index_add_(0, f_, m_),
-        lambda: (packed.clone(), dst.clone(), flat), M * 8 + M * 4 + (L + 1) * 8 + L * n * 8,
+        lambda: (packed.clone(), dst.clone(), flat), spmm_bytes["sum_d2"],
         max_abs_err=float((k[..., 0] - p[..., 0]).abs().max()), shape="sum d=2 " + shape)
 
     # -- frontier_compact_lanes: COMPACT's four packed columns, each lane by its mask

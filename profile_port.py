@@ -43,15 +43,17 @@ its own, with its own ``repro_torch`` and kernels; the first worker (this
 tree) builds the graph and writes it under ``build/``, the others read it.
 In the order of the trees and then back (this tree, A, B, B, A, this tree),
 ``AB_ROUNDS`` times, each worker: times ``segment_spmm`` min and sum and
-``frontier_compact`` on partition 0's and the last partition's blocks
-(warm and cold device ms, host µs a call, as ``chip_smoke.py`` times them),
-issues one call of each kernel wrapper (host µs), and runs Δ-PageRank and
-SSSP (K=8), each through the kernels and plain (wall seconds).  When
-every tree has ``repro_torch.stream``, each worker also builds a
-``DeltaCSR`` of the graph (blocks 1.5x the main path's, as
-``chip_smoke.py`` phase 10) and runs cold SSSP (K=8) and Δ-PageRank over it
-through the kernels in the same turns, then one profiled SSSP run over it
-(device busy, the largest device entries).
+``frontier_compact`` on partition 0's and the last partition's blocks,
+and the lane entry ``segment_spmm_lanes`` min and sum d=2 at
+``chip_smoke.lane_inputs``' shape (8 lanes of a ``DeltaCSR`` of the graph,
+partitions 0..56 step 8, 30% active) (warm and cold device ms, host µs a
+call, as ``chip_smoke.py`` times them), issues one call of each kernel
+wrapper (host µs), and runs Δ-PageRank and SSSP (K=8), each through the
+kernels and plain (wall seconds), and cold SSSP (K=8) and Δ-PageRank over
+the ``DeltaCSR`` (blocks 1.5x the main path's, as ``chip_smoke.py`` phase
+10) through the kernels; then one profiled SSSP run over it (device busy,
+the largest device entries).  Every tree compared needs
+``repro_torch.stream`` and ``segment_spmm_lanes``.
 
 With ``--train`` it builds internlm2-1.8b as ``chip_smoke.py`` phase 18 leg
 (a) trains it (full width and depth, float32 parameters, bf16
@@ -343,6 +345,178 @@ def block_rows(torch, rt) -> dict:
     return out
 
 
+def lane_rows(torch, dcsr) -> dict:
+    """``segment_spmm_lanes`` min and sum d=2 on ``chip_smoke.lane_inputs``
+    (8 lanes, partitions 0..56 step 8 of the DeltaCSR, 30% active): warm
+    and cold device ms and host µs a call, as ``chip_smoke.py`` times the
+    lane entry."""
+    import inspect
+
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm_lanes
+
+    x = smoke.lane_inputs(torch, dcsr, smoke.SEED)
+    set_bytes = smoke.lane_spmm_bytes(x)
+    # the host lengths where the tree's wrapper takes them
+    kw = ({"lengths": x.lengths} if "lengths" in inspect.signature(segment_spmm_lanes).parameters
+          else {})
+    cases = {
+        "segment_spmm_lanes_min": (
+            lambda m_, d_: segment_spmm_lanes(m_, d_, x.offsets, x.n, "min", **kw),
+            lambda: (x.msg.clone(), x.dst.clone()), set_bytes["min"]),
+        "segment_spmm_lanes_sum": (
+            lambda m_, d_: segment_spmm_lanes(m_, d_, x.offsets, x.n, "sum", **kw),
+            lambda: (x.packed.clone(), x.dst.clone()), set_bytes["sum_d2"]),
+    }
+    out = {}
+    for name, (fn, make_args, n_bytes) in cases.items():
+        args = make_args()
+        out[name] = dict(warm_ms=smoke.graph_ms(torch, lambda: fn(*args)),
+                         cold_ms=smoke.cold_ms(torch, fn, make_args, n_bytes),
+                         host_us=smoke.host_us(torch, lambda: fn(*args)))
+    return out
+
+
+# variants of the lane body's constants (csrc/segment_spmm.cu), --lane-sweep
+LANE_SWEEP = {
+    "as_built": {},
+    "always_lane_major": {"kLaneMajorRows": 1},
+    "never_lane_major": {"kLaneMajorRows": 1000},
+    "rows_d2_8": {"kRowsD2": 8},
+    "rows_other_8": {"kRowsOther": 8},
+    "fill_iters_4": {"kFillIters": 4},
+    "fill_iters_16": {"kFillIters": 16},
+    "l2_share_40": {"kL2SharePct": 40},
+    "min_blocks_2": {"kMinBlocksPerSm": 2},
+}
+
+
+def lane_sweep(torch, dcsr, smi: str, others: dict | None = None) -> dict:
+    """``segment_spmm_lanes`` min and sum d=2 on ``chip_smoke.lane_inputs``
+    with each ``LANE_SWEEP`` variant of the body's constants and the lane
+    body of each tree in ``others`` (each built by ``nvcc`` from its own
+    source, all at once), every one held bit-equal (min) and equal in its
+    count column (sum) to the built wrapper.  Beside them: where the
+    atomics land (active rows, distinct destinations, the busiest ones'
+    share), the built body on the same rows with ids drawn uniformly, the
+    rows filled with every lane empty, eight solo ``segment_spmm`` calls on
+    the lanes' slices and the library calls.  Warm device ms (CUDA-graph
+    replays)."""
+    import ctypes
+    import re as re_
+    import subprocess as sp
+
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.segment_spmm import ops
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm, segment_spmm_lanes
+
+    x = smoke.lane_inputs(torch, dcsr, smoke.SEED)
+    src = (runtime.KERNELS_DIR / "segment_spmm" / "csrc" / "segment_spmm.cu").read_text()
+    out_dir = smoke.ROOT / "build" / "lane_sweep"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs, sources = {}, {}
+    for name, consts in LANE_SWEEP.items():
+        text = src
+        for k, v in consts.items():
+            text, n_sub = re_.subn(rf"(constexpr int {k} = )\d+;", rf"\g<1>{v};", text)
+            assert n_sub == 1, k
+        sources[name] = text
+    for name, tree in (others or {}).items():
+        sources[name] = (Path(tree) / "src" / "repro_torch" / "kernels" / "segment_spmm" / "csrc"
+                         / "segment_spmm.cu").read_text()
+    for name, text in sources.items():
+        cu = out_dir / f"{name}.cu"
+        cu.write_text(text)
+        procs[name] = sp.Popen([runtime._nvcc(), *runtime.NVCC_FLAGS, "-o",
+                                str(out_dir / f"lib{name}.so"), str(cu)],
+                               stdout=sp.PIPE, stderr=sp.STDOUT, text=True)
+    fns, regs = {}, {}
+    for name, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"lane sweep {name}: nvcc failed:\n{text}")
+        regs[name] = [int(r) for r in re_.findall(r"lanes_kernel.*?\n.*?\n.*?Used (\d+) registers",
+                                                  text, re_.S)]
+        fn = ctypes.CDLL(str(out_dir / f"lib{name}.so")).segment_spmm_lanes_launch
+        # a tree whose lane entry takes the device offsets and no scratch
+        scratch = "void* scratch" in sources[name]
+        fn.argtypes = ops._LANES_ARGTYPES if scratch else (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                                     ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fns[name] = (fn, scratch)
+
+    def call(fn_scratch, msg, offsets, combine, lengths=x.lengths):
+        fn, with_scratch = fn_scratch
+        d = 1 if msg.dim() == 1 else msg.shape[1]
+        L = offsets.shape[0] - 1
+        o = torch.empty((L, x.n) if d == 1 else (L, x.n, d), device=msg.device)
+        if with_scratch:
+            args = [msg.data_ptr(), x.dst.data_ptr(), (ctypes.c_longlong * L)(*lengths), L,
+                    o.data_ptr(), d, x.n, combine == "min",
+                    torch.empty(2 * L, dtype=torch.int32, device=msg.device).data_ptr()]
+        else:
+            args = [msg.data_ptr(), x.dst.data_ptr(), offsets.data_ptr(), L, o.data_ptr(),
+                    msg.shape[0], d, x.n, combine == "min"]
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+        return o
+
+    cases = {"min": (x.msg, "min"), "sum_d2": (x.packed, "sum")}
+    want = {c: segment_spmm_lanes(m, x.dst, x.offsets, x.n, comb, x.lengths)
+            for c, (m, comb) in cases.items()}
+    res = {"card": smi, "shape": x.shape, "registers": regs}
+    for name, fn in fns.items():
+        row = {}
+        for c, (m, comb) in cases.items():
+            got = call(fn, m, x.offsets, comb)
+            ok = (torch.equal(got.view(torch.int32), want[c].view(torch.int32)) if comb == "min"
+                  else torch.equal(got[..., 1], want[c][..., 1]))
+            smoke.check(ok, f"lane sweep {name} {c} differs from the wrapper")
+            row[c] = smoke.graph_ms(torch, lambda: call(fn, m, x.offsets, comb))
+        res[name] = row
+        log(f"lane sweep {name} {LANE_SWEEP.get(name, 'its own tree')}: min {row['min']:.4f} "
+            f"ms, sum d=2 {row['sum_d2']:.4f} ms (warm); registers {regs[name]} [{smi}]")
+    # where the atomics land: the active rows' ids, and the same rows with
+    # ids drawn uniformly over the row instead
+    act_dst = x.dst[x.active].long() + torch.repeat_interleave(
+        torch.arange(x.L, device=x.dst.device) * x.n,
+        torch.tensor(x.lengths, device=x.dst.device))[x.active]
+    hits = torch.bincount(act_dst)
+    top = torch.sort(hits, descending=True).values
+    res["ids"] = {"active": int(act_dst.numel()), "distinct": int((hits > 0).sum()),
+                  "max_hits": int(top[0]), "top1024_share": float(top[:1024].sum() / top.sum())}
+    log(f"lane sweep ids: {res['ids']}")
+    gen = torch.Generator(device=x.dst.device).manual_seed(smoke.SEED)
+    uniform = torch.randint(0, x.n, x.dst.shape, generator=gen, device=x.dst.device,
+                            dtype=torch.int32)
+    real_dst, x.dst = x.dst, uniform
+    res["uniform_ids"] = {c: smoke.graph_ms(torch, lambda: call(fns["as_built"], m, x.offsets,
+                                                                comb))
+                          for c, (m, comb) in cases.items()}
+    x.dst = real_dst
+    log(f"lane sweep as_built, uniform ids: {res['uniform_ids']} [{smi}]")
+    empty = torch.zeros_like(x.offsets)
+    bounds = x.offsets.tolist()
+    spans = list(zip(bounds[:-1], bounds[1:]))
+    for c, (m, comb) in cases.items():
+        res.setdefault("fill_only", {})[c] = smoke.graph_ms(
+            torch, lambda: call(fns["as_built"], m[:0], empty, comb, [0] * x.L))
+        res.setdefault("solo_x8", {})[c] = smoke.graph_ms(
+            torch, lambda: [segment_spmm(m[a:b], x.dst[a:b], x.n, combine=comb)
+                            for a, b in spans])
+    res["library"] = {
+        "min": smoke.graph_ms(torch, lambda: torch.full((x.L * x.n,), float("inf"),
+                                                        device=x.msg.device).scatter_reduce_(
+            0, x.flat, x.msg, "amin")),
+        "sum_d2": smoke.graph_ms(torch, lambda: torch.zeros((x.L * x.n, 2), device=x.msg.device)
+                                 .index_add_(0, x.flat, x.packed))}
+    for name in ("fill_only", "solo_x8", "library"):
+        log(f"lane sweep {name}: min {res[name]['min']:.4f} ms, sum d=2 "
+            f"{res[name]['sum_d2']:.4f} ms (warm) [{smi}]")
+    return res
+
+
 def ab_worker(args) -> int:
     """One tree of ``--against``: set up, reply ``@@ {}``, then answer one
     JSON request a line on stdin (``{"op": "rows" | "host" | "leg", ...}``)
@@ -354,19 +528,17 @@ def ab_worker(args) -> int:
     from repro_torch.core.hytm import run_hytm
 
     legs = smoke.main_path_legs(cfg, source)
-    dcsr = None
+    from repro_torch.stream import DeltaCSR
+
+    dcsr = DeltaCSR(hs.graph, cfg, device=rt.device)
     print("@@ {}", flush=True)
     for line in sys.stdin:
         req = json.loads(line)
         if req["op"] == "rows":
-            reply = block_rows(torch, rt)
+            reply = {**block_rows(torch, rt), **lane_rows(torch, dcsr)}
         elif req["op"] == "host":
             reply = host_costs(torch, rt)
         elif req["op"] in ("stream", "stream_profile"):
-            if dcsr is None:
-                from repro_torch.stream import DeltaCSR
-
-                dcsr = DeltaCSR(hs.graph, cfg, device=rt.device)
             prog, src, c = legs[req["leg"]]
             fn = lambda: run_hytm(None, prog, src, c, runtime=dcsr.runtime_for(prog))
             if req["op"] == "stream":
@@ -411,8 +583,7 @@ def ab_main(args, smi: str) -> dict:
         order = list(trees) + list(trees)[::-1]
         rows = {name: [] for name in trees}
         host = {name: [] for name in trees}
-        streams = all((t / "src" / "repro_torch" / "stream").is_dir() for t in trees.values())
-        stream_legs = AB_STREAM_LEGS if streams else ()
+        stream_legs = AB_STREAM_LEGS
         walls = {leg: {name: [] for name in trees} for leg in AB_LEGS + stream_legs}
         for _ in range(AB_ROUNDS):
             for name in order:
@@ -425,7 +596,7 @@ def ab_main(args, smi: str) -> dict:
                 for name in order:
                     walls[leg][name].append(ask(name, {"op": op, "leg": main_leg})["wall_s"])
         profiles = {name: ask(name, {"op": "stream_profile", "leg": "sssp_k8"})
-                    for name in trees} if streams else {}
+                    for name in trees}
     finally:
         for w in workers.values():
             w.stdin.close()
@@ -927,6 +1098,8 @@ def main() -> int:
     ap.add_argument("--moe", action="store_true",
                     help="with --train-mesh: deepseek-v2-lite-16b's (5 layers, float32) on "
                          "(4, 1) and (2, 2)")
+    ap.add_argument("--lane-sweep", action="store_true",
+                    help="the lane body's constants in variants, on the lane entry's inputs")
     ap.add_argument("--worker", help=argparse.SUPPRESS)       # a tree's src, for --against
     ap.add_argument("--graph-file", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -955,13 +1128,20 @@ def main() -> int:
             return 1
         print(json.dumps(train_mesh_main(torch, 4, smi, moe=args.moe), default=str))
         return 0
-    if args.against:
+    if args.against and not args.lane_sweep:
         print(json.dumps(ab_main(args, smi)))
         return 0
     if args.mesh:
         print(json.dumps(mesh_main(args, smi), default=str))
         return 0
-    cfg, _, source, rt = smoke.setup(torch, args.scale)
+    cfg, hs, source, rt = smoke.setup(torch, args.scale)
+    if args.lane_sweep:
+        from repro_torch.stream import DeltaCSR
+
+        others = dict(a.split("=", 1) for a in args.against)
+        print(json.dumps(lane_sweep(torch, DeltaCSR(hs.graph, cfg, device=rt.device), smi,
+                                    others)))
+        return 0
     from repro_torch.core.hytm import run_hytm
 
     legs = smoke.main_path_legs(cfg, source)

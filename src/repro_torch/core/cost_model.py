@@ -226,6 +226,21 @@ def modeled_transfer_bytes(
     return torch.where(engines == ZEROCOPY, b_z, out)
 
 
+def engine_bandwidths(stats: PartitionStats, costs: EngineCosts, link: LinkModel) -> torch.Tensor:
+    """(3, P) modeled effective bandwidth (bytes/second) of each engine,
+    row index == engine id: the Table-VI bytes of ``modeled_transfer_bytes``
+    for every engine over its execution seconds (``tec_full`` for compact,
+    whose pass is paid).  A partition whose modeled time is 0 reports 0."""
+    c = link_constants(link, stats.total_edges.device)
+    bytes_ = torch.stack([
+        stats.total_edges * c["d1"],
+        stats.active_edges * c["d1"] + stats.active_vertices * c["d2"],
+        stats.zc_requests * c["m"],
+    ])
+    secs = torch.stack([costs.tef, costs.tec_full, costs.tiz])
+    return torch.where(secs > 0, bytes_ / torch.clamp_min(secs, 1e-30), c["zero"])
+
+
 def modeled_time_seconds(costs: EngineCosts, engines: torch.Tensor) -> torch.Tensor:
     """Reported (execution) time — charges the compaction pass that the
     selection rule leaves out."""

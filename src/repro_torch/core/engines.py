@@ -267,10 +267,11 @@ def relax_lanes_filter(group, csr, frontier, operand_at, program, use_kernels=Fa
     from repro_torch.kernels.segment_spmm.ops import segment_spmm_lanes
 
     if program.combine == MIN:
-        agg = segment_spmm_lanes(msg, edges.block.dst, group.offsets, n, combine="min")
+        agg = segment_spmm_lanes(msg, edges.block.dst, group.offsets, n, combine="min",
+                                 lengths=group.lengths)
         return RelaxOut(agg=agg, touched=torch.isfinite(agg))
     packed = torch.stack([msg, edges.block.active.to(msg.dtype)], dim=-1)
-    out = segment_spmm_lanes(packed, edges.block.dst, group.offsets, n)
+    out = segment_spmm_lanes(packed, edges.block.dst, group.offsets, n, lengths=group.lengths)
     return RelaxOut(agg=out[..., 0], touched=out[..., 1] > 0)
 
 

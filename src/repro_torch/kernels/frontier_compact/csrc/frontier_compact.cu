@@ -48,7 +48,9 @@
 // partitioned by its own mask, in place of itself, with its own count.  The
 // same two kernels run with tiles that never span two lanes: a block finds
 // its lane and tile from the (L+1,) offsets (a loop over the lanes), and its
-// ragged end is the lane's last row.  One launch pair serves all L lanes.
+// ragged end is the lane's last row; an empty lane has no tile, and the
+// scatter's block 0 writes its count of 0.  One launch pair serves all L
+// lanes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -270,6 +272,12 @@ __global__ void __launch_bounds__(kThreads) scatter_kernel(Columns cols,
     __syncthreads();
   }
 #define TILE(f) (kLanes ? static_cast<volatile Tile&>(tile_s).f : own.f)
+  // an empty lane has no tile to write its count: block 0 writes it
+  if (kLanes && blockIdx.x == 0) {
+    for (int l = threadIdx.x; l < n_lanes; l += kThreads) {
+      if (__ldg(offsets + l) == __ldg(offsets + l + 1)) count[l] = 0;
+    }
+  }
   if (TILE(lane) < 0) return;
   // -- the thread's rows and their keep bits, loaded first so that the
   // loads are in flight while the tile counts are summed

@@ -334,53 +334,273 @@ int launch(const float* msg, const int* seg, const uint8_t* valid, float* out, I
 
 // -- The lane-batched entry (graph serving): L lanes' messages packed lane
 // after lane (lane l's rows offsets[l] .. offsets[l+1]), lane l combined into
-// row l of an (L, n_segments, d) output.  The fill is the one above over the
-// L rows.  The combine takes one packed row a thread: its lane is the last l
-// with offsets[l] <= row (a binary search of the (L+1,) offsets, which stay
-// in L1), its output row starts at l * n_segments * d (64-bit: L * n passes
-// 2^31 at 8 lanes of 2^28 vertices).  Identity rows are skipped as above.
-// This first body is simple on purpose (scalar loads, one atomic a lane and
-// column, no warp aggregation); it is timed against its bound in
-// chip_smoke.py's serving phase.
-template <bool kMin>
-__global__ void __launch_bounds__(kThreads) combine_lanes_kernel(
-    const float* __restrict__ msg, const int* __restrict__ seg,
-    const long long* __restrict__ offsets, int n_lanes, float* __restrict__ out, Idx m, int d,
-    Idx n_segments) {
-  const Idx e = static_cast<Idx>(blockIdx.x) * kThreads + threadIdx.x;
-  if (e >= m) return;
-  int lo = 0, hi = n_lanes;  // offsets[lo] <= e < offsets[hi]
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(offsets + mid) <= e) {
-      lo = mid;
+// row l of an (L, n_segments, d) output (64-bit offsets: L * n passes 2^31).
+//
+// Bound: bytes, as above, but the output is L rows: 134 MB at min and 268 MB
+// at sum d=2 for graph serving's 8 lanes at RMAT scale 22, more than the 50 MB
+// L2.  Filling every row and then combining every lane leaves most of a
+// lane's row out of the L2 by the time its atomics run.  This body is one
+// launch of one item a block, in blockIdx order: fill items (32 KB of a row
+// each) and combine items (kLaneRows<D> packed rows a thread).  Where two
+// rows fit in kL2SharePct of the L2 (min: 16.8 MB a row) the items go
+// lane-major, lane l's fills then its combines, lane after lane; otherwise
+// (sum d=2: 33.5 MB a row) every row's fills, then every lane's combines.
+//
+// * Dependencies.  A combine item of lane l loads its rows, then waits until
+//   every fill item of row l has finished (a per-row count, read with acquire
+//   loads; a fill block fences its stores before it counts), so its atomics
+//   land on the filled row, which lane-major is still in the L2.  Lane-major,
+//   a fill item of row l also waits until every combine item of lane
+//   l - ahead has finished, `ahead` being the rows that fit (so row l+1 fills
+//   while lane l combines).  An item waits only on items of lower blockIdx,
+//   dispatched before it (the order CUB's decoupled look-back relies on too);
+//   a wait traps after 10 s rather than hang the card.
+// * The plan on the host.  The wrapper passes the lanes' lengths as host
+//   ints; the launcher turns them into each lane's first row, first fill and
+//   first combine item and fill count, passed by value in the kernel's
+//   parameters (kMaxLanes lanes a launch; more lanes take more launches), so
+//   a block finds its item by one binary search of its parameters.
+// * Inside a lane: a thread's rows kThreads apart, so that each warp-wide
+//   load and atomic covers 32 consecutive packed rows; loads stream
+//   (ld.global.cs).  min keeps the float-as-int atomics and skips +inf; sum
+//   skips ±0 and adds d = 2 with one float2 atomic.
+// * Measured (profile_port.py --lane-sweep, NVIDIA H100 80GB HBM3 at 700 W,
+//   PERF.md): filling the rows alone takes under a third of the time, the
+//   rest goes to the atomics.  Rows grouped 4 a thread with int4 ids and
+//   float4 messages (the solo body's layout), an atomic ticket a block, a
+//   persistent grid walking a queue, warp aggregation of sum
+//   (__match_any_sync) and reading the row before a min atomic were each
+//   slower; lane-major at sum d=2 was slower than its fills first.
+constexpr int kMaxLanes = 128;       // lanes a launch: its plan travels in the parameters
+constexpr int kFillIters = 8;        // float4 a thread in a fill item: 32 KB
+constexpr int kL2SharePct = 75;      // of the L2, for the rows in flight
+constexpr int kMinBlocksPerSm = 4;   // __launch_bounds__' second argument: 64 registers
+constexpr Idx kFillItem = static_cast<Idx>(kThreads) * kFillIters;  // float4 an item
+constexpr unsigned long long kWaitTrapNs = 10ull * 1000 * 1000 * 1000;
+
+constexpr int kRowsD2 = 16;          // packed rows a thread in a combine item at d = 2
+constexpr int kRowsOther = 4;        // at any other d
+constexpr int kLaneMajorRows = 2;    // lane-major when this many rows fit (`ahead`)
+
+template <int D>
+constexpr int kLaneRows = D == 2 ? kRowsD2 : kRowsOther;
+
+template <int D>
+constexpr Idx kCombineItem = static_cast<Idx>(kThreads) * kLaneRows<D>;  // rows an item
+
+// A row of the output from its first 16-byte boundary: `head` floats before
+// it, n4 float4, `tail` floats after.
+struct RowSpan {
+  Idx head, n4, tail;
+};
+
+__host__ __device__ inline RowSpan row_span(const float* row, Idx nd) {
+  Idx head = static_cast<Idx>(((16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15) / 4);
+  if (head > nd) head = nd;
+  const Idx n4 = (nd - head) / 4;
+  return {head, n4, nd - head - 4 * n4};
+}
+
+// A launch's lanes, planned on the host from their lengths.  Lane-major,
+// lane l's fill items, then its combine items, lane after lane; otherwise
+// every row's fill items, then every lane's combine items.
+struct LanePlan {
+  long long start[kMaxLanes + 1];  // each lane's first packed row; the last: the end
+  int fill_first[kMaxLanes + 1];   // each row's first fill item; the last: where fills end
+  int comb_first[kMaxLanes + 1];   // each lane's first combine item; the last: the total
+  int fills[kMaxLanes];            // fill items of each row
+  int n_lanes, lane_major, ahead;
+};
+
+// The last l < n with first[l] <= t (first ascending).
+__device__ __forceinline__ int last_at_or_before(const int* first, int n, int t) {
+  int l = 0, hi = n;
+  while (hi - l > 1) {
+    const int mid = (l + hi) >> 1;
+    if (first[mid] <= t) {
+      l = mid;
     } else {
       hi = mid;
     }
   }
-  const int s = __ldcs(seg + e);
-  if (s < 0 || static_cast<Idx>(s) >= n_segments) return;
-  float* dst = out + (static_cast<Idx>(lo) * n_segments + s) * d;
-  const float* src = msg + e * d;
-  if (d == 2 && !kMin) {
-    const float v[2] = {__ldcs(src), __ldcs(src + 1)};
-    combine_lane<2, false>(dst, v);
+  return l;
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Thread 0 waits until *count reaches target, then the block goes on.
+__device__ __forceinline__ void block_wait(const int* count, int target) {
+  if (threadIdx.x == 0 && load_acquire(count) < target) {
+    const unsigned long long t0 = global_ns();
+    while (load_acquire(count) < target) {
+      __nanosleep(128);
+      if (global_ns() - t0 > kWaitTrapNs) __trap();
+    }
+  }
+  __syncthreads();
+}
+
+// One item a block: D = 1, 2, or 0 for any other d.
+template <int D, bool kMin>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm) lanes_kernel(
+    const float* __restrict__ msg, const int* __restrict__ seg, float* __restrict__ out, int d,
+    Idx n_segments, const __grid_constant__ LanePlan plan, int* __restrict__ filled,
+    int* __restrict__ combined) {
+  const int tid = threadIdx.x, t = blockIdx.x, n = plan.n_lanes;
+  // the item's lane, and whether it fills (item k of the row) or combines
+  // (item k of the lane)
+  const bool in_fills = t < plan.fill_first[n];
+  const int l = last_at_or_before(in_fills ? plan.fill_first : plan.comb_first, n, t);
+  const bool fill = in_fills && t < plan.fill_first[l] + plan.fills[l];
+  const int k = t - (fill ? plan.fill_first[l] : plan.comb_first[l]);
+  const Idx nd = n_segments * (D > 0 ? D : d);
+  float* row = out + static_cast<Idx>(l) * nd;
+
+  if (fill) {
+    // -- fill item k of row l; lane-major, once lane l - ahead has combined
+    if (plan.lane_major && l >= plan.ahead) {
+      const int e = l - plan.ahead;
+      block_wait(combined + e, plan.fill_first[e + 1] - plan.comb_first[e]);
+    }
+    const float value = kMin ? __int_as_float(0x7f800000) : 0.0f;
+    const float4 fv = make_float4(value, value, value, value);
+    const RowSpan rs = row_span(row, nd);
+    float4* o = reinterpret_cast<float4*>(row + rs.head);
+    const Idx i0 = static_cast<Idx>(k) * kFillItem + tid;
+#pragma unroll
+    for (int it = 0; it < kFillIters; ++it) {
+      const Idx i = i0 + static_cast<Idx>(it) * kThreads;
+      if (i < rs.n4) o[i] = fv;
+    }
+    if (k == 0 && tid < rs.head) row[tid] = value;
+    if (k == 0 && tid < rs.tail) row[rs.head + 4 * rs.n4 + tid] = value;
+    // the block's stores, then one fence and the count (as a grid sync does)
+    __syncthreads();
+    if (tid == 0) {
+      __threadfence();
+      atomicAdd(filled + l, 1);
+    }
     return;
   }
-  for (int j = 0; j < d; ++j) combine_value<kMin>(dst + j, __ldcs(src + j));
+
+  // -- combine item k of lane l: the loads, the wait for the row's fill, the
+  // atomics
+  constexpr int kRows = kLaneRows<D>;
+  constexpr int kD = D > 0 ? D : 1;
+  const Idx a = plan.start[l], len = plan.start[l + 1] - a;
+  const Idx r0 = static_cast<Idx>(k) * kCombineItem<D> + tid;
+  int sr[kRows];
+  float vr[kRows][kD];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const Idx rel = r0 + static_cast<Idx>(r) * kThreads;
+    sr[r] = -1;
+#pragma unroll
+    for (int j = 0; j < kD; ++j) vr[r][j] = 0.0f;
+    if (rel < len) {
+      sr[r] = __ldcs(seg + a + rel);
+      if (D > 0) {
+#pragma unroll
+        for (int j = 0; j < kD; ++j) vr[r][j] = __ldcs(msg + (a + rel) * kD + j);
+      }
+    }
+  }
+  block_wait(filled + l, plan.fills[l]);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (sr[r] < 0 || static_cast<Idx>(sr[r]) >= n_segments) continue;
+    if constexpr (D > 0) {
+      combine_lane<D, kMin>(row + static_cast<Idx>(sr[r]) * D, vr[r]);
+    } else {
+      const Idx e = a + r0 + static_cast<Idx>(r) * kThreads;
+      float* dst = row + static_cast<Idx>(sr[r]) * d;
+      for (int j = 0; j < d; ++j) combine_value<kMin>(dst + j, __ldcs(msg + e * d + j));
+    }
+  }
+  __syncthreads();
+  if (tid == 0) atomicAdd(combined + l, 1);
+}
+
+// Rows of the output whose fill and combine may be in flight together: as
+// many as fit in kL2SharePct of the L2, at least one.
+int lanes_ahead(Idx row_bytes) {
+  static int l2 = 0;
+  if (l2 == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev);
+    if (l2 <= 0) l2 = 1;
+  }
+  const Idx rows = (static_cast<Idx>(l2) * kL2SharePct / 100) / (row_bytes > 0 ? row_bytes : 1);
+  return static_cast<int>(rows < 1 ? 1 : (rows > kMaxLanes ? kMaxLanes : rows));
+}
+
+// lengths: the lanes' row counts, on the host.  scratch: 2 * n_lanes ints
+// (each lane's finished fill and combine items), zeroed here.  A launch has
+// one block an item.
+template <int D, bool kMin>
+int launch_lanes(const float* msg, const int* seg, const long long* lengths, int n_lanes,
+                 float* out, int d, Idx n_segments, int* scratch, cudaStream_t s) {
+  const Idx nd = n_segments * d;
+  if (nd == 0) return static_cast<int>(cudaSuccess);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(int) * 2 * static_cast<size_t>(n_lanes), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  LanePlan plan;
+  plan.ahead = lanes_ahead(nd * 4);
+  plan.lane_major = plan.ahead >= kLaneMajorRows;
+  Idx start = 0;
+  for (int lane0 = 0; lane0 < n_lanes; lane0 += kMaxLanes) {
+    const int nl = n_lanes - lane0 < kMaxLanes ? n_lanes - lane0 : kMaxLanes;
+    plan.n_lanes = nl;
+    Idx fills = 0, combines = 0;  // over the lanes so far
+    for (int i = 0; i < nl; ++i) {
+      const Idx len = lengths[lane0 + i];
+      const Idx f = (row_span(out + (lane0 + i) * nd, nd).n4 + kFillItem - 1) / kFillItem;
+      if (len < 0) return static_cast<int>(cudaErrorInvalidValue);
+      plan.start[i] = start;
+      plan.fills[i] = static_cast<int>(f > 0 ? f : 1);
+      plan.fill_first[i] = static_cast<int>(fills + (plan.lane_major ? combines : 0));
+      fills += plan.fills[i];
+      plan.comb_first[i] = static_cast<int>(combines + (plan.lane_major ? fills : 0));
+      combines += (len + kCombineItem<D> - 1) / kCombineItem<D>;
+      start += len;
+    }
+    const Idx items = fills + combines;
+    if (items > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    // every lane's combine items come after the fills, not lane-major
+    if (!plan.lane_major) {
+      for (int i = 0; i < nl; ++i) plan.comb_first[i] += static_cast<int>(fills);
+    }
+    plan.start[nl] = start;
+    plan.fill_first[nl] = static_cast<int>(plan.lane_major ? items : fills);
+    plan.comb_first[nl] = static_cast<int>(items);
+    lanes_kernel<D, kMin><<<static_cast<unsigned>(items), kThreads, 0, s>>>(
+        msg, seg, out + lane0 * nd, d, n_segments, plan, scratch + lane0,
+        scratch + n_lanes + lane0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
 }
 
 template <bool kMin>
-int launch_lanes(const float* msg, const int* seg, const long long* offsets, int n_lanes,
-                 float* out, Idx m, int d, Idx n_segments, cudaStream_t s) {
-  const Idx out_total = static_cast<Idx>(n_lanes) * n_segments * d;
-  const float identity = kMin ? std::numeric_limits<float>::infinity() : 0.0f;
-  fill_kernel<<<fill_blocks(out_total), kThreads, 0, s>>>(out, out_total, identity);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || m == 0) return static_cast<int>(err);
-  combine_lanes_kernel<kMin><<<blocks_for(m), kThreads, 0, s>>>(msg, seg, offsets, n_lanes, out,
-                                                                m, d, n_segments);
-  return static_cast<int>(cudaGetLastError());
+int launch_lanes_d(const float* msg, const int* seg, const long long* lengths, int n_lanes,
+                   float* out, int d, Idx n_segments, int* scratch, cudaStream_t s) {
+  if (d == 1) return launch_lanes<1, kMin>(msg, seg, lengths, n_lanes, out, 1, n_segments,
+                                           scratch, s);
+  if (d == 2) return launch_lanes<2, kMin>(msg, seg, lengths, n_lanes, out, 2, n_segments,
+                                           scratch, s);
+  return launch_lanes<0, kMin>(msg, seg, lengths, n_lanes, out, d, n_segments, scratch, s);
 }
 
 }  // namespace
@@ -400,21 +620,24 @@ extern "C" int segment_spmm_launch(const void* msg, const void* seg_ids, const v
                      : launch<false>(msg_p, seg_p, valid_p, out_p, m, d, n_segments, s);
 }
 
-// offsets: (n_lanes + 1,) int64 on the device, offsets[0] = 0 and
-// offsets[n_lanes] = m; out: (n_lanes, n_segments, d) float32.
+// lengths: (n_lanes,) int64 on the host, lane after lane (their sum: the
+// messages' rows); out: (n_lanes, n_segments, d) float32; scratch: 2 *
+// n_lanes int32 on the device.
 extern "C" int segment_spmm_lanes_launch(const void* msg, const void* seg_ids,
-                                         const void* offsets, int n_lanes, void* out,
-                                         long long m, int d, long long n_segments,
-                                         int combine_min, void* stream) {
+                                         const long long* lengths, int n_lanes, void* out,
+                                         int d, long long n_segments, int combine_min,
+                                         void* scratch, void* stream) {
   if (d < 1 || n_lanes < 1 || (reinterpret_cast<uintptr_t>(out) & 15) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* msg_p = static_cast<const float*>(msg);
   const int* seg_p = static_cast<const int*>(seg_ids);
-  const long long* off_p = static_cast<const long long*>(offsets);
   float* out_p = static_cast<float*>(out);
+  int* scratch_p = static_cast<int*>(scratch);
   return combine_min
-             ? launch_lanes<true>(msg_p, seg_p, off_p, n_lanes, out_p, m, d, n_segments, s)
-             : launch_lanes<false>(msg_p, seg_p, off_p, n_lanes, out_p, m, d, n_segments, s);
+             ? launch_lanes_d<true>(msg_p, seg_p, lengths, n_lanes, out_p, d, n_segments,
+                                    scratch_p, s)
+             : launch_lanes_d<false>(msg_p, seg_p, lengths, n_lanes, out_p, d, n_segments,
+                                     scratch_p, s);
 }

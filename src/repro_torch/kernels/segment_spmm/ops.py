@@ -22,9 +22,9 @@ from repro_torch.kernels.segment_spmm.ref import segment_spmm_lanes_ref, segment
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_void_p]
-_LANES_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                                           ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p]
+_LANES_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
 
 
 def segment_spmm(
@@ -81,17 +81,21 @@ def segment_spmm_lanes(
     offsets: torch.Tensor,
     n_segments: int,
     combine: str = "sum",
+    lengths=None,
 ) -> torch.Tensor:
     """The lane-batched combine of graph serving: L lanes' (m_l, d)
     messages packed lane after lane (lane l's rows ``offsets[l] :
     offsets[l+1]``; ``offsets`` is (L+1,) int64 from 0 to M), lane l into
     row l of an (L, n_segments[, d]) result, each row as ``segment_spmm``
-    gives it for its lane alone.  One launch for all lanes."""
+    gives it for its lane alone.  ``lengths``: the lanes' row counts as
+    host ints (``offsets``' differences), which plan the launch on the host;
+    without them the wrapper reads ``offsets`` back, one host sync.  One
+    launch for up to 128 lanes."""
     refuse_grad("segment_spmm_lanes", messages)
     if combine not in ("sum", "min"):
         raise ValueError(f"combine must be 'sum' or 'min', got {combine!r}")
     if messages.device.type == "cpu":
-        return segment_spmm_lanes_ref(messages, seg_ids, offsets, n_segments, combine)
+        return segment_spmm_lanes_ref(messages, seg_ids, offsets, n_segments, combine, lengths)
     dev = require_cuda("segment_spmm_lanes", messages, seg_ids, offsets)
     squeeze = messages.dim() == 1
     m, d = (messages.shape[0], 1) if squeeze else messages.shape
@@ -103,11 +107,16 @@ def segment_spmm_lanes(
         raise ValueError("segment_spmm_lanes: seg_ids must be (m,), offsets (L+1,) with L >= 1")
     if not (messages.is_contiguous() and seg_ids.is_contiguous() and offsets.is_contiguous()):
         raise ValueError("segment_spmm_lanes: tensors must be contiguous")
+    lengths = torch.diff(offsets).tolist() if lengths is None else [int(c) for c in lengths]
+    if len(lengths) != n_lanes or sum(lengths) != m or min(lengths) < 0:
+        raise ValueError("segment_spmm_lanes: lengths must be L counts >= 0 that sum to m")
     shape = (n_lanes, n_segments) if squeeze else (n_lanes, n_segments, d)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
+    scratch = torch.empty(2 * n_lanes, dtype=torch.int32, device=dev)
     fn = load_kernel("segment_spmm", "segment_spmm_lanes_launch", _LANES_ARGTYPES)
-    rc = fn(messages.data_ptr(), seg_ids.data_ptr(), offsets.data_ptr(), n_lanes,
-            out.data_ptr(), m, d, n_segments, combine == "min", stream_ptr())
+    rc = fn(messages.data_ptr(), seg_ids.data_ptr(), (ctypes.c_longlong * n_lanes)(*lengths),
+            n_lanes, out.data_ptr(), d, n_segments, combine == "min", scratch.data_ptr(),
+            stream_ptr())
     check_launch("segment_spmm_lanes", rc)
     segment_spmm_lanes.launches += 1
     return out

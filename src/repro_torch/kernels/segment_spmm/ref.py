@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 
@@ -36,10 +38,12 @@ def segment_spmm_lanes_ref(
     offsets: torch.Tensor,    # (L+1,) int64 packed offsets
     n_segments: int,
     combine: str = "sum",
+    lengths=None,             # the lanes' row counts as host ints, or None
 ) -> torch.Tensor:
     """(L, n_segments[, d]): lane l's rows ``offsets[l]:offsets[l+1]``
-    combined into row l, a loop over lanes of ``segment_spmm_ref``."""
-    bounds = offsets.tolist()
+    combined into row l, a loop over lanes of ``segment_spmm_ref``; the
+    bounds from ``lengths`` where given (they must agree with ``offsets``)."""
+    bounds = offsets.tolist() if lengths is None else [0, *itertools.accumulate(lengths)]
     squeeze = messages.dim() == 1
     msg = messages[:, None] if squeeze else messages
     rows = [segment_spmm_ref(msg[a:b], seg_ids[a:b], n_segments, None, combine)

@@ -135,6 +135,37 @@ def test_forced_engine_plan_bit_identical(graph, engine, combination):
           [pt.engines, pt.n_tasks, pt.transfer_bytes, pt.transfer_time])
 
 
+@pytest.mark.parametrize("link_name", sorted(LINKS))
+def test_engine_bandwidths_match_reference(graph, link_name):
+    """The (3, P) modeled bandwidth rows on the frontiers of the selection
+    test: bit-equal to the reference run eagerly, and within 4 ulp of it
+    jitted (XLA contracts products and sums into FMAs: the seconds differ
+    by up to 2 ulp, as in the selection test, the bytes by 1, and the
+    quotient adds its own rounding).  Partitions of no modeled time (every
+    row at density 0) are 0."""
+    link = LINKS[link_name]
+    rj, rt, tlink = _runtimes(graph, link, 24)
+    rng = np.random.default_rng(zlib.crc32(link_name.encode()))
+
+    def ref(frontier):
+        stats = jcm.partition_stats(frontier, rj.csr.out_degree, rj.zc_req, rj.parts)
+        return jcm.engine_bandwidths(stats, jcm.engine_costs(stats, link), link)
+
+    jitted = jax.jit(ref)
+    for density in (0.0, 0.002, 0.02, 0.1, 0.4, 1.0):
+        frontier = rng.random(rt.csr.n_nodes) < density
+        want = np.asarray(ref(jnp.asarray(frontier)))
+        stats = tcm.partition_stats(torch.from_numpy(frontier), rt.csr.out_degree, rt.zc_req,
+                                    rt.parts)
+        got = tcm.engine_bandwidths(stats, tcm.engine_costs(stats, tlink), tlink)
+        assert got.dtype == torch.float32 and got.shape == (3, rt.parts.n_partitions)
+        np.testing.assert_array_equal(want, got.numpy())
+        np.testing.assert_array_max_ulp(np.asarray(jitted(jnp.asarray(frontier))), got.numpy(),
+                                        maxulp=4)
+        if density == 0.0:
+            assert not got[1:].any()
+
+
 @pytest.mark.parametrize("k", [1, 2, 4, 7])
 def test_merged_filter_tasks_exact(k):
     rng = np.random.default_rng(k)

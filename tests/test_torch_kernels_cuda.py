@@ -251,29 +251,121 @@ def _lane_offsets(lengths, dev):
     return torch.tensor(np.concatenate([[0], np.cumsum(lengths)]), dtype=torch.int64, device=dev)
 
 
+def _lane_inputs(lengths, d, n, combine, seed):
+    """Packed messages for lanes of ``lengths``: ±inf and -0.0 among them
+    (min), a 0/1 count in column 1 (sum, d >= 2), ids outside [0, n)."""
+    m = int(sum(lengths))
+    rng = np.random.default_rng(seed)
+    msg = rng.standard_normal((m, d)).astype(np.float32)
+    if combine == "min":
+        msg[rng.random((m, d)) < 0.2] = np.inf
+        msg[rng.random((m, d)) < 0.05] = -np.inf
+    elif d >= 2:
+        msg[:, 1] = rng.random(m) < 0.5
+    msg[rng.random((m, d)) < 0.05] = -0.0
+    seg = rng.integers(-5, n + 5, m).astype(np.int32)
+    return msg[:, 0].copy() if d == 1 else msg, seg
+
+
+def _check_lanes(msg, seg, offsets, n, combine):
+    """The lane entry with the lanes' lengths as host ints and without them
+    (the wrapper then reads ``offsets`` back), each against the plain
+    version."""
+    d = 1 if msg.dim() == 1 else msg.shape[1]
+    want = segment_spmm_lanes_ref(msg, seg, offsets, n, combine)
+    L = offsets.shape[0] - 1
+    for kw in ({}, {"lengths": tuple(torch.diff(offsets).tolist())}):
+        before = segment_spmm_lanes.launches
+        got = segment_spmm_lanes(msg, seg, offsets, n, combine, **kw)
+        assert segment_spmm_lanes.launches == before + 1
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == ((L, n) if d == 1 else (L, n, d))
+        _assert_spmm_matches(got.reshape(-1, d), want.reshape(-1, d), combine,
+                             count_column=1 if combine == "sum" and d >= 2 else None)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("combine,d", [("min", 1), ("sum", 2), ("min", 2), ("sum", 1)])
-@pytest.mark.parametrize("lengths", [(5000,), (0, 3000, 1, 0, 7777), (2048,) * 8])
+@pytest.mark.parametrize("combine,d", [("min", 1), ("sum", 2), ("min", 2), ("sum", 1),
+                                       ("min", 3), ("sum", 3)])
+@pytest.mark.parametrize("lengths", [
+    (5000,), (0, 3000, 1, 0, 7777), (2048,) * 8,
+    (1, 3, 5, 4097, 0), (3, 2, 2, 4099, 6),
+    (300_001, 7)])
 def test_segment_spmm_lanes_vs_plain_on_card(combine, d, lengths):
     """The lane entry against its plain version (a loop of single-lane
     plain versions): L lanes packed lane after lane, empty lanes included,
     each lane into its own row; min bit for bit, sum within
-    ``rtol=atol=1e-4`` with a 0/1 count column exact."""
+    ``rtol=atol=1e-4`` with a 0/1 count column exact.  d = 3 takes the
+    any-d path.  Lanes start 1, 2 and 3 words past a 16-byte boundary; a
+    lane of 300,001 rows spans many combine items (1,024 rows each, 4,096
+    at d = 2) and ends in a part of one; ±inf, -0.0 and ids outside
+    [0, n_segments) among the rows."""
     dev = _cuda()
-    m, n = int(sum(lengths)), 9_000
-    msg, seg, valid = _spmm_inputs(m, d, n, seed=len(lengths) + d, with_inf=combine == "min")
-    if combine == "sum" and d == 2:
-        msg[:, 1] = valid
-        msg[:, 0] = np.where(valid, msg[:, 0], 0.0)
-    args = (torch.from_numpy(msg if d > 1 else msg[:, 0].copy()).to(dev),
-            torch.from_numpy(seg).to(dev), _lane_offsets(lengths, dev), n, combine)
-    before = segment_spmm_lanes.launches
-    got = segment_spmm_lanes(*args)
-    assert segment_spmm_lanes.launches == before + 1
-    want = segment_spmm_lanes_ref(*args)
-    assert got.shape == want.shape == ((len(lengths), n) if d == 1 else (len(lengths), n, d))
-    _assert_spmm_matches(got.reshape(-1, d), want.reshape(-1, d), combine,
-                         count_column=1 if combine == "sum" and d == 2 else None)
+    n = 9_000
+    msg, seg = _lane_inputs(lengths, d, n, combine, seed=len(lengths) + d + sum(lengths))
+    _check_lanes(torch.from_numpy(msg).to(dev), torch.from_numpy(seg).to(dev),
+                 _lane_offsets(lengths, dev), n, combine)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combine,d", [("min", 1), ("sum", 2), ("min", 3)])
+@pytest.mark.parametrize("n_lanes", [64, 128, 129, 257, 520])
+@pytest.mark.parametrize("offset,mixed", [(0, False), (1, False), (3, True)])
+def test_segment_spmm_lanes_many_lanes_and_views_on_card(combine, d, n_lanes, offset, mixed):
+    """Up to and past the 128 lanes one launch plans (129, 257 and 520
+    take two, three and five launches, each with its own ticket), a fifth
+    of them empty, over messages and ids that are views ``offset`` rows
+    into their storage (``mixed``: only the ids, as on the main path); a
+    row of n = 37 floats at d = 1 starts off its 16-byte boundary in three
+    rows of four."""
+    dev = _cuda()
+    n = 37 if d == 1 else 2_000
+    rng = np.random.default_rng(n_lanes + offset)
+    lengths = rng.integers(0, 900, n_lanes) * (rng.random(n_lanes) < 0.8)
+    msg, seg = _lane_inputs(lengths, d, n, combine, seed=n_lanes * 7 + d)
+    msg_t, seg_t = torch.from_numpy(msg).to(dev), torch.from_numpy(seg).to(dev)
+    if offset:
+        seg_t = _offset_view(seg_t, offset)
+        if not mixed:
+            msg_t = _offset_view(msg_t, offset)
+    _check_lanes(msg_t, seg_t, _lane_offsets(lengths, dev), n, combine)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combine,d", [("min", 1), ("sum", 2), ("min", 3)])
+def test_segment_spmm_lanes_rows_larger_than_l2_on_card(combine, d):
+    """Rows of graph serving's width (n = 2^22: 16.8 MB at d = 1, 33.5 MB
+    at d = 2, 50 MB at d = 3): at d = 1 two rows fit in three quarters of
+    the L2, so the items go lane-major and a row's fill waits for the lane
+    before last to combine; at d = 2 and 3 every row fills first; ids
+    spread over the whole row."""
+    dev = _cuda()
+    n = 1 << 22
+    msg, seg = _lane_inputs((60_000, 0, 45_000, 9, 30_000), d, n, combine, seed=d)
+    _check_lanes(torch.from_numpy(msg).to(dev), torch.from_numpy(seg).to(dev),
+                 _lane_offsets((60_000, 0, 45_000, 9, 30_000), dev), n, combine)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2])
+def test_segment_spmm_lanes_signed_zeros_and_infinities_on_card(d):
+    """±0, ±inf, -3 and 2.5 in segments of their own in each of three lanes
+    (the second empty): signs survive bit for bit; rows past every id, and
+    the empty lane's row, stay +inf."""
+    dev = _cuda()
+    vals = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), -3.0, 2.5], device=dev)
+    ids = torch.arange(6, dtype=torch.int32, device=dev)
+    msg = torch.cat([vals, vals.flip(0)])
+    if d == 2:
+        msg = torch.stack([msg, -msg], dim=-1)
+    offsets = _lane_offsets((6, 0, 6), dev)
+    got = segment_spmm_lanes(msg, torch.cat([ids, ids]), offsets, 9, "min")
+    torch.cuda.synchronize()
+    want = segment_spmm_lanes_ref(msg, torch.cat([ids, ids]), offsets, 9, "min")
+    _assert_spmm_matches(got.reshape(-1, d), want.reshape(-1, d), "min")
+    rows = got.reshape(3, 9, d)
+    assert bool(torch.signbit(rows[0, 1, 0])) and bool(torch.signbit(rows[2, 4, 0]))
+    assert bool(torch.isinf(rows[:, 6:]).all()) and bool(torch.isinf(rows[1]).all())
 
 
 @pytest.mark.cuda

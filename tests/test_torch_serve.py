@@ -44,6 +44,7 @@ from repro_torch.kernels.frontier_compact.ref import (
     frontier_compact_ref,
 )
 from repro_torch.kernels.hyb_gather.ops import hyb_gather
+from repro_torch.kernels.segment_spmm.ops import segment_spmm_lanes
 from repro_torch.kernels.segment_spmm.ref import segment_spmm_lanes_ref, segment_spmm_ref
 from repro_torch.launch import serve_graph
 from repro_torch.launch.mesh import GraphMesh
@@ -543,6 +544,26 @@ def test_segment_spmm_lanes_plain_is_a_loop_of_single_lanes(combine, d):
         lane_msg = msg[a:b] if d > 1 else msg[a:b, None]
         want = segment_spmm_ref(lane_msg, seg[a:b], n, None, combine)
         assert torch.equal(got[l_], want if d > 1 else want[:, 0])
+
+
+@pytest.mark.parametrize("combine,d", [("min", 1), ("sum", 2), ("min", 3)])
+def test_segment_spmm_lanes_host_lengths_give_the_same_rows(combine, d):
+    """The lane entry given its lanes' lengths as host ints (as the lane
+    chunk passes ``LaneGroup.lengths``, which plan the kernel's launch on
+    the card) and without them: the same rows, on the CPU through the
+    wrapper's plain version and through the plain version itself."""
+    rng = np.random.default_rng(10 + d)
+    lengths = (0, 57, 1, 0, 402)
+    m, n = sum(lengths), 61
+    msg = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32))
+    if d == 1:
+        msg = msg[:, 0].contiguous()
+    seg = torch.from_numpy(rng.integers(-2, n + 2, m).astype(np.int32))
+    offsets = _lane_offsets(lengths)
+    want = segment_spmm_lanes_ref(msg, seg, offsets, n, combine)
+    assert torch.equal(segment_spmm_lanes_ref(msg, seg, offsets, n, combine, lengths), want)
+    for kw in ({}, {"lengths": lengths}):
+        assert torch.equal(segment_spmm_lanes(msg, seg, offsets, n, combine, **kw), want)
 
 
 def test_frontier_compact_lanes_plain_is_a_loop_of_single_lanes():
