@@ -1,0 +1,8 @@
+"""iterations.sssp (layer: driver, `run_hytm`; program counter): the mean of
+`HyTMResult.iterations` over the window's sssp runs."""
+
+
+def read(obs):
+    if obs.algorithm != "sssp" or not obs.runs:
+        return None
+    return sum(r.iterations for r in obs.runs) / len(obs.runs)
