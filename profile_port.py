@@ -10,6 +10,7 @@
     python3 profile_port.py --train      # internlm2-1.8b's train step, as chip_smoke.py leg (a)
     python3 profile_port.py --train-mesh # that step at 4096 positions on (2, 2) and (1, 4) meshes
     python3 profile_port.py --train-mesh --moe  # deepseek-v2-lite's on (4, 1) and (2, 2)
+    python3 profile_port.py --spans kron-pagerank  # a benchmark cell's HyTM spans
 
 For SSSP (K=8) and Δ-PageRank, each through the kernels and through the
 plain engines (``use_kernels=False``):
@@ -99,6 +100,20 @@ routes with its own capacity on one card and on every mesh) on (4, 1)
 by kind, every rank's losses within ``MOE_MESH_LOSS_TOL`` of one card's and
 its first two grad norms within ``MOE_MESH_NORM_TOL``.
 
+With ``--spans CELL`` (repeatable; a cell of ``BENCHMARK.json``) it sets a
+cell up as ``hytbench/run.py`` does (its graph from ``--seed``, hub
+sorting, the runtime, the warm-up runs), then: the cost of ``run_hytm``'s
+host spans, ``SPAN_ROUNDS`` rounds of one request run untraced, traced
+(``obs=TraceRecorder()``), traced, untraced; the cell's traced segment
+(``traced_runs`` requests, device activity only) with every device op
+charged to the program span that launched it (``repro_torch.obs.device``):
+device seconds by span (``device_by_span``), the idle time by the span
+whose launch ended each gap, the share of idle time that a dispatch's
+launch ended (``dispatch_idle``), a dispatch's apply part over busy time
+(``apply_device``), relax device ns per active arc, and per engine per
+block arc; the host syncs an iteration by site over the traced runs; and
+one run under the sync debug mode, its warnings against the counter.
+
 A diagnostic: it checks nothing that ``chip_smoke.py`` does not check.
 The last line is one JSON object of the turns and profile numbers.
 """
@@ -109,6 +124,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -127,6 +143,7 @@ AB_ROUNDS = 2  # rounds of the trees in turns (--against)
 AB_LEGS = ("pagerank", "pagerank_plain", "sssp_k8", "sssp_plain")
 AB_STREAM_LEGS = ("stream_sssp_k8", "stream_pagerank")  # over a DeltaCSR
 MESH_ROUNDS = 3  # rounds of (single-device sync, replicated, owner) runs (--mesh)
+SPAN_ROUNDS = 10  # rounds of (untraced, traced, traced, untraced) runs (--spans)
 
 
 def device_busy(prof) -> tuple[float, float]:
@@ -181,6 +198,8 @@ def sync_sites(torch, fn) -> dict:
     sites = collections.Counter()
 
     def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return  # another warning, such as the mode's note on itself
         frames = [f for f in traceback.extract_stack() if "repro_torch" in f.filename]
         where = (f"{frames[-1].filename.split('src/')[-1]}:{frames[-1].lineno}"
                  if frames else f"{filename}:{lineno}")
@@ -1078,6 +1097,124 @@ def train_mesh_main(torch, n_cards: int, smi: str, device_type: str = "cuda",
     return out
 
 
+def spans_cell(torch, name: str, seed: int, smi: str, dev=None, cfg: dict | None = None) -> dict:
+    """One benchmark cell's host spans and device time by span (--spans);
+    ``dev`` and ``cfg`` (the configuration's file) for a CPU rehearsal."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hytbench import harness
+    from hytbench.trace import top
+    from repro_torch.core import hytm
+    from repro_torch.kernels.runtime import build_kernels
+    from repro_torch.obs import TraceRecorder
+    from repro_torch.obs import device as obs_device
+
+    spec = harness.load_spec()
+    cell = harness.find(spec["workloads"], name, "workload")
+    cfg = cfg if cfg is not None else harness.config_of(spec, cell)
+    traffic = harness.traffic_of(cell["traffic"])
+    dev = dev if dev is not None else torch.device("cuda", 0)
+    if dev.type == "cuda":
+        build_kernels()
+    g = harness.draw_graph(cfg, traffic, seed, dev)
+    port = harness.Port(g, harness.hytm_config(cfg, traffic), harness.program_of(traffic), dev)
+    requests = harness.Requests(traffic, g, seed)
+    for _ in range(traffic["warmup_runs"]):
+        port.run(requests.next())
+    harness.sync(dev)
+    out = {"card": smi, "cell": name, "seed": seed}
+
+    # a round runs one request four times: the traced pair over the
+    # untraced pair is the round's cost, free of the sources' spread
+    walls, cost = {"untraced": [], "traced": []}, []
+    for _ in range(SPAN_ROUNDS):
+        source = requests.next()
+        got = {"untraced": [], "traced": []}
+        for arm in ("untraced", "traced", "traced", "untraced"):
+            t = time.monotonic()
+            port.run(source, obs=TraceRecorder() if arm == "traced" else None)
+            got[arm].append(time.monotonic() - t)
+        cost.append(100.0 * (sum(got["traced"]) / sum(got["untraced"]) - 1.0))
+        for arm, w in got.items():
+            walls[arm] += w
+    for arm, w in walls.items():
+        out[f"wall_{arm}_s"] = dict(median=float(np.median(w)), min=min(w), max=max(w),
+                                    runs=len(w))
+    out["spans_cost_pct"] = dict(median=float(np.median(cost)), rounds=cost)
+    log(f"{name}: run wall untraced {out['wall_untraced_s']}, traced {out['wall_traced_s']}: "
+        f"spans cost {out['spans_cost_pct']}")
+
+    recs, results = [], []
+    before, iters0 = dict(hytm.host_syncs), hytm.iterations_run
+    harness.sync(dev)
+    off0 = obs_device.clock_offset_ns()
+    activity = ProfilerActivity.CUDA if dev.type == "cuda" else ProfilerActivity.CPU
+    with profile(activities=[activity]) as prof:
+        t = time.monotonic()
+        for _ in range(traffic["traced_runs"]):
+            recs.append(TraceRecorder())
+            results.append(port.run(requests.next(), obs=recs[-1]))
+        harness.sync(dev)
+        out["traced_window_s"] = time.monotonic() - t
+    off1 = obs_device.clock_offset_ns()
+    iters = hytm.iterations_run - iters0
+    syncs = {k: hytm.host_syncs[k] - before[k] for k in hytm.SYNC_SITES}
+    out["iterations"] = iters
+    out["host_syncs"] = syncs
+    out["host_syncs_per_iter"] = sum(syncs.values()) / iters
+    out["dropped"] = sum(r.dropped for r in recs)
+    out["clock_offset_drift_ns"] = off1 - off0
+    ops = obs_device.launched_ops(prof.profiler.kineto_results)
+    names = collections.Counter(e.name() for e in prof.profiler.kineto_results.events()
+                                if e.name() in obs_device.LAUNCHES)
+    out["launch_calls"] = dict(names)
+    out["ops"], out["ops_launch_seen"] = len(ops), sum(op.launch_ns is not None for op in ops)
+    spans, edges = [], collections.Counter()
+    for r in recs:
+        spans += obs_device.program_spans(r, (off0 + off1) // 2) or []
+    for s in spans:
+        if s.name == "dispatch":
+            edges[s.args["engine"]] += s.args["edges"]
+    lo, hi = min(op.start_ns for op in ops), max(op.end_ns for op in ops)
+    got = obs_device.charge(ops, spans, lo, hi)
+    total = sum(got.device_s.values())
+    unplaced = got.device_s.get("outside the spans", 0.0) + got.device_s.get("launch not seen",
+                                                                             0.0)
+    arcs = sum(float(np.sum(r.history["active_edges"], dtype=np.float64)) for r in results)
+    relax = {k.split()[1]: v for k, v in got.device_s.items()
+             if k.startswith("dispatch") and k.endswith("relax")}
+    apply = sum(v for k, v in got.device_s.items()
+                if k.startswith("dispatch") and k.endswith("apply"))
+    out.update(
+        window_s=got.window_s, busy_s=got.busy_s, device_s=total,
+        idle_share=100.0 * (1.0 - got.busy_s / got.window_s),
+        charged_share=100.0 * (1.0 - unplaced / total),
+        device_by_span=top(got.device_s), idle_by_span=top(got.idle_s),
+        dispatch_idle_share=100.0 * sum(v for k, v in got.idle_s.items()
+                                        if k.startswith("dispatch")) / got.window_s,
+        apply_device_share=100.0 * apply / got.busy_s,
+        relax_ns_per_arc=1e9 * sum(relax.values()) / arcs,
+        relax_ns_per_block_arc={e: 1e9 * v / edges[e] for e, v in relax.items() if edges[e]},
+        relax_s_by_engine=relax, block_arcs=dict(edges), active_arcs=arcs)
+    log(f"{name}: " + ", ".join(f"{k} {out[k]}" for k in (
+        "charged_share", "idle_share", "dispatch_idle_share", "apply_device_share",
+        "relax_ns_per_arc", "host_syncs_per_iter", "dropped")))
+    log(f"{name}: device_by_span {out['device_by_span']}")
+    log(f"{name}: idle_by_span {out['idle_by_span']}")
+
+    gc.collect()  # no finalizer of the traced segment may sync inside the count
+    before = dict(hytm.host_syncs)
+    warned = sync_sites(torch, lambda: port.run(requests.next()))
+    out["sync_warnings"] = sum(warned.values())
+    out["sync_warning_sites"] = warned
+    out["sync_counted"] = sum(hytm.host_syncs[k] - before[k] for k in hytm.SYNC_SITES)
+    log(f"{name}: one run's sync warnings {out['sync_warnings']} against the counter's "
+        f"{out['sync_counted']}: {warned}")
+    del port
+    harness.release(dev)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22,
@@ -1100,6 +1237,9 @@ def main() -> int:
                          "(4, 1) and (2, 2)")
     ap.add_argument("--lane-sweep", action="store_true",
                     help="the lane body's constants in variants, on the lane entry's inputs")
+    ap.add_argument("--spans", action="append", default=[], metavar="CELL",
+                    help="a benchmark cell's HyTM host spans and device time by span")
+    ap.add_argument("--seed", type=int, default=2**31 + 11, help="with --spans: the run seed")
     ap.add_argument("--worker", help=argparse.SUPPRESS)       # a tree's src, for --against
     ap.add_argument("--graph-file", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -1115,6 +1255,12 @@ def main() -> int:
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     if args.dlrm:
         print(json.dumps(dlrm_main(torch, smi)))
+        return 0
+    if args.spans:
+        sys.path.insert(0, str(smoke.ROOT / "src"))
+        outs = [spans_cell(torch, name, args.seed, smi) for name in args.spans]
+        for o in outs:
+            print(json.dumps(o, default=str))
         return 0
     if args.train:
         print(json.dumps(train_main(torch, smi), default=str))

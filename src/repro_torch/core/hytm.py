@@ -22,6 +22,14 @@ the reference's K=1 loop has (``repro/core/hytm.py:966``); the port's K=1
 loop reads ``next_active`` separately, a second sync.  Capturing an
 iteration as a CUDA graph is later work.
 
+Every blocking device-to-host read of ``run_hytm`` goes through ``_to_host``,
+which counts it in ``host_syncs`` by site: ``fetch`` (the per-iteration
+transfer above), ``drain`` (the chunk's history, one copy a key),
+``active`` (the chunk's last ``next_active``; K=1: every iteration's),
+``calib`` (the chunk's per-engine seconds, with autotune), ``history``
+(K=1: the stacked rows, one copy a key) and ``copy_out`` (the final
+values and Δ).
+
 The chunked driver (``HyTMConfig.sync_every = K``) keeps the per-iteration
 history in device-side (K, ...) buffers and drains them to the host once
 per chunk.  Its contract is the reference's: the first iteration of a run
@@ -199,6 +207,27 @@ def build_runtime(
                    n_hub_partitions=n_hub_parts)
 
 
+# Blocking device-to-host reads since the process started, by site, and the
+# iterations ``run_hytm``'s single-device drivers ran: counted always, at an
+# integer add a read, and read as deltas like the kernel wrappers' ``launches``.
+SYNC_SITES = ("fetch", "drain", "active", "calib", "history", "copy_out")
+host_syncs: dict[str, int] = dict.fromkeys(SYNC_SITES, 0)
+iterations_run = 0
+
+
+def _to_host(x: torch.Tensor, site: str, spans=None) -> torch.Tensor:
+    """A host copy of ``x``: ``run_hytm``'s one way to read the device, so
+    that ``host_syncs[site]`` counts every blocking read; with ``spans`` (a
+    ``repro_torch.obs.record.HostSpans``) also a ``sync`` span."""
+    host_syncs[site] += 1
+    if spans is None:
+        return x.to("cpu", copy=True)
+    t = time.monotonic()
+    out = x.to("cpu", copy=True)
+    spans.leaf("sync", t, site=site)
+    return out
+
+
 def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
     # a 0-dim float32 tensor: the Python double rounds to float32 once, as
     # the reference's weak-typed scalar does
@@ -219,11 +248,12 @@ def _sweep(
     async_sweep: bool,
     consume: str,             # 'all' (pass 1) | 'processed' (pass 2)
     use_kernels: bool = False,
+    spans=None,
 ) -> tuple[HyTMState, torch.Tensor]:
     """Relax the partitions one by one in priority order; returns the new
     state and the activated set.  A NONE partition needs no relax (its
     result is the identity) but, for SUM programs in pass 1, still
-    consumes its vertices' pending Δ.
+    consumes its vertices' pending Δ.  ``spans`` records each dispatch.
 
     A partition's block is its own ``part_edges[p]`` edges from
     ``edge_start[p]``, not the whole ``block_size`` slice: the lanes past
@@ -246,6 +276,8 @@ def _sweep(
         processed = eng != NONE
         if not processed and not (consume_sum and consume == "all"):
             continue
+        if spans is not None:
+            t_dispatch = time.monotonic()
         out = None
         if processed:
             start, stop = edge_start[p], edge_start[p] + part_edges[p]
@@ -261,6 +293,8 @@ def _sweep(
             else:
                 operand = values if async_sweep else values0
             out = relax_with_engine(eng, block, operand, n, program, use_kernels)
+        if spans is not None:
+            t_apply = time.monotonic()
 
         if peel:
             # each destination's remaining degree drops by its count of
@@ -289,6 +323,9 @@ def _sweep(
             if out is not None:
                 delta += out.agg
                 activated |= out.touched
+        if spans is not None:
+            spans.dispatch(p, eng, part_edges[p] if processed else 0,
+                           1 if consume == "all" else 2, t_dispatch, t_apply)
     return HyTMState(values=values, delta=delta, frontier=state.frontier), activated
 
 
@@ -342,7 +379,7 @@ def _plan(
     return _Planned(stats=stats, plan=plan, sched=sched, delta_mass=delta_mass)
 
 
-def _fetch(planned: _Planned, prev_active: torch.Tensor | None = None):
+def _fetch(planned: _Planned, prev_active: torch.Tensor | None = None, spans=None):
     """The ONE device-to-host transfer of an iteration: engines, order and
     second-pass flags, plus the previous iteration's ``next_active`` when
     given.  Returns (engines, order, second_pass, prev_active) as host
@@ -352,7 +389,7 @@ def _fetch(planned: _Planned, prev_active: torch.Tensor | None = None):
              planned.sched.second_pass.to(torch.int32)]
     if prev_active is not None:
         parts.append(prev_active.reshape(1).to(torch.int32))
-    host = torch.cat(parts).tolist()
+    host = _to_host(torch.cat(parts), "fetch", spans).tolist()
     prev = host[3 * P] if prev_active is not None else None
     return host[:P], host[P:2 * P], host[2 * P:3 * P], prev
 
@@ -365,18 +402,24 @@ def _iteration_impl(
     planned: _Planned,
     host: tuple[list, list, list],
     correction: torch.Tensor | None = None,
+    spans=None,
 ) -> tuple[HyTMState, dict[str, Any]]:
     """Steps 5-6 and the next frontier, given the planned iteration and its
-    host copy (engines, order, second_pass)."""
+    host copy (engines, order, second_pass); ``spans`` records a ``sweep``
+    span a pass and the ``finish``."""
     frontier = state.frontier
     use_kernels = resolve_use_kernels(config.use_kernels, frontier.device)
     engines_h, order_h, second_h = host
 
     # (5) asynchronous sweep in priority order
+    if spans is not None:
+        t = spans.open("sweep")
     state1, activated = _sweep(
         state, rt, program, engines_h, order_h, frontier,
-        config.async_sweep, consume="all", use_kernels=use_kernels,
+        config.async_sweep, consume="all", use_kernels=use_kernels, spans=spans,
     )
+    if spans is not None:
+        spans.close(t, **{"pass": 1})
 
     # (6) recompute-once: loaded priority partitions, zero extra transfer
     engines2 = [e if s else NONE for e, s in zip(engines_h, second_h)]
@@ -388,12 +431,20 @@ def _iteration_impl(
     else:
         # |Δ|: warm starts may carry signed correction deltas
         frontier2 = torch.abs(state1.delta) > _scalar(program.tolerance, frontier)
+    if spans is not None:
+        t = spans.open("sweep")
     state2, activated2 = _sweep(
         state1, rt, program, engines2, order_h, frontier2,
-        config.async_sweep, consume="processed", use_kernels=use_kernels,
+        config.async_sweep, consume="processed", use_kernels=use_kernels, spans=spans,
     )
-    return _finish(state2.values, state2.delta, activated | activated2, frontier,
-                   planned, program, config, correction)
+    if spans is not None:
+        spans.close(t, **{"pass": 2})
+        t = spans.open("finish")
+    out = _finish(state2.values, state2.delta, activated | activated2, frontier,
+                  planned, program, config, correction)
+    if spans is not None:
+        spans.close(t)
+    return out
 
 
 def _finish(
@@ -445,12 +496,22 @@ def hytm_iteration(
     program: VertexProgram,
     config: HyTMConfig,
     correction: torch.Tensor | None = None,
+    spans=None,
 ) -> tuple[HyTMState, dict[str, Any]]:
-    """One iteration (the K=1 driver's dispatch unit)."""
+    """One iteration (the K=1 driver's dispatch unit); ``spans`` records
+    its ``iter`` and ``plan`` spans and what ``_iteration_impl`` records."""
+    if spans is not None:
+        t_iter = spans.open("iter")
+        t = spans.open("plan")
     planned = _plan(state, rt, program, config, correction)
-    engines, order, second, _ = _fetch(planned)
-    return _iteration_impl(state, rt, program, config, planned,
-                           (engines, order, second), correction)
+    if spans is not None:
+        spans.close(t)
+    engines, order, second, _ = _fetch(planned, spans=spans)
+    out = _iteration_impl(state, rt, program, config, planned,
+                          (engines, order, second), correction, spans)
+    if spans is not None:
+        spans.end_iteration(t_iter)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -458,7 +519,7 @@ def hytm_iteration(
 # --------------------------------------------------------------------------
 
 def chunked_while(iter_fn, plan_fn, state: HyTMState, history: dict, chunk: int,
-                  fetch=_fetch):
+                  fetch=_fetch, spans=None):
     """Run up to ``chunk`` iterations: ``plan_fn(state) -> planned``,
     ``fetch(planned, prev_active) -> (*host, prev)`` and
     ``iter_fn(state, planned, host) -> (state, info)``, writing iteration
@@ -468,15 +529,25 @@ def chunked_while(iter_fn, plan_fn, state: HyTMState, history: dict, chunk: int,
     the host (no previous iteration at the chunk start: the first one
     always runs).
 
+    ``spans`` records each iteration's ``iter`` and ``plan`` spans; an
+    iteration planned and not run leaves its plan and fetch to the chunk.
+
     Returns ``(state, history, n_done, last_next_active, per_engine_sum)``
     with ``last_next_active`` a device tensor (None if nothing ran)."""
     per_engine_sum = None
     prev_active = None
     n_done = 0
     while n_done < chunk:
+        if spans is not None:
+            t_iter = spans.open("iter")
+            t = spans.open("plan")
         planned = plan_fn(state)
+        if spans is not None:
+            spans.close(t)
         *host, prev = fetch(planned, prev_active)
         if prev == 0:
+            if spans is not None:
+                spans.abandon()
             break
         state, info = iter_fn(state, planned, tuple(host))
         for k, buf in history.items():
@@ -485,6 +556,8 @@ def chunked_while(iter_fn, plan_fn, state: HyTMState, history: dict, chunk: int,
         per_engine_sum = pe if per_engine_sum is None else per_engine_sum + pe
         prev_active = info["next_active"]
         n_done += 1
+        if spans is not None:
+            spans.end_iteration(t_iter)
     return state, history, n_done, prev_active, per_engine_sum
 
 
@@ -496,14 +569,16 @@ def hytm_chunk(
     config: HyTMConfig,
     chunk: int,
     correction: torch.Tensor | None = None,
+    spans=None,
 ):
     """Up to ``chunk`` iterations with device-side history; see
     ``chunked_while``.  Rows at index >= ``n_done`` are stale."""
     return chunked_while(
         lambda st, planned, host: _iteration_impl(
-            st, rt, program, config, planned, host, correction),
+            st, rt, program, config, planned, host, correction, spans),
         lambda st: _plan(st, rt, program, config, correction),
         state, history, chunk,
+        fetch=functools.partial(_fetch, spans=spans), spans=spans,
     )
 
 
@@ -680,7 +755,7 @@ def _fetch_lanes(plans: list[_Planned], prev_active: torch.Tensor | None):
              torch.stack([pl.sched.second_pass for pl in plans]).to(torch.int32).reshape(-1)]
     if prev_active is not None:
         parts.append(prev_active.to(torch.int32))
-    host = torch.cat(parts).tolist()
+    host = _to_host(torch.cat(parts), "fetch").tolist()
 
     def rows(k):
         return [host[k * Q * P + q * P:k * Q * P + (q + 1) * P] for q in range(Q)]
@@ -901,11 +976,13 @@ def run_hytm(
     K = 1 loop, are not observed.
 
     ``obs`` (a ``repro_torch.obs.TraceRecorder``) records one instant per
-    iteration, one span per chunk and the run-summary span on track
-    ``device0``, from the history rows the driver copies to the host
-    anyway: it adds no launch, copy or sync, and the run's results are
-    bit-identical to an untraced one.  ``obs.export.reconcile`` holds its
-    totals to the result exactly.
+    iteration (at its wall start), one span per chunk and the run-summary
+    span on track ``device0``, from the history rows the loop copies to
+    the host anyway, and the host spans of ``obs.record.HostSpans``
+    (``CAT_HOST``: each iteration, its plan, sweeps, partition dispatches
+    and finish, and every blocking read): it adds no launch, copy or sync,
+    and the run's results are bit-identical to an untraced one.
+    ``obs.export.reconcile`` holds its totals to the result exactly.
 
     ``faults``/``retry`` (a ``repro_torch.resilience.FaultPlan`` and
     ``RetryPolicy``) guard every chunk dispatch (K > 1) or iteration
@@ -990,6 +1067,12 @@ def run_hytm(
     # dist.graph_shard, which builds on this module
     from repro_torch.resilience.supervisor import guarded_dispatch
 
+    spans = None
+    if obs is not None:
+        from repro_torch.obs.record import HostSpans, record_history_rows
+
+        spans = HostSpans(obs)
+
     # the fault plane's ``when={"kernels": ...}`` context
     use_kernels = resolve_use_kernels(config.use_kernels, rt.device)
     t0 = time.monotonic()
@@ -1009,9 +1092,11 @@ def run_hytm(
                 rt.parts.block_size, correction is not None,
             ))
             t_chunk = time.monotonic()
+            if spans is not None:
+                spans.open("chunk")  # recorded by record_chunk
             state, history, n_done, last_active, pe_sum = guarded_dispatch(
                 functools.partial(hytm_chunk, state, history, rt, program,
-                                  config, chunk, correction),
+                                  config, chunk, correction, spans),
                 site="chunk_dispatch", faults=faults, policy=retry, obs=obs,
                 mesh=False, kernels=use_kernels)
             iters += n_done
@@ -1019,22 +1104,25 @@ def run_hytm(
                 # before the history drain, so the window covers dispatch
                 # and execution only
                 correction = calib.observe_chunk(
-                    state.values, pe_sum.cpu().numpy().astype(float), t_chunk,
-                    skip=not warm)
+                    state.values, _to_host(pe_sum, "calib", spans).numpy().astype(float),
+                    t_chunk, skip=not warm)
             for k in rows:
                 # a copy: the buffers are reused by the next chunk
-                rows[k].append(history[k][:n_done].to("cpu", copy=True).numpy())
-            if obs is not None:
-                from repro_torch.obs.record import record_chunk, record_history_rows
+                rows[k].append(_to_host(history[k][:n_done], "drain", spans).numpy())
+            active = int(_to_host(last_active, "active", spans))
+            if spans is not None:
+                from repro_torch.obs.record import record_chunk
 
+                spans.leave()
+                spans.flush()
                 record_history_rows(obs, {k: v[-1] for k, v in rows.items()},
-                                    n_done, iters - n_done)
+                                    n_done, iters - n_done,
+                                    walls=spans.iteration_walls(iters - n_done, n_done))
                 record_chunk(
                     obs, track="device0", wall_start=obs.wall_at(t_chunk),
                     wall_dur=obs.wall() - obs.wall_at(t_chunk),
                     start_iter=iters - n_done, n_done=n_done, warm=warm,
                 )
-            active = int(last_active)
             if on_chunk is not None:
                 on_chunk(state=state, iterations=iters, rows=rows,
                          calibrator=calib, last_active=active)
@@ -1046,7 +1134,7 @@ def run_hytm(
             t_iter = time.monotonic()
             state, info = guarded_dispatch(
                 functools.partial(hytm_iteration, state, rt, program, config,
-                                  correction),
+                                  correction, spans=spans),
                 site="chunk_dispatch", faults=faults, policy=retry, obs=obs,
                 mesh=False, kernels=use_kernels)
             iters += 1
@@ -1056,15 +1144,17 @@ def run_hytm(
                     skip=iters == 1)
             for k in rows:
                 rows[k].append(info[k])
-            if int(info["next_active"]) == 0:
+            if int(_to_host(info["next_active"], "active", spans)) == 0:
                 break
-        history = {k: torch.stack(v).cpu().numpy() for k, v in rows.items()}
+        history = {k: _to_host(torch.stack(v), "history", spans).numpy()
+                   for k, v in rows.items()}
         if obs is not None:
-            from repro_torch.obs.record import record_history_rows
-
-            record_history_rows(obs, history, iters, 0)
-    values = state.values.cpu().numpy()
-    delta = state.delta.cpu().numpy()
+            record_history_rows(obs, history, iters, 0,
+                                walls=spans.iteration_walls(0, iters))
+    global iterations_run
+    iterations_run += iters
+    values = _to_host(state.values, "copy_out", spans).numpy()
+    delta = _to_host(state.delta, "copy_out", spans).numpy()
     wall = time.monotonic() - t0
     result = HyTMResult(
         values=values,
@@ -1080,6 +1170,7 @@ def run_hytm(
     if obs is not None:
         from repro_torch.obs.record import record_run
 
+        spans.flush()
         record_run(obs, result, track="device0", wall_start=obs.wall_at(t0),
                    wall_dur=wall, program=program.name)
     return result

@@ -35,6 +35,9 @@ CAT_ITERATION = "iteration"
 CAT_RUN = "run"
 CAT_ICI = "ici"
 CAT_FAULTS = "faults"  # resilience plane: injections/retries/degrades
+# single-device ``run_hytm``'s host spans (``record.HostSpans``): iter, plan,
+# sweep, dispatch, finish and sync, which the reference does not record
+CAT_HOST = "host"
 EV_ITERATION = "iteration"
 EV_RUN = "hytm_run"
 EV_ICI_MERGE = "ici_merge"

@@ -12,10 +12,19 @@ the finished ``HyTMResult`` — the same host rows reduced by the same
 ``np.sum`` calls — which is what lets ``export.reconcile`` demand exact
 equality rather than a tolerance.  :func:`record_ici` is the sharded
 sweep's (``dist.graph_shard.run_hytm_sharded``).
+
+:class:`HostSpans` is ``run_hytm``'s wall-clock view inside a run: the
+host time of each iteration, its plan, sweeps, partition dispatches and
+finish, and of every blocking device-to-host read.  It stamps
+``time.monotonic()`` into plain tuples on the hot loop and turns them into
+``CAT_HOST`` spans at the chunk drain, so a traced run issues the same
+launches, copies and syncs as an untraced one.
 """
 
 from __future__ import annotations
 
+import itertools
+import time
 from typing import Any
 
 import numpy as np
@@ -35,6 +44,7 @@ from repro_torch.core.cost_model import (
     ZEROCOPY,
 )
 from repro_torch.obs.export import (
+    CAT_HOST,
     CAT_ICI,
     CAT_ITERATION,
     CAT_RUN,
@@ -42,17 +52,19 @@ from repro_torch.obs.export import (
     EV_ITERATION,
     EV_RUN,
 )
+from repro_torch.obs.trace import PH_SPAN, TraceEvent
 
 _REAL_ENGINES = (FILTER, COMPACT, ZEROCOPY)
 
 
 def record_history_rows(
     obs: Any, drained: dict[str, np.ndarray], n_done: int, start_iter: int,
-    track: str = "device0",
+    track: str = "device0", walls: list[float] | None = None,
 ) -> None:
     """Emit one per-iteration instant (+ metric updates) per host history
     row ``[0:n_done)``.  ``start_iter`` is the global iteration index of
-    row 0 (the virtual-clock timestamp)."""
+    row 0 (the virtual-clock timestamp); ``walls`` the rows' wall starts
+    (``HostSpans.iteration_walls``), else the instants are stamped now."""
     m = obs.metrics
     picks = m.counter("engine.picks", "Algorithm-1 engine selections")
     bytes_c = m.counter("engine.bytes", "modeled host->device transfer bytes")
@@ -89,6 +101,7 @@ def record_history_rows(
         frontier_h.observe(float(av[k]))
         obs.instant(
             EV_ITERATION, cat=CAT_ITERATION, track=track, vt=vt,
+            wall=None if walls is None else walls[k],
             bytes=float(np.sum(byte_row)),
             modeled_seconds=float(ttime[k]),
             active_vertices=int(av[k]),
@@ -163,3 +176,93 @@ def record_run(
         ici_modeled_seconds=float(result.modeled_ici_seconds),
         wall_seconds=float(result.wall_seconds),
     )
+
+
+# one id a traced run, unique in the process
+_RUN_IDS = itertools.count()
+# a dispatch's engine as its span names it (NONE: SUM's consume-only dispatch)
+_ENGINE_LABELS = {e: name.upper() for e, name in ENGINE_NAMES.items()}
+
+
+class HostSpans:
+    """The host spans of one traced ``run_hytm`` on one device.
+
+    ``run_hytm`` opens and closes spans around its steps (``open``/``close``
+    keep a stack, so every span knows its parent); ``dispatch`` records a
+    partition dispatch of ``_sweep`` (by engine id) with the instant that
+    splits it into relax (building the block, the engine's launches) and
+    apply (the state update after it); ``leaf`` records a span with no
+    children, a blocking read.  Each is a tuple ``(name, parent, it, t0,
+    t1, args)`` of ``time.monotonic()`` stamps, ``it`` the iteration the
+    run is in (the number of iterations it ran before).  ``flush`` turns
+    the tuples into ``CAT_HOST`` spans on track ``device0`` of ``obs``,
+    carrying ``run`` (this run's id), ``it`` and ``parent``; a dispatch's
+    ``split`` is on the trace's wall clock."""
+
+    def __init__(self, obs: Any):
+        self.obs = obs
+        self.run = next(_RUN_IDS)
+        self.it = 0
+        self.stack = [EV_RUN]
+        self.rows: list[tuple] = []
+        self.iter_starts: list[float] = []  # each run iteration's start
+
+    def open(self, name: str) -> float:
+        self.stack.append(name)
+        return time.monotonic()
+
+    def close(self, t0: float, **args: Any) -> None:
+        """Record the innermost open span, from ``t0`` to now."""
+        name = self.stack.pop()
+        self.rows.append((name, self.stack[-1], self.it, t0, time.monotonic(), args))
+
+    def leave(self) -> None:
+        """Close the innermost open span unrecorded: one that ``obs``
+        records itself (a chunk).  Its children keep it as their parent."""
+        self.stack.pop()
+
+    def abandon(self) -> None:
+        """Close the innermost open span unrecorded, its children moved to
+        its parent: an iteration planned whose fetch found the frontier
+        empty, so that it never ran."""
+        name = self.stack.pop()
+        for i in range(len(self.rows) - 1, -1, -1):
+            row = self.rows[i]
+            if row[1] != name or row[2] != self.it:
+                break
+            self.rows[i] = (row[0], self.stack[-1]) + row[2:]
+
+    def end_iteration(self, t0: float) -> None:
+        """Close the open ``iter`` span, started at ``t0``; the run moves
+        to its next iteration."""
+        self.close(t0)
+        self.iter_starts.append(t0)
+        self.it += 1
+
+    def leaf(self, name: str, t0: float, **args: Any) -> None:
+        self.rows.append((name, self.stack[-1], self.it, t0, time.monotonic(), args))
+
+    def dispatch(self, p: int, engine: int, edges: int, pass_: int, t0: float,
+                 split: float) -> None:
+        self.rows.append(("dispatch", self.stack[-1], self.it, t0, time.monotonic(),
+                          (p, engine, edges, pass_, split)))
+
+    def iteration_walls(self, first: int, count: int) -> list[float]:
+        """The wall starts of iterations ``[first, first + count)``."""
+        return [self.obs.wall_at(t) for t in self.iter_starts[first:first + count]]
+
+    def flush(self) -> None:
+        origin = self.obs.wall_at(0.0)  # wall_at(t) == t + origin
+        run, events = self.run, []
+        for name, parent, it, t0, t1, args in self.rows:
+            if name == "dispatch":
+                p, engine, edges, pass_, split = args
+                args = {"run": run, "it": it, "parent": parent, "p": p,
+                        "engine": _ENGINE_LABELS[engine], "edges": edges, "pass": pass_,
+                        "split": split + origin}
+            else:
+                args = {"run": run, "it": it, "parent": parent, **args}
+            events.append(TraceEvent(name, PH_SPAN, CAT_HOST, "device0", t0 + origin,
+                                     float(it), t1 - t0, float(name == "iter"), args))
+        self.obs.extend(events)
+        self.rows.clear()

@@ -95,6 +95,12 @@ class TraceRecorder:
             self.dropped += 1
         self.events.append(ev)
 
+    def extend(self, events: list[TraceEvent]) -> None:
+        """Record finished events at once (a producer's own buffer, drained):
+        the ring keeps the newest ``capacity`` and counts the rest dropped."""
+        self.dropped += max(0, len(self.events) + len(events) - self.capacity)
+        self.events.extend(events)
+
     def span(
         self, name: str, *, cat: str = "host", track: str = "main",
         wall: float, wall_dur: float = 0.0, vt: float = 0.0,
@@ -168,6 +174,9 @@ class NullRecorder:
 
     def wall_at(self, t_monotonic: float) -> float:
         return 0.0
+
+    def extend(self, events: list[TraceEvent]) -> None:
+        pass
 
     def span(self, name: str, **kw: Any) -> None:
         pass

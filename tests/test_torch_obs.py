@@ -5,7 +5,9 @@ reference's own test sizes (``tests/test_obs.py``: ``rmat_graph(600,
 4_800, seed=9)``, 8 partitions, ``sync_every`` 4 and 1).
 
 Contract:
-* a traced run's events equal the reference's in name, phase, category,
+* a traced run's events, its host spans (``CAT_HOST``, which the
+  reference does not record) left out, equal the reference's in name,
+  phase, category,
   track, ``vt``, ``vt_dur`` and args, leaving out the wall-derived fields
   (``wall``, ``wall_dur``, ``wall_seconds``, ``measured_seconds`` and the
   calibrator's correction values, which come from wall time) and a chunk's
@@ -26,7 +28,11 @@ Contract:
   other way round;
 * a traced ``GraphService`` query (the reference's ``obs_bench`` step 3)
   records the reference's tracks, events and ``serve.*``/``admission.*``/
-  ``cache.*`` counters.
+  ``cache.*`` counters;
+* the host spans nest run, chunk, iter, plan/sweep/finish, dispatch, with
+  each sync inside its parent; an iteration's pass-1 dispatches are its
+  history row's engines (and, for SUM, its consume-only partitions);
+  ``hytm.host_syncs`` counts every blocking read by its site's formula.
 """
 
 import dataclasses
@@ -48,7 +54,10 @@ from repro_torch import obs as tobs
 from repro_torch import stream as tstream
 from repro_torch.autotune import OnlineCalibrator
 from repro_torch.core import hytm as th
+from repro_torch.core.cost_model import ENGINE_NAMES, HISTORY_KEYS, KEY_ENGINES, NONE
 from repro_torch.graph import algorithms as talg
+from repro_torch.obs import device as tobs_device
+from repro_torch.obs import export as tobs_export
 
 JCFG = jh.HyTMConfig(n_partitions=8, sync_every=4)
 JCFG1 = jh.HyTMConfig(n_partitions=8, sync_every=1)
@@ -81,9 +90,16 @@ def _same_args(a: dict, b: dict, skip=()):
             assert a[k] == b[k], k
 
 
+def _port_events(trec) -> list:
+    """The port's events that the reference records too: all but the
+    single-device ``run_hytm``'s host spans."""
+    return [e for e in trec.events if e.cat != tobs_export.CAT_HOST]
+
+
 def _same_events(jrec, trec, skip_args=()):
-    assert len(jrec.events) == len(trec.events) and jrec.dropped == trec.dropped
-    for a, b in zip(jrec.events, trec.events):
+    port = _port_events(trec)
+    assert len(jrec.events) == len(port) and jrec.dropped == trec.dropped
+    for a, b in zip(jrec.events, port):
         assert (a.name, a.ph, a.cat, a.track, a.vt, a.vt_dur) == \
             (b.name, b.ph, b.cat, b.track, b.vt, b.vt_dur)
         _same_args(a.args, b.args, skip_args)
@@ -121,6 +137,21 @@ def test_ring_bound_and_drain_as_the_reference():
     with null.timed("t") as args:
         assert args == {}
     assert len(null) == 0 and not null.enabled and null.drain() == []
+
+
+def test_extend_keeps_the_ring_bound():
+    rec = tobs.TraceRecorder(capacity=8)
+    one = [tobs.TraceEvent("e", "i", "c", "t", 0.0, float(i)) for i in range(5)]
+    rec.extend(one)
+    assert len(rec) == 5 and rec.dropped == 0
+    rec.extend([tobs.TraceEvent("f", "i", "c", "t", 0.0, float(i)) for i in range(6)])
+    assert len(rec) == 8 and rec.dropped == 3
+    assert [e.vt for e in rec.events] == [3.0, 4.0] + [float(i) for i in range(6)]
+    rec.extend([tobs.TraceEvent("g", "i", "c", "t", 0.0, float(i)) for i in range(20)])
+    assert rec.dropped == 23 and [e.vt for e in rec.events] == [float(i) for i in range(12, 20)]
+    null = tobs.NullRecorder()
+    null.extend(one)
+    assert len(null) == 0
 
 
 def test_metrics_registry_equals_the_reference():
@@ -242,6 +273,216 @@ def test_reconcile_detects_a_tampered_total(traced_runs):
         failed = {k for k, c in rep["checks"].items() if not c["ok"]}
         assert field in failed
     assert not tobs.reconcile(trec, tres, track="nowhere")["ok"]
+
+
+# --------------------------------------------------------------------------
+# run_hytm's host spans and host-sync counter (the port's own)
+# --------------------------------------------------------------------------
+
+WALL_EPS = 1e-9  # two subtractions of one origin may round apart by an ulp
+
+
+def _host_spans(rec) -> list:
+    return [e for e in rec.events if e.cat == tobs_export.CAT_HOST]
+
+
+def _inside(child, parent) -> bool:
+    return (parent.wall - WALL_EPS <= child.wall
+            and child.wall + child.wall_dur <= parent.wall + parent.wall_dur + WALL_EPS)
+
+
+@pytest.mark.parametrize("K", [4, 1])
+def test_same_events_leaves_out_only_the_host_spans(traced_runs, K):
+    jrec, _, trec, _, _ = traced_runs[K]
+    host = _host_spans(trec)
+    kept = _port_events(trec)
+    assert host and len(host) + len(kept) == len(trec.events)
+    assert {e.cat for e in host} == {tobs_export.CAT_HOST}
+    assert tobs_export.CAT_HOST not in {e.cat for e in kept}
+    # every other event is kept, in its order
+    assert [e for e in trec.events if e not in host] == kept
+    assert {e.cat for e in kept} == {e.cat for e in jrec.events}
+    assert tobs_export.CAT_HOST not in {e.cat for e in jrec.events}
+
+
+@pytest.mark.parametrize("K", [4, 3, 1])
+def test_host_spans_nest_in_order(graphs, traced_runs, K):
+    if K in traced_runs:
+        _, _, trec, tres, _ = traced_runs[K]
+    else:
+        # 8 iterations: the last chunk of 3 stops early, and the iteration
+        # it plans and does not run leaves its plan and fetch to the chunk
+        trec = tobs.TraceRecorder()
+        tres = th.run_hytm(graphs[1], talg.SSSP, source=0, config=_tconfig(JCFG, sync_every=K),
+                           obs=trec, device="cpu")
+        assert tres.iterations % K
+        assert [(e.name, e.args["site"] if e.name == "sync" else None)
+                for e in _host_spans(trec) if e.args["parent"] == "chunk"
+                and e.args["it"] == tres.iterations][:2] == [("plan", None), ("sync", "fetch")]
+    host = _host_spans(trec)
+    run = [e for e in trec.events if e.name == "hytm_run"][0]
+    chunks = [e for e in trec.events if e.name == "chunk"]
+    iters = [e for e in host if e.name == "iter"]
+    assert {e.args["run"] for e in host} == {host[0].args["run"]}
+    assert [e.args["it"] for e in iters] == list(range(tres.iterations))
+    assert all(e.track == "device0" for e in host)
+    parents = {"iter": {"chunk" if K > 1 else "hytm_run"}, "plan": {"iter", "chunk"},
+               "sweep": {"iter"}, "finish": {"iter"}, "dispatch": {"sweep"},
+               "sync": {"iter", "chunk", "hytm_run"}}
+    by_name = {"hytm_run": [run], "chunk": chunks, "iter": iters,
+               "sweep": [e for e in host if e.name == "sweep"]}
+    for e in host:
+        assert e.args["parent"] in parents[e.name], (e.name, e.args)
+        assert _inside(e, run)
+        # inside one span of its parent's name, of the same iteration below
+        # the chunk
+        outer = [o for o in by_name[e.args["parent"]]
+                 if _inside(e, o) and (o.name not in ("iter", "sweep")
+                                       or o.args["it"] == e.args["it"])]
+        assert len(outer) == 1, (e.name, e.args)
+    for it in iters:
+        kids = [e for e in host if e.args["it"] == it.args["it"]
+                and e.args["parent"] == "iter"]
+        assert [e.name for e in kids if e.name != "sync"] == \
+            ["plan", "sweep", "sweep", "finish"]
+        assert [e.args["pass"] for e in kids if e.name == "sweep"] == [1, 2]
+        ends = [e.wall + e.wall_dur for e in kids]
+        assert all(b.wall >= a_end - WALL_EPS for a_end, b in zip(ends, kids[1:]))
+    for a, b in zip(iters, iters[1:]):
+        assert b.wall >= a.wall + a.wall_dur - WALL_EPS
+    for d in (e for e in host if e.name == "dispatch"):
+        assert d.wall <= d.args["split"] <= d.wall + d.wall_dur
+    # the per-iteration instants sit at their iteration's start
+    instants = [e for e in trec.events if e.name == "iteration"]
+    assert len(instants) == len(iters)
+    for inst, it in zip(instants, iters):
+        assert inst.vt == it.args["it"] and _inside(inst, it)
+
+
+@pytest.fixture(scope="module")
+def traced_pagerank(graphs):
+    """A traced and an untraced Δ-PageRank run (K=4): SUM consumes every
+    partition's Δ in pass 1, so NONE partitions are dispatched too."""
+    _, tg = graphs
+    cfg = _tconfig(JCFG, cds_mode="delta")
+    prog = dataclasses.replace(talg.PAGERANK, tolerance=1e-4)
+    rec = tobs.TraceRecorder()
+    res = th.run_hytm(tg, prog, None, cfg, obs=rec, device="cpu")
+    return rec, res, th.run_hytm(tg, prog, None, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("case", ["sssp4", "sssp1", "pagerank4"])
+def test_pass1_dispatches_are_the_history_rows(traced_runs, traced_pagerank, case):
+    if case == "pagerank4":
+        rec, res, plain = traced_pagerank
+        np.testing.assert_array_equal(plain.values, res.values)
+        np.testing.assert_array_equal(plain.delta, res.delta)
+        assert plain.iterations == res.iterations
+    else:
+        _, _, rec, res, _ = traced_runs[int(case[-1])]
+    summed = case.startswith("pagerank")
+    dispatches = [e for e in _host_spans(rec) if e.name == "dispatch"]
+    engines = res.history[KEY_ENGINES]
+    for i in range(res.iterations):
+        pass1 = [e for e in dispatches if e.args["it"] == i and e.args["pass"] == 1]
+        row = engines[i]
+        want = {p: ENGINE_NAMES[int(e)].upper() for p, e in enumerate(row)
+                if summed or e != NONE}
+        assert len(pass1) == len(want)
+        assert {e.args["p"]: e.args["engine"] for e in pass1} == want
+        for e in pass1:
+            assert (e.args["edges"] == 0) == (e.args["engine"] == "NONE")
+        pass2 = [e for e in dispatches if e.args["it"] == i and e.args["pass"] == 2]
+        assert all(e.args["engine"] == want[e.args["p"]] != "NONE" for e in pass2)
+    if summed:
+        assert any(e.args["engine"] == "NONE" for e in dispatches)
+
+
+def _syncs_of(run) -> tuple[dict, int, object]:
+    """``hytm.host_syncs`` and ``hytm.iterations_run`` moved by ``run()``."""
+    before, iters = dict(th.host_syncs), th.iterations_run
+    res = run()
+    return ({k: th.host_syncs[k] - before[k] for k in th.SYNC_SITES},
+            th.iterations_run - iters, res)
+
+
+@pytest.mark.parametrize("K,autotune", [(4, False), (4, True), (3, False), (1, False)])
+def test_host_syncs_count_every_read_by_site(graphs, K, autotune):
+    _, tg = graphs
+    cfg = _tconfig(JCFG, sync_every=K, autotune=autotune)
+    got, iters, res = _syncs_of(
+        lambda: th.run_hytm(tg, talg.SSSP, source=0, config=cfg, device="cpu"))
+    n = res.iterations
+    keys = len(HISTORY_KEYS)
+    if K > 1:
+        chunks = -(-n // K)
+        # the chunk that stops early fetches once more and finds no frontier
+        want = {"fetch": n + (n % K != 0), "drain": keys * chunks, "active": chunks,
+                "calib": chunks if autotune else 0, "history": 0}
+    else:
+        want = {"fetch": n, "drain": 0, "active": n, "calib": 0, "history": keys}
+    assert got == {**want, "copy_out": 2} and iters == n
+    # a traced run counts the same reads, each a sync span of its site
+    rec = tobs.TraceRecorder()
+    traced, _, _ = _syncs_of(lambda: th.run_hytm(tg, talg.SSSP, source=0, config=cfg,
+                                                 obs=rec, device="cpu"))
+    assert traced == got
+    spans = {k: 0 for k in th.SYNC_SITES}
+    for e in _host_spans(rec):
+        if e.name == "sync":
+            spans[e.args["site"]] += 1
+    assert spans == got and rec.dropped == 0
+
+
+def test_program_spans_land_on_the_profilers_clock():
+    """A span of the recorder (``time.monotonic()``), moved by the clock
+    offset, holds the CPU op the profiler saw run inside it."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rec = tobs.TraceRecorder()
+    off0 = tobs_device.clock_offset_ns()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with rec.timed("work", cat=tobs_export.CAT_HOST):
+            time.sleep(0.002)
+            torch.ones(1 << 16).mul_(3.0)
+            time.sleep(0.002)
+    off1 = tobs_device.clock_offset_ns()
+    (span,) = tobs_device.program_spans(rec, (off0 + off1) // 2)
+    (op,) = [e for e in prof.profiler.kineto_results.events() if e.name() == "aten::mul_"]
+    start, end = op.start_ns(), op.start_ns() + op.duration_ns()
+    # the op ran in the middle of the span, ~2 ms from either end
+    assert start - span.start_ns > 1_000_000 and span.end_ns - end > 1_000_000
+    rec.dropped = 1
+    assert tobs_device.program_spans(rec, off0) is None
+
+
+def test_charge_splits_device_and_idle_time_by_launching_span():
+    Span, Op = tobs_device.ProgramSpan, tobs_device.DeviceOp
+    spans = [Span(0, 100, "hytm_run", {}), Span(10, 90, "iter", {}),
+             Span(20, 80, "sweep", {"pass": 1}),
+             Span(30, 60, "dispatch", {"engine": "FILTER", "edges": 7, "split": 45}),
+             Span(62, 70, "dispatch", {"engine": "NONE", "edges": 0, "split": 66}),
+             Span(85, 88, "sync", {"site": "fetch"})]
+    ops = [Op("k", 40, 50, 35), Op("k", 55, 70, 50), Op("copy", 86, 87, 86),
+           Op("k", 95, 96, None), Op("k", 5, 8, 5), Op("k", 72, 75, 67)]
+    got = tobs_device.charge(ops, spans, 0, 100)
+    ns = 1e-9
+    assert got.device_s == pytest.approx({
+        "hytm_run": 3 * ns, "dispatch FILTER relax": 10 * ns,
+        "dispatch FILTER apply": 15 * ns, "dispatch NONE apply": 3 * ns,
+        "sync fetch": 1 * ns, "launch not seen": 1 * ns})
+    # each gap goes to the span that launched the op ending it
+    assert got.idle_s == pytest.approx({
+        "hytm_run": 5 * ns, "dispatch FILTER relax": 32 * ns, "dispatch FILTER apply": 5 * ns,
+        "dispatch NONE apply": 2 * ns, "sync fetch": 11 * ns, "launch not seen": 8 * ns,
+        "after the last op": 4 * ns})
+    assert got.busy_s == pytest.approx(33 * ns)
+    assert got.busy_s + sum(got.idle_s.values()) == pytest.approx(got.window_s)
+    # a window cut at 52 keeps the ops that overlap it, whole
+    assert tobs_device.charge(ops, spans, 0, 52).busy_s == pytest.approx(13 * ns)
 
 
 def test_null_recorder_runs_as_none(graphs):
